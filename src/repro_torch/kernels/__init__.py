@@ -4,6 +4,11 @@
   (replaces ``src/repro/kernels/cov_accum.py``)
 - ``lowrank_matmul`` — factorized linear (x@V)@U with fused bias/residual
   epilogue (replaces ``src/repro/kernels/lowrank_matmul.py``)
+- ``flash_attention`` — blockwise online-softmax attention with causal,
+  window and key-padding masks, soft cap and per-slot query offsets
+  (replaces ``src/repro/kernels/flash_attention.py``)
+- ``flash_decode`` — one decode step against the factorized latent KV
+  cache (replaces ``src/repro/kernels/flash_decode.py``)
 
 ``ops`` holds the dispatch wrappers (kernel on CUDA, plain version on the
 CPU), ``ref`` the plain versions, ``build`` the nvcc build and ctypes binding.

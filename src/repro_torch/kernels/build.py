@@ -32,11 +32,17 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of the launchers (every pointer and the stream as c_void_p)
+_F = ctypes.c_float
+# C signatures of the launchers (every pointer and the stream as c_void_p,
+# floats as c_float)
 SIGNATURES = {
     "cov_accum_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "lowrank_matmul_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _P],
+    "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _F, _F, _I, _P],
+    "flash_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _P],
 }
 
 _LOCK = threading.Lock()

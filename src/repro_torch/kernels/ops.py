@@ -15,15 +15,19 @@ Counterpart of ``src/repro/kernels/ops.py``.  Each wrapper:
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Sequence
 
 import torch
 
 from repro_torch.kernels import cov_accum as _cov
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import lowrank_matmul as _lowrank
 from repro_torch.kernels import ref
 
-LAUNCHES: Dict[str, int] = {"cov_accum": 0, "lowrank_matmul": 0}
+LAUNCHES: Dict[str, int] = {"cov_accum": 0, "lowrank_matmul": 0,
+                            "flash_attention": 0, "flash_decode": 0}
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -202,3 +206,168 @@ def lowrank_matmul(x, v, u, *, bias=None, residual=None):
     rf = None if residual is None else residual.reshape(-1, u.shape[-1])
     y = _LowRankMatmul.apply(xf, v, u, bias, rf)
     return y.reshape(*lead, u.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+
+
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def _padded_head_dim(d: int) -> int:
+    """The smallest head dim ``flash_attention`` is compiled for that holds
+    ``d``."""
+    for dp in _fa.HEAD_DIMS:
+        if dp >= d:
+            return dp
+    raise ValueError(f"flash_attention: head dim {d} > {_fa.HEAD_DIMS[-1]} "
+                     "has no kernel")
+
+
+def _flash_attention_kernel(q, k, v, q_offset, causal, window, softcap):
+    """Checked launch; the head dim is zero-padded to a compiled one (exact:
+    zero dims add nothing to q·k or to the output columns kept) with the
+    scale of the true one."""
+    _check_cuda("flash_attention", [q, k, v], q.dtype)
+    b, lq, h, d = q.shape
+    if (k.dim() != 4 or k.shape != v.shape or k.shape[0] != b
+            or k.shape[3] != d or h % k.shape[2]):
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} with k "
+                         f"{tuple(k.shape)} / v {tuple(v.shape)}")
+    dp = _padded_head_dim(d)
+    q_off, q_off0 = None, 0
+    if torch.is_tensor(q_offset) and q_offset.dim() == 1:
+        if q_offset.shape != (b,) or q_offset.device != q.device:
+            raise ValueError("flash_attention: per-slot q_offset must be a "
+                             f"({b},) tensor on {q.device}")
+        q_off = q_offset.to(torch.int32).contiguous()
+    else:
+        q_off0 = int(q_offset)
+    q, k, v = (_aligned(pad_dim(t, 3, dp)) for t in (q, k, v))
+    out = torch.empty((b, lq, h, dp), dtype=q.dtype, device=q.device)
+    _fa.launch(q, k, v, out, q_off, q_off0, causal=causal, window=window,
+               scale=1.0 / math.sqrt(d), softcap=softcap)
+    LAUNCHES["flash_attention"] += 1
+    return out if dp == d else out[..., :d].contiguous()
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or the plain version (CPU).  Backward:
+    recompute the plain version and differentiate it — the TPU kernel has
+    no backward, and the JAX package differentiates its model-path scan in
+    XLA."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, causal, window, chunk, softcap):
+        if _on_cpu(q, k, v):
+            out = ref.flash_attention_ref(q, k, v, causal=causal,
+                                          window=window, q_offset=q_offset,
+                                          chunk=chunk, softcap=softcap)
+        else:
+            out = _flash_attention_kernel(q, k, v, q_offset, causal, window,
+                                          softcap)
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, q_offset=q_offset,
+                        chunk=chunk, softcap=softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        leaves = [t.detach().requires_grad_(need) for t, need
+                  in zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        with torch.enable_grad():
+            out = ref.flash_attention_ref(*leaves, **ctx.opts)
+            wanted = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, dout))
+        dq, dk, dv = (next(grads) if t.requires_grad else None
+                      for t in leaves)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset=0, chunk: int = 512, softcap: float = 0.0):
+    """q (B, Lq, H, D); k/v (B, Lk, KV, D) -> (B, Lq, H, D) in q's dtype;
+    differentiable.  ``q_offset``: the absolute position of q[:, 0], an int
+    or a (B,) integer tensor (one per slot).  ``chunk`` is the key chunk of
+    the plain version; the kernel always walks 64-key tiles."""
+    return _FlashAttention.apply(q, k, v, q_offset, causal, window, chunk,
+                                 softcap)
+
+
+# ---------------------------------------------------------------------------
+# latent-cache decode
+
+
+def _check_decode(q, lk, lv, uk, uv, lengths, cos, sin, rope):
+    """The kernel takes mixed dtypes, so it has its own check: q, lk, lv in
+    one kernel dtype (the cache's), uk / uv / cos / sin fp32, lengths
+    int32, everything contiguous on one CUDA device."""
+    name = "flash_decode"
+    tensors = [q, lk, lv, uk, uv, lengths] + ([cos, sin] if rope else [])
+    device = q.device
+    if device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {device}")
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"{name}: operands on {t.device} and {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operand of shape {tuple(t.shape)} is "
+                             "not contiguous")
+    if q.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: kernel takes float32 or bfloat16 queries "
+                        f"and latents, got {q.dtype}")
+    if lk.dtype != q.dtype or lv.dtype != q.dtype:
+        raise TypeError(f"{name}: q {q.dtype}, lk {lk.dtype} and lv "
+                        f"{lv.dtype} must share one dtype")
+    for label, t in (("uk", uk), ("uv", uv)) + ((("cos", cos), ("sin", sin))
+                                                 if rope else ()):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {label} must be float32, got {t.dtype}")
+    if lengths.dtype != torch.int32:
+        raise TypeError(f"{name}: lengths must be int32, got {lengths.dtype}")
+    b, h, d = q.shape
+    l = lk.shape[1]
+    if d not in _fd.HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} has no kernel (RoPE pairs "
+                         f"the true dims, so it is not padded); compiled: "
+                         f"{_fd.HEAD_DIMS}")
+    kv = uk.shape[-1] // d if uk.dim() == 2 else 0
+    ok = (lk.dim() == 3 and lv.dim() == 3 and lk.shape[0] == b
+          and lv.shape[:2] == (b, l) and uk.dim() == 2 and uv.dim() == 2
+          and kv > 0 and uk.shape == (lk.shape[2], kv * d)
+          and uv.shape == (lv.shape[2], kv * d) and h % kv == 0
+          and lengths.shape == (b,))
+    if rope:
+        ok = ok and cos.shape == (l, d // 2) and sin.shape == cos.shape
+    if not ok:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, lk "
+                         f"{tuple(lk.shape)}, lv {tuple(lv.shape)}, uk "
+                         f"{tuple(uk.shape)}, uv {tuple(uv.shape)}, lengths "
+                         f"{tuple(lengths.shape)} do not fit")
+    need = _fd.smem_bytes(h, kv, d, lv.shape[2])
+    if need > _fd.MAX_SMEM:
+        raise ValueError(f"{name}: {need} bytes of shared memory for r_v "
+                         f"{lv.shape[2]} and {h // kv} heads per KV head "
+                         f"exceed {_fd.MAX_SMEM}")
+
+
+def flash_decode(q, lk, lv, uk, uv, lengths, cos, sin, *, rope: bool = True):
+    """One decode step against the factorized latent KV cache.
+
+    q: (B, H, D) current-step queries (already RoPE'd); lk/lv: (B, L,
+    r_k / r_v) latent caches; uk/uv: (r_k, KV·D) / (r_v, KV·D), the "u"
+    factor leaves exactly as stored in params (read by stride, never
+    transposed); lengths: (B,) live prefix per slot; cos/sin: (L, D/2)
+    rope tables at absolute positions.  Returns (B, H, D) in q's dtype.
+    Positions at or past ``lengths[b]`` are masked, so L needs no padding;
+    ranks are taken as they are."""
+    if _on_cpu(q, lk, lv, uk, uv, lengths, cos, sin):
+        return ref.flash_decode_ref(q, lk, lv, uk, uv, lengths, cos, sin,
+                                    rope=rope)
+    _check_decode(q, lk, lv, uk, uv, lengths, cos, sin, rope)
+    out = torch.empty_like(q)
+    _fd.launch(q, lk, lv, uk, uv, lengths, cos, sin, out, rope=rope)
+    LAUNCHES["flash_decode"] += 1
+    return out

@@ -1,0 +1,340 @@
+"""Serving engine for (optionally AA-SVD-compressed) models.
+
+Counterpart of ``src/repro/launch/serve.py``: ``_pad_batch``,
+``_prefill_extra_len``, ``Server`` (``generate``), ``Request``, ``_bucket``,
+``ContinuousBatchingServer`` and ``main``, with no mesh.  Both engines run
+on the card unless the caller passes ``device="cpu"``; the params are moved
+there (no copy when they already live there).
+
+``Server`` — fixed batch: one prefill of every prompt, then lock-step
+decode.  Its cache is built WITHOUT params, so it is always dense:
+prefill through ``gqa_prefill`` and decode through ``gqa_decode``, both on
+the ``flash_attention`` kernel (decode with Lq = 1 at one position).
+
+``ContinuousBatchingServer`` — the engine.  The cache is allocated once for
+``slots`` sequences of ``max_len`` positions with the params, so a
+compressed model gets the latent {"lk", "lv"} layout: prefill through
+``gqa_prefill_latent`` (``flash_attention`` over the up-projected cache) and
+decode through ``gqa_decode_latent`` (the ``flash_decode`` kernel);
+``cache_layout="dense"`` forces dense k/v everywhere.  ``run(requests)``
+admits requests into free slots once their ``arrival`` offset has passed,
+prefills each alone (``cache_slot_take`` -> prefill -> ``cache_slot_put``,
+whole or in ``prefill_chunk``-wide chunks), then decodes ALL slots as one
+batched step with a per-slot position vector.  Parked slots ride along at
+position 0; what they write is overwritten by the next admission's prefill
+or masked by the per-slot length.  ``prefill_routes`` records which prefill
+path served each request and ``decode_step_times`` the wall time of every
+decode step of the last run (each ends in a host read of the tokens, which
+waits for the card).
+
+    python -m repro_torch.launch.serve --arch llama-7b --smoke --ratio 0.6 \\
+        [--engine] [--device cpu]
+
+``Server.from_checkpoint`` is not ported yet (it needs the checkpoint
+manager of a later slice).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.core import pipeline as P
+from repro_torch.device import resolve_device
+from repro_torch.launch import steps as S
+from repro_torch.models import model as M
+from repro_torch.tree import tree_map
+
+
+def _pad_batch(x, n: int):
+    """Pad axis 0 of ``x`` with zeros up to ``n`` rows."""
+    pad = n - x.shape[0]
+    if pad == 0:
+        return x
+    return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+
+
+def _prefill_extra_len(cfg) -> int:
+    """Cache positions prefill writes BEYOND the text tokens (vision
+    patches precede them)."""
+    return cfg.num_patches if cfg.frontend == "vision" else 0
+
+
+def _to_device(params, dev):
+    return tree_map(lambda t: t.to(dev), params)
+
+
+class Server:
+    """Fixed-batch serving frontend (one prefill + lock-step decode)."""
+
+    def __init__(self, cfg, params, *, max_len: int = 256, batch: int = 4,
+                 device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.params = _to_device(params, self.device)
+        self.max_len = max_len
+        self.batch = batch
+        self._serve = S.make_serve_step(cfg)
+        self._prefill = S.make_prefill_step(cfg)
+
+    def generate(self, prompts, *, steps: int = 32) -> torch.Tensor:
+        """prompts: (b, prompt_len) integers, b <= batch -> (b, steps)
+        int32 on the server's device."""
+        prompts = torch.as_tensor(prompts)
+        b, plen = prompts.shape
+        if b > self.batch:
+            raise ValueError(
+                f"got {b} prompts but the server advertises batch="
+                f"{self.batch} decode slots; split the request or raise "
+                "Server(batch=...)")
+        prefill_len = plen + _prefill_extra_len(self.cfg)
+        if prefill_len + steps > self.max_len:
+            raise ValueError(
+                f"prefill length ({prefill_len}) + steps ({steps}) = "
+                f"{prefill_len + steps} exceeds the cache capacity max_len "
+                f"({self.max_len}); raise Server(max_len=...) or generate "
+                "fewer steps")
+        prompts = _pad_batch(prompts.to(self.device, torch.int32),
+                             self.batch)
+        cache = M.init_cache(self.cfg, self.batch, self.max_len,
+                             device=self.device)
+        next_tok, cache = self._prefill(self.params, {"tokens": prompts},
+                                        cache)
+        tok = next_tok[:, None]
+        out = [tok]
+        pos = prefill_len
+        for _ in range(steps - 1):
+            tok, cache = self._serve(self.params, cache, tok, pos)
+            out.append(tok)
+            pos += 1
+        return torch.cat(out, dim=1)[:b]
+
+
+@dataclasses.dataclass
+class Request:
+    """One serving request for :class:`ContinuousBatchingServer`;
+    ``arrival`` is the offset (seconds from ``run`` start) at which the
+    scheduler sees it."""
+
+    rid: int
+    prompt: np.ndarray               # (prompt_len,) integers
+    steps: int
+    arrival: float = 0.0
+
+
+def _bucket(n: int, lo: int = 16) -> int:
+    """Next power-of-two width >= n (floor ``lo``)."""
+    w = lo
+    while w < n:
+        w *= 2
+    return w
+
+
+class ContinuousBatchingServer:
+    """Slot-level continuous batching over one shared decode cache."""
+
+    def __init__(self, cfg, params, *, max_len: int = 256, slots: int = 4,
+                 prefill_chunk: int = 0, cache_layout: str = "auto",
+                 device=None):
+        if cache_layout not in ("auto", "dense"):
+            raise ValueError(f"cache_layout {cache_layout!r}: 'auto' or "
+                             "'dense'")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.params = _to_device(params, self.device)
+        self.max_len = max_len
+        self.slots = slots
+        self.prefill_chunk = prefill_chunk
+        # SSM state and ring caches can neither resume mid-sequence nor
+        # take right-padded prompts -> exact-length whole prefill
+        self._exact = (cfg.family in ("ssm", "hybrid")
+                       or cfg.attention == "sliding_mix")
+        self._decode = S.make_serve_step(cfg)
+        self._pre_whole = S.make_slot_prefill_step(cfg, chunked=False)
+        self._pre_chunk = S.make_slot_prefill_step(cfg, chunked=True)
+        self._cache_params = None if cache_layout == "dense" else self.params
+        self.decode_step_times: List[float] = []
+        # rid -> the prefill path that served it ("whole_exact" |
+        # "whole_padded" | "chunked"); reset per run()
+        self.prefill_routes: Dict[int, str] = {}
+
+    def _tokens(self, host: np.ndarray) -> torch.Tensor:
+        return torch.tensor(host, device=self.device)
+
+    # ------------------------------------------------------------------
+    def _admit(self, req: Request, cache, slot: int):
+        """Prefill ``req`` into ``slot``.  Returns (first token, cache,
+        prefill length)."""
+        cfg = self.cfg
+        prompt = np.asarray(req.prompt, np.int32)
+        plen = int(prompt.shape[0])
+        extra = _prefill_extra_len(cfg)
+        total = plen + extra
+        if total + req.steps > self.max_len:
+            raise ValueError(
+                f"request {req.rid}: prefill length ({total}) + steps "
+                f"({req.steps}) exceeds max_len ({self.max_len})")
+        slot_cache = M.cache_slot_take(cfg, cache, slot)
+        chunk = self.prefill_chunk
+        self.prefill_routes[req.rid] = (
+            "whole_exact" if self._exact
+            else "whole_padded" if chunk <= 0
+            else "chunked")
+        if self._exact or chunk <= 0:
+            if self._exact:
+                toks = prompt[None]              # exact length, no padding
+                last_idx = total - 1
+            else:
+                w = min(_bucket(plen), self.max_len - extra)
+                toks = np.zeros((1, w), np.int32)
+                toks[0, :plen] = prompt
+                last_idx = extra + plen - 1
+            tok, slot_cache = self._pre_whole(
+                self.params, {"tokens": self._tokens(toks)}, slot_cache, 0,
+                last_idx)
+        else:
+            padded = -(-plen // chunk) * chunk
+            buf = np.zeros((padded,), np.int32)
+            buf[:plen] = prompt
+            tok = None
+            for c0 in range(0, padded, chunk):
+                last = c0 + chunk >= padded
+                last_idx = (plen - 1 - c0) if last else (chunk - 1)
+                tok, slot_cache = self._pre_chunk(
+                    self.params, {"tokens": self._tokens(
+                        buf[None, c0:c0 + chunk])},
+                    slot_cache, c0, last_idx)
+        cache = M.cache_slot_put(cfg, cache, slot_cache, slot)
+        return int(tok[0]), cache, total
+
+    # ------------------------------------------------------------------
+    def run(self, requests: List[Request]) -> Dict[int, Dict[str, Any]]:
+        """Serve every request; returns {rid: {tokens, arrival, admitted,
+        first_token, done}} with times in seconds from run start."""
+        cfg = self.cfg
+        queue = sorted(requests, key=lambda r: (r.arrival, r.rid))
+        cache = M.init_cache(cfg, self.slots, self.max_len,
+                             params=self._cache_params, device=self.device)
+        tokens_np = np.zeros((self.slots, 1), np.int32)
+        pos_np = np.zeros((self.slots,), np.int32)
+        active: List[Optional[dict]] = [None] * self.slots
+        results: Dict[int, Dict[str, Any]] = {}
+        self.decode_step_times = []
+        self.prefill_routes = {}
+        start = time.monotonic()
+        now = lambda: time.monotonic() - start  # noqa: E731
+        qi = 0
+
+        def finish(slot):
+            st = active[slot]
+            results[st["req"].rid] = {
+                "tokens": np.asarray(st["out"], np.int32),
+                "arrival": st["req"].arrival, "admitted": st["admitted"],
+                "first_token": st["first_token"], "done": now()}
+            active[slot] = None
+            pos_np[slot] = 0
+            tokens_np[slot, 0] = 0
+
+        while qi < len(queue) or any(s is not None for s in active):
+            # admission: refill every free slot whose request has arrived
+            for slot in range(self.slots):
+                if active[slot] is not None or qi >= len(queue):
+                    continue
+                if queue[qi].arrival > now():
+                    continue
+                req = queue[qi]
+                qi += 1
+                t_admit = now()
+                tok0, cache, total = self._admit(req, cache, slot)
+                active[slot] = {"req": req, "out": [tok0],
+                                "remaining": req.steps - 1,
+                                "admitted": t_admit, "first_token": now()}
+                tokens_np[slot, 0] = tok0
+                pos_np[slot] = total
+                if active[slot]["remaining"] <= 0:
+                    finish(slot)
+            if not any(s is not None for s in active):
+                if qi < len(queue):      # idle until the next arrival
+                    time.sleep(max(0.0, queue[qi].arrival - now()))
+                continue
+            # one batched decode step over ALL slots (parked slots sit at
+            # position 0; their writes are overwritten or masked)
+            t_step = time.monotonic()
+            tok_dev, cache = self._decode(self.params, cache,
+                                          self._tokens(tokens_np),
+                                          self._tokens(pos_np))
+            tok_host = tok_dev.cpu().numpy()
+            self.decode_step_times.append(time.monotonic() - t_step)
+            for slot in range(self.slots):
+                st = active[slot]
+                if st is None:
+                    continue
+                st["out"].append(int(tok_host[slot, 0]))
+                tokens_np[slot, 0] = tok_host[slot, 0]
+                pos_np[slot] += 1
+                st["remaining"] -= 1
+                if st["remaining"] <= 0:
+                    finish(slot)
+        return results
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="Serve a (compressed) model from repro_torch")
+    ap.add_argument("--arch", default="llama-7b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--ratio", type=float, default=1.0,
+                    help="<1: AA-SVD-compress before serving")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--steps", type=int, default=32)
+    ap.add_argument("--engine", action="store_true",
+                    help="route through the continuous-batching engine")
+    ap.add_argument("--device", default=None,
+                    help="default: the card; 'cpu' runs the plain versions")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = (configs.get_smoke_config(args.arch) if args.smoke
+           else configs.get_config(args.arch))
+    if args.smoke:
+        cfg = cfg.replace(dtype="float32")
+    rng = np.random.default_rng(0)
+    params = M.init_params(cfg, 0, device=dev)
+    if args.ratio < 1.0:
+        calib = {"tokens": rng.integers(0, cfg.vocab_size, (8, 64))}
+        params, report = P.compress_model(
+            params, cfg, calib,
+            P.CompressConfig(ratio=args.ratio, refine_epochs=4), device=dev)
+        print(f"[serve] compressed to ratio {args.ratio}; "
+              f"{len(report['units'])} blocks")
+    max_len = args.prompt_len + _prefill_extra_len(cfg) + args.steps + 8
+    prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                           dtype=np.int32)
+    t0 = time.time()
+    if args.engine:
+        server = ContinuousBatchingServer(cfg, params, max_len=max_len,
+                                          slots=args.batch, device=dev)
+        results = server.run([Request(rid=i, prompt=prompts[i],
+                                      steps=args.steps)
+                              for i in range(args.batch)])
+        toks = np.stack([results[i]["tokens"] for i in range(args.batch)])
+    else:
+        server = Server(cfg, params, max_len=max_len, batch=args.batch,
+                        device=dev)
+        toks = server.generate(prompts, steps=args.steps).cpu().numpy()
+    dt = time.time() - t0
+    print(f"[serve] generated {toks.shape} in {dt:.2f}s "
+          f"({args.batch * args.steps / dt:.1f} tok/s) on {dev}")
+    print(toks[:, :16])
+    return toks
+
+
+if __name__ == "__main__":
+    main()

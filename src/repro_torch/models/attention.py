@@ -1,14 +1,23 @@
-"""GQA attention for prefill / training (no cache).
+"""GQA attention: prefill / training, decode against a dense or latent cache.
 
-Counterpart of ``src/repro/models/attention.py`` (``flash_attention`` :31,
-``gqa_init`` / ``_project_qkv`` / ``gqa_prefill`` :116-158).  The attention
-itself is the JAX package's pure-JAX online-softmax scan over key chunks,
-written as torch ops: fp32 scores, ``NEG_INF`` masking, probabilities cast
-to the value dtype for the PV product, running (max, denom, acc) in fp32.
-It is not a Pallas kernel in the JAX package and stays plain torch in this
-slice; the ``flash_attention`` CUDA kernel replaces it in a later slice.
+Counterpart of ``src/repro/models/attention.py``: ``flash_attention`` :31,
+``gqa_init`` / ``_project_qkv`` / ``gqa_prefill`` :116-158, the dense-cache
+decode paths ``_cache_write`` :161, ``gqa_decode`` :174,
+``gqa_prefill_cached`` :186 and ``_decode_attention`` :204 (without its
+sequence-parallel mesh branch), and the factorized latent-cache paths
+``latent_ranks`` :528, ``_latent_kv`` :546, ``gqa_prefill_latent`` :554 and
+``gqa_decode_latent`` :583.
 
-Layouts: q (B, Lq, H, D); k, v (B, Lk, KV, D) with H % KV == 0.
+Every attention product goes through the hand-written kernels on the card:
+``flash_attention`` (prefill, chunked and latent prefill, dense-cache
+decode, and the forwards of compression) and ``flash_decode`` (decode
+against the latent {"lk", "lv"} cache).  On the CPU their plain versions
+run (``kernels.ref``).
+
+Layouts: q (B, Lq, H, D); k, v (B, Lk, KV, D) with H % KV == 0; dense
+caches (B, Lmax, KV, D); latent caches (B, Lmax, r).  The cache functions
+write into the given buffers IN PLACE and return them (the JAX package
+returns fresh arrays; its serving loop donates the old ones).
 """
 
 from __future__ import annotations
@@ -17,55 +26,23 @@ import math
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-
-NEG_INF = -1e30
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    q_offset: int = 0, chunk: int = 512,
-                    softcap: float = 0.0):
-    """Online-softmax attention over key chunks.  ``window`` > 0 keeps keys
-    in (q_pos - window, q_pos].  Returns (B, Lq, H, D) in q's dtype."""
-    b, lq, h, d = q.shape
-    lk, kv = k.shape[1], k.shape[2]
-    g = h // kv
-    scale = 1.0 / math.sqrt(d)
-    chunk = min(chunk, lk)
-    n_chunks = -(-lk // chunk)
-    dev = q.device
-    q_pos = q_offset + torch.arange(lq, device=dev)
-    qf = q.float()
-    m = torch.full((b, h, lq), NEG_INF, dtype=torch.float32, device=dev)
-    l_sum = torch.zeros((b, h, lq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, h, lq, d), dtype=torch.float32, device=dev)
-    for idx in range(n_chunks):
-        k_c = k[:, idx * chunk:(idx + 1) * chunk]
-        v_c = v[:, idx * chunk:(idx + 1) * chunk]
-        width = k_c.shape[1]
-        if g > 1:
-            k_c = k_c.repeat_interleave(g, dim=2)
-            v_c = v_c.repeat_interleave(g, dim=2)
-        key_pos = idx * chunk + torch.arange(width, device=dev)
-        s = torch.einsum("bqhd,bchd->bhqc", qf, k_c.float()) * scale
-        if softcap:
-            s = torch.tanh(s / softcap) * softcap
-        mask = torch.ones((lq, width), dtype=torch.bool, device=dev)
-        if causal:
-            mask = mask & (key_pos[None, :] <= q_pos[:, None])
-        if window:
-            mask = mask & (key_pos[None, :] > q_pos[:, None] - window)
-        s = torch.where(mask[None, None], s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l_sum = l_sum * corr + p.sum(-1)
-        pv = torch.einsum("bhqc,bchd->bhqd", p.to(v_c.dtype).float(),
-                          v_c.float())
-        acc = acc * corr[..., None] + pv
-        m = m_new
-    out = acc / torch.clamp(l_sum, min=1e-20)[..., None]
-    return out.transpose(1, 2).to(q.dtype)
+                    q_offset=0, chunk: int = 512, softcap: float = 0.0):
+    """Online-softmax attention; ``q_offset`` is the absolute position of
+    q[:, 0] — an int, or a (B,) tensor when every slot sits at its own
+    position.  ``window`` > 0 keeps keys in (q_pos - window, q_pos].
+    Returns (B, Lq, H, D) in q's dtype; differentiable."""
+    return ops.flash_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset, chunk=chunk,
+                               softcap=softcap)
+
+
+def _per_slot(pos) -> bool:
+    return torch.is_tensor(pos) and pos.dim() == 1
 
 
 # ---------------------------------------------------------------------------
@@ -106,10 +83,166 @@ def _project_qkv(p, x, cfg, cos, sin, *, rope: bool = True):
 
 
 def gqa_prefill(p, x, cfg, cos, sin, *, causal=True, window: int = 0,
-                chunk: int = 512, rope: bool = True):
+                chunk: int = 512, return_kv: bool = False, rope: bool = True):
     q, k, v = _project_qkv(p, x, cfg, cos, sin, rope=rope)
     o = flash_attention(q, k, v, causal=causal, window=window, chunk=chunk,
                         softcap=cfg.attn_logit_softcap)
     o = o.reshape(*x.shape[:2], -1)
     L.sow("o_in", o)
-    return L.linear(p["wo"], o)
+    out = L.linear(p["wo"], o)
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# dense cache
+
+
+def _write_at(cache, new, start: int):
+    """cache[:, start:start + L] = new (in place)."""
+    cache[:, start:start + new.shape[1]] = new.to(cache.dtype)
+    return cache
+
+
+def _cache_write(cache, new, pos):
+    """Write one decode step into a (B, Lmax, ...) cache, in place.
+
+    ``new`` is (B, 1, ...); ``pos`` is an int (every slot at the same
+    position) or a (B,) tensor of per-slot positions."""
+    if _per_slot(pos):
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        cache[rows, pos.long()] = new[:, 0].to(cache.dtype)
+        return cache
+    return _write_at(cache, new, pos)
+
+
+def _decode_attention(q, cache_k, cache_v, pos, cfg, *, window: int = 0,
+                      chunk: int = 1024):
+    """Attention of the step's queries against the whole dense cache with
+    absolute-position masking (keys past ``pos`` are causally masked).  The
+    JAX package's sequence-parallel branch for an L-sharded cache is not
+    ported (it needs a mesh)."""
+    return flash_attention(q, cache_k, cache_v, causal=True, window=window,
+                           q_offset=pos, chunk=chunk,
+                           softcap=cfg.attn_logit_softcap)
+
+
+def gqa_decode(p, x, cache_k, cache_v, pos, cfg, cos, sin, *,
+               window: int = 0, chunk: int = 1024, rope: bool = True):
+    """One-token decode.  x: (B, 1, d); caches (B, Lmax, KV, D); pos is an
+    int or a per-slot (B,) tensor."""
+    q, k, v = _project_qkv(p, x, cfg, cos, sin, rope=rope)
+    cache_k = _cache_write(cache_k, k, pos)
+    cache_v = _cache_write(cache_v, v, pos)
+    o = _decode_attention(q, cache_k, cache_v, pos, cfg, window=window,
+                          chunk=chunk)
+    return L.linear(p["wo"], o.reshape(*x.shape[:2], -1)), cache_k, cache_v
+
+
+def gqa_prefill_cached(p, x, cache_k, cache_v, start: int, cfg, cos, sin, *,
+                       chunk: int = 1024, rope: bool = True):
+    """Chunked prefill: write this chunk's k/v into the dense cache at
+    ``start`` and attend against the WHOLE cache with absolute positions;
+    unwritten future positions are causally masked, so chunk-by-chunk
+    prefill gives the logits of whole-prompt prefill."""
+    q, k, v = _project_qkv(p, x, cfg, cos, sin, rope=rope)
+    cache_k = _write_at(cache_k, k, start)
+    cache_v = _write_at(cache_v, v, start)
+    o = flash_attention(q, cache_k, cache_v, causal=True, q_offset=start,
+                        chunk=chunk, softcap=cfg.attn_logit_softcap)
+    out = L.linear(p["wo"], o.reshape(*x.shape[:2], -1))
+    return out, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# factorized latent KV cache (AA-SVD serving path)
+#
+# When the k/v projections are factorized (w = v @ u, bias-free), the
+# per-token cache state the model needs is the rank-r latent l = x @ v.
+# Decode stores only (B, Lmax, r_k) + (B, Lmax, r_v), and the flash_decode
+# kernel up-projects keys in the kernel while keeping the value accumulator
+# in latent space (U_v applied once per head in the epilogue).
+
+
+def latent_ranks(p):
+    """(rank_k, rank_v) when BOTH k/v projections are bias-free factorized
+    pairs — the layout the latent KV cache requires; else ``None``.  Works
+    on plain and stacked (leading layer axis) param leaves."""
+    def rank(w):
+        if isinstance(w, dict) and "w" not in w and "b" not in w and "u" in w:
+            return int(w["v"].shape[-1])
+        return None
+    if not isinstance(p, dict):
+        return None
+    rk, rv = rank(p.get("wk")), rank(p.get("wv"))
+    if rk is None or rv is None:
+        return None
+    return rk, rv
+
+
+def _latent_kv(p, x):
+    """Down-projected kv latents x @ V — the only per-token state the
+    factorized cache stores; U is applied at attention time."""
+    lk = x @ p["wk"]["v"].to(x.dtype)
+    lv = x @ p["wv"]["v"].to(x.dtype)
+    return lk, lv
+
+
+def gqa_prefill_latent(p, x, cache_lk, cache_lv, start: int, cfg, cos, sin,
+                       *, theta: float, rope: bool = True,
+                       chunk: int = 1024):
+    """Prefill into the latent cache: write this chunk's rank-r latents at
+    ``start``, up-project the whole cache once, and attend with
+    absolute-position masking.  Used for whole prompts (start 0) and for
+    chunked prefill alike."""
+    b, l, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = L.linear(p["wq"], x).reshape(b, l, h, hd)
+    if rope:
+        q = L.apply_rope(q, cos, sin)
+    lk_c, lv_c = _latent_kv(p, x)
+    cache_lk = _write_at(cache_lk, lk_c, start)
+    cache_lv = _write_at(cache_lv, lv_c, start)
+    lmax = cache_lk.shape[1]
+    k_all = (cache_lk @ p["wk"]["u"].to(cache_lk.dtype)).reshape(b, lmax, kv,
+                                                                 hd)
+    v_all = (cache_lv @ p["wv"]["u"].to(cache_lv.dtype)).reshape(b, lmax, kv,
+                                                                 hd)
+    if rope:
+        cos_all, sin_all = L.rope_table(
+            torch.arange(lmax, device=x.device), hd, theta)
+        k_all = L.apply_rope(k_all, cos_all, sin_all)
+    o = flash_attention(q, k_all, v_all, causal=True, q_offset=start,
+                        chunk=chunk)
+    return L.linear(p["wo"], o.reshape(b, l, -1)), cache_lk, cache_lv
+
+
+def gqa_decode_latent(p, x, cache_lk, cache_lv, pos, cfg, cos, sin, *,
+                      theta: float, rope: bool = True):
+    """One-token decode against the factorized latent cache through the
+    ``flash_decode`` kernel, with per-slot lengths = pos + 1.
+
+    x: (B, 1, d); caches (B, Lmax, r_k / r_v); pos an int or a (B,)
+    tensor.  The "u" leaves go to the kernel as stored (fp32 params)."""
+    b = x.shape[0]
+    h, hd = cfg.num_heads, cfg.head_dim
+    q = L.linear(p["wq"], x).reshape(b, 1, h, hd)
+    if rope:
+        q = L.apply_rope(q, cos, sin)
+    lk_t, lv_t = _latent_kv(p, x)
+    cache_lk = _cache_write(cache_lk, lk_t, pos)
+    cache_lv = _cache_write(cache_lv, lv_t, pos)
+    if _per_slot(pos):
+        lengths = (pos + 1).to(torch.int32)
+    else:
+        lengths = torch.full((b,), pos + 1, dtype=torch.int32,
+                             device=x.device)
+    lmax = cache_lk.shape[1]
+    cos_all, sin_all = L.rope_table(torch.arange(lmax, device=x.device), hd,
+                                    theta)
+    o = ops.flash_decode(q[:, 0].contiguous(), cache_lk, cache_lv,
+                         p["wk"]["u"], p["wv"]["u"], lengths, cos_all,
+                         sin_all, rope=rope)
+    return (L.linear(p["wo"], o.reshape(b, 1, h * hd).to(x.dtype)),
+            cache_lk, cache_lv)

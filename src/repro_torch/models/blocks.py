@@ -1,15 +1,17 @@
 """Block assembly: stage programs and the dense attention sub-block.
 
 Counterpart of ``src/repro/models/blocks.py`` (``stage_program`` :43,
-``apply_sub_block`` :150) for the dense family's ``"attn"`` kind.  A stage
-with ``scan=True`` and ``n > 1`` stacks its sub-block params on a leading
-axis, as the JAX package does; the port walks that axis in a Python loop.
+``apply_sub_block`` :150, ``latent_layout`` :190, ``init_sub_cache`` :207,
+``prefill_sub_block`` :256, ``decode_sub_block`` :334) for the dense
+family's ``"attn"`` kind.  A stage with ``scan=True`` and ``n > 1`` stacks
+its sub-block params (and caches) on a leading axis, as the JAX package
+does; the port walks that axis in a Python loop.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -71,3 +73,85 @@ def apply_sub_block(kind: str, p, x, cfg, ctx):
     h2 = L.apply_norm(p["ln2"], x, eps=cfg.norm_eps)
     with L.scope("ffn"):
         return x + M.ffn_apply(p["ffn"], h2, cfg.act_fn), zero
+
+
+# ---------------------------------------------------------------------------
+# caches
+
+
+def latent_layout(kind: str, params, cfg) -> Optional[Tuple[int, int]]:
+    """(rank_k, rank_v) when this sub-block can store the factorized rank-r
+    kv latent instead of dense k/v: bias-free factorized wk AND wv, no
+    qk-norm (applied after the up-projection, so it cannot be absorbed) and
+    no logit softcap (the decode kernel has none)."""
+    if kind != "attn":
+        raise _not_ported(f"sub-block kind {kind!r}", "later")
+    if params is None or cfg.qk_norm or cfg.attn_logit_softcap:
+        return None
+    return A.latent_ranks(params.get("attn")) if isinstance(params, dict) \
+        else None
+
+
+def init_sub_cache(kind: str, cfg, batch: int, max_len: int, dtype,
+                   params=None, *, device="cpu"):
+    """Zero cache for one sub-block: the latent {"lk", "lv"} layout (rank-r
+    floats per token) when ``params`` has factorized kv projections, else
+    dense {"k", "v"}."""
+    ranks = latent_layout(kind, params, cfg)
+    kw = dict(dtype=dtype, device=device)
+    if ranks is not None:
+        return {"lk": torch.zeros((batch, max_len, ranks[0]), **kw),
+                "lv": torch.zeros((batch, max_len, ranks[1]), **kw)}
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    return {"k": torch.zeros((batch, max_len, kv, hd), **kw),
+            "v": torch.zeros((batch, max_len, kv, hd), **kw)}
+
+
+def prefill_sub_block(kind: str, p, x, cache, cfg, ctx):
+    """Forward over the prompt, filling the cache (in place) from
+    ``ctx["pos"]``.  ``ctx["chunked"]`` attends against the WHOLE cache with
+    absolute-position masking, so a prompt can be prefilled chunk by chunk.
+    Returns (x, cache, aux)."""
+    if kind != "attn":
+        raise _not_ported(f"sub-block kind {kind!r}", "later")
+    start = ctx.get("pos", 0)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    cos, sin = ctx["cos"], ctx["sin"]
+    h = L.apply_norm(p["ln1"], x, eps=cfg.norm_eps)
+    cache = dict(cache)
+    if "lk" in cache:
+        attn_out, cache["lk"], cache["lv"] = A.gqa_prefill_latent(
+            p["attn"], h, cache["lk"], cache["lv"], start, cfg, cos, sin,
+            theta=cfg.rope_theta)
+    elif ctx.get("chunked"):
+        attn_out, cache["k"], cache["v"] = A.gqa_prefill_cached(
+            p["attn"], h, cache["k"], cache["v"], start, cfg, cos, sin)
+    else:
+        attn_out, (k, v) = A.gqa_prefill(p["attn"], h, cfg, cos, sin,
+                                         return_kv=True)
+        cache["k"] = A._write_at(cache["k"], k, start)
+        cache["v"] = A._write_at(cache["v"], v, start)
+    x = x + attn_out
+    h2 = L.apply_norm(p["ln2"], x, eps=cfg.norm_eps)
+    return x + M.ffn_apply(p["ffn"], h2, cfg.act_fn), cache, zero
+
+
+def decode_sub_block(kind: str, p, x, cache, cfg, ctx):
+    """x: (B, 1, d) -> (x, cache), the cache updated in place at
+    ``ctx["pos"]`` (an int or a per-slot (B,) tensor)."""
+    if kind != "attn":
+        raise _not_ported(f"sub-block kind {kind!r}", "later")
+    pos = ctx["pos"]
+    cos, sin = ctx["cos"], ctx["sin"]
+    h = L.apply_norm(p["ln1"], x, eps=cfg.norm_eps)
+    cache = dict(cache)
+    if "lk" in cache:
+        attn_out, cache["lk"], cache["lv"] = A.gqa_decode_latent(
+            p["attn"], h, cache["lk"], cache["lv"], pos, cfg, cos, sin,
+            theta=cfg.rope_theta)
+    else:
+        attn_out, cache["k"], cache["v"] = A.gqa_decode(
+            p["attn"], h, cache["k"], cache["v"], pos, cfg, cos, sin)
+    x = x + attn_out
+    h2 = L.apply_norm(p["ln2"], x, eps=cfg.norm_eps)
+    return x + M.ffn_apply(p["ffn"], h2, cfg.act_fn), cache

@@ -12,12 +12,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
              times (CUDA events, median of 10 runs after warm-up), the plain
              version's time, one PyTorch yardstick (``library_ms``) where a
              single call computes the same function, and the card's least
-             time for the same work (``bound_ms``).
+             time for the same work (``bound_ms``); ``grouped_matmul`` also
+             backward (dx, dW) against autograd through its plain version at
+             a refinement shape and the ragged one, and ``flash_attention``
+             at MLA prefill's head dim 192.
 4. smoke   — the smoke compression recipe on the card (kernels) and on the
              CPU (plain versions) from the same params and tokens; then the
              compressed smoke model served on both (continuous batching over
              the latent cache, and the fixed-batch server): tokens equal,
-             logits held to a stated tolerance.
+             logits held to a stated tolerance.  Then deepseek-v2-lite's
+             smoke config compressed with drop-free MoE dispatch on both:
+             routed expert ids equal, composed maps (per expert) and loss
+             held to stated tolerances.
 5. main    — Algorithm 2 on llama-7b at its published widths, depth cut to
              2 layers, random weights from a seeded ``torch.Generator``:
              calibration 8 × 1024 tokens, ratio 0.6, fused calibration, one
@@ -37,6 +43,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
              prefill, on one teacher-forced sequence.  Prints time to first
              token, prefill and decode tokens/s, the median decode step,
              cache bytes (latent / dense) and peak device memory.
+7. moe     — Algorithm 2 on deepseek-v2-lite-16b at its published widths
+             (MLA attention, 64 routed experts top-6 + 2 shared, drop-free
+             dispatch), depth cut to 2 layers (one ``mla_dense_first``, one
+             ``mla_moe``), random weights from a seeded ``torch.Generator``:
+             calibration 8 × 1024 tokens, ratio 0.6, fused calibration, one
+             refine epoch; then the dense and compressed eval losses.  Counts
+             zeroed just before and read just after: grouped_matmul,
+             cov_accum, lowrank_matmul and flash_attention must be > 0.
 
 It prints a ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Long output goes to
@@ -75,12 +89,30 @@ SIZES = {
     # flash_attention: (name, B, H, KV, Lq, Lk, D, causal, window, softcap,
     # q_offset: an int or (lo, hi) spread over the B slots); the first three
     # are serving's shapes at llama-7b (whole prefill, a 256-token chunk or
-    # latent prefill against a 2048 cache, dense decode of 8 slots)
+    # latent prefill against a 2048 cache, dense decode of 8 slots), the
+    # fourth deepseek-v2-lite's MLA prefill in phase 7 (microbatch 4, 16
+    # heads, head dim qk_nope 128 + qk_rope 64); all but "ragged" are timed
     "flash_attention": (
         ("prefill", 1, 32, 32, 1024, 1024, 128, True, 0, 0.0, 0),
         ("chunk", 1, 32, 32, 256, 2048, 128, True, 0, 0.0, 768),
         ("decode", 8, 32, 32, 1, 2048, 128, True, 0, 0.0, (100, 2047)),
+        ("mla_prefill", 4, 16, 16, 1024, 1024, 192, True, 0, 0.0, 0),
         ("ragged", 2, 4, 2, 77, 77, 16, True, 16, 30.0, 0)),
+    # grouped_matmul: (name, M, d, f, E) — phase 7's expert GEMMs, M = 4 x
+    # 1024 tokens x top-6 routed rows over 64 experts: the dense bank's
+    # gate/up and down, the factorized banks' x @ V and t @ U at rank 504;
+    # then a ragged case (f not a multiple of 8, M not of the row tile).
+    # Group sizes: a skewed numpy draw with two experts empty
+    "grouped": (
+        ("gate_up", 24576, 2048, 1408, 64),
+        ("down", 24576, 1408, 2048, 64),
+        ("gate_up_v", 24576, 2048, 504, 64),
+        ("gate_up_u", 24576, 504, 1408, 64),
+        ("down_v", 24576, 1408, 504, 64),
+        ("down_u", 24576, 504, 2048, 64),
+        ("ragged", 4133, 200, 77, 9)),
+    # phase 7: deepseek-v2-lite at published widths, depth cut 27 -> 2
+    "moe_layers": 2,
     # flash_decode: (name, B, H, KV, D, r_k, r_v, L, lengths (lo, hi));
     # llama-7b at ratio 0.6 (rank 1232, PERF.md row 2), then a ragged one
     "flash_decode": (
@@ -383,9 +415,9 @@ def check_flash_decode(torch, np, ops, ref, case, dtype, timed, dev):
 
 def phase_attention_kernels(torch, np, ops, ref, dev="cuda", sizes=SIZES):
     fa_rows, fd_rows = [], []
-    for i, case in enumerate(sizes["flash_attention"]):
+    for case in sizes["flash_attention"]:
         for dtype in (torch.float32, torch.bfloat16):
-            timed = i < 3 and dtype == torch.bfloat16
+            timed = case[0] != "ragged" and dtype == torch.bfloat16
             row = check_flash_attention(torch, np, ops, ref, case, dtype,
                                         timed, dev)
             fa_rows.append(row)
@@ -398,6 +430,121 @@ def phase_attention_kernels(torch, np, ops, ref, dev="cuda", sizes=SIZES):
             fd_rows.append(row)
             log("flash_decode", json.dumps(row))
     return fa_rows, fd_rows
+
+
+def _group_sizes(np, m, e, seed):
+    """Skewed sizes summing to m (a Dirichlet(0.3) draw), experts 1 and
+    e // 2 empty."""
+    rng = np.random.default_rng(seed)
+    p = rng.dirichlet(np.full(e, 0.3))
+    p[[1, e // 2]] = 0.0
+    return rng.multinomial(m, p / p.sum())
+
+
+def _grouped_mm_library(torch, x, w, gs):
+    """``torch._grouped_mm`` on the same inputs (bf16 only, a yardstick the
+    port never calls), or None with the reason."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, f"torch {torch.__version__} has no torch._grouped_mm"
+    if x.dtype != torch.bfloat16:
+        return None, "torch._grouped_mm takes bf16 only"
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    try:
+        out = fn(x, w, offs=offs)
+        torch.cuda.synchronize()
+    except RuntimeError as exc:   # a yardstick only: report why, never fail
+        return None, f"torch._grouped_mm refused: {str(exc)[:200]}"
+    return (lambda: fn(x, w, offs=offs)), out
+
+
+def check_grouped(torch, np, ops, ref, case, dtype, timed, dev):
+    name, m, d, f, e = case
+    sizes = _group_sizes(np, m, e, m + d + f)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(m + d + f)
+    x = torch.randn(m, d, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(e, d, f, generator=gen, device=dev) / math.sqrt(d)
+         ).to(dtype)
+    want = ref.grouped_matmul_ref(x, w, gs)
+    got = ops.grouped_matmul(x, w, gs)
+    err = rel_fro(got, want)
+    mae = float((got.float() - want.float()).abs().max())
+    # fp32 (FMA units): the same fp32 products summed in another order:
+    # 1e-5.  bf16 (tensor cores): exact products, fp32 accumulation, the
+    # output rounded to bf16 (2^-8 relative): 1e-2
+    lim = 1e-5 if dtype == torch.float32 else 1e-2
+    require(tuple(got.shape) == (m, f) and got.dtype == dtype,
+            f"grouped_matmul {name}: {tuple(got.shape)} {got.dtype}")
+    require(err <= lim, f"grouped_matmul {name} {dtype}: rel err {err:.3e} "
+            f"> {lim:.0e}")
+    row = {"case": name, "shape": [m, d, f, e],
+           "dtype": str(dtype).replace("torch.", ""),
+           "empty_experts": int((sizes == 0).sum()),
+           "largest_group": int(sizes.max()), "rel_fro_err": err,
+           "max_abs_err": mae}
+    if timed:
+        row["ms"] = time_ms(lambda: ops.grouped_matmul(x, w, gs))
+        row["plain_ms"] = time_ms(lambda: ref.grouped_matmul_ref(x, w, gs))
+        lib, out = _grouped_mm_library(torch, x, w, gs)
+        row["library_ms"] = None if lib is None else time_ms(lib)
+        if lib is None:
+            row["library_note"] = out
+        else:
+            row["library_rel_err"] = rel_fro(out, want)
+        eb = x.element_size()
+        live = int((sizes > 0).sum())       # experts whose weights are read
+        flops = 2 * m * d * f
+        nbytes = (m * d + live * d * f + m * f) * eb
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, row["dtype"])
+    return row
+
+
+def check_grouped_backward(torch, np, ops, ref, case, dtype, dev):
+    """dx (the kernel on wᵀ) and dW (per-segment products) against autograd
+    through the plain version, on the same inputs and cotangent."""
+    name, m, d, f, e = case
+    sizes = _group_sizes(np, m, e, m + d + f + 1)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(m + d + f + 1)
+    x0 = torch.randn(m, d, generator=gen, device=dev).to(dtype)
+    w0 = (torch.randn(e, d, f, generator=gen, device=dev) / math.sqrt(d)
+          ).to(dtype)
+    dy = torch.randn(m, f, generator=gen, device=dev).to(dtype)
+    grads = []
+    for fn in (lambda a, b: ops.grouped_matmul(a, b, gs),
+               lambda a, b: ref.grouped_matmul_ref(a, b, gs).to(dtype)):
+        x = x0.clone().requires_grad_(True)
+        w = w0.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(fn(x, w), (x, w), dy))
+    errs = [rel_fro(g, r) for g, r in zip(*grads)]
+    # as the forward: fp32 1e-5; bf16 1e-2 (dx rounds to bf16 in both)
+    lim = 1e-5 if dtype == torch.float32 else 1e-2
+    require(max(errs) <= lim, f"grouped_matmul backward {name} {dtype}: rel "
+            f"err dx {errs[0]:.3e} dW {errs[1]:.3e} > {lim:.0e}")
+    return {"case": name, "shape": [m, d, f, e],
+            "dtype": str(dtype).replace("torch.", ""), "dx_rel_fro_err":
+            errs[0], "dw_rel_fro_err": errs[1]}
+
+
+def phase_grouped_kernels(torch, np, ops, ref, dev="cuda", sizes=SIZES):
+    rows = []
+    for case in sizes["grouped"]:
+        for dtype in (torch.float32, torch.bfloat16):
+            timed = case[0] != "ragged" and dtype == torch.bfloat16
+            row = check_grouped(torch, np, ops, ref, case, dtype, timed, dev)
+            rows.append(row)
+            log("grouped_matmul", json.dumps(row))
+    back = []
+    # a shape refinement differentiates (x @ V of the factorized gate/up
+    # bank) and the ragged one
+    for case in (sizes["grouped"][2], sizes["grouped"][-1]):
+        for dtype in (torch.float32, torch.bfloat16):
+            row = check_grouped_backward(torch, np, ops, ref, case, dtype,
+                                         dev)
+            back.append(row)
+            log("grouped_matmul backward", json.dumps(row))
+    return rows, back
 
 
 # ---------------------------------------------------------------------------
@@ -487,6 +634,93 @@ def phase_smoke_serve(torch, np, cfg, comp, dev):
     # fp32 on both; kernels sum in another order: 1e-4 relative Frobenius
     require(err <= 1e-4, f"smoke serve logits differ by {err:.3e}")
     return {"tokens": toks["card"], "logits_rel_err": err}
+
+
+def _dropfree(cfg):
+    import dataclasses
+    return cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch="dropfree"))
+
+
+def _composed_maps(torch, block):
+    """{path: (..., n, m) composed map v @ u} of every factorized linear of
+    a block, expert banks (one map per expert) and shared experts
+    included."""
+    out = {}
+    for part in ("attn", "ffn"):
+        for name, lin in block[part].items():
+            subs = (lin.items() if name in ("experts", "shared")
+                    else [(None, lin)])
+            for sub, sl in subs:
+                if "u" in sl:
+                    key = f"{part}.{name}" + ("" if sub is None else f".{sub}")
+                    out[key] = torch.einsum("...nk,...km->...nm",
+                                            sl["v"].cpu(), sl["u"].cpu())
+    return out
+
+
+def phase_smoke_moe(torch, np, dev="cuda"):
+    """deepseek-v2-lite smoke (fp32, 2 layers) compressed with drop-free
+    dispatch on the card and on the CPU from the same params and tokens."""
+    from repro_torch import configs
+    from repro_torch.core import pipeline as P
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+
+    cfg = _dropfree(configs.get_smoke_config("deepseek-v2-lite-16b")
+                    .replace(dtype="float32"))
+    params = M.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(3)
+    # 16 x 64 uniform tokens: ~256 routed rows an expert (top-2 of 8) at
+    # n = 64, so every expert's covariances have full rank
+    calib = {"tokens": rng.integers(0, cfg.vocab_size, (16, 64))}
+    t = rng.integers(0, cfg.vocab_size, (8, 65))
+    batch = {"tokens": torch.from_numpy(t[:, :-1]),
+             "labels": torch.from_numpy(t[:, 1:])}
+    recipe = P.CompressConfig(ratio=0.6, rank_multiple=1, microbatch=2,
+                              calib_mode="fused", refine_epochs=1,
+                              moe_dispatch="dropfree")
+    out = {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        # the original stream's routing: the uncompressed model's forward
+        # over the calibration tokens, tapped
+        store = {}
+        pd = tree_map(lambda x, d=d: x.to(d), params)
+        with torch.no_grad(), L.sowing(store):
+            M.forward_hidden(pd, cfg, {"tokens": torch.from_numpy(
+                calib["tokens"]).to(d)})
+        ids = store["ffn/experts_ids"].cpu()
+        comp, rep = P.compress_model(params, cfg, calib, recipe, device=d)
+        with torch.no_grad():
+            loss = float(M.loss_fn(comp, cfg, {k: v.to(d) for k, v
+                                               in batch.items()})[1]["ce"])
+        out[name] = (comp, rep, loss, ids)
+    flips = int((out["card"][3] != out["cpu"][3]).sum())
+    worst, worst_at = 0.0, None
+    for si in range(len(out["cpu"][0]["stages"])):
+        maps = [_composed_maps(torch, out[run][0]["stages"][si][0])
+                for run in ("card", "cpu")]
+        for path, want in maps[1].items():
+            got = maps[0][path].reshape(-1, *want.shape[-2:])
+            want = want.reshape(-1, *want.shape[-2:])
+            for i in range(want.shape[0]):
+                err = rel_fro(got[i], want[i])
+                if err > worst:
+                    worst, worst_at = err, f"stage {si} {path} [{i}]"
+    lc, lp = out["card"][2], out["cpu"][2]
+    log(f"smoke moe: routed ids {tuple(out['cpu'][3].shape)} flips (card vs "
+        f"cpu) {flips}; composed-map rel err {worst:.3e} at {worst_at}; CE "
+        f"card {lc:.6f} cpu {lp:.6f}; drop rates "
+        f"{out['card'][1]['calibration']['moe_drop_rate']}")
+    require(flips == 0, f"smoke moe: {flips} routed expert ids differ "
+            "between the card and the CPU")
+    # fp32 on both, well-conditioned per-expert covariances: 1e-3 as llama
+    require(worst <= 1e-3, f"smoke moe composed maps differ by {worst:.3e} "
+            f"({worst_at})")
+    require(abs(lc / lp - 1) <= 1e-3, f"smoke moe loss {lc} vs {lp}")
+    return {"routed_ids": int(out["cpu"][3].numel()), "id_flips": flips,
+            "map_rel_err": worst, "map_worst_at": worst_at, "ce_cuda": lc,
+            "ce_cpu": lp}
 
 
 # ---------------------------------------------------------------------------
@@ -827,6 +1061,201 @@ def profile_engine(torch, np, TS, cfg, comp, layout, sizes):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: drop-free MoE compression at deepseek-v2-lite's published widths
+
+
+def moe_solve_pieces(torch, cfg):
+    """Device ms of one call each (after one warm-up) of the solve's
+    torch.linalg work per expert and for the dense-first FFN: the eighs of
+    the d_model, expert d_ff and dense d_ff covariances, the SVDs of an
+    expert's whitened (d_ff, d_model) / (d_model, d_ff) maps and of the
+    dense FFN's (dense d_ff, d_model) map."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    d, f, fd = cfg.d_model, cfg.moe.d_ff, cfg.moe.dense_d_ff
+    out = {}
+    for name, fn, shape in (
+            ("eigh_d", lambda a: torch.linalg.eigh(a.T @ a), (d, d)),
+            ("eigh_expert_ff", lambda a: torch.linalg.eigh(a.T @ a), (f, f)),
+            ("eigh_dense_ff", lambda a: torch.linalg.eigh(a.T @ a), (fd, fd)),
+            ("svd_expert_ff_x_d", lambda a: torch.linalg.svd(
+                a, full_matrices=False), (f, d)),
+            ("svd_expert_d_x_ff", lambda a: torch.linalg.svd(
+                a, full_matrices=False), (d, f)),
+            ("svd_dense_ff_x_d", lambda a: torch.linalg.svd(
+                a, full_matrices=False), (fd, d))):
+        a = torch.randn(*shape, generator=gen, device="cuda")
+        out[name] = time_ms(lambda: fn(a), warmup=1, reps=1)
+    return out
+
+
+def moe_forward_syncs(torch, cfg, comp, batch):
+    """Run the compressed MoE layer's forward (router, drop-free dispatch,
+    three factorized ``grouped_matmul`` banks, shared experts) on phase 7's
+    microbatch under ``torch.cuda.set_sync_debug_mode("error")``, which
+    raises on any operation that synchronizes the host with the card:
+    nothing of the routing may be read on the host."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import mlp as MLP
+
+    p = comp["stages"][1][0]["ffn"]
+    x = L.embed(comp["embed"], batch["tokens"], torch.bfloat16)
+    with torch.no_grad():
+        MLP.moe_apply(p, x, cfg)              # warm-up, outside the check
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, aux = MLP.moe_apply(p, x, cfg)
+            err = None
+        except RuntimeError as exc:
+            err = str(exc)[:300]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    require(err is None, f"the MoE forward synchronized the host: {err}")
+    require(bool(torch.isfinite(y).all()) and math.isfinite(float(aux)),
+            "the MoE forward under the sync check is not finite")
+    return {"mode": "error", "raised": err, "shape": list(x.shape)}
+
+
+def eval_busy_share(torch, M, cfg, params, batch):
+    """The device's busy share of one eval forward: device time of its
+    kernels under ``torch.profiler`` (device activity only) over the wall
+    time of the same forward without the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        with torch.no_grad():
+            M.loss_fn(params, cfg, batch)
+        torch.cuda.synchronize()
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+    kernels = {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            kernels[evt.key[:80]] = evt.self_device_time_total / 1e3
+    busy = sum(kernels.values())
+    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:8])
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "busy_share": busy / wall, "top_kernels_ms": top}
+
+
+def phase_moe(torch, ops, dev="cuda", sizes=SIZES, cfg=None):
+    import repro_torch
+    from repro_torch import configs
+    from repro_torch.models import model as M
+
+    layers = sizes["moe_layers"]
+    if cfg is None:
+        cfg = configs.get_config("deepseek-v2-lite-16b")
+    cfg = _dropfree(cfg.replace(num_layers=layers))
+    m = cfg.mla
+    log(f"moe: deepseek-v2-lite widths d_model {cfg.d_model} heads "
+        f"{cfg.num_heads}, MLA kv_lora {m.kv_lora_rank} nope "
+        f"{m.qk_nope_head_dim} rope {m.qk_rope_head_dim} v {m.v_head_dim}, "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} d_ff "
+        f"{cfg.moe.d_ff} + {cfg.moe.num_shared_experts} shared, dense d_ff "
+        f"{cfg.moe.dense_d_ff}, vocab {cfg.vocab_size}, dtype {cfg.dtype} "
+        f"params {cfg.param_dtype}, dispatch {cfg.moe.dispatch}; num_layers "
+        f"cut 27 -> {layers} for the time limit")
+    params = M.init_params(cfg, 0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    calib = {"tokens": torch.randint(0, cfg.vocab_size, sizes["calib"],
+                                     generator=gen, device=dev)}
+    evals = []
+    n_eval, b_eval, l_eval = sizes["evals"]
+    for _ in range(n_eval):
+        t = torch.randint(0, cfg.vocab_size, (b_eval, l_eval + 1),
+                          generator=gen, device=dev)
+        evals.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    ccfg = repro_torch.CompressConfig(ratio=0.6, calib_mode="fused",
+                                      refine_epochs=1,
+                                      microbatch=sizes["microbatch"],
+                                      moe_dispatch="dropfree")
+
+    def eval_loss(p):
+        with torch.no_grad():
+            return [float(M.loss_fn(p, cfg, b)[1]["ce"]) for b in evals]
+
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    stages = {}
+    t0 = time.perf_counter()
+    comp, report = repro_torch.compress_model(params, cfg, calib, ccfg,
+                                              device=dev, stage_times=stages)
+    t_compress = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dense = eval_loss(params)
+    compressed = eval_loss(comp)
+    stages["eval"] = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+
+    ratio = repro_torch.compress_ratio_report(params, comp)
+    log("moe: stage seconds", json.dumps(stages))
+    log(f"moe: compress wall {t_compress:.3f} s, peak device memory "
+        f"{peak / 2**30:.3f} GiB")
+    log("moe: compress_ratio_report", json.dumps(ratio))
+    log("moe: launches", json.dumps(launches))
+    log("moe: calibration", json.dumps(
+        {k: report["calibration"][k] for k in
+         ("mode", "tapped_forwards", "moe_dispatch", "moe_drop_rate")}))
+    ranks = {}
+    for u in report["units"]:
+        log(f"moe: {u['name']} pre/post-refine mse {u['pre_refine_mse']:.6e}"
+            f" / {u['post_refine_mse']:.6e}, calib_wall "
+            f"{u['calib_wall']:.3f} s, refine_wall {u['refine_wall']:.3f} s")
+        ranks.update({lin["path"]: lin["rank"] for lin in u["linears"]})
+    log("moe: ranks", json.dumps(ranks))
+    log(f"moe: eval CE dense {dense} compressed {compressed}")
+    vals = dense + compressed + [v for u in report["units"]
+                                 for v in (u["pre_refine_mse"],
+                                           u["post_refine_mse"])]
+    require(all(math.isfinite(v) for v in vals), f"non-finite: {vals}")
+    for name in ("grouped_matmul", "cov_accum", "lowrank_matmul",
+                 "flash_attention"):
+        require(launches[name] > 0,
+                f"kernel {name} never launched on the MoE compression path")
+    want_ranks = {"attn.wq": 744, "attn.wkv_a": 272, "attn.wk_b": 248,
+                  "attn.wv_b": 248, "attn.wo": 616, "ffn.gate": 1040,
+                  "ffn.experts.gate": 504, "ffn.experts.down": 504,
+                  "ffn.shared.up": 712}
+    if cfg.d_model == 2048:     # the published widths (PERF.md's table)
+        require(all(ranks.get(k) == v for k, v in want_ranks.items()),
+                f"ranks {ranks} differ from {want_ranks}")
+    k = ranks["ffn.experts.gate"]
+    bank = comp["stages"][1][0]["ffn"]["experts"]["gate"]
+    require(tuple(bank["v"].shape) == (cfg.moe.num_experts, cfg.d_model, k)
+            and tuple(bank["u"].shape) == (cfg.moe.num_experts, k,
+                                           cfg.moe.d_ff),
+            f"expert factors {tuple(bank['v'].shape)} / "
+            f"{tuple(bank['u'].shape)}")
+    extra = {}
+    if on_card:
+        extra["host_syncs"] = moe_forward_syncs(torch, cfg, comp, evals[0])
+        log("moe: host syncs in the compressed MoE layer's forward "
+            "(torch.cuda.set_sync_debug_mode)", json.dumps(extra["host_syncs"]))
+        extra["solve_pieces_ms"] = moe_solve_pieces(torch, cfg)
+        log("moe: solve pieces, one call each at the MoE path's shapes (ms)",
+            json.dumps(extra["solve_pieces_ms"]))
+        extra["eval_profile"] = eval_busy_share(torch, M, cfg, comp,
+                                                evals[0])
+        log("moe: compressed eval forward, device time by kernel",
+            json.dumps(extra["eval_profile"]))
+    return {"stages": stages, "launches": launches, "peak_bytes": peak,
+            "compress_wall_s": t_compress, "ratio": ratio, "ranks": ranks,
+            "dense": dense, "compressed": compressed, **extra}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -870,10 +1299,12 @@ def main() -> int:
     t0 = time.perf_counter()
     cov_rows, low_rows = phase_kernels(torch, ops, ref)
     fa_rows, fd_rows = phase_attention_kernels(torch, np, ops, ref)
+    gm_rows, gm_back = phase_grouped_kernels(torch, np, ops, ref)
     log(f"phase 3: {time.perf_counter() - t0:.3f} s")
     # 4. smoke parity
     t0 = time.perf_counter()
     smoke = phase_smoke(torch, np)
+    smoke["moe"] = phase_smoke_moe(torch, np)
     log(f"phase 4: {time.perf_counter() - t0:.3f} s")
     # 5. main path: compression
     t0 = time.perf_counter()
@@ -883,20 +1314,28 @@ def main() -> int:
     t0 = time.perf_counter()
     serve_run = phase_serve(torch, np, ops, cfg, params, comp)
     log(f"phase 6: {time.perf_counter() - t0:.3f} s")
+    del params, comp
+    torch.cuda.empty_cache()
+    # 7. MoE path: drop-free compression of deepseek-v2-lite
+    t0 = time.perf_counter()
+    moe_run = phase_moe(torch, ops)
+    log(f"phase 7: {time.perf_counter() - t0:.3f} s")
+
+    def timing(row):
+        return {"max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "shape": row["shape"], "dtype": row["dtype"]}
 
     def entry(name, source, replaces, rows, path):
         head = next(r for r in rows if "ms" in r)
         by_path = {"compress": main_run["launches"][name],
                    "serve_server": serve_run["server"]["launches"][name],
-                   "serve_engine": serve_run["engine"]["launches"][name]}
+                   "serve_engine": serve_run["engine"]["launches"][name],
+                   "compress_moe": moe_run["launches"][name]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": by_path[path],
-                "launches_by_path": by_path,
-                "max_abs_err": head["max_abs_err"], "ms": head["ms"],
-                "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-                "bound_by": head["bound_by"],
-                "library_ms": head["library_ms"],
-                "shape": head["shape"], "dtype": head["dtype"]}
+                "launches_by_path": by_path, **timing(head)}
 
     kernels = [
         entry("cov_accum", "src/repro_torch/csrc/cov_accum.cu",
@@ -910,12 +1349,21 @@ def main() -> int:
         entry("flash_decode", "src/repro_torch/csrc/flash_decode.cu",
               "src/repro/kernels/flash_decode.py:98", fd_rows,
               "serve_engine"),
+        entry("grouped_matmul", "src/repro_torch/csrc/grouped_matmul.cu",
+              "src/repro/kernels/grouped_matmul.py:105", gm_rows,
+              "compress_moe"),
     ]
+    # MLA prefill's head dim: the flash_attention instance phase 7 runs
+    next(k for k in kernels if k["name"] == "flash_attention")[
+        "mla_prefill_d192"] = timing(next(
+            r for r in fa_rows if r["case"] == "mla_prefill" and "ms" in r))
     with open(OUT / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "cov_accum": cov_rows,
                    "lowrank_matmul": low_rows, "flash_attention": fa_rows,
-                   "flash_decode": fd_rows, "smoke": smoke,
-                   "main": main_run, "serve": serve_run}, f, indent=1)
+                   "flash_decode": fd_rows, "grouped_matmul": gm_rows,
+                   "grouped_matmul_backward": gm_back, "smoke": smoke,
+                   "main": main_run, "serve": serve_run, "moe": moe_run},
+                  f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Architecture config registry of the port.
 
 ``get_config(arch_id)`` / ``get_smoke_config(arch_id)`` mirror
-``repro.configs``.  Only llama-7b (the paper's own model) is ported in this
-slice; the other registered archs of the JAX package come with later slices.
+``repro.configs``.  Ported so far: llama-7b (the paper's own model) and
+deepseek-v2-lite-16b (MLA attention, drop-free MoE); the other registered
+archs of the JAX package come with later slices.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from repro_torch.configs.base import (  # noqa: F401  (re-exported)
 
 _REGISTRY: Dict[str, str] = {
     "llama-7b": "llama_7b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
 }
 
 

@@ -9,8 +9,16 @@ accumulate in fp32 over token batches:
 
 with X given as rows (tokens, n).  Every product goes through
 ``kernels.ops.cov_accum`` — the hand-written CUDA kernel on the card, which
-adds into the accumulators in place.  Expert-bank layouts (capacity banks,
-grouped drop-free rows) come with the MoE slice.
+adds into the accumulators in place.
+
+Expert banks under the drop-free dispatch accumulate per-expert triples
+((E, n, n)) from grouped rows: the (R, n) choice-major routed rows of both
+streams plus the (R,) expert ids of the ORIGINAL stream
+(``kernels.ops.cov_accum_grouped``: the rows sorted by id, one
+``cov_accum`` per expert segment).  The rows are exactly the T·k routed
+choices, so the triple is batch-size invariant.  Capacity banks
+((E, C, n) buffers, ``cov_accum_banked``) come with the capacity-dispatch
+slice.
 """
 
 from __future__ import annotations
@@ -23,30 +31,41 @@ from repro_torch.kernels import ops
 
 
 def init_covs(n: int, experts: int = 0, *, device="cpu") -> Dict:
-    if experts:
-        raise NotImplementedError(
-            "expert-bank covariances are not ported to repro_torch yet "
-            "(comes with the MoE slice)")
+    shape = (experts, n, n) if experts else (n, n)
     return {
-        "xx": torch.zeros((n, n), dtype=torch.float32, device=device),
-        "xxp": torch.zeros((n, n), dtype=torch.float32, device=device),
-        "xpxp": torch.zeros((n, n), dtype=torch.float32, device=device),
+        "xx": torch.zeros(shape, dtype=torch.float32, device=device),
+        "xxp": torch.zeros(shape, dtype=torch.float32, device=device),
+        "xpxp": torch.zeros(shape, dtype=torch.float32, device=device),
         "count": 0.0,
     }
+
+
+def ids_tap_name(tap: str) -> str:
+    """Tap carrying the expert ids paired with a grouped activation tap: the
+    sibling ``experts_ids`` in the same scope (``ffn/experts_in`` ->
+    ``ffn/experts_ids``).  Both grouped MoE taps of a unit share it."""
+    return tap.rsplit("/", 1)[0] + "/experts_ids"
 
 
 def update_covs(covs: Dict, x: torch.Tensor, xp: torch.Tensor,
                 ids=None) -> Dict:
     """x, xp: (..., tokens, n) activations (original / shifted), flattened
-    to token rows.  The triple is updated IN PLACE (the kernel adds into the
-    accumulators) and the dict is returned."""
-    if ids is not None or covs["xx"].ndim == 3:
-        raise NotImplementedError(
-            "expert-bank covariance updates are not ported to repro_torch "
-            "yet (comes with the MoE slice)")
+    to token rows.  With an (E, n, n) accumulator, ``ids`` gives each row's
+    expert (the grouped drop-free layout).  The triple is updated IN PLACE
+    (the kernel adds into the accumulators) and the dict is returned."""
+    acc = (covs["xx"], covs["xxp"], covs["xpxp"])
     x = x.reshape(-1, x.shape[-1])
     xp = xp.reshape(-1, xp.shape[-1])
-    ops.cov_accum(x, xp, acc=(covs["xx"], covs["xxp"], covs["xpxp"]))
+    if covs["xx"].ndim == 3:
+        if ids is None:
+            raise NotImplementedError(
+                "capacity-bank (E, C, n) covariance updates are not ported "
+                "to repro_torch yet (come with the capacity-dispatch slice)")
+        ops.cov_accum_grouped(x, xp, ids, covs["xx"].shape[0], acc=acc)
+    elif ids is not None:
+        raise ValueError("expert ids given for a dense (n, n) accumulator")
+    else:
+        ops.cov_accum(x, xp, acc=acc)
     covs["count"] += x.shape[0]
     return covs
 

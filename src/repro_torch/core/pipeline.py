@@ -1,7 +1,8 @@
 """Algorithm 2: end-to-end block-wise AA-SVD compression with refinement.
 
 Counterpart of ``src/repro/core/pipeline.py`` for ``rank_mode="uniform"``,
-``calib_mode`` "fused" or "sequential", ``calib_mesh=None``.  The model is
+``calib_mode`` "fused" or "sequential", ``calib_mesh=None``, on dense GQA
+models (llama) and on deepseek's MLA + drop-free MoE.  The model is
 unrolled into units (one transformer block each; stacked stages are sliced
 and restacked afterwards).  Per unit:
 
@@ -9,12 +10,13 @@ and restacked afterwards).  Per unit:
      every tap group (q/k/v share a tap, gate/up share) owns a covariance
      triple {XᵀX, XᵀX', X'ᵀX'}, X from the ORIGINAL unit on the original
      stream and X' from the partially compressed unit on the shifted
-     stream, accumulated by the ``cov_accum`` CUDA kernel.  Then solve
-     Thm 3.2 per linear and swap the weight for its (U, V) factors.
+     stream, accumulated by the ``cov_accum`` CUDA kernel (per expert for
+     the MoE's grouped bank taps).  Then solve Thm 3.2 per linear (per
+     expert for a bank) and swap the weight for its (U, V) factors.
   2. block-level refinement (``core.refine``) against the original outputs.
   3. propagate both streams: X ← L_i(X) with original weights,
      X' ← L'_i(X') with compressed weights (factorized linears run the
-     ``lowrank_matmul`` CUDA kernel).
+     ``lowrank_matmul`` CUDA kernel, expert banks ``grouped_matmul``).
 
 ``compress_model`` runs on the card unless the caller passes
 ``device="cpu"``, where the kernels' plain versions run instead.  The
@@ -51,11 +53,13 @@ class CompressConfig:
     """Knobs for ``compress_model`` (Algorithm 2); every field and default of
     the JAX package's ``CompressConfig``.
 
-    Ported in this slice: ``rank_mode="uniform"``, ``calib_mode`` "fused"
-    and "sequential", ``calib_mesh=None``, every objective, eigh and
-    cholesky whitening, and the ``refine_*`` knobs.  ``hybrid`` calibration,
-    ``rank_mode="adaptive"``, ``calib_mesh`` and the MoE routing overrides
-    raise ``NotImplementedError`` naming the slice that brings them.
+    Ported: ``rank_mode="uniform"``, ``calib_mode`` "fused" and
+    "sequential", ``calib_mesh=None``, every objective, eigh and cholesky
+    whitening, the ``refine_*`` knobs, and ``moe_dispatch`` /
+    ``moe_capacity_factor`` (applied once at entry, as in the JAX package).
+    ``hybrid`` calibration, ``rank_mode="adaptive"``, ``calib_mesh`` and
+    the capacity MoE dispatch raise ``NotImplementedError`` naming the
+    slice that brings them.
 
     ``scan_collect`` and ``refine_scan`` choose between the JAX package's
     ``lax.scan`` dispatch and its per-microbatch loop.  The port always runs
@@ -105,15 +109,31 @@ class LinearSpec(NamedTuple):
 
 
 def linear_specs(kind: str, cfg) -> List[LinearSpec]:
-    if kind != "attn":
+    if kind not in B.FORWARD_KINDS:
         raise NotImplementedError(
             f"linear specs of kind {kind!r} are not ported to repro_torch "
             "yet (come with the slice of that architecture)")
     S_ = LinearSpec
-    specs = [S_("attn.wq", "attn/qkv_in"),
-             S_("attn.wk", "attn/qkv_in"),
-             S_("attn.wv", "attn/qkv_in"),
-             S_("attn.wo", "attn/o_in")]
+    if kind.startswith("mla"):
+        specs = [S_("attn.wq", "attn/qkv_in"),
+                 S_("attn.wkv_a", "attn/qkv_in"),
+                 S_("attn.wk_b", "attn/kvb_in"),
+                 S_("attn.wv_b", "attn/kvb_in"),
+                 S_("attn.wo", "attn/o_in")]
+    else:
+        specs = [S_("attn.wq", "attn/qkv_in"),
+                 S_("attn.wk", "attn/qkv_in"),
+                 S_("attn.wv", "attn/qkv_in"),
+                 S_("attn.wo", "attn/o_in")]
+    if kind.endswith("_moe"):
+        specs += [S_("ffn.experts.gate", "ffn/experts_in", True),
+                  S_("ffn.experts.up", "ffn/experts_in", True),
+                  S_("ffn.experts.down", "ffn/experts_down_in", True)]
+        if cfg.moe.num_shared_experts:
+            specs += [S_("ffn.shared.gate", "ffn/shared/in"),
+                      S_("ffn.shared.up", "ffn/shared/in"),
+                      S_("ffn.shared.down", "ffn/shared/down_in")]
+        return specs
     if cfg.act_fn == "silu":
         specs += [S_("ffn.gate", "ffn/in")]
     specs += [S_("ffn.up", "ffn/in"),
@@ -235,11 +255,26 @@ def make_unit_apply(kind: str, cfg, seq_len: int, want_taps: bool):
 
 
 def _solve_weight(w, covs, k: int, ccfg: CompressConfig):
+    """Closed-form solve of one (n, m) weight, or of an (E, n, m) expert
+    bank one expert at a time (the JAX package vmaps it) with the expert's
+    own (E, n, n) covariances, all at the uniform rank k."""
     if ccfg.objective == "agnostic":
-        return LR.solve_agnostic(w, k)
-    cov_ab, cov_bb = C.objective_covs(covs, ccfg.objective)
-    return LR.solve_anchored(w, cov_ab, cov_bb, k, eps=ccfg.eps,
-                             method=ccfg.whiten)
+        def solve(wi, *_):
+            return LR.solve_agnostic(wi, k)
+        cov_ab = cov_bb = None
+    else:
+        cov_ab, cov_bb = C.objective_covs(covs, ccfg.objective)
+
+        def solve(wi, ca, cb):
+            return LR.solve_anchored(wi, ca, cb, k, eps=ccfg.eps,
+                                     method=ccfg.whiten)
+    if w.dim() == 2:
+        return solve(w, cov_ab, cov_bb)
+    per_expert = [solve(w[e], None if cov_ab is None else cov_ab[e],
+                        None if cov_bb is None else cov_bb[e])
+                  for e in range(w.shape[0])]
+    return {key: torch.stack([f[key] for f in per_expert])
+            for key in per_expert[0]}
 
 
 def _weight_rank(w, ccfg: CompressConfig) -> int:
@@ -271,13 +306,33 @@ def _check_supported(cfg, ccfg: CompressConfig) -> None:
             "collection comes with the torch.distributed slice)")
     if ccfg.moe_dispatch not in ("inherit", "capacity", "dropfree"):
         raise ValueError(f"unknown moe_dispatch {ccfg.moe_dispatch!r}")
-    if cfg.moe is not None and cfg.moe.num_experts:
-        raise NotImplementedError(
-            "MoE models are not ported to repro_torch yet (MoE slice)")
-    if cfg.family != "dense" or cfg.attention != "full":
+    if (cfg.family, cfg.attention) not in (("dense", "full"), ("moe", "mla")):
         raise NotImplementedError(
             f"family {cfg.family!r} / attention {cfg.attention!r} is not "
             "ported to repro_torch yet (comes with that architecture's slice)")
+    if cfg.moe is not None and cfg.moe.num_experts \
+            and cfg.moe.dispatch != "dropfree":
+        raise NotImplementedError(
+            f"the {cfg.moe.dispatch!r} MoE dispatch is not ported to "
+            "repro_torch yet (comes with the capacity-dispatch slice); pass "
+            "CompressConfig(moe_dispatch='dropfree')")
+
+
+def _effective_cfg(cfg, ccfg: CompressConfig):
+    """The MoE routing overrides applied ONCE at entry, so every tapped
+    forward, solve and the returned model agree on the dispatch (the JAX
+    package's ``compress_model``, :801-812)."""
+    if cfg.moe is not None and cfg.moe.num_experts and (
+            ccfg.moe_dispatch != "inherit"
+            or ccfg.moe_capacity_factor is not None):
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe,
+            dispatch=(cfg.moe.dispatch if ccfg.moe_dispatch == "inherit"
+                      else ccfg.moe_dispatch),
+            capacity_factor=(cfg.moe.capacity_factor
+                             if ccfg.moe_capacity_factor is None
+                             else ccfg.moe_capacity_factor)))
+    return cfg
 
 
 def _embed_stream(params, cfg, calib: Dict[str, torch.Tensor], mb: int):
@@ -332,9 +387,12 @@ def compress_model(params, cfg, calib: Dict[str, Any],
     numpy arrays; device: None (the card) or e.g. "cpu".  ``stage_times``,
     when given a dict, receives the wall seconds spent in each of
     ``STAGES`` (the device is synchronized around each stage for that).
-    Returns (compressed_params, report).
+    Returns (compressed_params, report).  An MoE model compressed with
+    ``moe_dispatch="dropfree"`` is evaluated with the same override
+    (``cfg.moe.dispatch = "dropfree"``), as in the JAX package.
     """
     dev = resolve_device(device)
+    cfg = _effective_cfg(cfg, ccfg)
     _check_supported(cfg, ccfg)
     params = tree_map(lambda t: t.to(dev), params)
     calib = {k: (v if torch.is_tensor(v) else torch.from_numpy(np.array(v)))
@@ -367,6 +425,9 @@ def _compress_sweep(params, cfg, calib, ccfg: CompressConfig,
         fwd = make_unit_apply(unit.kind, cfg, seq_len, want_taps=False)
         unit_report = {"name": unit.name, "kind": unit.kind,
                        "calib_mode": ccfg.calib_mode, "linears": []}
+        if unit.kind.endswith("_moe"):
+            # the drop-free dispatch never drops a routed choice
+            unit_report["moe_drop_rate"] = 0.0
 
         # ---- stage 1: streaming covariance accumulation + closed-form solve
         t_s1 = time.perf_counter()
@@ -375,8 +436,10 @@ def _compress_sweep(params, cfg, calib, ccfg: CompressConfig,
         anchors = None  # original-stream outputs captured by the fused pass
         if ccfg.objective != "agnostic":
             with clock("collect"):
-                engine = S.CalibrationEngine.for_unit(groups, fwd_taps,
-                                                      orig_p, xs[0], None)
+                engine = S.CalibrationEngine.for_unit(
+                    groups, fwd_taps, orig_p, xs[0], None,
+                    num_experts=(cfg.moe.num_experts
+                                 if unit.kind.endswith("_moe") else 0))
                 if ccfg.calib_mode == "fused":
                     anchors = engine.collect_fused(fwd_taps, orig_p, cur_p,
                                                    xs, xps, None, None)
@@ -472,9 +535,15 @@ def _compress_sweep(params, cfg, calib, ccfg: CompressConfig,
         "replayed_groups": 0,
         "calib_dp": 1,
         "rank_mode": {"mode": ccfg.rank_mode},
-        "moe_dispatch": None,
+        # effective MoE routing after the CompressConfig overrides
+        "moe_dispatch": (cfg.moe.dispatch if cfg.moe is not None
+                         and cfg.moe.num_experts else None),
         "wall": sum(u.get("calib_wall", 0.0) for u in report["units"]),
     }
+    drop_rates = {u["name"]: u["moe_drop_rate"] for u in report["units"]
+                  if "moe_drop_rate" in u}
+    if drop_rates:
+        report["calibration"]["moe_drop_rate"] = drop_rates
     refined = [u for u in report["units"] if "refine_wall" in u]
     report["refinement"] = {
         # the port always refines in a per-step loop (no scanned schedule)

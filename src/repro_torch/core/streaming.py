@@ -2,7 +2,9 @@
 
 Counterpart of ``src/repro/core/streaming.py`` (``TapAccumulator`` :187,
 ``CalibrationEngine`` :207).  Per unit, every tap group's covariance triple
-is accumulated from tapped block forwards on both streams:
+is accumulated from tapped block forwards on both streams (per expert for
+the drop-free MoE's grouped bank taps, binned by the original stream's
+expert ids):
 
 - ``collect_fused`` — ONE tapped forward per microbatch per stream; every
   sown tap feeds its accumulator from the same pass, and the original-stream
@@ -33,15 +35,18 @@ Groups = Sequence[Tuple[str, Sequence[Spec]]]
 
 @dataclasses.dataclass
 class TapAccumulator:
-    """Streaming covariance state for one dense tap: (B, L, n) activations
-    flatten to token rows; memory is 3·n² fp32 whatever the token count."""
+    """Streaming covariance state for one tap.  Dense taps: (B, L, n)
+    activations flatten to token rows, 3·n² fp32 whatever the token count.
+    Grouped (drop-free) bank taps: (T·k, n) choice-major routed rows plus
+    the original stream's (T·k,) expert ids, into an (E, n, n) triple."""
 
     tap: str
     is_bank: bool
     covs: Dict
 
-    def update(self, a_act: torch.Tensor, b_act: torch.Tensor) -> None:
-        self.covs = C.update_covs(self.covs, a_act, b_act)
+    def update(self, a_act: torch.Tensor, b_act: torch.Tensor,
+               ids: Optional[torch.Tensor] = None) -> None:
+        self.covs = C.update_covs(self.covs, a_act, b_act, ids=ids)
 
 
 class CalibrationEngine:
@@ -53,41 +58,49 @@ class CalibrationEngine:
     """
 
     def __init__(self, groups: Groups, shapes: Dict[str, torch.Size],
-                 device="cpu"):
+                 device="cpu", num_experts: int = 0):
         self.groups = list(groups)
         self.device = device
-        self._spec: Dict[str, Tuple[bool, int]] = {}
+        # tap -> (is_bank, n, experts).  A bank tap sown as 2-D rows is the
+        # grouped (drop-free) layout: it carries no expert axis, so E comes
+        # from ``num_experts``.  3-D capacity buffers are not ported.
+        self._spec: Dict[str, Tuple[bool, int, int]] = {}
         for tap, group in self.groups:
-            if group[0][2]:
+            is_bank = group[0][2]
+            if is_bank and len(shapes[tap]) != 2:
                 raise NotImplementedError(
-                    "expert-bank taps are not ported to repro_torch yet "
-                    "(comes with the MoE slice)")
-            self._spec[tap] = (False, shapes[tap][-1])
+                    f"capacity-bank tap {tap!r} is not ported to repro_torch "
+                    "yet (comes with the capacity-dispatch slice)")
+            if is_bank and num_experts <= 0:
+                raise ValueError(
+                    f"grouped bank tap {tap!r} needs num_experts > 0")
+            self._spec[tap] = (is_bank, shapes[tap][-1],
+                               num_experts if is_bank else 0)
         self.accumulators: Dict[str, TapAccumulator] = {}
         self._released: Set[str] = set()
         self.stats: Dict[str, int] = {"tapped_forwards": 0, "tap_updates": 0}
 
     @classmethod
     def for_unit(cls, groups: Groups, fwd_taps: Callable, params, x0,
-                 aux0) -> "CalibrationEngine":
+                 aux0, num_experts: int = 0) -> "CalibrationEngine":
         """Size the registry from the taps of one forward on a single
         sequence of the first microbatch (the JAX package uses a shape-only
         evaluation; eager PyTorch has none, so one short forward stands in
-        and is not counted)."""
+        and is not counted).  ``num_experts`` sizes grouped bank taps."""
         with torch.no_grad():
             _, store = fwd_taps(params, x0[:1],
                                 None if aux0 is None else aux0[:1])
         shapes = {t: a.shape for t, a in store.items()}
-        return cls(groups, shapes, device=x0.device)
+        return cls(groups, shapes, device=x0.device, num_experts=num_experts)
 
     def _acc(self, tap: str) -> TapAccumulator:
         if tap in self._released:
             raise RuntimeError(f"tap {tap!r} already solved and released")
         acc = self.accumulators.get(tap)
         if acc is None:
-            is_bank, n = self._spec[tap]
+            is_bank, n, experts = self._spec[tap]
             acc = TapAccumulator(tap, is_bank,
-                                 C.init_covs(n, device=self.device))
+                                 C.init_covs(n, experts, device=self.device))
             self.accumulators[tap] = acc
         return acc
 
@@ -101,7 +114,9 @@ class CalibrationEngine:
         for tap in self._spec:
             if only is not None and tap not in only:
                 continue
-            self._acc(tap).update(taps_orig[tap], taps_shift[tap])
+            # grouped bank taps carry the ORIGINAL stream's expert ids
+            self._acc(tap).update(taps_orig[tap], taps_shift[tap],
+                                  ids=taps_orig.get(C.ids_tap_name(tap)))
             self.stats["tap_updates"] += 1
 
     def _tapped(self, fwd_taps, p, x, aux):

@@ -37,8 +37,9 @@
 // tile; a split-K decode path and wgmma are later work.
 //
 // Contract (checked by the wrapper, kernels/ops.py::flash_attention): q, k, v, o of
-// one dtype, contiguous, 16-byte aligned; D one of 16, 32, 64, 128 (the wrapper
-// zero-pads the head dim and passes the scale of the true one); q_off null (every
+// one dtype, contiguous, 16-byte aligned; D one of 16, 32, 64, 128, 192 (the wrapper
+// zero-pads the head dim and passes the scale of the true one; 192 is MLA prefill's
+// qk_nope 128 + qk_rope 64, with v zero-padded to it); q_off null (every
 // slot at q_off0) or a (B,) int32 device vector.  Returns cudaGetLastError().
 
 #include <cuda_bf16.h>
@@ -83,19 +84,26 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
   return __float2bfloat16(x);
 }
 
+// fp32 tiles write p over the scores they were made from (sP aliases sS): each
+// softmax thread reads its half-row of s into registers before it writes p there,
+// and no other thread touches that half-row.  That keeps the fp32 D = 192 tile
+// set (213.5 KB) under the 227 KB a block may have; bf16 keeps a separate sP.
 template <typename T, int D>
 struct Layout {
+  static constexpr bool P_IN_S = std::is_same<T, float>::value;
   static constexpr int LD = D + pad<T>();       // sQ, sK, sV rows
   static constexpr int LS = BKEY + 4;           // sS rows (fp32)
-  static constexpr int LP = BKEY + pad<T>();    // sP rows
+  static constexpr int LP = P_IN_S ? LS : BKEY + pad<T>();  // sP rows
   static constexpr int LO = D + 4;              // sO rows (fp32)
   static constexpr size_t q_bytes = sizeof(T) * BQ * LD;
   static constexpr size_t kv_bytes = sizeof(T) * BKEY * LD;
   static constexpr size_t s_bytes = sizeof(float) * BQ * LS;
-  static constexpr size_t p_bytes = sizeof(T) * BQ * LP;
+  static constexpr size_t p_bytes = P_IN_S ? 0 : sizeof(T) * BQ * LP;
   static constexpr size_t o_bytes = sizeof(float) * BQ * LO;
-  static constexpr size_t bytes =
-      q_bytes + 2 * kv_bytes + s_bytes + p_bytes + o_bytes + 2 * sizeof(float) * BQ;
+  static constexpr size_t s_off = q_bytes + 2 * kv_bytes;
+  static constexpr size_t p_off = P_IN_S ? s_off : s_off + s_bytes;
+  static constexpr size_t o_off = s_off + s_bytes + p_bytes;
+  static constexpr size_t bytes = o_off + o_bytes + 2 * sizeof(float) * BQ;
 };
 
 // S (BQ x BKEY, fp32, unscaled) = Q Kᵀ
@@ -229,10 +237,9 @@ __global__ void __launch_bounds__(THREADS) flash_fwd(Args a) {
   T* sQ = reinterpret_cast<T*>(smem);
   T* sK = reinterpret_cast<T*>(smem + Lay::q_bytes);
   T* sV = reinterpret_cast<T*>(smem + Lay::q_bytes + Lay::kv_bytes);
-  float* sS = reinterpret_cast<float*>(smem + Lay::q_bytes + 2 * Lay::kv_bytes);
-  T* sP = reinterpret_cast<T*>(smem + Lay::q_bytes + 2 * Lay::kv_bytes + Lay::s_bytes);
-  float* sO = reinterpret_cast<float*>(smem + Lay::q_bytes + 2 * Lay::kv_bytes +
-                                       Lay::s_bytes + Lay::p_bytes);
+  float* sS = reinterpret_cast<float*>(smem + Lay::s_off);
+  T* sP = reinterpret_cast<T*>(smem + Lay::p_off);
+  float* sO = reinterpret_cast<float*>(smem + Lay::o_off);
   float* sM = sO + BQ * Lay::LO;
   float* sL = sM + BQ;
 
@@ -355,6 +362,7 @@ int launch_dim(const Args& a, int d, cudaStream_t s) {
     case 32: return launch_typed<T, 32>(a, s);
     case 64: return launch_typed<T, 64>(a, s);
     case 128: return launch_typed<T, 128>(a, s);
+    case 192: return launch_typed<T, 192>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

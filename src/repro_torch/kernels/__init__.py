@@ -9,6 +9,9 @@
   (replaces ``src/repro/kernels/flash_attention.py``)
 - ``flash_decode`` — one decode step against the factorized latent KV
   cache (replaces ``src/repro/kernels/flash_decode.py``)
+- ``grouped_matmul`` — ragged expert GEMM over rows sorted by expert, for
+  the drop-free MoE dispatch (replaces
+  ``src/repro/kernels/grouped_matmul.py``)
 
 ``ops`` holds the dispatch wrappers (kernel on CUDA, plain version on the
 CPU), ``ref`` the plain versions, ``build`` the nvcc build and ctypes binding.

@@ -24,7 +24,8 @@ from repro_torch.kernels import build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # head dims the kernel is compiled for; the wrapper zero-pads up to one
-HEAD_DIMS = (16, 32, 64, 128)
+# (192: MLA prefill, qk_nope 128 + qk_rope 64)
+HEAD_DIMS = (16, 32, 64, 128, 192)
 
 
 def launch(q, k, v, o, q_off, q_off0: int, *, causal: bool, window: int,

@@ -23,11 +23,13 @@ import torch
 from repro_torch.kernels import cov_accum as _cov
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
+from repro_torch.kernels import grouped_matmul as _gm
 from repro_torch.kernels import lowrank_matmul as _lowrank
 from repro_torch.kernels import ref
 
 LAUNCHES: Dict[str, int] = {"cov_accum": 0, "lowrank_matmul": 0,
-                            "flash_attention": 0, "flash_decode": 0}
+                            "flash_attention": 0, "flash_decode": 0,
+                            "grouped_matmul": 0}
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -123,6 +125,40 @@ def cov_accum(x, xp, *, acc=None):
         return outs
     for a, o in zip(acc, outs):
         a.add_(o)
+    return acc
+
+
+def cov_accum_grouped(x, xp, ids, experts: int, *, acc=None):
+    """Drop-free routed covariance triple: (R, n) choice-major rows x2 and
+    (R,) expert ids of the ORIGINAL stream -> (xx, xxp, xpxp), each
+    (E, n, n) fp32; ``acc`` an existing triple to add into IN PLACE.
+
+    The rows are sorted by id (stable) and each expert's segment goes
+    through ``cov_accum`` with ``acc=`` that expert's slices, so on the card
+    the hand-written kernel adds straight into them; ids outside [0, E) are
+    dropped, as the one-hot of the reference drops them.  The segment sizes
+    are read on the host once per call — calibration only, never a model
+    forward.  Not a kernel of its own: the JAX package computes it with
+    XLA's ``segment_sum``, and ``LAUNCHES`` counts the ``cov_accum`` calls."""
+    n = x.shape[-1]
+    x = x.reshape(-1, n)
+    xp = xp.reshape(-1, n)
+    ids = ids.reshape(-1)
+    if acc is None:
+        acc = tuple(torch.zeros((experts, n, n), dtype=torch.float32,
+                                device=x.device) for _ in range(3))
+    order = torch.sort(ids, stable=True).indices
+    ids_sorted = ids.index_select(0, order)
+    bounds = torch.searchsorted(
+        ids_sorted, torch.arange(experts + 1, dtype=ids_sorted.dtype,
+                                 device=ids.device)).tolist()
+    xs = x.index_select(0, order)
+    xps = xp.index_select(0, order)
+    for e in range(experts):
+        lo, hi = bounds[e], bounds[e + 1]
+        if hi > lo:
+            cov_accum(xs[lo:hi], xps[lo:hi],
+                      acc=(acc[0][e], acc[1][e], acc[2][e]))
     return acc
 
 
@@ -371,3 +407,108 @@ def flash_decode(q, lk, lv, uk, uv, lengths, cos, sin, *, rope: bool = True):
     _fd.launch(q, lk, lv, uk, uv, lengths, cos, sin, out, rope=rope)
     LAUNCHES["flash_decode"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# grouped (ragged) expert GEMM
+
+
+def _check_grouped(x, w, group_sizes) -> None:
+    if (x.dim() != 2 or w.dim() != 3 or w.shape[1] != x.shape[1]
+            or group_sizes.shape != (w.shape[0],)):
+        raise ValueError(f"grouped_matmul: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)} and group_sizes "
+                         f"{tuple(group_sizes.shape)} do not fit")
+    if group_sizes.is_floating_point() or group_sizes.is_complex():
+        raise TypeError("grouped_matmul: group_sizes must be integers, got "
+                        f"{group_sizes.dtype}")
+
+
+def grouped_operands(x, w):
+    """Zero-pad the contraction dim d (x's columns, w's rows) and the output
+    dim f (w's columns) to the kernel's multiple: zero columns add nothing
+    to a row's product and zero output columns are sliced away, so the
+    padding is exact.  Rows need none (the kernel masks them)."""
+    mult = _gm.MULTIPLE
+    return pad_dim(x, 1, mult), pad_dim(pad_dim(w, 1, mult), 2, mult)
+
+
+def _grouped_kernel(x, w, group_sizes):
+    """Checked launch.  The segment offsets are an exclusive cumsum of the
+    group sizes made on the device: nothing of the routing is read on the
+    host, so a forward through here never synchronizes."""
+    _check_cuda("grouped_matmul", [x, w], x.dtype)
+    if group_sizes.device != x.device:
+        raise ValueError(f"grouped_matmul: group_sizes on "
+                         f"{group_sizes.device}, operands on {x.device}")
+    m, f = x.shape[0], w.shape[2]
+    if m == 0:
+        return x.new_zeros((0, f))
+    if -(-m // _gm.ROW_TILE[x.dtype]) > 65535:
+        raise ValueError(f"grouped_matmul: {m} rows exceed the kernel's grid")
+    offs = torch.cat([torch.zeros(1, dtype=torch.int32, device=x.device),
+                      torch.cumsum(group_sizes, 0, dtype=torch.int32)])
+    xk, wk = (_aligned(t) for t in grouped_operands(x, w))
+    y = torch.empty((m, wk.shape[2]), dtype=x.dtype, device=x.device)
+    _gm.launch(xk, wk, offs, y)
+    LAUNCHES["grouped_matmul"] += 1
+    return y if wk.shape[2] == f else y[:, :f].contiguous()
+
+
+def _grouped_forward(x, w, group_sizes):
+    if _on_cpu(x, w, group_sizes):
+        return ref.grouped_matmul_ref(x, w, group_sizes).to(x.dtype)
+    return _grouped_kernel(x, w, group_sizes)
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or the plain version (CPU).  The TPU
+    kernel has no backward (the JAX package differentiates
+    ``jax.lax.ragged_dot``); here:
+
+    * dx = dy @ W[g]ᵀ per row is the forward function again on
+      ``w.transpose(1, 2)`` made contiguous: the kernel on the card;
+    * dW[e] = x_eᵀ dy_e is one plain ``torch.matmul`` per expert segment in
+      fp32, cast to w's dtype.  Slicing the segments reads the group sizes
+      on the host once — in backward only; the forward never does."""
+
+    @staticmethod
+    def forward(ctx, x, w, group_sizes):
+        ctx.save_for_backward(x, w, group_sizes)
+        return _grouped_forward(x, w, group_sizes)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, group_sizes = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dy = dy.contiguous()
+        dx = dw = None
+        if need[0]:
+            wt = w.transpose(1, 2).contiguous()
+            dx = _grouped_forward(dy.to(wt.dtype), wt, group_sizes)
+            dx = dx.to(x.dtype)
+        if need[1]:
+            grads = []
+            start = 0
+            for n in group_sizes.tolist():
+                n = max(0, min(int(n), x.shape[0] - start))
+                grads.append(x[start:start + n].float().T
+                             @ dy[start:start + n].float())
+                start += n
+            dw = torch.stack(grads).to(w.dtype)
+        return dx, dw, None
+
+
+def grouped_matmul(x, w, group_sizes):
+    """Grouped (ragged) expert GEMM: x (M, d) rows sorted by group, w
+    (E, d, f), group_sizes (E,) integers summing to M -> (M, f) in x's
+    dtype, fp32 accumulation; differentiable in x and w.
+
+    Row i contracts against W[group(i)] only — a per-row function, which
+    keeps the drop-free MoE dispatch batch-size invariant.  On the card x
+    and w share one kernel dtype and group_sizes lies on the same device
+    (converted to int32 there)."""
+    _check_grouped(x, w, group_sizes)
+    if not _on_cpu(x, w, group_sizes):
+        group_sizes = group_sizes.to(torch.int32)
+    return _GroupedMatmul.apply(x, w, group_sizes)

@@ -26,6 +26,41 @@ def cov_accum_ref(x, xp):
     return xf.T @ xf, xf.T @ xpf, xpf.T @ xpf
 
 
+def cov_accum_grouped_ref(x, xp, ids, experts: int):
+    """Routed-rows covariance triple oracle, the counterpart of the JAX
+    package's ``ref.cov_accum_grouped_ref``.  x, xp: (R, n) choice-major
+    rows of the original / shifted stream, paired per (token, choice); ids:
+    (R,) expert id of each row from the ORIGINAL stream -> (xx, xxp, xpxp),
+    each (E, n, n) fp32.  All three bin by the same ids."""
+    oh = torch.nn.functional.one_hot(ids.long(), experts).float()   # (R, E)
+    xf = x.float()
+    xpf = xp.float()
+
+    def upd(a, b):
+        return torch.einsum("re,rn,rm->enm", oh, a, b)
+
+    return upd(xf, xf), upd(xf, xpf), upd(xpf, xpf)
+
+
+def grouped_matmul_ref(x, w, group_sizes):
+    """Grouped expert GEMM: x (M, d) rows sorted by group, w (E, d, f),
+    group_sizes (E,) integers -> (M, f) fp32.  Rows
+    [sum(sizes[:e]), sum(sizes[:e+1])) multiply w[e]; rows past the sizes'
+    sum are zero (as ``jax.lax.ragged_dot`` gives them).  A loop over the
+    segments with fp32 products; it reads the sizes on the host."""
+    m, f = x.shape[0], w.shape[-1]
+    pieces = []
+    start = 0
+    for e, n in enumerate(group_sizes.tolist()):
+        n = max(0, min(int(n), m - start))
+        pieces.append(x[start:start + n].float() @ w[e].float())
+        start += n
+    if start < m:
+        pieces.append(torch.zeros((m - start, f), dtype=torch.float32,
+                                  device=x.device))
+    return torch.cat(pieces)
+
+
 NEG_INF = -1e30
 
 

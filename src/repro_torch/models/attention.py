@@ -6,11 +6,14 @@ decode paths ``_cache_write`` :161, ``gqa_decode`` :174,
 ``gqa_prefill_cached`` :186 and ``_decode_attention`` :204 (without its
 sequence-parallel mesh branch), and the factorized latent-cache paths
 ``latent_ranks`` :528, ``_latent_kv`` :546, ``gqa_prefill_latent`` :554 and
-``gqa_decode_latent`` :583.
+``gqa_decode_latent`` :583, and the MLA prefill path ``mla_init`` /
+``_mla_q`` / ``_mla_ckv`` / ``mla_prefill`` / ``_pad_last`` :378-449.  MLA's
+cache paths (``mla_decode``, ``mla_prefill_cached``,
+``_mla_absorbed_attend``) come with the deepseek serving slice.
 
 Every attention product goes through the hand-written kernels on the card:
-``flash_attention`` (prefill, chunked and latent prefill, dense-cache
-decode, and the forwards of compression) and ``flash_decode`` (decode
+``flash_attention`` (prefill, MLA prefill at head dim 192, chunked and
+latent prefill, dense-cache decode, and the forwards of compression) and ``flash_decode`` (decode
 against the latent {"lk", "lv"} cache).  On the CPU their plain versions
 run (``kernels.ref``).
 
@@ -25,6 +28,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -246,3 +250,76 @@ def gqa_decode_latent(p, x, cache_lk, cache_lv, pos, cfg, cos, sin, *,
                          sin_all, rope=rope)
     return (L.linear(p["wo"], o.reshape(b, 1, h * hd).to(x.dtype)),
             cache_lk, cache_lv)
+
+
+# ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (DeepSeek-V2), expanded prefill path
+
+
+def mla_init(gen: torch.Generator, cfg, *, lead=(), dtype=torch.float32,
+             device="cpu"):
+    d, h = cfg.d_model, cfg.num_heads
+    m = cfg.mla
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    kw = dict(lead=lead, dtype=dtype, device=device)
+    return {
+        # q projection (dense — V2-Lite has no q-lora)
+        "wq": L.linear_init(gen, d, h * qd, **kw),
+        # compressed kv + shared rope key
+        "wkv_a": L.linear_init(gen, d, m.kv_lora_rank + m.qk_rope_head_dim,
+                               **kw),
+        "kv_norm": L.norm_init(m.kv_lora_rank, lead=lead, device=device),
+        # decompression: kv_lora -> per-head (nope key | value)
+        "wk_b": L.linear_init(gen, m.kv_lora_rank, h * m.qk_nope_head_dim,
+                              **kw),
+        "wv_b": L.linear_init(gen, m.kv_lora_rank, h * m.v_head_dim, **kw),
+        "wo": L.linear_init(gen, h * m.v_head_dim, d, **kw,
+                            scale=1.0 / math.sqrt(h * m.v_head_dim * 2
+                                                  * cfg.num_layers)),
+    }
+
+
+def _mla_q(p, x, cfg, cos, sin):
+    b, l, _ = x.shape
+    h, m = cfg.num_heads, cfg.mla
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    L.sow("qkv_in", x)
+    q = L.linear(p["wq"], x).reshape(b, l, h, qd)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    return q_nope, L.apply_rope(q_rope, cos, sin)
+
+
+def _mla_ckv(p, x, cfg, cos, sin):
+    m = cfg.mla
+    ckv = L.linear(p["wkv_a"], x)
+    c, k_rope = ckv[..., :m.kv_lora_rank], ckv[..., m.kv_lora_rank:]
+    c = L.apply_norm(p["kv_norm"], c, eps=cfg.norm_eps)
+    k_rope = L.apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+    return c, k_rope  # (B, L, r), (B, L, rope_dim)
+
+
+def _pad_last(x, to: int):
+    pad = to - x.shape[-1]
+    return x if pad == 0 else F.pad(x, (0, pad))
+
+
+def mla_prefill(p, x, cfg, cos, sin, *, chunk: int = 512):
+    """Expanded path: decompress per-token k/v from the latent, run
+    ``flash_attention`` as MHA at head dim qk_nope + qk_rope (v zero-padded
+    to it, the padded output columns sliced away).  ``cos`` / ``sin`` are
+    tables over ``qk_rope_head_dim``."""
+    b, l, _ = x.shape
+    h, m = cfg.num_heads, cfg.mla
+    q_nope, q_rope = _mla_q(p, x, cfg, cos, sin)
+    c, k_rope = _mla_ckv(p, x, cfg, cos, sin)
+    L.sow("kvb_in", c)
+    k_nope = L.linear(p["wk_b"], c).reshape(b, l, h, m.qk_nope_head_dim)
+    v = L.linear(p["wv_b"], c).reshape(b, l, h, m.v_head_dim)
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, l, h, m.qk_rope_head_dim)], -1)
+    o = flash_attention(q, k, _pad_last(v, q.shape[-1]), causal=True,
+                        chunk=chunk)[..., :m.v_head_dim]
+    o = o.reshape(b, l, -1)
+    L.sow("o_in", o)
+    return L.linear(p["wo"], o)

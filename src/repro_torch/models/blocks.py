@@ -1,11 +1,14 @@
-"""Block assembly: stage programs and the dense attention sub-block.
+"""Block assembly: stage programs and the sub-blocks ported so far.
 
 Counterpart of ``src/repro/models/blocks.py`` (``stage_program`` :43,
-``apply_sub_block`` :150, ``latent_layout`` :190, ``init_sub_cache`` :207,
-``prefill_sub_block`` :256, ``decode_sub_block`` :334) for the dense
-family's ``"attn"`` kind.  A stage with ``scan=True`` and ``n > 1`` stacks
-its sub-block params (and caches) on a leading axis, as the JAX package
-does; the port walks that axis in a Python loop.
+``init_sub_block`` :100, ``apply_sub_block`` :150, ``latent_layout`` :190,
+``init_sub_cache`` :207, ``prefill_sub_block`` :256, ``decode_sub_block``
+:334) for the dense family's ``"attn"`` kind and deepseek's
+``"mla_dense_first"`` / ``"mla_moe"`` kinds (MLA attention; a dense FFN or
+a drop-free MoE).  The MLA kinds have no cache paths yet: serving deepseek
+is its own slice.  A stage with ``scan=True`` and ``n > 1`` stacks its
+sub-block params (and caches) on a leading axis, as the JAX package does;
+the port walks that axis in a Python loop.
 """
 
 from __future__ import annotations
@@ -33,46 +36,83 @@ def _not_ported(what: str, slice_name: str):
         f"{slice_name} slice)")
 
 
+FORWARD_KINDS = ("attn", "mla_dense_first", "mla_moe")
+
+
 def stage_program(cfg) -> List[Stage]:
     if cfg.family in ("hybrid", "ssm"):
         raise _not_ported(f"family {cfg.family!r}", "SSM / hybrid")
     if cfg.attention == "sliding_mix":
         raise _not_ported("sliding-window attention", "dense-archs")
-    if cfg.moe is not None and cfg.moe.num_experts:
-        raise _not_ported("mixture of experts", "MoE")
     if cfg.family == "encdec":
         raise _not_ported("encoder-decoder models", "multimodal")
+    if cfg.moe is not None and cfg.moe.num_experts:
+        if cfg.attention != "mla":
+            raise _not_ported("MoE blocks with GQA attention (attn_moe)",
+                              "kimi-k2")
+        stages = []
+        if cfg.moe.first_k_dense:
+            stages.append(Stage(("mla_dense_first",), cfg.moe.first_k_dense,
+                                scan=cfg.moe.first_k_dense > 1))
+        stages.append(Stage(("mla_moe",),
+                            cfg.num_layers - cfg.moe.first_k_dense))
+        return stages
     if cfg.attention == "mla":
-        raise _not_ported("multi-head latent attention", "MoE")
+        raise _not_ported("MLA attention without MoE", "later")
     return [Stage(("attn",), cfg.num_layers)]
+
+
+def _check_kind(kind: str) -> None:
+    if kind not in FORWARD_KINDS:
+        raise _not_ported(f"sub-block kind {kind!r}", "later")
 
 
 def init_sub_block(kind: str, gen: torch.Generator, cfg, *, lead=(),
                    device="cpu"):
-    if kind != "attn":
-        raise _not_ported(f"sub-block kind {kind!r}", "later")
+    _check_kind(kind)
     kw = dict(lead=lead, device=device)
-    return {
+    p = {
         "ln1": L.norm_init(cfg.d_model, cfg.norm, **kw),
         "ln2": L.norm_init(cfg.d_model, cfg.norm, **kw),
-        "attn": A.gqa_init(gen, cfg, **kw),
-        "ffn": M.ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.act_fn,
-                          cfg.num_layers, **kw),
+        "attn": (A.mla_init(gen, cfg, **kw) if kind.startswith("mla")
+                 else A.gqa_init(gen, cfg, **kw)),
     }
+    if kind == "mla_moe":
+        p["ffn"] = M.moe_init(gen, cfg, **kw)
+    else:
+        d_ff = cfg.moe.dense_d_ff if kind == "mla_dense_first" else cfg.d_ff
+        p["ffn"] = M.ffn_init(gen, cfg.d_model, d_ff, cfg.act_fn,
+                              cfg.num_layers, **kw)
+    return p
 
 
 def apply_sub_block(kind: str, p, x, cfg, ctx):
     """x: (B, L, d) -> (x, aux_loss)."""
-    if kind != "attn":
-        raise _not_ported(f"sub-block kind {kind!r}", "later")
+    _check_kind(kind)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.apply_norm(p["ln1"], x, eps=cfg.norm_eps)
     with L.scope("attn"):
-        attn_out = A.gqa_prefill(p["attn"], h, cfg, ctx["cos"], ctx["sin"])
+        if kind.startswith("mla"):
+            attn_out = A.mla_prefill(p["attn"], h, cfg, ctx["cos"],
+                                     ctx["sin"])
+        else:
+            attn_out = A.gqa_prefill(p["attn"], h, cfg, ctx["cos"],
+                                     ctx["sin"])
     x = x + attn_out
     h2 = L.apply_norm(p["ln2"], x, eps=cfg.norm_eps)
     with L.scope("ffn"):
+        if kind == "mla_moe":
+            y, aux = M.moe_apply(p["ffn"], h2, cfg)
+            return x + y, aux
         return x + M.ffn_apply(p["ffn"], h2, cfg.act_fn), zero
+
+
+def _check_cache_kind(kind: str) -> None:
+    if kind.startswith("mla"):
+        raise _not_ported(f"the cache paths of sub-block kind {kind!r} "
+                          "(MLA decode)", "deepseek serving")
+    if kind != "attn":
+        raise _not_ported(f"sub-block kind {kind!r}", "later")
 
 
 # ---------------------------------------------------------------------------
@@ -84,8 +124,7 @@ def latent_layout(kind: str, params, cfg) -> Optional[Tuple[int, int]]:
     kv latent instead of dense k/v: bias-free factorized wk AND wv, no
     qk-norm (applied after the up-projection, so it cannot be absorbed) and
     no logit softcap (the decode kernel has none)."""
-    if kind != "attn":
-        raise _not_ported(f"sub-block kind {kind!r}", "later")
+    _check_cache_kind(kind)
     if params is None or cfg.qk_norm or cfg.attn_logit_softcap:
         return None
     return A.latent_ranks(params.get("attn")) if isinstance(params, dict) \
@@ -112,8 +151,7 @@ def prefill_sub_block(kind: str, p, x, cache, cfg, ctx):
     ``ctx["pos"]``.  ``ctx["chunked"]`` attends against the WHOLE cache with
     absolute-position masking, so a prompt can be prefilled chunk by chunk.
     Returns (x, cache, aux)."""
-    if kind != "attn":
-        raise _not_ported(f"sub-block kind {kind!r}", "later")
+    _check_cache_kind(kind)
     start = ctx.get("pos", 0)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     cos, sin = ctx["cos"], ctx["sin"]
@@ -139,8 +177,7 @@ def prefill_sub_block(kind: str, p, x, cache, cfg, ctx):
 def decode_sub_block(kind: str, p, x, cache, cfg, ctx):
     """x: (B, 1, d) -> (x, cache), the cache updated in place at
     ``ctx["pos"]`` (an int or a per-slot (B,) tensor)."""
-    if kind != "attn":
-        raise _not_ported(f"sub-block kind {kind!r}", "later")
+    _check_cache_kind(kind)
     pos = ctx["pos"]
     cos, sin = ctx["cos"], ctx["sin"]
     h = L.apply_norm(p["ln1"], x, eps=cfg.norm_eps)

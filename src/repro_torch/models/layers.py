@@ -58,6 +58,12 @@ def sow(name: str, x) -> None:
         _SOW_STORE["/".join(_SCOPE + [name])] = x
 
 
+def tapping() -> bool:
+    """Whether a ``sowing`` store is active: callers skip building a tap
+    that only calibration reads (where JAX's tracer would drop it)."""
+    return _SOW_STORE is not None
+
+
 # ---------------------------------------------------------------------------
 # linear
 

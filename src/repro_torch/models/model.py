@@ -1,8 +1,8 @@
 """Top-level model: embed → stage program → final norm → head.
 
 Counterpart of ``src/repro/models/model.py`` (``init_params`` :35,
-``make_ctx`` :100, ``_embed_inputs`` :150, ``forward_hidden`` :169,
-``loss_fn`` :192, ``logits_from_hidden`` :200, ``init_cache`` :209,
+``_rope_dim`` :94, ``make_ctx`` :100, ``_embed_inputs`` :150,
+``forward_hidden`` :169, ``loss_fn`` :192, ``logits_from_hidden`` :200, ``init_cache`` :209,
 ``cache_slot_take`` :236, ``cache_slot_put`` :252, ``_run_stage_cached``
 :269, ``prefill`` :323, ``decode_step`` :358).  Batches are dicts:
 ``tokens`` (B, L) and ``labels`` (B, L) integer tensors.
@@ -70,9 +70,16 @@ def init_params(cfg, seed: int = 0, *, device=None) -> PyTree:
 # context (rope tables)
 
 
+def _rope_dim(cfg) -> int:
+    """RoPE runs over the whole head, or over MLA's qk_rope part."""
+    if cfg.mla is not None and cfg.mla.kv_lora_rank:
+        return cfg.mla.qk_rope_head_dim
+    return cfg.head_dim
+
+
 def make_ctx(cfg, positions) -> Dict[str, Any]:
     ctx: Dict[str, Any] = {}
-    ctx["cos"], ctx["sin"] = L.rope_table(positions, cfg.head_dim,
+    ctx["cos"], ctx["sin"] = L.rope_table(positions, _rope_dim(cfg),
                                           cfg.rope_theta)
     return ctx
 

@@ -1,4 +1,4 @@
-"""The port's llama config equals the JAX package's field by field."""
+"""The port's configs equal the JAX package's field by field."""
 
 from __future__ import annotations
 
@@ -16,6 +16,16 @@ def test_llama_config_field_equal(getter):
     tc = getattr(TC, getter)("llama-7b")
     assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
     assert tc.head_dim == jc.head_dim
+
+
+@pytest.mark.parametrize("getter", ["get_config", "get_smoke_config"])
+def test_deepseek_config_field_equal(getter):
+    # MoEConfig and MLAConfig sub-configs included
+    jc = getattr(JC, getter)("deepseek-v2-lite-16b")
+    tc = getattr(TC, getter)("deepseek-v2-lite-16b")
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    assert tc.head_dim == jc.head_dim == (tc.mla.qk_nope_head_dim
+                                          + tc.mla.qk_rope_head_dim)
 
 
 def test_head_dim_default_rule():

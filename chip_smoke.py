@@ -2,11 +2,14 @@
 """Drive the PyTorch/CUDA port of AA-SVD (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
+    python3 chip_smoke.py --only lowrank   # phases 1-2 and lowrank_matmul
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. device  — needs CUDA; prints the card's name and power limit.
-2. build   — compiles the hand-written kernels (``src/repro_torch/csrc``).
+2. build   — compiles the hand-written kernels (``src/repro_torch/csrc``);
+             prints nvcc's version and whether the wgmma body's SASS holds
+             HGMMA (``cuobjdump``, where the toolkit has it).
 3. kernels — every kernel against its plain PyTorch version on the card, at
              the main paths' shapes and ragged ones, in fp32 and bf16, with
              times (CUDA events, median of 10 runs after warm-up), the plain
@@ -15,7 +18,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
              time for the same work (``bound_ms``); ``grouped_matmul`` also
              backward (dx, dW) against autograd through its plain version at
              a refinement shape and the ragged one, and ``flash_attention``
-             at MLA prefill's head dim 192.
+             at MLA prefill's head dim 192.  ``lowrank_matmul`` at T 4096,
+             256 and 8 for each llama shape, ragged T through every body,
+             and T 1-64 with each bf16 body forced; beside its ``ms`` (one
+             call between CUDA events, as every kernel is timed) it gives
+             ``device_ms``: the device time of one call in a run of launches
+             replayed from a CUDA graph, the L2 evicted before each (no host
+             time, no launch start-up), and the same for the yardstick
+             (``library_device_ms``); and x @ V alone (``lowrank_down``,
+             the latent cache's projections) under each body.  ``--only
+             lowrank`` runs phases 1-2 and these rows alone.
 4. smoke   — the smoke compression recipe on the card (kernels) and on the
              CPU (plain versions) from the same params and tokens; then the
              compressed smoke model served on both (continuous batching over
@@ -40,7 +52,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
              zeroed before each and read after: flash_attention > 0 in both,
              flash_decode and lowrank_matmul > 0 in (b).  Then latent-cache
              decode against dense-cache decode, and chunked against whole
-             prefill, on one teacher-forced sequence.  Prints time to first
+             prefill (a last chunk of 256 rows and one of 8), on one
+             teacher-forced sequence.  Prints time to first
              token, prefill and decode tokens/s, the median decode step,
              cache bytes (latent / dense) and peak device memory.
 7. moe     — Algorithm 2 on deepseek-v2-lite-16b at its published widths
@@ -70,6 +83,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 OUT = ROOT / "chiprun_out"
+LOG = OUT / "chip_smoke.log"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by input type
 HBM_BYTES_PER_S = 3.35e12
@@ -82,6 +96,12 @@ SIZES = {
     "cov_n": (4096, 11008, 80),
     "lowrank_nkm": ((4096, 1232, 4096), (4096, 1792, 11008),
                     (11008, 1792, 4096), (64, 19, 160)),
+    # lowrank_matmul rows per llama shape: T 4096 (compression, eval, whole
+    # prefill), 256 (the engine's prefill chunk), 8 (decode of 8 slots);
+    # ragged T through both bodies; each bf16 body forced at small T
+    "lowrank_T": (4096, 256, 8),
+    "lowrank_ragged_T": (1, 3, 77, 129),
+    "lowrank_forced_T": (1, 3, 8, 16, 32, 64),
     "layers": 2,
     "calib": (8, 1024),
     "microbatch": 4,
@@ -134,7 +154,7 @@ class PhaseError(RuntimeError):
 def log(*args):
     line = " ".join(str(a) for a in args)
     print(line, flush=True)
-    with open(OUT / "chip_smoke.log", "a") as f:
+    with open(LOG, "a") as f:
         f.write(line + "\n")
 
 
@@ -164,6 +184,62 @@ def time_ms(fn, *, warmup=3, reps=10):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+FLUSH_BYTES = 256 << 20   # a read this large evicts the H100's 50 MB L2
+
+
+def device_ms(fn, *, calls=10, reps=5):
+    """Device milliseconds of one ``fn()`` in a run of ``calls`` launches:
+    CUDA events around a replay of a CUDA graph holding the run (so no host
+    time is counted), over ``calls``, median of ``reps`` replays after 3
+    eager warm-up runs.  A 256 MB read precedes each call in the graph,
+    evicting the L2 as a decode step finds each linear's factors (read once
+    a step); a graph of the reads alone is timed the same way and taken
+    off.  The cuBLAS workspaces that capture leaves behind are freed after,
+    so later phases' peak memory does not carry them."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    flush = torch.ones(FLUSH_BYTES // 4, device="cuda")
+
+    def run(with_fn):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                flush.sum()     # a read: leaves the L2 clean, no write-back
+                if with_fn:
+                    fn()
+        times = []
+        for _ in range(reps + 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        del graph
+        return statistics.median(times[1:])
+
+    ms = (run(True) - run(False)) / calls
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    return ms
+
+
+def lowrank_rows(ops):
+    """lowrank_matmul's launches since the last reset, by row count T and
+    split at 16 (the small-T body's bf16 limit) and 64."""
+    rows = dict(sorted(ops.LOWRANK_ROWS.items()))
+    return {"by_rows": rows,
+            "rows<=16": sum(c for t, c in rows.items() if t <= 16),
+            "rows<=64": sum(c for t, c in rows.items() if t <= 64),
+            "rows>64": sum(c for t, c in rows.items() if t > 64)}
 
 
 def bound(flops, nbytes, dtype_name):
@@ -226,7 +302,10 @@ def check_cov(torch, ops, ref, t_rows, n, dtype, with_acc, timed, dev):
 
 
 def check_lowrank(torch, ops, ref, t_rows, n, k, m, dtype, epilogue, timed,
-                  dev):
+                  dev, body=None):
+    """One lowrank_matmul case against its plain version; ``body`` forces
+    a body of the launch plan, None lets the plan choose."""
+    from repro_torch.kernels import lowrank_matmul as low
     gen = torch.Generator(device=dev).manual_seed(n + k + m)
     x = torch.randn(t_rows, n, generator=gen, device=dev).to(dtype)
     v = (torch.randn(n, k, generator=gen, device=dev) / math.sqrt(n)
@@ -240,7 +319,13 @@ def check_lowrank(torch, ops, ref, t_rows, n, k, m, dtype, epilogue, timed,
     want = ref.lowrank_matmul_ref(x, v, u)
     if epilogue:
         want = want + bias + res
-    got = ops.lowrank_matmul(x, v, u, bias=bias, residual=res)
+
+    def run():
+        if body is None:
+            return ops.lowrank_matmul(x, v, u, bias=bias, residual=res)
+        return ops._lowrank_kernel(x, v, u, bias, res, body=body)[0]
+
+    got = run()
     mae = float((got.float() - want.float()).abs().max())
     if dtype == torch.float32:
         err = rel_fro(got, want)
@@ -253,15 +338,21 @@ def check_lowrank(torch, ops, ref, t_rows, n, k, m, dtype, epilogue, timed,
         err = mae
         require(mae <= lim, f"lowrank_matmul {t_rows}x{n}x{k}x{m} bf16 "
                 f"epilogue={epilogue}: max abs err {mae:.3e} > {lim:.3e}")
+    p = low.plan(t_rows, n, k, m, dtype, body=body)
     row = {"shape": [t_rows, n, k, m], "dtype": str(dtype)
            .replace("torch.", ""), "epilogue": epilogue, "err": err,
-           "max_abs_err": mae}
+           "max_abs_err": mae, "body": p.body, "forced": body is not None,
+           "grid_xv": p.grid("xv"), "grid_tu": p.grid("tu"),
+           "tile_rows": [p.tile_rows_xv, p.tile_rows_tu]}
     if timed:
-        row["ms"] = time_ms(lambda: ops.lowrank_matmul(
-            x, v, u, bias=bias, residual=res))
+        # ms: one call between CUDA events, as every kernel here is timed
+        # (host launch work included); device_ms: the device time alone
+        library = lambda: torch.matmul(torch.matmul(x, v), u)  # noqa: E731
+        row["ms"] = time_ms(run)
+        row["device_ms"] = device_ms(run)
         row["plain_ms"] = time_ms(lambda: ref.lowrank_matmul_ref(x, v, u))
-        row["library_ms"] = time_ms(lambda: torch.matmul(
-            torch.matmul(x, v), u))
+        row["library_ms"] = time_ms(library)
+        row["library_device_ms"] = device_ms(library)
         eb = x.element_size()
         flops = 2 * t_rows * k * (n + m)
         nbytes = (t_rows * n + n * k + k * m + t_rows * m) * eb
@@ -270,6 +361,34 @@ def check_lowrank(torch, ops, ref, t_rows, n, k, m, dtype, epilogue, timed,
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes,
                                                  row["dtype"])
     return row
+
+
+def check_lowrank_down(torch, ops, t_rows, n, k, dtype, invariant, dev):
+    """``ops.lowrank_down`` (x @ V alone, the serving latents) against the
+    plain product rounded once, under the plan's body or, with
+    ``invariant``, under ``ops.batch_invariant`` (prefill's); the limits of
+    check_lowrank."""
+    import contextlib
+    gen = torch.Generator(device=dev).manual_seed(n + k + t_rows)
+    x = torch.randn(t_rows, n, generator=gen, device=dev).to(dtype)
+    v = (torch.randn(n, k, generator=gen, device=dev) / math.sqrt(n)
+         ).to(dtype)
+    want = torch.matmul(x.float(), v.float()).to(dtype)
+    with ops.batch_invariant() if invariant else contextlib.nullcontext():
+        got = ops.lowrank_down(x, v)
+    mae = float((got.float() - want.float()).abs().max())
+    if dtype == torch.float32:
+        err = rel_fro(got, want)
+        require(err <= 1e-5, f"lowrank_down {t_rows}x{n}x{k} fp32 "
+                f"invariant={invariant}: rel err {err:.3e} > 1e-5")
+    else:
+        err = mae
+        lim = 2e-2 * float(want.float().abs().max())
+        require(mae <= lim, f"lowrank_down {t_rows}x{n}x{k} bf16 "
+                f"invariant={invariant}: max abs err {mae:.3e} > {lim:.3e}")
+    return {"shape": [t_rows, n, k], "dtype": str(dtype).replace(
+        "torch.", ""), "batch_invariant": invariant, "err": err,
+        "max_abs_err": mae}
 
 
 def phase_kernels(torch, ops, ref, dev="cuda", sizes=SIZES):
@@ -286,16 +405,78 @@ def phase_kernels(torch, ops, ref, dev="cuda", sizes=SIZES):
                                 timed, dev)
                 cov_rows.append(row)
                 log("cov_accum", json.dumps(row))
-    for i, (n, k, m) in enumerate(sizes["lowrank_nkm"]):
-        for dtype in (torch.float32, torch.bfloat16):
+    return cov_rows, phase_lowrank(torch, ops, ref, dev, sizes)
+
+
+def phase_lowrank(torch, ops, ref, dev="cuda", sizes=SIZES):
+    """lowrank_matmul at each llama shape and T of ``lowrank_T`` (fp32 and
+    bf16, with and without the epilogue; timed in bf16 without it), ragged
+    T at the first llama shape and at the ragged (n, k, m), then each bf16
+    body forced at the T of ``lowrank_forced_T`` it takes (two llama shapes
+    and the ragged one: prefill takes the wgmma body at any T)."""
+    from repro_torch.kernels import lowrank_matmul as low
+    rows = []
+
+    def add(*args, **kw):
+        row = check_lowrank(torch, ops, ref, *args, dev=dev, **kw)
+        rows.append(row)
+        log("lowrank_matmul", json.dumps(row))
+
+    shapes = sizes["lowrank_nkm"]
+    dtypes = (torch.float32, torch.bfloat16)
+    for n, k, m in shapes[:-1]:
+        for t_rows in sizes["lowrank_T"]:
+            for dtype in dtypes:
+                for epilogue in (False, True):
+                    add(t_rows, n, k, m, dtype, epilogue,
+                        dtype == torch.bfloat16 and not epilogue)
+    n, k, m = shapes[0]
+    for t_rows in sizes["lowrank_ragged_T"]:
+        for dtype in dtypes:
+            add(t_rows, n, k, m, dtype, True, False)
+    n, k, m = shapes[-1]
+    for t_rows in sizes["lowrank_ragged_T"] + (sizes["tokens"],):
+        for dtype in dtypes:
             for epilogue in (False, True):
-                timed = (i < len(sizes["lowrank_nkm"]) - 1
-                         and dtype == torch.bfloat16 and not epilogue)
-                row = check_lowrank(torch, ops, ref, t_rows, n, k, m, dtype,
-                                    epilogue, timed, dev)
-                low_rows.append(row)
-                log("lowrank_matmul", json.dumps(row))
-    return cov_rows, low_rows
+                add(t_rows, n, k, m, dtype, epilogue, False)
+    small_max = low.SMALL_ROWS[torch.bfloat16][-1]
+    for n, k, m in shapes[:2] + shapes[-1:]:
+        for t_rows in sizes["lowrank_forced_T"]:
+            for body in ("small_t", "wgmma"):
+                if body == "wgmma" or t_rows <= small_max:
+                    add(t_rows, n, k, m, torch.bfloat16, False, False,
+                        body=body)
+    # x @ V alone (the latent cache's projections), at the attention
+    # shape's and the ragged shape's (n, k)
+    for n, k, _ in shapes[:1] + shapes[-1:]:
+        for t_rows in sizes["lowrank_ragged_T"] + (8, 256):
+            for dtype in dtypes:
+                for invariant in (False, True):
+                    row = check_lowrank_down(torch, ops, t_rows, n, k, dtype,
+                                             invariant, dev)
+                    rows.append(row)
+                    log("lowrank_down", json.dumps(row))
+    return rows
+
+
+def sass_report(lib_path):
+    """{kernel symbol: HGMMA instruction count} from ``cuobjdump
+    --dump-sass`` of the built library, or None without cuobjdump."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not pathlib.Path(tool).exists():
+        return None
+    out = subprocess.run([tool, "--dump-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=300)
+    require(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def _spread(np, spec, n):
@@ -794,6 +975,7 @@ def phase_main(torch, ops, dev="cuda", sizes=SIZES, cfg=None):
     compressed = eval_loss(comp)
     stages["eval"] = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    rows = lowrank_rows(ops)
     peak = torch.cuda.max_memory_allocated() if on_card else 0
 
     log("main: stage seconds", json.dumps(stages))
@@ -823,7 +1005,8 @@ def phase_main(torch, ops, dev="cuda", sizes=SIZES, cfg=None):
                   ["rank"])
     require(tuple(lin["v"].shape) == want_shape,
             f"factor shape {tuple(lin['v'].shape)} != {want_shape}")
-    return {"stages": stages, "launches": launches, "peak_bytes": peak,
+    return {"stages": stages, "launches": launches,
+            "lowrank_rows": rows, "peak_bytes": peak,
             "dense": dense, "compressed": compressed}, cfg, params, comp
 
 
@@ -874,7 +1057,8 @@ def phase_serve(torch, np, ops, cfg, params, comp, dev="cuda", sizes=SIZES):
             f"Server tokens malformed: {tuple(toks.shape)}")
     decode_s = t_all - t_prefill
     out["server"] = {
-        "launches": launches, "prefill_s": t_prefill,
+        "launches": launches, "lowrank_rows": lowrank_rows(ops),
+        "prefill_s": t_prefill,
         "prefill_tokens_per_s": b * plen / t_prefill,
         "decode_tokens_per_s": b * (steps - 1) / decode_s,
         "decode_step_ms": decode_s / (steps - 1) * 1e3,
@@ -915,7 +1099,8 @@ def phase_serve(torch, np, ops, cfg, params, comp, dev="cuda", sizes=SIZES):
     latent = _cache_bytes(M, cfg, slots, max_len, eng.params)
     dense = _cache_bytes(M, cfg, slots, max_len, None)
     out["engine"] = {
-        "launches": launches, "wall_s": wall, "requests": n_req,
+        "launches": launches, "lowrank_rows": lowrank_rows(ops),
+        "wall_s": wall, "requests": n_req,
         "prompt_lens": lens.tolist(),
         "ttft_s_median": statistics.median(ttft), "ttft_s_max": max(ttft),
         "ttft_s_first_slots_median": statistics.median(ttft[:slots]),
@@ -941,7 +1126,8 @@ def phase_serve(torch, np, ops, cfg, params, comp, dev="cuda", sizes=SIZES):
     same = sum(int((res_d[i]["tokens"] == res[i]["tokens"]).sum())
                for i in range(n_req))
     out["engine_dense"] = {
-        "launches": dict(ops.LAUNCHES), "wall_s": wall,
+        "launches": dict(ops.LAUNCHES), "lowrank_rows": lowrank_rows(ops),
+        "wall_s": wall,
         "decode_step_ms_median": statistics.median(times) * 1e3,
         "decode_tokens_per_s": n_req * (steps - 1) / sum(times),
         "tokens_equal_to_latent": same / (n_req * steps)}
@@ -964,15 +1150,25 @@ def phase_serve(torch, np, ops, cfg, params, comp, dev="cuda", sizes=SIZES):
                 rows.append(M.decode_step(p, cfg, cache, seq[:, i:i + 1],
                                           pos)[0])
             logits[layout] = torch.cat(rows)
-        chunked = {}
+        # chunked against whole prefill of plen tokens (a last chunk of
+        # `chunk` rows) and of plen + 8 (a last chunk of 8 rows, decode's
+        # row count): the last row's logits
+        def new_cache(layout):
+            return M.init_cache(cfg, 1, max_len, params=p if layout ==
+                                "latent" else None, device=dev)
+
+        err_chunk = {}
         for layout in ("latent", "dense"):
-            cache = M.init_cache(cfg, 1, max_len, params=p if layout ==
-                                 "latent" else None, device=dev)
-            for c0 in range(0, plen, chunk):
-                last, cache = M.prefill(p, cfg,
-                                        {"tokens": seq[:, c0:c0 + chunk]},
-                                        cache, pos=c0, chunked=True)
-            chunked[layout] = last
+            for tail in (0, 8):
+                cache, end = new_cache(layout), plen + tail
+                for c0 in range(0, end, chunk):
+                    last, cache = M.prefill(
+                        p, cfg, {"tokens": seq[:, c0:min(end, c0 + chunk)]},
+                        cache, pos=c0, chunked=True)
+                whole = (logits[layout][:1] if tail == 0 else M.prefill(
+                    p, cfg, {"tokens": seq[:, :end]}, new_cache(layout))[0])
+                key = layout if tail == 0 else f"{layout}_last_chunk_{tail}"
+                err_chunk[key] = rel_fro(last, whole)
         # the same two routes with fp32 activations: both caches then hold
         # unrounded keys and values, so they must agree to fp32 rounding
         cfg32 = cfg.replace(dtype="float32")
@@ -990,7 +1186,6 @@ def phase_serve(torch, np, ops, cfg, params, comp, dev="cuda", sizes=SIZES):
     err_bf16 = {k: rel_fro(logits[k][1:], logits["dense32"][1:])
                 for k in ("latent", "dense")}
     err_prefill = rel_fro(logits["latent"][:1], logits["dense"][:1])
-    err_chunk = {k: rel_fro(v, logits[k][:1]) for k, v in chunked.items()}
     out["checks"] = {"latent_vs_dense_decode": err_decode,
                      "latent_vs_dense_decode_fp32": err_decode32,
                      "bf16_vs_fp32_decode": err_bf16,
@@ -1003,7 +1198,9 @@ def phase_serve(torch, np, ops, cfg, params, comp, dev="cuda", sizes=SIZES):
     # route is 7.2-7.6 % from the fp32 one on these random weights (this
     # script on an H100, "bf16_vs_fp32_decode" above): 1e-1.  Chunked
     # prefill runs each row through the same kernels in the same tile
-    # order; only the cuBLAS latent projection sees another row count: 1e-2
+    # order (prefill takes lowrank_matmul's large-T body at any row count:
+    # ops.batch_invariant); only the cuBLAS latent projection sees another
+    # row count: 1e-2
     require(err_decode <= 1e-1, f"latent vs dense decode {err_decode:.3e}")
     # fp32 activations: the same function through two kernels, sums in
     # another order: 1e-4
@@ -1197,6 +1394,7 @@ def phase_moe(torch, ops, dev="cuda", sizes=SIZES, cfg=None):
     compressed = eval_loss(comp)
     stages["eval"] = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    rows = lowrank_rows(ops)
     peak = torch.cuda.max_memory_allocated() if on_card else 0
 
     ratio = repro_torch.compress_ratio_report(params, comp)
@@ -1250,7 +1448,8 @@ def phase_moe(torch, ops, dev="cuda", sizes=SIZES, cfg=None):
                                                 evals[0])
         log("moe: compressed eval forward, device time by kernel",
             json.dumps(extra["eval_profile"]))
-    return {"stages": stages, "launches": launches, "peak_bytes": peak,
+    return {"stages": stages, "launches": launches,
+            "lowrank_rows": rows, "peak_bytes": peak,
             "compress_wall_s": t_compress, "ratio": ratio, "ranks": ranks,
             "dense": dense, "compressed": compressed, **extra}
 
@@ -1258,7 +1457,12 @@ def phase_moe(torch, ops, dev="cuda", sizes=SIZES, cfg=None):
 # ---------------------------------------------------------------------------
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", choices=("lowrank",),
+                    help="phases 1-2 and lowrank_matmul's rows of phase 3")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1269,7 +1473,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     OUT.mkdir(exist_ok=True)
-    (OUT / "chip_smoke.log").write_text("")
+    global LOG
+    # a partial run (--only) names its log after its part
+    tag = "" if args.only is None else f"_{args.only}"
+    LOG = OUT / f"chip_smoke{tag}.log"
+    LOG.write_text("")
     import numpy as np
 
     import repro_torch  # noqa: F401  (turns TF32 off)
@@ -1291,9 +1499,31 @@ def main() -> int:
     t0 = time.perf_counter()
     build.library()
     log(f"build: {time.perf_counter() - t0:.3f} s ({build.library_path()})")
+    nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
+                          text=True, timeout=60).stdout.strip().splitlines()
+    log("build: nvcc", nvcc[-1] if nvcc else "?")
     for line in build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("build:", line.strip())
+    from repro_torch.kernels import lowrank_matmul as low
+    hgmma = sass_report(build.library_path())
+    if hgmma is None:
+        log("sass: cuobjdump not found; HGMMA not checked")
+    else:
+        wg = {fn: c for fn, c in hgmma.items() if "wgmma" in fn}
+        log("sass: HGMMA instructions by kernel:", json.dumps(
+            {fn: c for fn, c in hgmma.items() if c} or "none"))
+        require(wg and all(wg.values()),
+                f"the wgmma body's SASS holds no HGMMA: {wg}")
+    if args.only == "lowrank":
+        rows = phase_lowrank(torch, ops, ref)
+        with open(OUT / f"chip_smoke{tag}.json", "w") as f:
+            json.dump({"card": card, "lowrank_matmul": rows},
+                      f, indent=1)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # 3. kernels
     t0 = time.perf_counter()
@@ -1325,7 +1555,9 @@ def main() -> int:
         return {"max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-                "shape": row["shape"], "dtype": row["dtype"]}
+                "shape": row["shape"], "dtype": row["dtype"],
+                **{key: row[key] for key in ("device_ms", "library_device_ms")
+                   if key in row}}
 
     def entry(name, source, replaces, rows, path):
         head = next(r for r in rows if "ms" in r)
@@ -1353,6 +1585,22 @@ def main() -> int:
               "src/repro/kernels/grouped_matmul.py:105", gm_rows,
               "compress_moe"),
     ]
+    # lowrank_matmul's other bodies, where the engine runs them: decode's
+    # T 8 (small_t) and the prefill chunk's T 256 (wgmma, split), and its
+    # launches on each path by row count
+    low = next(k for k in kernels if k["name"] == "lowrank_matmul")
+    for key, t_rows in (("decode_T8", 8), ("chunk_T256", 256)):
+        low[key] = timing(next(r for r in low_rows if "ms" in r
+                               and r["shape"][0] == t_rows
+                               and not r["forced"]))
+        low[key]["body"] = next(
+            r["body"] for r in low_rows if "ms" in r
+            and r["shape"][0] == t_rows and not r["forced"])
+    low["launches_by_rows"] = {
+        "compress": main_run["lowrank_rows"],
+        "serve_server": serve_run["server"]["lowrank_rows"],
+        "serve_engine": serve_run["engine"]["lowrank_rows"],
+        "compress_moe": moe_run["lowrank_rows"]}
     # MLA prefill's head dim: the flash_attention instance phase 7 runs
     next(k for k in kernels if k["name"] == "flash_attention")[
         "mla_prefill_d192"] = timing(next(

@@ -37,8 +37,8 @@ _F = ctypes.c_float
 # floats as c_float)
 SIGNATURES = {
     "cov_accum_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "lowrank_matmul_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _P],
+    "lowrank_matmul_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _F, _F, _I, _P],
     "flash_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -15,6 +15,8 @@ Counterpart of ``src/repro/kernels/ops.py``.  Each wrapper:
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import math
 from typing import Dict, Optional, Sequence
 
@@ -30,6 +32,8 @@ from repro_torch.kernels import ref
 LAUNCHES: Dict[str, int] = {"cov_accum": 0, "lowrank_matmul": 0,
                             "flash_attention": 0, "flash_decode": 0,
                             "grouped_matmul": 0}
+# lowrank_matmul's launches by row count T (its plan's body depends on T)
+LOWRANK_ROWS: Dict[int, int] = collections.Counter()
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -37,6 +41,7 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LOWRANK_ROWS.clear()
 
 
 def pad_dim(x: torch.Tensor, axis: int, multiple: int) -> torch.Tensor:
@@ -166,31 +171,55 @@ def cov_accum_grouped(x, xp, ids, experts: int, *, acc=None):
 # factorized linear
 
 
-def _lowrank_kernel(x, v, u, bias, residual):
-    """Padded launch on 2D operands; returns (y (T, m), t (T, k))."""
+# set by ``batch_invariant``: lowrank_matmul takes the large-T body at any T
+_BATCH_INVARIANT = False
+
+
+@contextlib.contextmanager
+def batch_invariant():
+    """Inside it ``lowrank_matmul`` runs its large-T body at every row count
+    T, whose rows' results do not depend on T, so a prompt prefilled in
+    chunks (a last chunk of any length) gives the bits of whole prefill.
+    Outside it T <= ``SMALL_T_MAX`` (decode) takes the small-T body, which
+    rounds t differently.  Prefill (``models.model.prefill``) runs in it."""
+    global _BATCH_INVARIANT
+    before, _BATCH_INVARIANT = _BATCH_INVARIANT, True
+    try:
+        yield
+    finally:
+        _BATCH_INVARIANT = before
+
+
+def _lowrank_kernel(x, v, u, bias, residual, body=None):
+    """Checked launch of the call's plan (``kernels.lowrank_matmul.plan``;
+    ``body`` forces one, else ``batch_invariant`` may) on 2D operands;
+    returns (y (T, m), t (T, k)).  T is never padded; n, k, m only to what
+    the plan's body loads (zeros, exact)."""
     _check_cuda("lowrank_matmul", [x, v, u, bias, residual], x.dtype)
     t0, n = x.shape
     k, m = u.shape
     if v.shape != (n, k):
         raise ValueError(f"lowrank_matmul: v {tuple(v.shape)} does not match "
                          f"x {tuple(x.shape)} and u {tuple(u.shape)}")
-    rows, depth = _lowrank.MULTIPLES[x.dtype]
-    xk = _aligned(pad_dim(pad_dim(x, 0, rows), 1, depth))
-    vk = _aligned(pad_dim(pad_dim(v, 0, depth), 1, rows))
-    uk = _aligned(pad_dim(pad_dim(u, 0, rows), 1, rows))
-    bk = None
-    if bias is not None:
-        bk = _aligned(pad_dim(bias.reshape(-1), 0, rows))
-    rk = None
-    if residual is not None:
-        rk = _aligned(pad_dim(pad_dim(residual, 0, rows), 1, rows))
-    t = torch.empty((xk.shape[0], uk.shape[0]), dtype=x.dtype,
-                    device=x.device)
-    y = torch.empty((xk.shape[0], uk.shape[1]), dtype=x.dtype,
-                    device=x.device)
-    _lowrank.launch(xk, vk, uk, t, y, bk, rk)
+    if t0 == 0:
+        return x.new_zeros((0, m)), x.new_zeros((0, k))
+    if body is None and _BATCH_INVARIANT:
+        body = _lowrank.LARGE_T_BODY[x.dtype]
+    p = _lowrank.plan(t0, n, k, m, x.dtype, body=body)
+    an, ak, am = p.align
+    xk = _aligned(pad_dim(x, 1, an))
+    vk = _aligned(pad_dim(pad_dim(v, 0, an), 1, ak))
+    uk = _aligned(pad_dim(pad_dim(u, 0, ak), 1, am))
+    bk = None if bias is None else _aligned(pad_dim(bias.reshape(-1), 0, am))
+    rk = None if residual is None else _aligned(pad_dim(residual, 1, am))
+    t = torch.empty((t0, p.k), dtype=x.dtype, device=x.device)
+    y = torch.empty((t0, p.m), dtype=x.dtype, device=x.device)
+    scratch = (torch.empty(p.scratch_floats, dtype=torch.float32,
+                           device=x.device) if p.scratch_floats else None)
+    _lowrank.launch(p, xk, vk, uk, t, y, bk, rk, scratch)
     LAUNCHES["lowrank_matmul"] += 1
-    return y[:t0, :m].contiguous(), t[:t0, :k]
+    LOWRANK_ROWS[t0] += 1
+    return (y if p.m == m else y[:, :m].contiguous()), t[:, :k]
 
 
 class _LowRankMatmul(torch.autograd.Function):
@@ -242,6 +271,22 @@ def lowrank_matmul(x, v, u, *, bias=None, residual=None):
     rf = None if residual is None else residual.reshape(-1, u.shape[-1])
     y = _LowRankMatmul.apply(xf, v, u, bias, rf)
     return y.reshape(*lead, u.shape[-1])
+
+
+def lowrank_down(x, v):
+    """t = x @ v, summed in fp32 and rounded once to x's dtype: the first
+    product of ``lowrank_matmul`` alone.  x: (..., n); v: (n, k).  On the
+    card it runs the kernel's plan with no second product, so its rows'
+    bits follow the plan's body (``batch_invariant`` holds for it too); on
+    the CPU it is ``x @ v``.  No autograd: the serving paths' latents."""
+    lead = x.shape[:-1]
+    xf = x.reshape(-1, x.shape[-1])
+    if xf.device.type == "cpu":
+        t = xf @ v
+    else:
+        t = _lowrank_kernel(xf, v, v.new_empty((v.shape[1], 0)), None,
+                            None)[1]
+    return t.reshape(*lead, v.shape[1])
 
 
 # ---------------------------------------------------------------------------

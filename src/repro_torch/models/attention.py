@@ -187,10 +187,12 @@ def latent_ranks(p):
 
 def _latent_kv(p, x):
     """Down-projected kv latents x @ V — the only per-token state the
-    factorized cache stores; U is applied at attention time."""
-    lk = x @ p["wk"]["v"].to(x.dtype)
-    lv = x @ p["wv"]["v"].to(x.dtype)
-    return lk, lv
+    factorized cache stores; U is applied at attention time.  Through
+    ``lowrank_matmul``'s kernel, so a prompt's latents do not depend on how
+    it was chunked."""
+    x = x.contiguous()
+    return tuple(ops.lowrank_down(x, p[w]["v"].to(x.dtype).contiguous())
+                 for w in ("wk", "wv"))
 
 
 def gqa_prefill_latent(p, x, cache_lk, cache_lv, start: int, cfg, cos, sin,

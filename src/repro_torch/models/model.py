@@ -21,6 +21,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.tree import tree_map
@@ -219,7 +220,13 @@ def prefill(params, cfg, batch, cache, *, pos: int = 0,
     ``chunked=True`` attends against the whole cache with absolute-position
     masking, so a prompt can be prefilled in chunks.  ``last_idx`` picks
     the logits row (a prompt right-padded to a chunk width); default: the
-    last row."""
+    last row.  Runs under ``ops.batch_invariant``, so every chunking of a
+    prompt gives the logits and cache of whole prefill."""
+    with ops.batch_invariant():
+        return _prefill(params, cfg, batch, cache, pos, chunked, last_idx)
+
+
+def _prefill(params, cfg, batch, cache, pos, chunked, last_idx):
     x = _embed_inputs(params, cfg, batch)
     l = x.shape[1]
     ctx = make_ctx(cfg, pos + torch.arange(l, device=x.device))

@@ -88,16 +88,23 @@ def test_pad_then_plain_then_slice_is_exact(axis, multiple):
     plain = ref.cov_accum_ref(x, xp)
     for a, b in zip(padded, plain):
         assert torch.equal(a[:80, :80], b)
-    # the lowrank launcher's pads, at each dtype's multiples: rows of x / v,
-    # columns of v / rows of u, columns of u
+    # the lowrank launcher's pads as each body's plan gives them (n, k, m to
+    # its multiples; T is never padded): columns of x / rows of v, columns
+    # of v / rows of u, columns of u
     v = torch.from_numpy(_rand(rng, 80, 19))
     u = torch.from_numpy(_rand(rng, 19, 50))
-    for rows, depth in tlow.MULTIPLES.values():
+    plans = (tlow.plan(37, 80, 19, 50, torch.float32),
+             tlow.plan(37, 80, 19, 50, torch.float32, body="fma32"),
+             tlow.plan(37, 80, 19, 50, torch.bfloat16))
+    assert {p.body for p in plans} == {"small_t", "fma32", "wgmma"}
+    for p in plans:
+        an, ak, am = p.align
         y = ref.lowrank_matmul_ref(
-            ops.pad_dim(ops.pad_dim(x, 0, rows), 1, depth),
-            ops.pad_dim(ops.pad_dim(v, 0, depth), 1, rows),
-            ops.pad_dim(ops.pad_dim(u, 0, rows), 1, rows))
-        assert torch.equal(y[:37, :50], ref.lowrank_matmul_ref(x, v, u))
+            ops.pad_dim(x, 1, an),
+            ops.pad_dim(ops.pad_dim(v, 0, an), 1, ak),
+            ops.pad_dim(ops.pad_dim(u, 0, ak), 1, am))
+        assert y.shape == (37, p.m)
+        assert torch.equal(y[:, :50], ref.lowrank_matmul_ref(x, v, u))
 
 
 def test_lowrank_backward_matches_autograd():

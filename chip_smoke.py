@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
     python3 chip_smoke.py --only lowrank   # phases 1-2 and lowrank_matmul
+    python3 chip_smoke.py --only cov       # phases 1-2 and cov_accum
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -26,8 +27,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
              replayed from a CUDA graph, the L2 evicted before each (no host
              time, no launch start-up), and the same for the yardstick
              (``library_device_ms``); and x @ V alone (``lowrank_down``,
-             the latent cache's projections) under each body.  ``--only
-             lowrank`` runs phases 1-2 and these rows alone.
+             the latent cache's projections) under each body, and t @ U
+             alone (``lowrank_up``) bit for bit equal to its own t @ U.
+             ``cov_accum`` at llama-7b's taps, MLA's kv_lora tap (T split),
+             one expert segment and ragged shapes; xx and xpxp exactly
+             symmetric, and two calls with T split give the same bits, in
+             fp32 and bf16.  ``--only lowrank`` / ``--only cov`` run phases
+             1-2 and these rows alone.
 4. smoke   — the smoke compression recipe on the card (kernels) and on the
              CPU (plain versions) from the same params and tokens; then the
              compressed smoke model served on both (continuous batching over
@@ -35,7 +41,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
              logits held to a stated tolerance.  Then deepseek-v2-lite's
              smoke config compressed with drop-free MoE dispatch on both:
              routed expert ids equal, composed maps (per expert) and loss
-             held to stated tolerances.
+             held to stated tolerances; a second compression on the card
+             gives the same bits.
 5. main    — Algorithm 2 on llama-7b at its published widths, depth cut to
              2 layers, random weights from a seeded ``torch.Generator``:
              calibration 8 × 1024 tokens, ratio 0.6, fused calibration, one
@@ -93,7 +100,16 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # llama-7b's linears at ratio 0.6 (rank multiple 8), plus ragged ones
 SIZES = {
     "tokens": 4096,
-    "cov_n": (4096, 11008, 80),
+    # cov_accum (T, n): llama-7b's taps (d_model, d_ff) at T 4096; MLA's
+    # kv_lora tap of phase 7 (n 512: T split across blocks); one expert
+    # segment of phase 7 (~384 routed rows at n 2048); then ragged ones (n
+    # not a multiple of the tile, T not of the token step, n not of 8).
+    # bf16 acc= is timed at all but the ragged ones
+    "cov": ((4096, 4096), (4096, 11008), (4096, 512), (384, 2048),
+            (4096, 80), (77, 203)),
+    "cov_timed": 4,
+    # two calls at this (T, n) must give the same bits (T split)
+    "cov_repeat": (4096, 512),
     "lowrank_nkm": ((4096, 1232, 4096), (4096, 1792, 11008),
                     (11008, 1792, 4096), (64, 19, 160)),
     # lowrank_matmul rows per llama shape: T 4096 (compression, eval, whole
@@ -273,14 +289,20 @@ def check_cov(torch, ops, ref, t_rows, n, dtype, with_acc, timed, dev):
         got = ops.cov_accum(x, xp)
     err = max(rel_fro(g, w) for g, w in zip(got, want))
     mae = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    # fp32 inputs (FMA units): fp32 sums of T products in another order, and
-    # with atomics in a run-dependent order when T is split: 1e-5 relative
+    # fp32 inputs (FMA units): fp32 sums of T products in another order
+    # (split T: the slices' partials added in slice order): 1e-5 relative
     # Frobenius.  bf16 inputs (tensor cores): the products are exact, but the
     # tensor cores' fp32 accumulation keeps fewer bits than an FMA chain
     # (9.1e-6 at T 4096 on an H100): 5e-5
     lim = 1e-5 if dtype == torch.float32 else 5e-5
     require(err <= lim, f"cov_accum T={t_rows} n={n} {dtype} acc={with_acc}"
             f": rel err {err:.3e} > {lim:.0e}")
+    if not with_acc:
+        # the upper triangle is computed once and mirrored
+        require(torch.equal(got[0], got[0].T)
+                and torch.equal(got[2], got[2].T),
+                f"cov_accum T={t_rows} n={n} {dtype}: xx / xpxp not exactly "
+                "symmetric")
     row = {"shape": [t_rows, n], "dtype": str(dtype).replace("torch.", ""),
            "acc": with_acc, "rel_fro_err": err, "max_abs_err": mae}
     if timed:
@@ -294,6 +316,7 @@ def check_cov(torch, ops, ref, t_rows, n, dtype, with_acc, timed, dev):
                                              torch.matmul(xp.T, xp)))
         eb = x.element_size()
         # xxp, plus the distinct halves of the symmetric xx and xpxp
+        # (the kernel's 4·T·n², less its diagonal tiles' lower halves)
         flops = 2 * t_rows * n * n + 2 * t_rows * n * (n + 1)
         nbytes = 2 * t_rows * n * eb + 3 * n * n * 4 * (2 if with_acc else 1)
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes,
@@ -391,21 +414,95 @@ def check_lowrank_down(torch, ops, t_rows, n, k, dtype, invariant, dev):
         "max_abs_err": mae}
 
 
-def phase_kernels(torch, ops, ref, dev="cuda", sizes=SIZES):
-    cov_rows, low_rows = [], []
-    t_rows = sizes["tokens"]
-    for i, n in enumerate(sizes["cov_n"]):
+def check_cov_repeat(torch, ops, t_rows, n, dtype, dev):
+    """Two calls on the same inputs give the same bits, written and added
+    into a symmetric acc= (T split across blocks at this shape), and xx /
+    xpxp come out exactly symmetric."""
+    from repro_torch.kernels import cov_accum as cov
+    p = cov.plan(t_rows, n, dtype)
+    require(p.splits > 1, f"cov_accum T={t_rows} n={n} {dtype}: not split")
+    gen = torch.Generator(device=dev).manual_seed(3 * n + t_rows)
+    x = torch.randn(t_rows, n, generator=gen, device=dev).to(dtype)
+    xp = (x.float() + 0.1 * torch.randn(t_rows, n, generator=gen,
+                                        device=dev)).to(dtype)
+    a, b = (torch.randn(n, n, generator=gen, device=dev) for _ in range(2))
+    acc0 = ((a + a.T) / 2, torch.randn(n, n, generator=gen, device=dev),
+            (b + b.T) / 2)
+    runs = []
+    for _ in range(2):
+        runs.append((ops.cov_accum(x, xp),
+                     ops.cov_accum(x, xp, acc=tuple(t.clone()
+                                                    for t in acc0))))
+    same = all(torch.equal(g, w) for g, w in zip(runs[0][0] + runs[0][1],
+                                                 runs[1][0] + runs[1][1]))
+    sym = all(torch.equal(o[i], o[i].T) for o in runs[0] for i in (0, 2))
+    row = {"shape": [t_rows, n], "dtype": str(dtype).replace("torch.", ""),
+           "splits": p.splits, "bitwise_equal": same, "symmetric": sym}
+    require(same, f"cov_accum T={t_rows} n={n} {dtype}: two calls differ")
+    require(sym, f"cov_accum T={t_rows} n={n} {dtype}: xx / xpxp not exactly "
+            "symmetric")
+    return row
+
+
+def phase_cov(torch, ops, ref, dev="cuda", sizes=SIZES):
+    """cov_accum at each (T, n) of ``cov`` (fp32 and bf16, written and
+    added into acc=; timed in bf16 with acc= at the first ``cov_timed``),
+    then the repeat check in both dtypes."""
+    from repro_torch.kernels import cov_accum as cov
+    rows = []
+    for i, (t_rows, n) in enumerate(sizes["cov"]):
         for dtype in (torch.float32, torch.bfloat16):
             for with_acc in (False, True):
-                # timed at the main path's calls (bf16 activations, acc=);
-                # the last shape is the ragged one
-                timed = (i < len(sizes["cov_n"]) - 1
-                         and dtype == torch.bfloat16 and with_acc)
+                timed = (i < sizes["cov_timed"] and dtype == torch.bfloat16
+                         and with_acc)
                 row = check_cov(torch, ops, ref, t_rows, n, dtype, with_acc,
                                 timed, dev)
-                cov_rows.append(row)
+                p = cov.plan(t_rows, n, dtype)
+                row.update(tiles=p.tiles, splits=p.splits)
+                rows.append(row)
                 log("cov_accum", json.dumps(row))
-    return cov_rows, phase_lowrank(torch, ops, ref, dev, sizes)
+    for dtype in (torch.float32, torch.bfloat16):
+        row = check_cov_repeat(torch, ops, *sizes["cov_repeat"], dtype, dev)
+        rows.append(row)
+        log("cov_accum repeat", json.dumps(row))
+    return rows
+
+
+def check_lowrank_up(torch, ops, t_rows, n, k, m, dtype, invariant, dev):
+    """``ops.lowrank_up`` (t @ U alone, the latent cache's up-projection)
+    on ``lowrank_down``'s t gives the bits of ``lowrank_matmul`` on the same
+    rows, at T and on a 2T-row cache holding them first (latent prefill
+    up-projects the whole cache), under the plan's body or, with
+    ``invariant``, under ``ops.batch_invariant`` (prefill's)."""
+    import contextlib
+    gen = torch.Generator(device=dev).manual_seed(n + k + m + t_rows)
+    x = torch.randn(t_rows, n, generator=gen, device=dev).to(dtype)
+    v = (torch.randn(n, k, generator=gen, device=dev) / math.sqrt(n)
+         ).to(dtype)
+    u = (torch.randn(k, m, generator=gen, device=dev) / math.sqrt(k)
+         ).to(dtype)
+    with ops.batch_invariant() if invariant else contextlib.nullcontext():
+        want = ops.lowrank_matmul(x, v, u)
+        t = ops.lowrank_down(x, v)
+        got = ops.lowrank_up(t, u)
+        cache = torch.cat([t, torch.randn(t_rows, k, generator=gen,
+                                          device=dev).to(dtype)])
+        got_cache = ops.lowrank_up(cache, u)[:t_rows]
+    same = torch.equal(got, want)
+    same_cache = torch.equal(got_cache, want)
+    require(same and (same_cache or not invariant),
+            f"lowrank_up {t_rows}x{k}x{m} {dtype} invariant={invariant}: "
+            f"differs from lowrank_matmul's t @ U (same T {same}, on a "
+            f"{2 * t_rows}-row cache {same_cache})")
+    return {"shape": [t_rows, n, k, m], "dtype": str(dtype).replace(
+        "torch.", ""), "batch_invariant": invariant, "bitwise_equal": same,
+        "bitwise_equal_in_cache": same_cache,
+        "max_abs_err": float((got.float() - want.float()).abs().max())}
+
+
+def phase_kernels(torch, ops, ref, dev="cuda", sizes=SIZES):
+    return (phase_cov(torch, ops, ref, dev, sizes),
+            phase_lowrank(torch, ops, ref, dev, sizes))
 
 
 def phase_lowrank(torch, ops, ref, dev="cuda", sizes=SIZES):
@@ -456,6 +553,16 @@ def phase_lowrank(torch, ops, ref, dev="cuda", sizes=SIZES):
                                              invariant, dev)
                     rows.append(row)
                     log("lowrank_down", json.dumps(row))
+    # t @ U alone (the latent cache's up-projection in prefill) against
+    # lowrank_matmul's own: the same bits
+    for n, k, m in shapes[:1] + shapes[-1:]:
+        for t_rows in (8, 77, 512):
+            for dtype in dtypes:
+                for invariant in (False, True):
+                    row = check_lowrank_up(torch, ops, t_rows, n, k, m, dtype,
+                                           invariant, dev)
+                    rows.append(row)
+                    log("lowrank_up", json.dumps(row))
     return rows
 
 
@@ -841,12 +948,15 @@ def _composed_maps(torch, block):
 
 def phase_smoke_moe(torch, np, dev="cuda"):
     """deepseek-v2-lite smoke (fp32, 2 layers) compressed with drop-free
-    dispatch on the card and on the CPU from the same params and tokens."""
+    dispatch on the card and on the CPU from the same params and tokens;
+    then a second time on the card, which must give the same bits (every
+    tap's covariance is split over T: cov_accum sums in a fixed order)."""
     from repro_torch import configs
     from repro_torch.core import pipeline as P
+    from repro_torch.kernels import cov_accum as cov
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
-    from repro_torch.tree import tree_map
+    from repro_torch.tree import flatten, tree_map
 
     cfg = _dropfree(configs.get_smoke_config("deepseek-v2-lite-16b")
                     .replace(dtype="float32"))
@@ -876,6 +986,14 @@ def phase_smoke_moe(torch, np, dev="cuda"):
             loss = float(M.loss_fn(comp, cfg, {k: v.to(d) for k, v
                                                in batch.items()})[1]["ce"])
         out[name] = (comp, rep, loss, ids)
+    again, _ = P.compress_model(params, cfg, calib, recipe, device=dev)
+    first, tdef = flatten(out["card"][0])
+    second, tdef2 = flatten(again)
+    repeat_equal = tdef == tdef2 and all(
+        torch.equal(a, b) for a, b in zip(first, second))
+    # the dense taps' covariances: (2 x 64 tokens, n 64) in fp32
+    tap_splits = cov.plan(recipe.microbatch * calib["tokens"].shape[1],
+                          cfg.d_model, torch.float32).splits
     flips = int((out["card"][3] != out["cpu"][3]).sum())
     worst, worst_at = 0.0, None
     for si in range(len(out["cpu"][0]["stages"])):
@@ -899,7 +1017,12 @@ def phase_smoke_moe(torch, np, dev="cuda"):
     require(worst <= 1e-3, f"smoke moe composed maps differ by {worst:.3e} "
             f"({worst_at})")
     require(abs(lc / lp - 1) <= 1e-3, f"smoke moe loss {lc} vs {lp}")
+    log(f"smoke moe: a second compression on the card, factors bitwise "
+        f"equal {repeat_equal} ({len(first)} leaves; d_model taps split "
+        f"{tap_splits} ways)")
+    require(repeat_equal, "smoke moe: two compressions on the card differ")
     return {"routed_ids": int(out["cpu"][3].numel()), "id_flips": flips,
+            "repeat_bitwise_equal": repeat_equal, "tap_splits": tap_splits,
             "map_rel_err": worst, "map_worst_at": worst_at, "ce_cuda": lc,
             "ce_cpu": lp}
 
@@ -1460,8 +1583,9 @@ def phase_moe(torch, ops, dev="cuda", sizes=SIZES, cfg=None):
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("lowrank",),
-                    help="phases 1-2 and lowrank_matmul's rows of phase 3")
+    ap.add_argument("--only", choices=("lowrank", "cov"),
+                    help="phases 1-2 and lowrank_matmul's (or cov_accum's) "
+                    "rows of phase 3")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1515,11 +1639,13 @@ def main(argv=None) -> int:
             {fn: c for fn, c in hgmma.items() if c} or "none"))
         require(wg and all(wg.values()),
                 f"the wgmma body's SASS holds no HGMMA: {wg}")
-    if args.only == "lowrank":
-        rows = phase_lowrank(torch, ops, ref)
+    if args.only is not None:
+        if args.only == "lowrank":
+            rows = {"lowrank_matmul": phase_lowrank(torch, ops, ref)}
+        else:
+            rows = {"cov_accum": phase_cov(torch, ops, ref)}
         with open(OUT / f"chip_smoke{tag}.json", "w") as f:
-            json.dump({"card": card, "lowrank_matmul": rows},
-                      f, indent=1)
+            json.dump({"card": card, **rows}, f, indent=1)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)

@@ -48,6 +48,8 @@
 // do not change from run to run.  The TMA descriptors are encoded on the
 // host per call (they hold the base pointers); the encoder is a driver
 // entry point fetched once through the runtime, so nothing links libcuda.
+// The barrier, TMA and wgmma helpers are hopper.cuh's, shared with
+// cov_accum.cu.
 //
 // Contract (checked by the Python wrapper, kernels/ops.py::lowrank_matmul):
 //   x (T, n), v (n, k), u (k, m), t (T, k), y (T, m), all contiguous,
@@ -57,15 +59,9 @@
 //   wrapper zero-pads, which is exact).  Returns the first non-zero
 //   cudaError of the call's launches.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "hopper.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
@@ -75,65 +71,6 @@ template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
-
-// ---------------------------------------------------------------------------
-// shared-memory barriers and TMA
-
-constexpr long long kWaitTimeout = 1ll << 34;  // cycles (~10 s) before a stuck wait traps
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile(
-      "{\n"
-      ".reg .b64 state;\n"
-      "mbarrier.arrive.shared::cta.b64 state, [%0];\n"
-      "}\n" ::"r"(bar)
-      : "memory");
-}
-
-// Wait for the completion of the barrier's phase of this parity; a wait that
-// never ends traps (a launch failure) instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long t0 = clock64();
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > kWaitTimeout) __trap();
-  }
-}
-
-// 2D TMA load of one box at (inner, outer) element coordinates.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int inner, int outer) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(inner), "r"(outer)
-      : "memory");
-}
 
 __device__ __forceinline__ void consumer_sync() {  // the 8 consumer warps only
   asm volatile("bar.sync 1, 256;" ::: "memory");
@@ -737,52 +674,6 @@ constexpr int THREADS = 3 * 128;           // + one producer warpgroup
 constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
 }  // namespace wg
 
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// byte offset, stride byte offset (bytes, stored in 16-byte units).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 128, fp32) = A (64 x 16, K-major) @ B (16 x 128, MN-major)
-// (+ d when accumulate)
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
-        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
-        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
-        "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
-        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
 // C (M, N) = A (M, K) @ B (K, N), bf16 in, fp32 sums.  Block (x, y, z) owns
 // rows [y·128, +128) and columns [x·128, +128) over the depth slice
 // [z·kc, z·kc + kc).  With part != null it stores fp32 partial sums to
@@ -853,9 +744,9 @@ gemm_wgmma(const __grid_constant__ CUtensorMap tma_a,
       // B: MN-major, 16 depth rows = 2048 bytes further; the second
       // 64-column atom lies B_ATOM bytes on (LBO), 8-row groups 1024 (SBO).
       // A slice's first step starts d afresh.
-      wgmma_m64n128k16(d, smem_desc(sa + j * 32, 16, 1024),
-                       smem_desc(sb + j * 16 * 128, wg::B_ATOM, 1024),
-                       j > 0 || kt % wg::SLICE != 0);
+      wgmma_m64n128k16<0>(d, smem_desc(sa + j * 32, 16, 1024),
+                          smem_desc(sb + j * 16 * 128, wg::B_ATOM, 1024),
+                          j > 0 || kt % wg::SLICE != 0);
     }
     asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
     fence_acc(d);
@@ -920,86 +811,6 @@ gemm_wgmma(const __grid_constant__ CUtensorMap tma_a,
 
 // ---------------------------------------------------------------------------
 // host side
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver call: fetched once through the runtime,
-// so the library links against no libcuda.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                                  cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
-template <typename T>
-constexpr CUtensorMapDataType map_type() {
-  return sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                        : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-}
-
-// Row-major (rows, cols) of T cut into (box_rows, box_cols) boxes, zeros out
-// of bounds.  The map holds the base pointer: built per call.
-template <typename T>
-int tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols,
-               int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(T)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = enc(map, map_type<T>(), 2, const_cast<void*>(ptr), dims,
-                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
-// wgmma's operands: (box_rows, 64) bf16 boxes, 128-byte swizzle
-int tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols,
-               int box_rows) {
-  return tensor_map<bf16>(map, ptr, rows, cols, box_rows, 64,
-                          CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
-// Launch on stream s; with `after`, programmatically after the previous
-// launch on the stream (programmatic dependent launch): it may start while
-// that one drains, and waits for it (griddepcontrol.wait) before reading
-// its output.  Returns the launch's cudaError.
-template <typename... Args, typename... Params>
-int launch(void (*kernel)(Params...), dim3 grid, dim3 block, int smem,
-           cudaStream_t s, bool after, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = block;
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = after ? 1 : 0;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, args...));
-}
 
 template <typename T>
 int reduce(const float* part, int splits, int rows, int cols, T* out,
@@ -1094,18 +905,21 @@ int skinny_product(const T* a, const T* b, T* c, const T* bias, const T* res,
   return reduce<T>(scratch, splits, rows, N, c, bias, res, s);
 }
 
-// t = x @ V split over n, then y = t @ U (+ bias + residual) split over k;
-// every launch after the first is programmatic, so each starts (and the
-// products start streaming their factor) while the one before drains
+// t = x @ V split over n (n = 0: t is given), then y = t @ U (+ bias +
+// residual) split over k (m = 0: none); every launch after the first is
+// programmatic, so each starts (and the products start streaming their
+// factor) while the one before drains
 template <int TR, typename T>
 int small_t(const T* x, const T* v, const T* u, T* t, T* y, const T* bias,
             const T* res, float* scratch, int rows, int n, int k, int m, int s1,
             int kc1, int s2, int kc2, cudaStream_t s) {
-  const int rc = skinny_product<TR, T>(x, v, t, nullptr, nullptr, scratch, rows,
-                                       k, n, s1, kc1, false, s);
-  if (rc != 0 || m == 0) return rc;
+  if (n > 0) {
+    const int rc = skinny_product<TR, T>(x, v, t, nullptr, nullptr, scratch,
+                                         rows, k, n, s1, kc1, false, s);
+    if (rc != 0 || m == 0) return rc;
+  }
   return skinny_product<TR, T>(t, u, y, bias, res, scratch, rows, m, k, s2, kc2,
-                               true, s);
+                               n > 0, s);
 }
 
 template <typename T>
@@ -1147,7 +961,8 @@ int small_t_rows(const T* x, const T* v, const T* u, T* t, T* y, const T* bias,
 // (128).  splits_xv / depth_xv: x @ V's
 // contraction (n) cut into splits of depth rows; splits_tu / depth_tu the
 // same for t @ U's (k); scratch holds max(splits·T·cols) fp32 when a
-// product is split.  m = 0 runs x @ V alone (u, y, bias, res unused).
+// product is split.  m = 0 runs x @ V alone (u, y, bias, res unused);
+// n = 0 runs t @ U alone on the given t (x, v unused).
 extern "C" int lowrank_matmul_launch(const void* x, const void* v, const void* u,
                                      void* t, void* y, const void* bias,
                                      const void* res, void* scratch, int rows,
@@ -1157,7 +972,8 @@ extern "C" int lowrank_matmul_launch(const void* x, const void* v, const void* u
                                      int depth_tu, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* sc = static_cast<float*>(scratch);
-  if (rows <= 0 || splits_xv < 1 || splits_tu < 1 ||
+  if (rows <= 0 || n < 0 || k <= 0 || m < 0 || (n == 0 && m == 0) ||
+      splits_xv < 1 || splits_tu < 1 ||
       ((splits_xv > 1 || splits_tu > 1) && sc == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1166,12 +982,14 @@ extern "C" int lowrank_matmul_launch(const void* x, const void* v, const void* u
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const dim3 g1(k / BN, (rows + BM - 1) / BM), g2(m / BN, (rows + BM - 1) / BM);
-    gemm_f32<<<g1, THREADS, 0, s>>>(static_cast<const float*>(x),
-                                    static_cast<const float*>(v),
-                                    static_cast<float*>(t), nullptr, nullptr,
-                                    rows, k, n);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess || m == 0) return static_cast<int>(err);
+    if (n > 0) {
+      gemm_f32<<<g1, THREADS, 0, s>>>(static_cast<const float*>(x),
+                                      static_cast<const float*>(v),
+                                      static_cast<float*>(t), nullptr, nullptr,
+                                      rows, k, n);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess || m == 0) return static_cast<int>(err);
+    }
     gemm_f32<<<g2, THREADS, 0, s>>>(static_cast<const float*>(t),
                                     static_cast<const float*>(u),
                                     static_cast<float*>(y),
@@ -1209,10 +1027,12 @@ extern "C" int lowrank_matmul_launch(const void* x, const void* v, const void* u
         (splits_tu > 1 && depth_tu != slice)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    const int rc = gemm_bf16(static_cast<const bf16*>(x), static_cast<const bf16*>(v),
-                             static_cast<bf16*>(t), nullptr, nullptr, sc, rows, k, n,
-                             splits_xv, depth_xv, s);
-    if (rc != 0 || m == 0) return rc;
+    if (n > 0) {
+      const int rc = gemm_bf16(static_cast<const bf16*>(x), static_cast<const bf16*>(v),
+                               static_cast<bf16*>(t), nullptr, nullptr, sc, rows, k,
+                               n, splits_xv, depth_xv, s);
+      if (rc != 0 || m == 0) return rc;
+    }
     return gemm_bf16(static_cast<const bf16*>(t), static_cast<const bf16*>(u),
                      static_cast<bf16*>(y), static_cast<const bf16*>(bias),
                      static_cast<const bf16*>(res), sc, rows, m, k, splits_tu,

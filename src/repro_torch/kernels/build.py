@@ -3,7 +3,8 @@
 Route: ``nvcc`` straight to a shared library with a plain C interface, loaded
 with ``ctypes`` — no PyTorch headers, so a build takes seconds.  Every source
 compiles in its own ``nvcc`` process, all started together, then one link
-step makes ``librepro_torch_kernels.so``.
+step makes ``librepro_torch_kernels.so``.  ``csrc/hopper.cuh`` holds the
+TMA / barrier / wgmma helpers the wgmma kernels share.
 
 The build happens at first use (the first CUDA launch), never at import, into
 ``<repo>/build/repro_torch/<hash>/`` where ``<hash>`` covers the sources and
@@ -36,7 +37,8 @@ _F = ctypes.c_float
 # C signatures of the launchers (every pointer and the stream as c_void_p,
 # floats as c_float)
 SIGNATURES = {
-    "cov_accum_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "cov_accum_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _P],
     "lowrank_matmul_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -54,9 +56,14 @@ def sources() -> List[pathlib.Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> List[pathlib.Path]:
+    """The headers the sources include (``hopper.cuh``)."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

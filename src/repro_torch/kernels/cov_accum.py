@@ -1,66 +1,233 @@
-"""Launcher of the CUDA covariance-triple kernel (``csrc/cov_accum.cu``).
+"""Launch plan and launcher of the covariance triple (``csrc/cov_accum.cu``).
 
-Replaces the Pallas TPU kernel ``src/repro/kernels/cov_accum.py::cov_accum``:
-one pass over (T, n) token rows X, X' gives XᵀX, XᵀX', X'ᵀX' in fp32, each
-staged tile feeding all three products.  Each CUDA block owns one
-(BI x BI) tile of the three outputs and loops over T itself.  When there are
-too few output tiles to fill the card, T is split across blocks and the
-partials meet in the outputs through ``atomicAdd``: the summation order then
-varies from run to run, so two runs agree to fp32 tolerance, not bitwise.
+Replaces the Pallas TPU kernel ``src/repro/kernels/cov_accum.py::cov_accum``
+(its ``pallas_call`` at :73): one pass over (T, n) token rows X, X' gives
+XᵀX, XᵀX', X'ᵀX' in fp32, ``acc=`` folding into existing accumulators.
 
-Bound on the card: max((2·T·n² + 2·T·n·(n+1)) flops / peak,
-(2·T·n·eb + 3·n²·4) bytes / bandwidth) — xxp plus the distinct halves of the
-symmetric xx and xpxp; arithmetic at every main-path shape.  The kernel
-computes both halves (6·T·n² flops), so its best is 1.5x the bound.  bf16 inputs (the main
-path's activations) run on the tensor cores through WMMA, fp32 inputs on
-the FMA units (TF32 stays off).  See the source for the design notes.
-Callers go through ``kernels.ops.cov_accum``, which pads and checks; this
-module only plans the grid and launches.
+The triple is the Gram matrix of Z = [X | X'] (T, 2n): Zᵀ Z = [[xx, xxp],
+[xxpᵀ, xpxp]].  Z's columns are cut into strips of ``edge`` columns
+(⌈n/edge⌉ from X, then as many from X'), and each block of the kernel
+computes one tile (a ≤ b) of the upper block triangle with one fp32
+accumulator: the upper halves of xx and xpxp and all of xxp, 4·T·n² flops
+(the TPU kernel computes all three products whole, 6·T·n²).  The epilogue
+mirrors xx and xpxp, so both are exactly symmetric.
+
+Bound on the card: max(4·T·n² flops / peak, (2·T·n·eb + 3·n²·4·(1 + acc))
+bytes / bandwidth); the tensor cores at the main path's (T 4096, n 4096 /
+11008), the accumulators' bytes for one expert segment (T ~384).  bf16
+inputs take the wgmma body (128-column strips, a TMA ring), fp32 inputs the
+FMA body (64-column strips; TF32 stays off).
+
+``plan`` gives everything one call needs: the strips, the tile order (square
+super-tiles of ``GROUP`` strips, so blocks in flight share strips in L2),
+and, when the triangle's tiles leave the card under-filled, a split of T
+into slices whose fp32 partials a reduce launch adds in slice order (no
+atomics: two calls give the same bits).  Neither T nor n is padded in
+memory beyond n's 16-byte row alignment.  Callers go through
+``kernels.ops.cov_accum``, which checks, pads n to ``align`` and owns
+``acc=``; ``emulate`` repeats a plan's arithmetic in plain PyTorch for the
+CPU tests.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import List, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
-BI = 64            # output tile edge; n must be a multiple
-BT = 32            # token rows per step; T must be a multiple
-TARGET_BLOCKS = 2 * 132   # two blocks per SM of an H100
-MIN_STEPS_PER_SPLIT = 4   # never split below 4 token steps (128 rows) a block
-
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SMS = 132                       # H100 SXM streaming multiprocessors
+GROUP = 8                       # strips a side of a super-tile
+
+# per input dtype: tile edge (a strip's columns), token rows a step, n's
+# multiple (16-byte rows), blocks one wave holds (wgmma: one persistent
+# block an SM; FMA: three, at its 80 registers a thread), and the fewest
+# steps a split slice takes
+EDGE = {torch.bfloat16: 128, torch.float32: 64}
+STEP = {torch.bfloat16: 64, torch.float32: 16}
+ALIGN = {torch.bfloat16: 8, torch.float32: 4}
+WAVE = {torch.bfloat16: SMS, torch.float32: 3 * SMS}
+MIN_STEPS = {torch.bfloat16: 4, torch.float32: 1}
 
 
-def plan_splits(t_rows: int, n: int):
-    """(splits, rows_per_split) for a (t_rows, n) problem: split T only when
-    the (n/BI)² output tiles leave the card under-filled."""
-    tiles = (n // BI) ** 2
-    steps = t_rows // BT
-    if tiles >= TARGET_BLOCKS or steps <= MIN_STEPS_PER_SPLIT:
-        return 1, t_rows
-    splits = min(-(-TARGET_BLOCKS // tiles), steps // MIN_STEPS_PER_SPLIT)
-    per = -(-steps // max(splits, 1))
-    return -(-steps // per), per * BT
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one call runs.  ``n`` is the width the kernel sees (padded to
+    ``align``), ``rows`` is T (never padded).  The work is (tiles, splits):
+    item (t, z) computes tile ``tile_at(t)`` over token slice z, T cut into
+    slices of ``rows_per_split`` rows (``splits`` == 1: all of T); the bf16
+    body's persistent blocks walk the items z·tiles + t in order, the fp32
+    body launches one block an item."""
+    rows: int
+    n: int
+    dtype: torch.dtype
+    align: int
+    edge: int
+    step: int
+    splits: int
+    rows_per_split: int
+
+    @property
+    def half(self) -> int:
+        """Strips of X (and as many of X')."""
+        return -(-self.n // self.edge)
+
+    @property
+    def strips(self) -> int:
+        return 2 * self.half
+
+    @property
+    def tiles(self) -> int:
+        """Tiles of the upper block triangle of Zᵀ Z."""
+        return self.strips * (self.strips + 1) // 2
+
+    def tile_list(self) -> List[Tuple[int, int]]:
+        """Every tile (a, b), a ≤ b, in launch order: super-tile rows of
+        GROUP strips, each the triangle of its diagonal super-tile row by
+        row, then the super-tiles to its right, each row by row."""
+        s = self.strips
+        out = []
+        for a0 in range(0, s, GROUP):
+            na = min(GROUP, s - a0)
+            out += [(a0 + i, a0 + j) for i in range(na) for j in range(i, na)]
+            for b0 in range(a0 + na, s, GROUP):
+                nb = min(GROUP, s - b0)
+                out += [(a0 + i, b0 + j) for i in range(na)
+                        for j in range(nb)]
+        return out
+
+    def tile_at(self, t: int) -> Tuple[int, int]:
+        """Tile ``t`` of the launch order, by the arithmetic of the kernels'
+        ``tile_at`` (csrc/cov_accum.cu)."""
+        s = self.strips
+        for a0 in range(0, s, GROUP):
+            na = min(GROUP, s - a0)
+            diag = na * (na + 1) // 2
+            row = diag + na * (s - a0 - na)
+            if t >= row:
+                t -= row
+                continue
+            if t < diag:
+                i = 0
+                while t >= na - i:
+                    t -= na - i
+                    i += 1
+                return a0 + i, a0 + i + t
+            t -= diag
+            right = t // (na * GROUP)
+            t -= right * na * GROUP
+            b0 = a0 + na + right * GROUP
+            nb = min(GROUP, s - b0)
+            return a0 + t // nb, b0 + t % nb
+        raise IndexError(f"tile {t} past the triangle's {self.tiles}")
+
+    def slices(self) -> List[Tuple[int, int]]:
+        """The token slices in summation order, half-open."""
+        per = self.rows_per_split
+        return [(z * per, min(self.rows, (z + 1) * per))
+                for z in range(self.splits)]
+
+    @property
+    def scratch_floats(self) -> int:
+        """fp32 elements of the slices' partial sums (0: no split)."""
+        if self.splits == 1:
+            return 0
+        return self.splits * self.tiles * self.edge * self.edge
 
 
-def launch(x, xp, xx, xxp, xpxp, *, accumulate: bool) -> None:
-    """Run the kernel on padded, checked (T, n) inputs into (n, n) fp32
-    outputs: ``accumulate`` adds into them in place, else they are
-    overwritten."""
-    t_rows, n = x.shape
-    splits, rows = plan_splits(t_rows, n)
-    if splits > 1:
-        mode = 2
-        if not accumulate:
-            for o in (xx, xxp, xpxp):
-                o.zero_()
+@functools.lru_cache(maxsize=4096)
+def plan(rows: int, n: int, dtype: torch.dtype) -> Plan:
+    """The launch plan of a (rows, n) triple in ``dtype``: T is split only
+    when the triangle's tiles fill less than a wave of blocks and T holds
+    at least two slices of ``MIN_STEPS`` steps; then into as many slices as
+    the idle blocks of that wave take, each a whole number of steps."""
+    if dtype not in DTYPES:
+        raise TypeError(f"cov_accum: no kernel for {dtype}")
+    if rows < 1 or n < 1:
+        raise ValueError(f"cov_accum: no plan for ({rows}, {n})")
+    align, edge, step = ALIGN[dtype], EDGE[dtype], STEP[dtype]
+    n = -(-n // align) * align
+    strips = 2 * -(-n // edge)
+    tiles = strips * (strips + 1) // 2
+    steps = -(-rows // step)
+    splits, per = 1, rows
+    if tiles < WAVE[dtype] and steps >= 2 * MIN_STEPS[dtype]:
+        want = min(WAVE[dtype] // tiles, steps // MIN_STEPS[dtype])
+        if want > 1:
+            per = -(-steps // want) * step
+            splits = -(-rows // per)
+    return Plan(rows, n, dtype, align, edge, step, splits, per)
+
+
+def _store(out, i0, j0, block, acc):
+    """The kernels' store of a block at (i0, j0): written, or added to what
+    is there (``acc``)."""
+    ni, nj = block.shape
+    if acc:
+        out[i0:i0 + ni, j0:j0 + nj] += block
     else:
-        mode = 1 if accumulate else 0
+        out[i0:i0 + ni, j0:j0 + nj] = block
+
+
+def emulate(p: Plan, x, xp, acc=None):
+    """Plan ``p``'s arithmetic in plain PyTorch on unpadded (T, n) inputs:
+    for each tile of the triangle, the fp32 products of its two strips of
+    Z = [X | X'] over each token slice, added in slice order, then the
+    kernels' epilogue (xxp stored once; an off-diagonal tile of xx / xpxp
+    also stored transposed; a diagonal tile's upper half stored and
+    mirrored), written or added into ``acc`` (not modified: the sums come
+    back as new tensors).  Within a slice the order of the sum is
+    torch's."""
+    t_rows, n = x.shape
+    e, half = p.edge, p.half
+    width = half * e
+
+    def strips(a):
+        return torch.nn.functional.pad(a.float(), (0, width - n))
+
+    z = torch.cat([strips(x), strips(xp)], dim=1)
+    if acc is None:
+        outs = [torch.zeros((n, n), dtype=torch.float32) for _ in range(3)]
+    else:
+        outs = [a.clone() for a in acc]
+    xx, xxp, xpxp = outs
+    add = acc is not None
+    for a, b in p.tile_list():
+        total = None
+        for r0, r1 in p.slices():
+            part = z[r0:r1, a * e:(a + 1) * e].T @ z[r0:r1, b * e:(b + 1) * e]
+            total = part if total is None else total + part
+        ap, bp = a >= half, b >= half
+        i0, j0 = (a % half) * e, (b % half) * e
+        block = total[:max(0, min(e, n - i0)), :max(0, min(e, n - j0))]
+        if ap != bp:
+            _store(xxp, i0, j0, block, add)
+            continue
+        out = xpxp if ap else xx
+        if a == b:
+            upper = torch.triu(block)
+            block = upper + torch.triu(upper, 1).T
+            _store(out, i0, j0, block, add)
+        else:
+            _store(out, i0, j0, block, add)
+            _store(out, j0, i0, block.T, add)
+    return tuple(outs)
+
+
+def launch(p: Plan, x, xp, xx, xxp, xpxp, scratch, *,
+           accumulate: bool) -> None:
+    """Run plan ``p`` on checked (T, p.n) inputs into (p.n, p.n) fp32
+    outputs: ``accumulate`` adds into them in place, else they are
+    overwritten.  ``scratch``: fp32, at least ``p.scratch_floats``."""
     lib = build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.cov_accum_launch(
         x.data_ptr(), xp.data_ptr(), xx.data_ptr(), xxp.data_ptr(),
-        xpxp.data_ptr(), t_rows, n, splits, rows, mode, DTYPES[x.dtype],
-        stream)
+        xpxp.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        p.rows, p.n, DTYPES[p.dtype], p.edge, p.splits, p.rows_per_split,
+        int(accumulate), stream)
     build.check(rc, "cov_accum")

@@ -166,7 +166,8 @@ def _gemm_plan(rows: int, cols: int, depth: int) -> Tuple[int, int]:
 def plan(rows: int, n: int, k: int, m: int, dtype: torch.dtype,
          body: Optional[str] = None) -> Plan:
     """The launch plan of (rows, n) @ (n, k) @ (k, m) in ``dtype``; m = 0
-    plans x @ V alone (``ops.lowrank_down``).
+    plans x @ V alone (``ops.lowrank_down``), n = 0 t @ U alone on a given
+    t (``ops.lowrank_up``: its t @ U is planned as with any n).
 
     ``body`` forces a body (a harness comparing them); by default
     ``small_t`` for T ≤ ``SMALL_T_MAX[dtype]``, else ``wgmma`` (bf16) or
@@ -195,7 +196,7 @@ def plan(rows: int, n: int, k: int, m: int, dtype: torch.dtype,
             want = min(SMALL_MAX_SPLITS, max(1, SMALL_WAVE // max(1, tiles)))
             return _slices(depth, want if tiles else 1, SMALL_STAGE[dtype])
 
-        splits_xv, depth_xv = split(k, n)
+        splits_xv, depth_xv = split(k, n) if n else (1, 0)
         splits_tu, depth_tu = split(m, k)
         return Plan(body, rows, n, k, m, align, tile_rows, tile_rows, cols,
                     splits_xv, depth_xv, splits_tu, depth_tu)
@@ -242,15 +243,18 @@ def emulate(p: Plan, x, v, u, bias=None, residual=None):
 def launch(p: Plan, x, v, u, t, y, bias, residual, scratch) -> None:
     """Run plan ``p`` on padded, checked operands: ``t`` (T, k) receives the
     rounded intermediate, ``y`` (T, m) the output, ``scratch`` (fp32, at
-    least ``p.scratch_floats``) the split products' partial sums."""
+    least ``p.scratch_floats``) the split products' partial sums.  A plan
+    with n = 0 takes ``t`` as its input (x and v None)."""
     lib = build.library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = torch.cuda.current_stream(t.device).cuda_stream
     rc = lib.lowrank_matmul_launch(
-        x.data_ptr(), v.data_ptr(), u.data_ptr(), t.data_ptr(), y.data_ptr(),
+        None if x is None else x.data_ptr(),
+        None if v is None else v.data_ptr(), u.data_ptr(), t.data_ptr(),
+        y.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if residual is None else residual.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
-        p.rows, p.n, p.k, p.m, DTYPES[x.dtype], BODIES.index(p.body),
+        p.rows, p.n, p.k, p.m, DTYPES[t.dtype], BODIES.index(p.body),
         p.tile_rows_xv, p.tile_rows_tu, p.splits_xv, p.depth_xv, p.splits_tu,
         p.depth_tu, stream)
     build.check(rc, "lowrank_matmul")

@@ -91,8 +91,11 @@ def cov_accum(x, xp, *, acc=None):
     The wrapper owns that update and does it IN PLACE — the caller's
     tensors are modified and returned — which on the card lets the kernel
     add straight into them and saves a fresh 3·n²·4-byte triple per call
-    (when n is not a multiple of the tile the kernel writes a padded triple
-    and the slice is added in)."""
+    (when n is not a multiple of 16 bytes' worth of elements, or ``acc``
+    is not 16-byte aligned, the kernel writes a fresh triple and it is
+    added in).  On the card xx and xpxp come out exactly symmetric (given
+    a symmetric ``acc``) and two calls on the same inputs give the same
+    bits (``kernels.cov_accum``)."""
     n = x.shape[-1]
     x = x.reshape(-1, n)
     xp = xp.reshape(-1, n)
@@ -113,18 +116,26 @@ def cov_accum(x, xp, *, acc=None):
                     or tuple(a.shape) != (n, n) or not a.is_contiguous()):
                 raise ValueError("cov_accum: acc= must be contiguous (n, n) "
                                  f"float32 on {x.device}")
-    xk = _aligned(pad_dim(pad_dim(x, 0, _cov.BT), 1, _cov.BI))
-    xpk = _aligned(pad_dim(pad_dim(xp, 0, _cov.BT), 1, _cov.BI))
-    npad = xk.shape[1]
-    if acc is not None and npad == n:
-        _cov.launch(xk, xpk, *acc, accumulate=True)
+    if x.shape[0] == 0:
+        if acc is not None:
+            return acc
+        return tuple(x.new_zeros((n, n), dtype=torch.float32)
+                     for _ in range(3))
+    p = _cov.plan(x.shape[0], n, x.dtype)
+    xk = _aligned(pad_dim(x, 1, p.align))
+    xpk = _aligned(pad_dim(xp, 1, p.align))
+    scratch = (torch.empty(p.scratch_floats, dtype=torch.float32,
+                           device=x.device) if p.scratch_floats else None)
+    if (acc is not None and p.n == n
+            and all(a.data_ptr() % 16 == 0 for a in acc)):
+        _cov.launch(p, xk, xpk, *acc, scratch, accumulate=True)
         LAUNCHES["cov_accum"] += 1
         return acc
-    outs = tuple(torch.empty((npad, npad), dtype=torch.float32,
+    outs = tuple(torch.empty((p.n, p.n), dtype=torch.float32,
                              device=x.device) for _ in range(3))
-    _cov.launch(xk, xpk, *outs, accumulate=False)
+    _cov.launch(p, xk, xpk, *outs, scratch, accumulate=False)
     LAUNCHES["cov_accum"] += 1
-    if npad != n:
+    if p.n != n:
         outs = tuple(o[:n, :n].contiguous() for o in outs)
     if acc is None:
         return outs
@@ -190,32 +201,45 @@ def batch_invariant():
         _BATCH_INVARIANT = before
 
 
-def _lowrank_kernel(x, v, u, bias, residual, body=None):
+def _lowrank_kernel(x, v, u, bias, residual, body=None, t_in=None):
     """Checked launch of the call's plan (``kernels.lowrank_matmul.plan``;
     ``body`` forces one, else ``batch_invariant`` may) on 2D operands;
     returns (y (T, m), t (T, k)).  T is never padded; n, k, m only to what
-    the plan's body loads (zeros, exact)."""
-    _check_cuda("lowrank_matmul", [x, v, u, bias, residual], x.dtype)
-    t0, n = x.shape
+    the plan's body loads (zeros, exact).  With ``t_in`` (T, k) given
+    instead of x and v, only t @ U runs (``lowrank_up``)."""
+    lead = x if t_in is None else t_in
+    _check_cuda("lowrank_matmul", [lead, v, u, bias, residual], lead.dtype)
     k, m = u.shape
-    if v.shape != (n, k):
-        raise ValueError(f"lowrank_matmul: v {tuple(v.shape)} does not match "
-                         f"x {tuple(x.shape)} and u {tuple(u.shape)}")
+    if t_in is None:
+        t0, n = x.shape
+        if v.shape != (n, k):
+            raise ValueError(f"lowrank_matmul: v {tuple(v.shape)} does not "
+                             f"match x {tuple(x.shape)} and u "
+                             f"{tuple(u.shape)}")
+    else:
+        (t0, kt), n = t_in.shape, 0
+        if kt != k:
+            raise ValueError(f"lowrank_up: t {tuple(t_in.shape)} does not "
+                             f"match u {tuple(u.shape)}")
     if t0 == 0:
-        return x.new_zeros((0, m)), x.new_zeros((0, k))
+        return lead.new_zeros((0, m)), lead.new_zeros((0, k))
     if body is None and _BATCH_INVARIANT:
-        body = _lowrank.LARGE_T_BODY[x.dtype]
-    p = _lowrank.plan(t0, n, k, m, x.dtype, body=body)
+        body = _lowrank.LARGE_T_BODY[lead.dtype]
+    p = _lowrank.plan(t0, n, k, m, lead.dtype, body=body)
     an, ak, am = p.align
-    xk = _aligned(pad_dim(x, 1, an))
-    vk = _aligned(pad_dim(pad_dim(v, 0, an), 1, ak))
     uk = _aligned(pad_dim(pad_dim(u, 0, ak), 1, am))
     bk = None if bias is None else _aligned(pad_dim(bias.reshape(-1), 0, am))
     rk = None if residual is None else _aligned(pad_dim(residual, 1, am))
-    t = torch.empty((t0, p.k), dtype=x.dtype, device=x.device)
-    y = torch.empty((t0, p.m), dtype=x.dtype, device=x.device)
+    y = torch.empty((t0, p.m), dtype=lead.dtype, device=lead.device)
+    if t_in is None:
+        xk = _aligned(pad_dim(x, 1, an))
+        vk = _aligned(pad_dim(pad_dim(v, 0, an), 1, ak))
+        t = torch.empty((t0, p.k), dtype=x.dtype, device=x.device)
+    else:
+        xk = vk = None
+        t = _aligned(pad_dim(t_in, 1, ak))
     scratch = (torch.empty(p.scratch_floats, dtype=torch.float32,
-                           device=x.device) if p.scratch_floats else None)
+                           device=lead.device) if p.scratch_floats else None)
     _lowrank.launch(p, xk, vk, uk, t, y, bk, rk, scratch)
     LAUNCHES["lowrank_matmul"] += 1
     LOWRANK_ROWS[t0] += 1
@@ -287,6 +311,23 @@ def lowrank_down(x, v):
         t = _lowrank_kernel(xf, v, v.new_empty((v.shape[1], 0)), None,
                             None)[1]
     return t.reshape(*lead, v.shape[1])
+
+
+def lowrank_up(t, u):
+    """y = t @ u, summed in fp32 and rounded once to t's dtype: the second
+    product of ``lowrank_matmul`` alone, on a given rank-k t.  t: (..., k);
+    u: (k, m).  On the card it runs the t @ U of the kernel's plan for any
+    x (``batch_invariant`` holds for it too), so the latent cache's keys and
+    values round as the dense layout's ``lowrank_matmul`` rounds them; on
+    the CPU it is the plain version's second product.  No autograd."""
+    lead = t.shape[:-1]
+    tf = t.reshape(-1, t.shape[-1])
+    if tf.device.type == "cpu":
+        y = torch.matmul(tf.float(), u.float()).to(tf.dtype)
+    else:
+        y = _lowrank_kernel(None, None, u, None, None,
+                            t_in=tf.contiguous())[0]
+    return y.reshape(*lead, u.shape[1])
 
 
 # ---------------------------------------------------------------------------

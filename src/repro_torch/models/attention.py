@@ -199,9 +199,9 @@ def gqa_prefill_latent(p, x, cache_lk, cache_lv, start: int, cfg, cos, sin,
                        *, theta: float, rope: bool = True,
                        chunk: int = 1024):
     """Prefill into the latent cache: write this chunk's rank-r latents at
-    ``start``, up-project the whole cache once, and attend with
-    absolute-position masking.  Used for whole prompts (start 0) and for
-    chunked prefill alike."""
+    ``start``, up-project the whole cache once (``ops.lowrank_up``), and
+    attend with absolute-position masking.  Used for whole prompts (start
+    0) and for chunked prefill alike."""
     b, l, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = L.linear(p["wq"], x).reshape(b, l, h, hd)
@@ -211,10 +211,12 @@ def gqa_prefill_latent(p, x, cache_lk, cache_lv, start: int, cfg, cos, sin,
     cache_lk = _write_at(cache_lk, lk_c, start)
     cache_lv = _write_at(cache_lv, lv_c, start)
     lmax = cache_lk.shape[1]
-    k_all = (cache_lk @ p["wk"]["u"].to(cache_lk.dtype)).reshape(b, lmax, kv,
-                                                                 hd)
-    v_all = (cache_lv @ p["wv"]["u"].to(cache_lv.dtype)).reshape(b, lmax, kv,
-                                                                 hd)
+    # through the kernel's t @ U, as the dense layout's k and v are made, so
+    # the two layouts round them alike
+    k_all = ops.lowrank_up(cache_lk, p["wk"]["u"].to(cache_lk.dtype)
+                           .contiguous()).reshape(b, lmax, kv, hd)
+    v_all = ops.lowrank_up(cache_lv, p["wv"]["u"].to(cache_lv.dtype)
+                           .contiguous()).reshape(b, lmax, kv, hd)
     if rope:
         cos_all, sin_all = L.rope_table(
             torch.arange(lmax, device=x.device), hd, theta)

@@ -76,8 +76,11 @@ def test_lowrank_ref_rounds_intermediate_to_u_dtype():
     assert torch.equal(ref.lowrank_matmul_ref(x, v, u), want)
 
 
-@pytest.mark.parametrize("axis,multiple", [(0, tcov.BT), (1, tcov.BI),
-                                           (0, 7)])
+# the cov kernels' zero fills: token rows past T up to a step (TMA boxes,
+# masked loads), columns past n up to a tile edge, in each dtype's body
+@pytest.mark.parametrize("axis,multiple", [
+    (0, tcov.STEP[torch.bfloat16]), (1, tcov.EDGE[torch.bfloat16]), (0, 7),
+    (1, tcov.EDGE[torch.float32])])
 def test_pad_then_plain_then_slice_is_exact(axis, multiple):
     rng = np.random.default_rng(3)
     x = torch.from_numpy(_rand(rng, 37, 80))
@@ -125,15 +128,25 @@ def test_lowrank_backward_matches_autograd():
         torch.testing.assert_close(ga.grad, gb.grad, rtol=1e-5, atol=1e-5)
 
 
-def test_cov_split_plan_covers_every_row():
-    # T arrives padded to a multiple of BT
-    for t_rows, n in [(4096, 64), (4096, 128), (4096, 4096), (64, 64),
-                      (4096, 11008), (1056, 64)]:
-        splits, rows = tcov.plan_splits(t_rows, n)
-        assert rows % tcov.BT == 0 and splits >= 1
-        assert (splits - 1) * rows < t_rows <= splits * rows
-        if splits > 1:
-            assert (n // tcov.BI) ** 2 * splits <= 2 * tcov.TARGET_BLOCKS
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t_rows,n", [(4096, 64), (4096, 128), (4096, 4096),
+                                      (64, 64), (4096, 11008), (1056, 64),
+                                      (4096, 512), (37, 80)])
+def test_cov_split_plan_covers_every_row(t_rows, n, dtype):
+    # T is never padded: the slices tile [0, T) in order, none empty, each
+    # (but the last) a whole number of the body's token steps; a split
+    # fills at most one wave of blocks
+    p = tcov.plan(t_rows, n, dtype)
+    assert p.splits >= 1 and p.n >= n and p.n % p.align == 0
+    assert (p.splits - 1) * p.rows_per_split < t_rows
+    assert t_rows <= p.splits * p.rows_per_split
+    bounds = p.slices()
+    assert bounds[0][0] == 0 and bounds[-1][1] == t_rows
+    assert all(a1 == b0 for (_, a1), (b0, _) in zip(bounds, bounds[1:]))
+    assert all(r0 < r1 for r0, r1 in bounds)
+    if p.splits > 1:
+        assert p.rows_per_split % p.step == 0
+        assert p.tiles * p.splits <= tcov.WAVE[dtype]
 
 
 def test_wrappers_refuse_tensors_they_cannot_run():

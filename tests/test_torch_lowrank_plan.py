@@ -54,8 +54,10 @@ def _covers_once(p, product):
 
 def _launcher_accepts(p):
     """The checks ``lowrank_matmul_launch`` (csrc/lowrank_matmul.cu) makes
-    of a plan before it launches anything."""
+    of a plan before it launches anything (n = 0: t @ U alone; m = 0:
+    x @ V alone; not both)."""
     assert p.rows >= 1 and p.splits_xv >= 1 and p.splits_tu >= 1
+    assert p.n >= 0 and p.k > 0 and p.m >= 0 and (p.n > 0 or p.m > 0)
     if p.body == "fma32":
         assert p.k % 64 == 0 and p.m % 64 == 0 and p.n % 16 == 0
     elif p.body == "small_t":
@@ -338,3 +340,110 @@ def test_lowrank_down_launches_x_at_v_alone(monkeypatch):
                                         device="meta"))
     assert t.shape == (3, 4, 24)
     assert seen == [(0, (24, 0), (12, 24), (12, 0))]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_plan_of_t_at_u_alone(dtype):
+    # n = 0: t @ U alone on a given t (ops.lowrank_up); x @ V has no split
+    # and t @ U is planned as with any n, so its rows round as
+    # lowrank_matmul's do
+    for rows in (1, 8, 16, 64, 77, 256, 1024, 4096):
+        for n, k, m in PHASE3:
+            bodies = [None] + (["wgmma"] if dtype == torch.bfloat16 else
+                               ["fma32"])
+            if rows <= 32 and dtype == torch.bfloat16:
+                bodies.append("small_t")
+            for body in bodies:
+                p = low.plan(rows, 0, k, m, dtype, body)
+                q = low.plan(rows, n, k, m, dtype, body)
+                assert p.n == 0 and p.splits_xv == 1
+                assert (p.body, p.k, p.m, p.tile_rows_tu, p.tile_cols,
+                        p.splits_tu, p.depth_tu) == (
+                    q.body, q.k, q.m, q.tile_rows_tu, q.tile_cols,
+                    q.splits_tu, q.depth_tu)
+                assert p.scratch_floats == (
+                    p.splits_tu * rows * p.m if p.splits_tu > 1 else 0)
+                _launcher_accepts(p)
+                _covers_once(p, "tu")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lowrank_up_is_t_at_u_on_the_cpu(dtype):
+    # the plain version's second product: fp32 sums rounded once to t's
+    # dtype (exactly t @ u in fp32)
+    rng = np.random.default_rng(8)
+    t = torch.from_numpy(_rand(rng, 2, 5, 12)).to(dtype)
+    u = torch.from_numpy(_rand(rng, 12, 40)).to(dtype)
+    ops.reset_launches()
+    y = ops.lowrank_up(t, u)
+    assert y.shape == (2, 5, 40) and y.dtype == dtype
+    assert ops.LAUNCHES["lowrank_matmul"] == 0
+    want = (t.reshape(10, 12).float() @ u.float()).to(dtype)
+    assert torch.equal(y.reshape(10, 40), want)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, t @ u, rtol=0, atol=0)
+    # lowrank_matmul's plain version is lowrank_up of lowrank_down's t
+    x = torch.from_numpy(_rand(rng, 10, 48)).to(dtype)
+    v = torch.from_numpy(_rand(rng, 48, 12)).to(dtype)
+    assert torch.equal(ops.lowrank_up(ref.lowrank_matmul_ref(
+        x, v, torch.eye(12, dtype=dtype)), u),
+        ref.lowrank_matmul_ref(x, v, u))
+
+
+def test_lowrank_up_launches_t_at_u_alone(monkeypatch):
+    seen = []
+    monkeypatch.setattr(ops, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(low, "launch", lambda p, x, v, u, t, y, *a: seen.append(
+        (p.n, x, v, tuple(u.shape), tuple(t.shape), tuple(y.shape))))
+    monkeypatch.setattr(ops, "_aligned", lambda a: a)
+    # a tensor off the CPU takes the kernel's route (meta: no data); k and
+    # m are padded to the body's multiple (19 -> 24, 50 -> 56), T never
+    t = torch.zeros(3, 4, 19, dtype=torch.bfloat16, device="meta")
+    y = ops.lowrank_up(t, torch.zeros(19, 50, dtype=torch.bfloat16,
+                                      device="meta"))
+    assert y.shape == (3, 4, 50)
+    assert seen == [(0, None, None, (24, 56), (12, 24), (12, 56))]
+
+
+def test_latent_prefill_matches_reference():
+    # the latent cache's prefill (x @ V into the cache at ``start``, the
+    # whole cache up-projected through ops.lowrank_up, attention) against
+    # the JAX package's on the same numpy weights, cache and tokens: whole
+    # (start 0) and a second chunk over a cache already holding 8 rows.
+    # fp32, sums in another order: 1e-5
+    from repro.core import zoo
+    from repro.models import attention as JA
+    from repro.models import layers as JL
+    from repro_torch import configs as TC
+    from repro_torch.models import attention as TA
+    from repro_torch.models import layers as TL
+
+    cfg = zoo.smoke_cfg("llama-7b")
+    tcfg = TC.get_smoke_config("llama-7b").replace(dtype="float32")
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(9)
+    rk, rv, lmax, b = 11, 13, 24, 2
+    w = {"wq": {"w": _rand(rng, d, h * hd) / 8},
+         "wk": {"v": _rand(rng, d, rk) / 8, "u": _rand(rng, rk, kv * hd) / 4},
+         "wv": {"v": _rand(rng, d, rv) / 8, "u": _rand(rng, rv, kv * hd) / 4},
+         "wo": {"w": _rand(rng, h * hd, d) / 8}}
+    jp = {k: {n: jnp.asarray(a) for n, a in v.items()} for k, v in w.items()}
+    tp = {k: {n: torch.from_numpy(a) for n, a in v.items()}
+          for k, v in w.items()}
+    lk0, lv0 = _rand(rng, b, lmax, rk), _rand(rng, b, lmax, rv)
+    theta = cfg.rope_theta
+    for start, length in ((0, 8), (8, 5)):
+        x = _rand(rng, b, length, d)
+        pos = np.arange(start, start + length)
+        jcos, jsin = JL.rope_table(jnp.asarray(pos), hd, theta)
+        tcos, tsin = TL.rope_table(torch.from_numpy(pos), hd, theta)
+        jo, jlk, jlv = JA.gqa_prefill_latent(
+            jp, jnp.asarray(x), jnp.asarray(lk0), jnp.asarray(lv0), start,
+            cfg, jcos, jsin, theta=theta)
+        to, tlk, tlv = TA.gqa_prefill_latent(
+            tp, torch.from_numpy(x), torch.from_numpy(lk0.copy()),
+            torch.from_numpy(lv0.copy()), start, tcfg, tcos, tsin,
+            theta=theta)
+        for got, want in ((to, jo), (tlk, jlk), (tlv, jlv)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-5, atol=1e-5)

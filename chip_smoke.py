@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # from the repository root, one CUDA card
     python3 chip_smoke.py --only lowrank   # phases 1-2 and lowrank_matmul
     python3 chip_smoke.py --only cov       # phases 1-2 and cov_accum
+    python3 chip_smoke.py --only grouped   # phases 1-2 and grouped_matmul
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -17,8 +18,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
              version's time, one PyTorch yardstick (``library_ms``) where a
              single call computes the same function, and the card's least
              time for the same work (``bound_ms``); ``grouped_matmul`` also
-             backward (dx, dW) against autograd through its plain version at
-             a refinement shape and the ragged one, and ``flash_attention``
+             at decode's 48 rows over 64 experts (timed), with each row's
+             tail-tile waste, backward (dx, dW) against autograd through its
+             plain version at a refinement shape and the ragged one (bf16
+             timed at the first), and its rows bit for bit the same when
+             they run again behind extra rows of other experts (every
+             segment offset moved; bf16, forward and dx); ``flash_attention``
              at MLA prefill's head dim 192.  ``lowrank_matmul`` at T 4096,
              256 and 8 for each llama shape, ragged T through every body,
              and T 1-64 with each bf16 body forced; beside its ``ms`` (one
@@ -32,8 +37,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
              ``cov_accum`` at llama-7b's taps, MLA's kv_lora tap (T split),
              one expert segment and ragged shapes; xx and xpxp exactly
              symmetric, and two calls with T split give the same bits, in
-             fp32 and bf16.  ``--only lowrank`` / ``--only cov`` run phases
-             1-2 and these rows alone.
+             fp32 and bf16.  ``--only lowrank`` / ``--only cov`` /
+             ``--only grouped`` run phases 1-2 and that kernel's rows alone.
 4. smoke   — the smoke compression recipe on the card (kernels) and on the
              CPU (plain versions) from the same params and tokens; then the
              compressed smoke model served on both (continuous batching over
@@ -137,8 +142,11 @@ SIZES = {
     # grouped_matmul: (name, M, d, f, E) — phase 7's expert GEMMs, M = 4 x
     # 1024 tokens x top-6 routed rows over 64 experts: the dense bank's
     # gate/up and down, the factorized banks' x @ V and t @ U at rank 504;
-    # then a ragged case (f not a multiple of 8, M not of the row tile).
-    # Group sizes: a skewed numpy draw with two experts empty
+    # the dense gate/up at decode's M = 8 slots x top-6 (serving deepseek,
+    # ROADMAP 1.1: no target yet); then ragged cases: f 136 (the last column
+    # tile 8 wide: its second 64-column box is wholly past f and not
+    # loaded), and f not a multiple of 8, M not of the row tile.  Group
+    # sizes: a skewed numpy draw with two experts empty
     "grouped": (
         ("gate_up", 24576, 2048, 1408, 64),
         ("down", 24576, 1408, 2048, 64),
@@ -146,7 +154,11 @@ SIZES = {
         ("gate_up_u", 24576, 504, 1408, 64),
         ("down_v", 24576, 1408, 504, 64),
         ("down_u", 24576, 504, 2048, 64),
+        ("decode", 48, 2048, 1408, 64),
+        ("ragged_n", 1000, 200, 136, 7),
         ("ragged", 4133, 200, 77, 9)),
+    # the shift-invariance check's cases (names above)
+    "grouped_shift": ("gate_up_v", "decode", "ragged_n", "ragged"),
     # phase 7: deepseek-v2-lite at published widths, depth cut 27 -> 2
     "moe_layers": 2,
     # flash_decode: (name, B, H, KV, D, r_k, r_v, L, lengths (lo, hi));
@@ -746,14 +758,31 @@ def _grouped_mm_library(torch, x, w, gs):
     return (lambda: fn(x, w, offs=offs)), out
 
 
-def check_grouped(torch, np, ops, ref, case, dtype, timed, dev):
+def _grouped_inputs(torch, np, case, dtype, dev, salt=0):
+    """(sizes, group_sizes on the device, x, w) of a ``grouped`` case."""
     name, m, d, f, e = case
-    sizes = _group_sizes(np, m, e, m + d + f)
+    sizes = _group_sizes(np, m, e, m + d + f + salt)
     gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(m + d + f)
+    gen = torch.Generator(device=dev).manual_seed(m + d + f + salt)
     x = torch.randn(m, d, generator=gen, device=dev).to(dtype)
     w = (torch.randn(e, d, f, generator=gen, device=dev) / math.sqrt(d)
          ).to(dtype)
+    return sizes, gs, x, w, gen
+
+
+def _tile_waste(gm, m, d, f, e, dtype, sizes):
+    """The tail tiles' share of the wgmma body's row work: rows computed
+    and not stored, over the rows stored (0 for the fp32 body)."""
+    p = gm.plan(m, d, f, e, dtype)
+    live = min(m, int(sizes.sum()))
+    return (p.computed_rows(sizes.tolist()) - live) / max(live, 1) \
+        if p.body == "wgmma" else 0.0
+
+
+def check_grouped(torch, np, ops, ref, case, dtype, timed, dev):
+    from repro_torch.kernels import grouped_matmul as gm
+    name, m, d, f, e = case
+    sizes, gs, x, w, _ = _grouped_inputs(torch, np, case, dtype, dev)
     want = ref.grouped_matmul_ref(x, w, gs)
     got = ops.grouped_matmul(x, w, gs)
     err = rel_fro(got, want)
@@ -770,9 +799,11 @@ def check_grouped(torch, np, ops, ref, case, dtype, timed, dev):
            "dtype": str(dtype).replace("torch.", ""),
            "empty_experts": int((sizes == 0).sum()),
            "largest_group": int(sizes.max()), "rel_fro_err": err,
-           "max_abs_err": mae}
+           "max_abs_err": mae,
+           "tile_waste": _tile_waste(gm, m, d, f, e, dtype, sizes)}
     if timed:
         row["ms"] = time_ms(lambda: ops.grouped_matmul(x, w, gs))
+        row["device_ms"] = device_ms(lambda: ops.grouped_matmul(x, w, gs))
         row["plain_ms"] = time_ms(lambda: ref.grouped_matmul_ref(x, w, gs))
         lib, out = _grouped_mm_library(torch, x, w, gs)
         row["library_ms"] = None if lib is None else time_ms(lib)
@@ -780,6 +811,7 @@ def check_grouped(torch, np, ops, ref, case, dtype, timed, dev):
             row["library_note"] = out
         else:
             row["library_rel_err"] = rel_fro(out, want)
+            row["library_device_ms"] = device_ms(lib)
         eb = x.element_size()
         live = int((sizes > 0).sum())       # experts whose weights are read
         flops = 2 * m * d * f
@@ -788,20 +820,20 @@ def check_grouped(torch, np, ops, ref, case, dtype, timed, dev):
     return row
 
 
-def check_grouped_backward(torch, np, ops, ref, case, dtype, dev):
-    """dx (the kernel on wᵀ) and dW (per-segment products) against autograd
-    through the plain version, on the same inputs and cotangent."""
+def check_grouped_backward(torch, np, ops, ref, case, dtype, timed, dev):
+    """dx (the kernel reading W[g]ᵀ in place, bf16; on Wᵀ made contiguous,
+    fp32) and dW (per-segment products) against autograd through the plain
+    version, on the same inputs and cotangent; timed: one backward (dx and
+    dW) between CUDA events beside autograd through the plain version, and
+    dx alone beside ``torch._grouped_mm`` on dy and W[g]ᵀ."""
     name, m, d, f, e = case
-    sizes = _group_sizes(np, m, e, m + d + f + 1)
-    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(m + d + f + 1)
-    x0 = torch.randn(m, d, generator=gen, device=dev).to(dtype)
-    w0 = (torch.randn(e, d, f, generator=gen, device=dev) / math.sqrt(d)
-          ).to(dtype)
+    sizes, gs, x0, w0, gen = _grouped_inputs(torch, np, case, dtype, dev,
+                                             salt=1)
     dy = torch.randn(m, f, generator=gen, device=dev).to(dtype)
     grads = []
-    for fn in (lambda a, b: ops.grouped_matmul(a, b, gs),
-               lambda a, b: ref.grouped_matmul_ref(a, b, gs).to(dtype)):
+    fns = (lambda a, b: ops.grouped_matmul(a, b, gs),
+           lambda a, b: ref.grouped_matmul_ref(a, b, gs).to(dtype))
+    for fn in fns:
         x = x0.clone().requires_grad_(True)
         w = w0.clone().requires_grad_(True)
         grads.append(torch.autograd.grad(fn(x, w), (x, w), dy))
@@ -810,28 +842,108 @@ def check_grouped_backward(torch, np, ops, ref, case, dtype, dev):
     lim = 1e-5 if dtype == torch.float32 else 1e-2
     require(max(errs) <= lim, f"grouped_matmul backward {name} {dtype}: rel "
             f"err dx {errs[0]:.3e} dW {errs[1]:.3e} > {lim:.0e}")
-    return {"case": name, "shape": [m, d, f, e],
-            "dtype": str(dtype).replace("torch.", ""), "dx_rel_fro_err":
-            errs[0], "dw_rel_fro_err": errs[1]}
+    row = {"case": name, "shape": [m, d, f, e],
+           "dtype": str(dtype).replace("torch.", ""), "dx_rel_fro_err":
+           errs[0], "dw_rel_fro_err": errs[1], "max_abs_err": max(
+               float((g.float() - r.float()).abs().max())
+               for g, r in zip(*grads))}
+    if timed:
+        x = x0.clone().requires_grad_(True)
+        w = w0.clone().requires_grad_(True)
+        outs = [fn(x, w) for fn in fns]
+        row["ms"] = time_ms(lambda: torch.autograd.grad(
+            outs[0], (x, w), dy, retain_graph=True))
+        row["plain_ms"] = time_ms(lambda: torch.autograd.grad(
+            outs[1], (x, w), dy, retain_graph=True))
+        # dx alone: the kernel reading W[g]ᵀ in place, and the one PyTorch
+        # call that computes it (no single call computes dx and dW)
+        row["dx_ms"] = time_ms(lambda: ops._grouped_kernel(dy, w0, gs,
+                                                           trans=True))
+        row["library_ms"] = None
+        lib, out = _grouped_mm_library(torch, dy, w0.transpose(1, 2), gs)
+        row["library_dx_ms"] = None if lib is None else time_ms(lib)
+        if lib is None:
+            row["library_note"] = out
+        live = int((sizes > 0).sum())
+        eb = x0.element_size()
+        # dx and dW: 4·M·d·f flops; dy, W, x read, dx and dW written
+        nbytes = (m * f + live * d * f + 2 * m * d + e * d * f) * eb
+        row["bound_ms"], row["bound_by"] = bound(4 * m * d * f, nbytes,
+                                                 row["dtype"])
+    return row
+
+
+def check_grouped_shift(torch, np, ops, case, dev):
+    """The same rows run again behind extra rows of other experts: before
+    each expert's segment an extra expert with 0-199 rows of its own, so
+    every segment's offset moves (by amounts that are not multiples of the
+    row tile).  Each original row's output (and, through autograd, its dx)
+    must be the same bits: a row's result depends only on the row and its
+    expert's weights (bf16)."""
+    name, m, d, f, e = case
+    dtype = torch.bfloat16
+    sizes, gs, x, w, gen = _grouped_inputs(torch, np, case, dtype, dev,
+                                           salt=2)
+    extra = np.random.default_rng(m + e).integers(0, 200, e)
+    sizes2 = np.stack([extra, sizes], 1).reshape(-1)     # extra, own, ...
+    gs2 = torch.tensor(sizes2, dtype=torch.int32, device=dev)
+    w2 = torch.stack([torch.randn(e, d, f, generator=gen, device=dev).to(
+        dtype), w], 1).reshape(2 * e, d, f)
+    pieces, own = [], []
+    start = pos = 0
+    for g in range(e):
+        pieces.append(torch.randn(int(extra[g]), d, generator=gen,
+                                  device=dev).to(dtype))
+        pos += int(extra[g])
+        pieces.append(x[start:start + int(sizes[g])])
+        own.append(torch.arange(pos, pos + int(sizes[g]), device=dev))
+        start += int(sizes[g])
+        pos += int(sizes[g])
+    x2 = torch.cat(pieces)
+    own = torch.cat(own)
+    dy = torch.randn(m, f, generator=gen, device=dev).to(dtype)
+    dy2 = torch.randn(x2.shape[0], f, generator=gen, device=dev).to(dtype)
+    dy2[own] = dy
+    outs = []
+    for xi, wi, gi, dyi in ((x, w, gs, dy), (x2, w2, gs2, dy2)):
+        xi = xi.clone().requires_grad_(True)
+        y = ops.grouped_matmul(xi, wi, gi)
+        dx, = torch.autograd.grad(y, (xi,), dyi)
+        outs.append((y.detach(), dx))
+    same_y = torch.equal(outs[0][0], outs[1][0][own])
+    same_dx = torch.equal(outs[0][1], outs[1][1][own])
+    row = {"case": name, "shape": [m, d, f, e], "dtype": "bfloat16",
+           "extra_rows": int(extra.sum()), "y_bitwise_equal": same_y,
+           "dx_bitwise_equal": same_dx}
+    require(same_y and same_dx, f"grouped_matmul {name}: rows differ when "
+            f"their segments move (y {same_y}, dx {same_dx})")
+    return row
 
 
 def phase_grouped_kernels(torch, np, ops, ref, dev="cuda", sizes=SIZES):
     rows = []
     for case in sizes["grouped"]:
         for dtype in (torch.float32, torch.bfloat16):
-            timed = case[0] != "ragged" and dtype == torch.bfloat16
+            timed = (not case[0].startswith("ragged")
+                     and dtype == torch.bfloat16)
             row = check_grouped(torch, np, ops, ref, case, dtype, timed, dev)
             rows.append(row)
             log("grouped_matmul", json.dumps(row))
     back = []
     # a shape refinement differentiates (x @ V of the factorized gate/up
-    # bank) and the ragged one
+    # bank; bf16 timed) and the ragged one
     for case in (sizes["grouped"][2], sizes["grouped"][-1]):
         for dtype in (torch.float32, torch.bfloat16):
+            timed = case[0] != "ragged" and dtype == torch.bfloat16
             row = check_grouped_backward(torch, np, ops, ref, case, dtype,
-                                         dev)
+                                         timed, dev)
             back.append(row)
             log("grouped_matmul backward", json.dumps(row))
+    by_name = {c[0]: c for c in sizes["grouped"]}
+    for name in sizes["grouped_shift"]:
+        row = check_grouped_shift(torch, np, ops, by_name[name], dev)
+        back.append(row)
+        log("grouped_matmul shift", json.dumps(row))
     return rows, back
 
 
@@ -1583,9 +1695,9 @@ def phase_moe(torch, ops, dev="cuda", sizes=SIZES, cfg=None):
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("lowrank", "cov"),
-                    help="phases 1-2 and lowrank_matmul's (or cov_accum's) "
-                    "rows of phase 3")
+    ap.add_argument("--only", choices=("lowrank", "cov", "grouped"),
+                    help="phases 1-2 and lowrank_matmul's (cov_accum's, "
+                    "grouped_matmul's) rows of phase 3")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1642,8 +1754,12 @@ def main(argv=None) -> int:
     if args.only is not None:
         if args.only == "lowrank":
             rows = {"lowrank_matmul": phase_lowrank(torch, ops, ref)}
-        else:
+        elif args.only == "cov":
             rows = {"cov_accum": phase_cov(torch, ops, ref)}
+        else:
+            gm_rows, gm_back = phase_grouped_kernels(torch, np, ops, ref)
+            rows = {"grouped_matmul": gm_rows,
+                    "grouped_matmul_backward": gm_back}
         with open(OUT / f"chip_smoke{tag}.json", "w") as f:
             json.dump({"card": card, **rows}, f, indent=1)
         print(json.dumps({"ok": True, "device": {
@@ -1727,6 +1843,14 @@ def main(argv=None) -> int:
         "serve_server": serve_run["server"]["lowrank_rows"],
         "serve_engine": serve_run["engine"]["lowrank_rows"],
         "compress_moe": moe_run["lowrank_rows"]}
+    # grouped_matmul at decode's 48 rows (serving deepseek, ROADMAP 1.1) and
+    # one bf16 backward (dx and dW) at the x @ V shape
+    gm = next(k for k in kernels if k["name"] == "grouped_matmul")
+    gm["decode_M48"] = timing(next(r for r in gm_rows if "ms" in r
+                                   and r["case"] == "decode"))
+    gm["backward_x_v"] = {**timing(next(r for r in gm_back if "ms" in r)),
+                          "dx_ms": next(r for r in gm_back
+                                        if "ms" in r)["dx_ms"]}
     # MLA prefill's head dim: the flash_attention instance phase 7 runs
     next(k for k in kernels if k["name"] == "flash_attention")[
         "mla_prefill_d192"] = timing(next(

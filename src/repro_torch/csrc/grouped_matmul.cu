@@ -1,54 +1,118 @@
 // Grouped (ragged) expert GEMM y[i] = x[i] @ W[g(i)], written for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/grouped_matmul.py::grouped_matmul,
-// the expert GEMM of the drop-free MoE dispatch: the T·k routed rows are sorted by
-// expert, so expert e owns the contiguous row segment [offs[e], offs[e+1]) of x.
+// Replaces the Pallas TPU kernel src/repro/kernels/grouped_matmul.py::grouped_matmul
+// (its pallas_call at :135), the expert GEMM of the drop-free MoE dispatch: the
+// T·k routed rows are sorted by expert, so expert g owns the contiguous row
+// segment [offs[g], offs[g+1]) of x, and y's rows are x's rows times their own
+// expert's (d, f) weights, summed in fp32.
 //
-// The TPU kernel walks a static list of M/bm + E - 1 (row block x expert) tiles
-// built from the group sizes ahead of the grid (scalar prefetch), revisiting a row
-// block once per expert it touches while the output block stays resident in VMEM.
-// Hopper has no sequential grid to carry a resident block through, so this kernel
-// is laid out the other way round:
+// The TPU kernel walks a static list of M/bm + E - 1 (row block x expert)
+// tiles, visiting a row block once per expert it touches and masking the
+// other experts' rows to zero, while the output block stays resident in VMEM
+// down a sequential grid axis.  Hopper has no such axis, so this kernel cuts
+// the work the other way round: a work item is (g, i, j), rows
+// [offs[g] + i·BM, min(offs[g] + (i+1)·BM, offs[g+1])) of expert g and column
+// tile j, and each output row is written once, by its own expert.
 //
-//   grid = (f / BN column tiles, M / BM row tiles), every block independent;
-//   a block reads the E + 1 segment offsets (an exclusive cumsum of the group
-//   sizes, made on the device: nothing about the routing reaches the host),
-//   binary-searches the first segment that overlaps its rows, and for each
-//   segment that does accumulates (its rows of x, the others masked to zero)
-//   @ W[g] into ONE set of fp32 accumulators, looping over d in K-chunks;
-//   it writes its tile once.
+// Bound on an H100: max(2·M·d·f flops / 989 TFLOP/s,
+// (M·d + E_live·d·f + M·f)·2 bytes / 3.35 TB/s), E_live the experts with rows.
+// At the main path's shapes (M = 24,576 routed rows over 64 experts, d, f in
+// {2048, 1408, 504}) the dense bank is bound by the tensor cores, the rank-504
+// factors by their bytes; decode's 48 rows read the live experts' weights and
+// little else.  What the design does about each:
 //
-// A row's output is the product of its row with its own expert's columns,
-// contracted over d in a fixed order; the masked visits of other experts add
-// exact zeros.  So a row does not depend on which rows share its tile, and the
-// drop-free layer stays batch-size invariant on the card.  Empty segments are
-// skipped; rows past sum(group sizes) belong to no segment and come out zero (as
+//   grouped_wgmma (bf16): a persistent grid of at most one block an SM.  A
+//     block's first warp reads the E group sizes (on the device: nothing of
+//     the routing reaches the host), scans them into the segment offsets,
+//     clamps those to M, and scans the experts' row tiles into each one's
+//     first tile; a work item index w then maps to (g, i, j) by a binary search
+//     (item_at; kernels/grouped_matmul.py::Plan.tile_at is the same
+//     arithmetic).  Items run expert by expert, each expert's row tiles in
+//     order, its column tiles innermost: the blocks in flight share one or
+//     two experts' weights and each row tile of x in L2, so the bank is read
+//     from device memory about once.  One producer thread fills a 4-stage
+//     ring of 64-deep stages by TMA (a "full" and an "empty" mbarrier a
+//     stage) and runs on into the next item while the consumers store the
+//     last.  A, the x rows, is K-major, a 2D map on (M, K) whose 128-row box
+//     starts at the segment's own first row: no row is masked in the K-loop.
+//     The box's rows past the segment's end (the next expert's rows, or
+//     TMA's zero fill past M) are computed and not stored, but a warpgroup
+//     whose 64 rows lie wholly past it computes nothing: the waste is
+//     Σ_g ⌈s_g/64⌉·64 - M rows of MMA work (s_g the clamped group sizes), at
+//     most 63·E.  W is read in place through a 3D map on (E, d, f): its
+//     out-of-bounds fill zeroes a K chunk past d inside each expert (a 2D
+//     view of (E·d, f) would read the next expert's rows there; d 504 is not
+//     a multiple of 64).  Forward, B = W[g] has f contiguous: MN-major, two
+//     64-column boxes a stage, the transpose bit set.  For dx = dy @ W[g]ᵀ
+//     (TransW) B = W[g]ᵀ is K-major from the same bank, one 128-row box of
+//     W[g]'s rows a stage, the transpose bit clear: no transposed copy of the
+//     bank.  Two consumer warpgroups each run wgmma.mma_async m64n128k16 on a
+//     64-row half of the 128 x 128 tile, fp32 accumulators in registers.
+//     A stage's 64-column boxes wholly past N are not loaded (their columns
+//     are never stored).  BN 128 at every f: a 256-column tile needs 128
+//     accumulators a consumer thread, more than the 168 registers a thread
+//     has at one block of three warpgroups an SM; at f 504 the four column
+//     tiles of a row tile run side by side, so x's re-reads come from L2.
+//   grouped_f32 (fp32): the FMA units (TF32 stays off, for fp32 parity; only
+//     the smoke recipe and the tests feed fp32): grid (f / 64, M / 64), a
+//     block scans the group sizes into the offsets as above and visits every
+//     segment that overlaps its rows with the others' rows masked to zero, a
+//     4x4 register tile a thread.  It takes W as it lies: dx runs it on Wᵀ
+//     made contiguous.
+//
+// Exact, deterministic, batch-invariant: each output element is summed over
+// the contraction in one fixed order (64-deep chunks in order, four k16
+// steps each), with no split and no atomics, and rounded once to bf16.  So a
+// row's bits depend only on the row and its expert's weights, not on M, the
+// segment's offset or the rows that share its tile: the drop-free layer
+// stays batch-size invariant on the card.  Empty experts get no item; rows
+// past sum(group sizes) belong to no segment and are written zero (as
 // jax.lax.ragged_dot gives them); segment ends are clamped to M.
 //
-// Bound on an H100: 2·M·d·f flops against (M·d + E·d·f + M·f)·eb bytes.  At the
-// main path's shapes (M = 24,576 routed rows, d, f in {2048, 1408, 504}) the
-// weight bank is read once per row tile in the worst case and the bound is bytes
-// or close to it.  Two bodies, both with fp32 accumulation:
-//   bf16 — tensor cores through WMMA (16x16x16 bf16 fragments, fp32 accumulators):
-//          128 x 128 block tiles, 8 warps of 64 x 32, 32-deep K steps staged in
-//          shared memory with 16-byte loads;
-//   fp32 — the FMA units (TF32 stays off): 64 x 64 block tiles, 16-deep K steps,
-//          a 4x4 register micro-tile per thread.
-// A block straddling s segments runs s K-loops (at most M/BM + E - 1 block
-// visits in all, as on the TPU).  No load pipeline and no wgmma / TMA: later work.
+// Epilogue: each warpgroup rounds its 64 x 128 fp32 tile once to bf16,
+// stages it in shared memory and stores it with 16-byte accesses, rows masked
+// to [first row, segment end) (a TMA store cannot mask rows inside a box).
 //
-// Contract (checked by the Python wrapper, kernels/ops.py::grouped_matmul): x (M, d),
-// w (E, d, f), y (M, f) contiguous, 16-byte aligned, one dtype; d and f multiples
-// of 8 (the wrapper zero-pads, which is exact); offs (E + 1,) int32 on the device,
-// non-decreasing, offs[0] = 0.  Returns cudaGetLastError().
+// Contract (checked by the Python wrapper, kernels/ops.py::grouped_matmul;
+// the launcher refuses what kernels/grouped_matmul.py::plan never produces):
+// x (M, K), w (E, d, f), y (M, N) contiguous, 16-byte aligned, one dtype;
+// K, N = d, f (trans_w 0: y = x @ W[g]) or f, d (trans_w 1: y = x @ W[g]ᵀ,
+// bf16 only); d and f multiples of 8 (the wrapper zero-pads, which is exact);
+// sizes (E,) int32 on the device, none negative, E <= 1024.  Returns the
+// first non-zero cudaError of the call.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
+// ---------------------------------------------------------------------------
+// fp32 on the FMA units
+
+constexpr int MAX_EXPERTS = 1024;  // the segment offsets' shared arrays
+
+// Warp 0: the exclusive cumsum of the (e,) group sizes into offs[0, e), 32
+// experts a step; returns the total (every lane).  Nothing of the routing
+// reaches the host: each block scans the sizes itself.
+__device__ __forceinline__ int segment_offsets(const int* __restrict__ sizes, int e,
+                                               int* offs) {
+  const int lane = threadIdx.x % 32;
+  int carry = 0;
+  for (int g0 = 0; g0 < e; g0 += 32) {
+    const int g = g0 + lane;
+    const int n = g < e ? sizes[g] : 0;
+    int incl = n;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
+    }
+    if (g < e) offs[g] = carry + incl - n;
+    carry += __shfl_sync(0xffffffffu, incl, 31);
+  }
+  return carry;
+}
+
+namespace gf {
 
 // smallest g in [0, e) whose segment ends past row r0, or e when none does
 __device__ __forceinline__ int first_segment(const int* __restrict__ offs, int e, int r0) {
@@ -65,9 +129,7 @@ __device__ __forceinline__ int first_segment(const int* __restrict__ offs, int e
   return lo;
 }
 
-// ---------------------------------------------------------------------------
-// fp32 on the FMA units
-
+constexpr int THREADS = 256;
 constexpr int BM = 64;   // block tile rows
 constexpr int BN = 64;   // block tile columns
 constexpr int BK = 16;   // K depth per shared-memory step
@@ -75,12 +137,18 @@ constexpr int APAD = 4;  // keeps the transposed A tile off one bank
 
 __global__ void __launch_bounds__(THREADS)
 grouped_f32(const float* __restrict__ x, const float* __restrict__ w,
-            const int* __restrict__ offs, float* __restrict__ y, int m, int d, int f,
+            const int* __restrict__ sizes, float* __restrict__ y, int m, int d, int f,
             int e) {
   __shared__ __align__(16) float sa[BK][BM + APAD];  // x tile, transposed
   __shared__ __align__(16) float sb[BK][BN];
+  __shared__ int offs[MAX_EXPERTS + 1];
 
   const int tid = threadIdx.x;
+  if (tid < 32) {
+    const int total = segment_offsets(sizes, e, offs);
+    if (tid == 0) offs[e] = total;
+  }
+  __syncthreads();
   const int tx = tid % 16;
   const int ty = tid / 16;
   const int row0 = blockIdx.y * BM;
@@ -146,149 +214,325 @@ grouped_f32(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+}  // namespace gf
+
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores (WMMA)
+// bf16: wgmma fed by a TMA ring, a persistent grid of per-expert row tiles
 
-namespace wmma = nvcuda::wmma;
-using bf16 = __nv_bfloat16;
+namespace gw {
+constexpr int BM = 128;                    // tile rows: two consumer warpgroups of 64
+constexpr int BN = 128;                    // tile columns
+constexpr int BK = 64;                     // depth a stage: one 128-byte swizzled row
+constexpr int STAGES = 4;
+constexpr int A_HALF = 64 * BK * 2;        // 8 KB: one warpgroup's 64 rows of x
+constexpr int A_BYTES = 2 * A_HALF;
+constexpr int B_ATOM = BK * 64 * 2;        // 8 KB: 64 depth rows x 64 columns (MN-major)
+constexpr int B_BYTES = BN * BK * 2;       // two atoms, or 128 rows x 64 depth (K-major)
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int LD = BN + 8;                 // staged row pitch (bf16): rows 16 bytes apart mod 128
+constexpr int STAGED_BYTES = BM * LD * 2;
+constexpr int MAP_BYTES = 2 * (MAX_EXPERTS + 1) * 4;  // the tile map's arrays
+constexpr int THREADS = 3 * 128;           // two consumer warpgroups + a producer one
+constexpr int CONSUMERS = 256;
+// the 128-byte swizzle repeats every 1024 bytes: stages start 1024-aligned
+constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + STAGED_BYTES + 2 * STAGES * 8 + MAP_BYTES;
+}  // namespace gw
 
-constexpr int TM = 128;  // block tile rows
-constexpr int TN = 128;  // block tile columns
-constexpr int TK = 32;   // K depth per shared-memory step
-constexpr int TPAD = 8;  // row padding (elements) against bank conflicts
-constexpr int FR = 16;   // WMMA fragment edge
+// One work item: expert g's rows [r0, r1) (r1 - r0 <= BM), columns [n0, +BN).
+struct Item {
+  int g, r0, r1, n0;
+};
 
-// Warp w owns rows (w / 4) * 64 .. +64 and columns (w % 4) * 32 .. +32 of the tile.
-__global__ void __launch_bounds__(THREADS)
-grouped_bf16_tc(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                const int* __restrict__ offs, bf16* __restrict__ y, int m, int d, int f,
-                int e) {
-  __shared__ __align__(128) bf16 sa[TM][TK + TPAD];
-  __shared__ __align__(128) bf16 sb[TK][TN + TPAD];
-  __shared__ __align__(128) float scratch[THREADS / 32][FR * FR];
+// Item w of the launch order over `cols` column tiles: lo[g] is expert g's
+// first row (the offsets clamped to M, lo[e] the end of the last segment),
+// start[g] its first row tile (start[e] all of them).  kernels/
+// grouped_matmul.py::Plan.tile_at is the same arithmetic.
+__device__ __forceinline__ Item item_at(int w, const int* lo, const int* start, int e,
+                                        int cols) {
+  const int rt = w / cols;
+  const int j = w - rt * cols;
+  int a = 0;  // the smallest g with start[g + 1] > rt
+  int b = e - 1;
+  while (a < b) {
+    const int mid = (a + b) / 2;
+    if (start[mid + 1] > rt) {
+      b = mid;
+    } else {
+      a = mid + 1;
+    }
+  }
+  const int r0 = lo[a] + (rt - start[a]) * gw::BM;
+  return {a, r0, min(r0 + gw::BM, lo[a + 1]), j * gw::BN};
+}
+
+template <int Id>
+__device__ __forceinline__ void warpgroup_sync() {  // one consumer warpgroup
+  asm volatile("bar.sync %0, 128;" ::"n"(Id) : "memory");
+}
+
+// y (M, N) = x (M, K) @ W[g] (TransW 0: K = d, N = f) or W[g]ᵀ (TransW 1:
+// K = f, N = d) for each row's expert g, bf16 in and out, fp32 sums.  A
+// persistent grid: block b walks the items w = b, b + gridDim.x, ... of the
+// (row tile, column tile) list, then zeroes its share of the rows past the
+// last segment.
+template <int TransW>
+__global__ void __launch_bounds__(gw::THREADS, 1)
+grouped_wgmma(const __grid_constant__ CUtensorMap tma_x,
+              const __grid_constant__ CUtensorMap tma_w, const int* __restrict__ sizes,
+              bf16* __restrict__ y, int m, int K, int N, int e) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const base_ptr = smem_raw + (base - raw);
+  bf16* const staged = reinterpret_cast<bf16*>(base_ptr + gw::STAGES * gw::STAGE_BYTES);
+  const uint32_t bars = base + gw::STAGES * gw::STAGE_BYTES + gw::STAGED_BYTES;
+  int* const lo = reinterpret_cast<int*>(base_ptr + gw::STAGES * gw::STAGE_BYTES +
+                                         gw::STAGED_BYTES + 2 * gw::STAGES * 8);
+  int* const start = lo + MAX_EXPERTS + 1;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (gw::STAGES + s); };
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int wrow = (warp / 4) * 64;
-  const int wcol = (warp % 4) * 32;
-  const int row0 = blockIdx.y * TM;
-  const int col0 = blockIdx.x * TN;
-  const int row_end = min(row0 + TM, m);
+  const int group = tid / 128;
+  if (tid < 32) {
+    // the tile map: each expert's first row, the offsets clamped to M, and
+    // the exclusive scan of its row tiles, 32 experts a step
+    const int total = segment_offsets(sizes, e, lo);
+    __syncwarp();
+    int carry = 0;
+    for (int g0 = 0; g0 < e; g0 += 32) {
+      const int g = g0 + tid;
+      int n = 0;
+      if (g < e) {
+        const int a = min(lo[g], m);
+        const int b = min(g + 1 < e ? lo[g + 1] : total, m);
+        n = b > a ? (b - a + gw::BM - 1) / gw::BM : 0;
+      }
+      int incl = n;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (tid >= o) incl += v;
+      }
+      if (g < e) start[g] = carry + incl - n;
+      carry += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    __syncwarp();
+    for (int g = tid; g < e; g += 32) lo[g] = min(lo[g], m);
+    if (tid == 0) {
+      lo[e] = min(total, m);
+      start[e] = carry;
+      for (int s = 0; s < gw::STAGES; ++s) {
+        mbar_init(full(s), 1);
+        mbar_init(empty(s), 2);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+  }
+  __syncthreads();
 
-  wmma::fragment<wmma::accumulator, FR, FR, FR, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+  const int cols = (N + gw::BN - 1) / gw::BN;
+  const int items = start[e] * cols;
+  const int nk = (K + gw::BK - 1) / gw::BK;
+
+  if (group == 2) {  // producer warpgroup: one thread issues every load
+    if (tid == 2 * 128) {
+      int it = 0;  // stages filled so far, over every item
+      for (int w = blockIdx.x; w < items; w += gridDim.x) {
+        const Item t = item_at(w, lo, start, e, cols);
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % gw::STAGES;
+          if (it >= gw::STAGES) mbar_wait(empty(s), ((it / gw::STAGES) - 1) & 1);
+          const uint32_t sa = base + s * gw::STAGE_BYTES;
+          const uint32_t sb = sa + gw::A_BYTES;
+          const int k0 = kt * gw::BK;
+          if constexpr (TransW) {
+            // W[g]ᵀ's columns n0.. are W[g]'s rows: 128 rows x 64 depth
+            mbar_expect_tx(full(s), gw::STAGE_BYTES);
+            tma_load(sa, &tma_x, full(s), k0, t.r0);
+            tma_load_3d(sb, &tma_w, full(s), k0, t.n0, t.g);
+          } else {
+            // the atoms wholly past N are not loaded: their columns of the
+            // product are never stored
+            const int atoms = min(gw::BN / 64, (N - t.n0 + 63) / 64);
+            mbar_expect_tx(full(s), gw::A_BYTES + atoms * gw::B_ATOM);
+            tma_load(sa, &tma_x, full(s), k0, t.r0);
+            for (int a = 0; a < atoms; ++a) {
+              tma_load_3d(sb + a * gw::B_ATOM, &tma_w, full(s), t.n0 + 64 * a, k0, t.g);
+            }
+          }
+        }
+      }
+    }
+    return;
   }
 
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int g = first_segment(offs, e, row0); g < e; ++g) {
-    const int seg_lo = offs[g];
-    if (seg_lo >= row_end) break;
-    const int lo = max(seg_lo, row0);
-    const int hi = min(offs[g + 1], row_end);
-    if (lo >= hi) continue;  // empty segment
-    const bf16* wg = w + static_cast<size_t>(g) * d * f;
-    for (int k0 = 0; k0 < d; k0 += TK) {
-      // 128 x 32 x tile and 32 x 128 w tile: 512 16-byte vectors each; d and f
-      // are multiples of 8, so a vector is wholly inside or wholly outside
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int vec = tid + q * THREADS;
-        const int ar = vec / (TK / 8);
-        const int ac = (vec % (TK / 8)) * 8;
-        const int r = row0 + ar;
-        uint4 av = zero;
-        if (r >= lo && r < hi && k0 + ac < d) {
-          av = *reinterpret_cast<const uint4*>(x + static_cast<size_t>(r) * d + k0 + ac);
-        }
-        *reinterpret_cast<uint4*>(&sa[ar][ac]) = av;
-        const int br = vec / (TN / 8);
-        const int bc = (vec % (TN / 8)) * 8;
-        uint4 bv = zero;
-        if (k0 + br < d && col0 + bc < f) {
-          bv = *reinterpret_cast<const uint4*>(wg + static_cast<size_t>(k0 + br) * f + col0 +
-                                               bc);
-        }
-        *reinterpret_cast<uint4*>(&sb[br][bc]) = bv;
+  const int lane = tid % 128;
+  bf16* const mine = staged + group * 64 * gw::LD;  // this warpgroup's 64 staged rows
+  int it = 0;  // stages consumed so far, over every item
+  for (int w = blockIdx.x; w < items; w += gridDim.x) {
+    const Item t = item_at(w, lo, start, e, cols);
+    const int row0 = t.r0 + group * 64;  // this warpgroup's first row
+    if (row0 >= t.r1) {
+      // a tail tile of at most 64 rows: the other warpgroup's half holds
+      // them all; this one keeps the ring's count and computes nothing
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % gw::STAGES;
+        mbar_wait(full(s), (it / gw::STAGES) & 1);
+        if (lane == 0) mbar_arrive(empty(s));
       }
-      __syncthreads();
+      continue;
+    }
+    float d[64];
 #pragma unroll
-      for (int kk = 0; kk < TK; kk += FR) {
-        wmma::fragment<wmma::matrix_a, FR, FR, FR, bf16, wmma::row_major> fa[4];
-        wmma::fragment<wmma::matrix_b, FR, FR, FR, bf16, wmma::row_major> fb[2];
+    for (int i = 0; i < 64; ++i) d[i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % gw::STAGES;
+      mbar_wait(full(s), (it / gw::STAGES) & 1);
+      const uint32_t sa = base + s * gw::STAGE_BYTES + group * gw::A_HALF;
+      const uint32_t sb = base + s * gw::STAGE_BYTES + gw::A_BYTES;
+      fence_acc(d);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          wmma::load_matrix_sync(fa[i], &sa[wrow + i * FR][kk], TK + TPAD);
-        }
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::load_matrix_sync(fb[j], &sb[kk][wcol + j * FR], TN + TPAD);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+      for (int j = 0; j < gw::BK / 16; ++j) {
+        // A: K-major, 16 depth values = 32 bytes further along each swizzled
+        // row.  B MN-major (forward): 16 depth rows = 2048 bytes further, the
+        // second 64-column atom B_ATOM bytes on (LBO), 8-row groups 1024
+        // (SBO); B K-major (TransW): as A, its 128 rows in 8-row groups 1024
+        // bytes apart
+        if constexpr (TransW) {
+          wgmma_m64n128k16<0, 0>(d, smem_desc(sa + j * 32, 16, 1024),
+                                 smem_desc(sb + j * 32, 16, 1024), 1);
+        } else {
+          wgmma_m64n128k16<0, 1>(d, smem_desc(sa + j * 32, 16, 1024),
+                                 smem_desc(sb + j * 16 * 128, gw::B_ATOM, 1024), 1);
         }
       }
-      __syncthreads();
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      fence_acc(d);
+      // the previous step's wgmmas are done: hand its stage back
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      fence_acc(d);
+      if (kt > 0 && lane == 0) mbar_arrive(empty((it - 1) % gw::STAGES));
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    fence_acc(d);
+    if (lane == 0) mbar_arrive(empty((it - 1) % gw::STAGES));
+
+    // round once and stage: d[4j + 2h + e] is row r + 8h, column c + 8j + e
+    if (group == 0) {
+      warpgroup_sync<1>();  // the last item's stores are done reading `mine`
+    } else {
+      warpgroup_sync<2>();
+    }
+    {
+      const int r = (lane / 32) * 16 + (lane % 32) / 4;
+      const int c = (lane % 4) * 2;
+#pragma unroll
+      for (int j = 0; j < gw::BN / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          *reinterpret_cast<__nv_bfloat162*>(&mine[(r + 8 * h) * gw::LD + c + 8 * j]) =
+              __floats2bfloat162_rn(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+        }
+      }
+    }
+    if (group == 0) {
+      warpgroup_sync<1>();
+    } else {
+      warpgroup_sync<2>();
+    }
+    // 64 rows x 16 vectors of 8 columns, 8 a thread; rows past the segment's
+    // end and columns past N (a multiple of 8) are not stored
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int v = lane + q * 128;
+      const int r = v / (gw::BN / 8);
+      const int c = (v % (gw::BN / 8)) * 8;
+      if (row0 + r < t.r1 && t.n0 + c < N) {
+        *reinterpret_cast<uint4*>(y + static_cast<size_t>(row0 + r) * N + t.n0 + c) =
+            *reinterpret_cast<const uint4*>(&mine[r * gw::LD + c]);
+      }
     }
   }
 
-  // epilogue, one 16 x 16 fragment at a time through a per-warp fp32 scratch:
-  // each lane rounds 8 consecutive outputs of one row and stores them as one
-  // 16-byte vector
-  float* sc = scratch[warp];
-  const int r = lane / 2;
-  const int cb = (lane % 2) * 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(sc, acc[i][j], FR, wmma::mem_row_major);
-      __syncwarp();
-      const int gr = row0 + wrow + i * FR + r;
-      const int gc = col0 + wcol + j * FR + cb;
-      if (gr < m && gc < f) {
-        __align__(16) bf16 out[8];
-#pragma unroll
-        for (int k = 0; k < 8; ++k) out[k] = __float2bfloat16(sc[r * FR + cb + k]);
-        *reinterpret_cast<uint4*>(y + static_cast<size_t>(gr) * f + gc) =
-            *reinterpret_cast<const uint4*>(out);
-      }
-      __syncwarp();
-    }
+  // rows past the last segment belong to no expert: zeros
+  const size_t tail = static_cast<size_t>(m - lo[e]) * (N / 8);
+  uint4* const out = reinterpret_cast<uint4*>(y + static_cast<size_t>(lo[e]) * N);
+  for (size_t v = static_cast<size_t>(blockIdx.x) * gw::CONSUMERS + tid; v < tail;
+       v += static_cast<size_t>(gridDim.x) * gw::CONSUMERS) {
+    out[v] = make_uint4(0u, 0u, 0u, 0u);
   }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+
+template <int TransW>
+int launch_wgmma(const bf16* x, const bf16* w, const int* sizes, bf16* y, int m, int d,
+                 int f, int e, int ctas, cudaStream_t s) {
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        grouped_wgmma<TransW>, cudaFuncAttributeMaxDynamicSharedMemorySize, gw::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  const int K = TransW ? f : d;
+  const int N = TransW ? d : f;
+  CUtensorMap tx, tw;
+  int rc = tensor_map(&tx, x, m, K, gw::BM);
+  if (rc != 0) return rc;
+  // forward: 64 depth rows (of d) x 64 columns (of f); TransW: 128 rows of
+  // W[g] (columns of y) x 64 depth (of f)
+  rc = tensor_map_3d(&tw, w, e, d, f, TransW ? gw::BN : gw::BK);
+  if (rc != 0) return rc;
+  grouped_wgmma<TransW><<<ctas, gw::THREADS, gw::SMEM, s>>>(tx, tw, sizes, y, m, K, N, e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16 (x, w and y share it).
-extern "C" int grouped_matmul_launch(const void* x, const void* w, const void* offs, void* y,
-                                     int m, int d, int f, int e, int dtype, void* stream) {
-  if (m <= 0 || d <= 0 || f <= 0 || e <= 0 || d % 8 != 0 || f % 8 != 0) {
+// One call under a launch plan (kernels/grouped_matmul.py::plan), with the
+// (e,) int32 group sizes on the device.  dtype: 0 = fp32, 1 = bf16 (x, w
+// and y share it).  body: 0 = grouped_f32 (row tile bm 64, column tile bn
+// 64, stages 0, ctas 0: one block a tile), 1 = grouped_wgmma (bm 128, bn
+// 128, 4 stages, ctas persistent blocks, at most the items ((M + 127) / 128
+// + E) · ⌈N / 128⌉ could be).  trans_w 1: y = x @ W[g]ᵀ (bf16 only).
+extern "C" int grouped_matmul_launch(const void* x, const void* w, const void* sizes, void* y,
+                                     int m, int d, int f, int e, int dtype, int trans_w,
+                                     int body, int bm, int bn, int stages, int ctas,
+                                     void* stream) {
+  if (m <= 0 || d <= 0 || f <= 0 || e <= 0 || e > MAX_EXPERTS || d % 8 != 0 ||
+      f % 8 != 0 || (trans_w != 0 && trans_w != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    const dim3 grid((f + BN - 1) / BN, (m + BM - 1) / BM);
-    if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    grouped_f32<<<grid, THREADS, 0, s>>>(static_cast<const float*>(x),
-                                         static_cast<const float*>(w),
-                                         static_cast<const int*>(offs), static_cast<float*>(y),
-                                         m, d, f, e);
+  if (dtype == 0 && body == 0) {
+    const dim3 grid((f + gf::BN - 1) / gf::BN, (m + gf::BM - 1) / gf::BM);
+    if (trans_w != 0 || bm != gf::BM || bn != gf::BN || stages != 0 || ctas != 0 ||
+        grid.y > 65535) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    gf::grouped_f32<<<grid, gf::THREADS, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w),
+        static_cast<const int*>(sizes), static_cast<float*>(y), m, d, f, e);
     return static_cast<int>(cudaGetLastError());
   }
-  if (dtype == 1) {
-    const dim3 grid((f + TN - 1) / TN, (m + TM - 1) / TM);
-    if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    grouped_bf16_tc<<<grid, THREADS, 0, s>>>(static_cast<const bf16*>(x),
-                                             static_cast<const bf16*>(w),
-                                             static_cast<const int*>(offs), static_cast<bf16*>(y),
-                                             m, d, f, e);
-    return static_cast<int>(cudaGetLastError());
+  if (dtype == 1 && body == 1) {
+    const long long n = trans_w ? d : f;
+    const long long most = ((m + gw::BM - 1) / gw::BM + static_cast<long long>(e)) *
+                           ((n + gw::BN - 1) / gw::BN);
+    if (bm != gw::BM || bn != gw::BN || stages != gw::STAGES || ctas < 1 || ctas > most ||
+        most > 0x7fffffffll) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const bf16* xb = static_cast<const bf16*>(x);
+    const bf16* wb = static_cast<const bf16*>(w);
+    const int* sb = static_cast<const int*>(sizes);
+    bf16* yb = static_cast<bf16*>(y);
+    return trans_w ? launch_wgmma<1>(xb, wb, sb, yb, m, d, f, e, ctas, s)
+                   : launch_wgmma<0>(xb, wb, sb, yb, m, d, f, e, ctas, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

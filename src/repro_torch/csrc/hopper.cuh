@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA / wgmma kernels
-// (cov_accum.cu, lowrank_matmul.cu): shared-memory barriers, 2D TMA loads,
-// wgmma shared-memory descriptors and the m64n128k16 bf16 product, and on the
-// host the TMA descriptor encoder and a launcher for programmatic dependent
-// launches.  Everything sits in an anonymous namespace: each kernel source
-// gets its own copy, and the library exports only the C launchers.
+// (cov_accum.cu, grouped_matmul.cu, lowrank_matmul.cu): shared-memory
+// barriers, 2D and 3D TMA loads, wgmma shared-memory descriptors and the
+// m64n128k16 bf16 product, and on the host the TMA descriptor encoders and a
+// launcher for programmatic dependent launches.  Everything sits in an
+// anonymous namespace: each kernel source gets its own copy, and the library
+// exports only the C launchers.
 
 #pragma once
 
@@ -76,6 +77,18 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// 3D TMA load of one box at (inner, middle, outer) element coordinates.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int inner, int middle,
+                                            int outer) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(inner), "r"(middle),
+      "r"(outer)
+      : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 
@@ -84,7 +97,10 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
 // MN-major operand (MN contiguous, the transpose bit set) in 64-element
 // swizzle atoms of 8 KB (64 depth rows x 128 bytes): LBO is the distance
 // between atoms along MN, SBO 1024 between 8-row groups of depth, and a k16
-// step starts 16 rows (2048 bytes) further.
+// step starts 16 rows (2048 bytes) further.  For a K-major operand (depth
+// contiguous, the transpose bit clear) of 128-byte rows of 64 depth values:
+// SBO 1024 between 8-row groups along MN, LBO unused (16), and a k16 step
+// starts 32 bytes further along each swizzled row.
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
                                               uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
@@ -99,12 +115,12 @@ __device__ __forceinline__ void fence_acc(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x 128, fp32) = A (64 x 16) @ B (16 x 128, MN-major) (+ d when
-// accumulate).  A is K-major (TransA 0: its depth contiguous) or MN-major
-// (TransA 1: its 64 rows contiguous, read through the transpose bit).
+// d (64 x 128, fp32) = A (64 x 16) @ B (16 x 128) (+ d when accumulate).
+// Each operand is K-major (Trans 0: its depth contiguous) or MN-major
+// (Trans 1: its rows or columns contiguous, read through the transpose bit).
 // Accumulator layout: warp w of the warpgroup holds rows 16w..16w+15;
 // d[4j + 2h + e] is row (lane / 4) + 8h, column 8j + 2·(lane % 4) + e.
-template <int TransA>
+template <int TransA, int TransB = 1>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
                                                  uint64_t db, int accumulate) {
   asm volatile(
@@ -117,7 +133,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
       "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
       "%58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, %67, 1;\n"
+      "%64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -132,7 +148,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
         "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TransA));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TransA), "n"(TransB));
 }
 
 // ---------------------------------------------------------------------------
@@ -197,6 +213,30 @@ int tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols,
                int box_rows) {
   return tensor_map<bf16>(map, ptr, rows, cols, box_rows, 64,
                           CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// Row-major (planes, rows, cols) bf16 cut into (1, box_rows, 64) boxes with
+// the 128-byte swizzle, zeros out of bounds: a box never reads past its own
+// plane's last row.  The strides (cols·2, rows·cols·2 bytes) must be
+// multiples of 16.  Returns 0 or a cudaError, as tensor_map.
+int tensor_map_3d(CUtensorMap* map, const void* ptr, int planes, int rows,
+                  int cols, int box_rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(cols) * sizeof(bf16),
+      static_cast<cuuint64_t>(rows) * static_cast<cuuint64_t>(cols) * sizeof(bf16)};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                         const_cast<void*>(ptr), dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Launch on stream s; with `after`, programmatically after the previous

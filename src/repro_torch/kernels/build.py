@@ -45,7 +45,8 @@ SIGNATURES = {
                                _I, _I, _I, _F, _F, _I, _P],
     "flash_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, _I, _I, _I, _I, _I, _P],
-    "grouped_matmul_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "grouped_matmul_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _P],
 }
 
 _LOCK = threading.Lock()

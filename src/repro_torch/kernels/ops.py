@@ -519,32 +519,35 @@ def grouped_operands(x, w):
     return pad_dim(x, 1, mult), pad_dim(pad_dim(w, 1, mult), 2, mult)
 
 
-def _grouped_kernel(x, w, group_sizes):
-    """Checked launch.  The segment offsets are an exclusive cumsum of the
-    group sizes made on the device: nothing of the routing is read on the
-    host, so a forward through here never synchronizes."""
+def _grouped_kernel(x, w, group_sizes, trans=False):
+    """Checked launch of y = x @ W[g] (``trans``: W[g]ᵀ, x then (M, f)).
+    The kernel scans the group sizes into the segment offsets on the
+    device: nothing of the routing is read on the host, so a forward
+    through here never synchronizes.  The fp32 body takes W as it lies: it
+    gets Wᵀ made contiguous; the bf16 body reads the bank in place."""
     _check_cuda("grouped_matmul", [x, w], x.dtype)
     if group_sizes.device != x.device:
         raise ValueError(f"grouped_matmul: group_sizes on "
                          f"{group_sizes.device}, operands on {x.device}")
-    m, f = x.shape[0], w.shape[2]
+    if trans and _gm.BODY[x.dtype] == "fma32":
+        w, trans = w.transpose(1, 2).contiguous(), False
+    m, n = x.shape[0], w.shape[1 if trans else 2]
     if m == 0:
-        return x.new_zeros((0, f))
-    if -(-m // _gm.ROW_TILE[x.dtype]) > 65535:
-        raise ValueError(f"grouped_matmul: {m} rows exceed the kernel's grid")
-    offs = torch.cat([torch.zeros(1, dtype=torch.int32, device=x.device),
-                      torch.cumsum(group_sizes, 0, dtype=torch.int32)])
+        return x.new_zeros((0, n))
+    e, d, f = w.shape
+    p = _gm.plan(m, d, f, e, x.dtype, trans)
     xk, wk = (_aligned(t) for t in grouped_operands(x, w))
-    y = torch.empty((m, wk.shape[2]), dtype=x.dtype, device=x.device)
-    _gm.launch(xk, wk, offs, y)
+    y = torch.empty((m, p.n), dtype=x.dtype, device=x.device)
+    _gm.launch(p, xk, wk, group_sizes.contiguous(), y)
     LAUNCHES["grouped_matmul"] += 1
-    return y if wk.shape[2] == f else y[:, :f].contiguous()
+    return y if p.n == n else y[:, :n].contiguous()
 
 
-def _grouped_forward(x, w, group_sizes):
+def _grouped_forward(x, w, group_sizes, trans=False):
     if _on_cpu(x, w, group_sizes):
-        return ref.grouped_matmul_ref(x, w, group_sizes).to(x.dtype)
-    return _grouped_kernel(x, w, group_sizes)
+        wt = w.transpose(1, 2) if trans else w
+        return ref.grouped_matmul_ref(x, wt, group_sizes).to(x.dtype)
+    return _grouped_kernel(x, w, group_sizes, trans)
 
 
 class _GroupedMatmul(torch.autograd.Function):
@@ -552,8 +555,9 @@ class _GroupedMatmul(torch.autograd.Function):
     kernel has no backward (the JAX package differentiates
     ``jax.lax.ragged_dot``); here:
 
-    * dx = dy @ W[g]ᵀ per row is the forward function again on
-      ``w.transpose(1, 2)`` made contiguous: the kernel on the card;
+    * dx = dy @ W[g]ᵀ per row is the kernel again with ``trans``: the bf16
+      body reads the bank in place as a K-major operand (no transposed
+      copy); the fp32 body is handed Wᵀ made contiguous;
     * dW[e] = x_eᵀ dy_e is one plain ``torch.matmul`` per expert segment in
       fp32, cast to w's dtype.  Slicing the segments reads the group sizes
       on the host once — in backward only; the forward never does."""
@@ -570,8 +574,7 @@ class _GroupedMatmul(torch.autograd.Function):
         dy = dy.contiguous()
         dx = dw = None
         if need[0]:
-            wt = w.transpose(1, 2).contiguous()
-            dx = _grouped_forward(dy.to(wt.dtype), wt, group_sizes)
+            dx = _grouped_forward(dy.to(w.dtype), w, group_sizes, trans=True)
             dx = dx.to(x.dtype)
         if need[1]:
             grads = []

@@ -5,13 +5,16 @@
     python3 chip_smoke.py --only lowrank   # phases 1-2 and lowrank_matmul
     python3 chip_smoke.py --only cov       # phases 1-2 and cov_accum
     python3 chip_smoke.py --only grouped   # phases 1-2 and grouped_matmul
+    python3 chip_smoke.py --only attention # phases 1-2 and flash_attention
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. device  — needs CUDA; prints the card's name and power limit.
 2. build   — compiles the hand-written kernels (``src/repro_torch/csrc``);
-             prints nvcc's version and whether the wgmma body's SASS holds
-             HGMMA (``cuobjdump``, where the toolkit has it).
+             prints nvcc's version, each kernel's registers and spills
+             (``-Xptxas -v``; flash_attention's wgmma body must not spill)
+             and whether every wgmma body's SASS holds HGMMA
+             (``cuobjdump``, where the toolkit has it).
 3. kernels — every kernel against its plain PyTorch version on the card, at
              the main paths' shapes and ragged ones, in fp32 and bf16, with
              times (CUDA events, median of 10 runs after warm-up), the plain
@@ -24,7 +27,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
              timed at the first), and its rows bit for bit the same when
              they run again behind extra rows of other experts (every
              segment offset moved; bf16, forward and dx); ``flash_attention``
-             at MLA prefill's head dim 192.  ``lowrank_matmul`` at T 4096,
+             at MLA prefill's head dim 192, its split body (Lq 1) at decode
+             and a ragged shape, with ``device_ms`` / ``library_device_ms``
+             beside ``ms`` and, where the mask is plain causal at offset 0,
+             ``scaled_dot_product_attention(is_causal=True)`` as a second
+             yardstick (``library_causal_ms``); the prefill case's rows
+             bit for bit the same when computed again inside chunks of 256,
+             8 and 1 rows under ``batch_invariant``, and two split-body
+             calls bit for bit equal.  ``lowrank_matmul`` at T 4096,
              256 and 8 for each llama shape, ragged T through every body,
              and T 1-64 with each bf16 body forced; beside its ``ms`` (one
              call between CUDA events, as every kernel is timed) it gives
@@ -38,7 +48,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
              one expert segment and ragged shapes; xx and xpxp exactly
              symmetric, and two calls with T split give the same bits, in
              fp32 and bf16.  ``--only lowrank`` / ``--only cov`` /
-             ``--only grouped`` run phases 1-2 and that kernel's rows alone.
+             ``--only grouped`` / ``--only attention`` run phases 1-2 and
+             that kernel's rows alone.
 4. smoke   — the smoke compression recipe on the card (kernels) and on the
              CPU (plain versions) from the same params and tokens; then the
              compressed smoke model served on both (continuous batching over
@@ -139,6 +150,20 @@ SIZES = {
         ("decode", 8, 32, 32, 1, 2048, 128, True, 0, 0.0, (100, 2047)),
         ("mla_prefill", 4, 16, 16, 1024, 1024, 192, True, 0, 0.0, 0),
         ("ragged", 2, 4, 2, 77, 77, 16, True, 16, 30.0, 0)),
+    # flash_attention at ragged shapes through its new bodies: the split
+    # body (Lq 1 outside batch_invariant; "decode" above is the other split
+    # case) and the wgmma body (bf16; fp32 takes the FMA body) with GQA,
+    # window, soft cap, per-slot offsets, Lk not a multiple of the key
+    # tile, a query block whose second warpgroup holds no row; and
+    # non-causal at head dim 192 with Lq > Lk
+    "flash_attention_ragged": (
+        ("ragged_decode", 3, 4, 2, 1, 77, 16, True, 16, 30.0, (0, 76)),
+        ("ragged_wgmma", 2, 4, 2, 77, 200, 64, True, 48, 30.0, (5, 100)),
+        ("noncausal_d192", 1, 2, 1, 130, 70, 192, False, 0, 0.0, 0)),
+    # the row-invariance check: the prefill case's rows computed again in
+    # chunks of Lq rows starting at these rows, under batch_invariant
+    "flash_attention_rows": ((256, (0, 256, 512, 768)), (8, (0, 100, 1016)),
+                             (1, (0, 77, 1023))),
     # grouped_matmul: (name, M, d, f, E) — phase 7's expert GEMMs, M = 4 x
     # 1024 tokens x top-6 routed rows over 64 experts: the dense bank's
     # gate/up and down, the factorized banks' x @ V and t @ U at rank 504;
@@ -578,6 +603,28 @@ def phase_lowrank(torch, ops, ref, dev="cuda", sizes=SIZES):
     return rows
 
 
+def ptxas_usage(text):
+    """{kernel symbol: (registers, spill store bytes, spill load bytes)}
+    from nvcc's ``-Xptxas -v`` output."""
+    import re
+    usage, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            fn = m.group(1)
+            usage.setdefault(fn, [0, 0, 0])
+        elif fn is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                usage[fn][1:] = [int(m.group(1)), int(m.group(2))]
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                usage[fn][0] = int(m.group(1))
+    return {fn: tuple(u) for fn, u in usage.items()}
+
+
 def sass_report(lib_path):
     """{kernel symbol: HGMMA instruction count} from ``cuobjdump
     --dump-sass`` of the built library, or None without cuobjdump."""
@@ -612,7 +659,8 @@ def _live_keys(q_pos, lk, causal, window):
     return max(0, hi - lo + 1), lo, hi
 
 
-def check_flash_attention(torch, np, ops, ref, case, dtype, timed, dev):
+def _flash_inputs(torch, np, case, dtype, dev):
+    """(q, k, v, offsets, kwargs of flash_attention) of a case."""
     name, b, h, kv, lq, lk, d, causal, window, softcap, off = case
     gen = torch.Generator(device=dev).manual_seed(lq + lk + d)
     q = torch.randn(b, lq, h, d, generator=gen, device=dev).to(dtype)
@@ -621,8 +669,14 @@ def check_flash_attention(torch, np, ops, ref, case, dtype, timed, dev):
     offs = _spread(np, off, b)
     q_offset = (torch.tensor(offs, dtype=torch.int32, device=dev)
                 if isinstance(off, tuple) else off)
-    kw = dict(causal=causal, window=window, q_offset=q_offset,
-              softcap=softcap)
+    return q, k, v, offs, dict(causal=causal, window=window,
+                               q_offset=q_offset, softcap=softcap)
+
+
+def check_flash_attention(torch, np, ops, ref, case, dtype, timed, dev):
+    from repro_torch.kernels import flash_attention as fa
+    name, b, h, kv, lq, lk, d, causal, window, softcap, off = case
+    q, k, v, offs, kw = _flash_inputs(torch, np, case, dtype, dev)
     want = ref.flash_attention_ref(q, k, v, **kw)
     got = ops.flash_attention(q, k, v, **kw)
     err = rel_fro(got, want)
@@ -634,12 +688,17 @@ def check_flash_attention(torch, np, ops, ref, case, dtype, timed, dev):
     lim = 1e-5 if dtype == torch.float32 else 1e-2
     require(err <= lim, f"flash_attention {name} {dtype}: rel err "
             f"{err:.3e} > {lim:.0e}")
+    p = fa.plan(b, lq, lk, h, kv, ops._padded_head_dim(d), dtype,
+                causal=causal, window=window)
     row = {"case": name, "shape": [b, h, kv, lq, lk, d],
            "dtype": str(dtype).replace("torch.", ""), "causal": causal,
            "window": window, "softcap": softcap, "q_offset": offs,
+           "body": p.body, "bkey": p.bkey, "spans": p.spans,
            "rel_fro_err": err, "max_abs_err": mae}
     if timed:
         row["ms"] = time_ms(lambda: ops.flash_attention(q, k, v, **kw))
+        row["device_ms"] = device_ms(lambda: ops.flash_attention(q, k, v,
+                                                                 **kw))
         row["plain_ms"] = time_ms(lambda: ref.flash_attention_ref(q, k, v,
                                                                   **kw))
         # yardstick: scaled_dot_product_attention on the same inputs in its
@@ -655,8 +714,21 @@ def check_flash_attention(torch, np, ops, ref, case, dtype, timed, dev):
         if window:
             mask &= kpos > qpos - window
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        row["library_ms"] = (None if softcap or kv != h else time_ms(
-            lambda: sdpa(qt, kt, vt, attn_mask=mask)))
+        masked = None if softcap or kv != h else (
+            lambda: sdpa(qt, kt, vt, attn_mask=mask))
+        row["library_ms"] = None if masked is None else time_ms(masked)
+        row["library_device_ms"] = (None if masked is None
+                                    else device_ms(masked))
+        # a second yardstick where the mask is plain causal at offset 0:
+        # is_causal may reach SDPA's flash backend, a boolean mask may not
+        plain_causal = (causal and not window and not softcap and kv == h
+                        and lq == lk and not any(offs))
+        row["library_causal_ms"] = row["library_causal_device_ms"] = None
+        if plain_causal:
+            def causal_call():
+                return sdpa(qt, kt, vt, is_causal=True)
+            row["library_causal_ms"] = time_ms(causal_call)
+            row["library_causal_device_ms"] = device_ms(causal_call)
         eb = q.element_size()
         live = keys = 0
         for o in offs:
@@ -669,6 +741,71 @@ def check_flash_attention(torch, np, ops, ref, case, dtype, timed, dev):
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes,
                                                  row["dtype"])
     return row
+
+
+def check_flash_rows(torch, np, ops, case, chunks, dev):
+    """The prefill case's rows computed again inside chunks of Lq rows (at
+    each chunk's own offset, against the same keys), under
+    batch_invariant: every row gives the same bits as in the whole call
+    (bf16; the tile bodies walk key tiles from absolute key 0)."""
+    name, b, h, kv, lq, lk, d, causal, window, softcap, off = case
+    q, k, v, offs, kw = _flash_inputs(torch, np, case, torch.bfloat16, dev)
+    with ops.batch_invariant():
+        whole = ops.flash_attention(q, k, v, **kw)
+        rows = []
+        for n, starts in chunks:
+            for c0 in starts:
+                part = ops.flash_attention(q[:, c0:c0 + n].contiguous(), k,
+                                           v, **{**kw, "q_offset": c0})
+                rows.append({"rows": n, "first": c0, "bitwise_equal":
+                             torch.equal(part, whole[:, c0:c0 + n])})
+    row = {"case": name, "shape": [b, h, kv, lq, lk, d], "dtype": "bfloat16",
+           "chunks": rows}
+    bad = [(r["rows"], r["first"]) for r in rows if not r["bitwise_equal"]]
+    require(not bad, f"flash_attention {name}: rows differ when computed "
+            f"inside chunks (rows, first row) {bad}")
+    return row
+
+
+def check_flash_split_repeat(torch, np, ops, case, dtype, dev):
+    """Two calls of the split body (Lq 1) on the same inputs give the same
+    bits: its span partials are merged in span order, no atomics."""
+    q, k, v, offs, kw = _flash_inputs(torch, np, case, dtype, dev)
+    first = ops.flash_attention(q, k, v, **kw)
+    second = ops.flash_attention(q, k, v, **kw)
+    same = torch.equal(first, second)
+    require(same, f"flash_attention {case[0]} {dtype}: two split-body calls "
+            "differ")
+    return {"case": case[0], "dtype": str(dtype).replace("torch.", ""),
+            "repeat_bitwise_equal": same}
+
+
+def phase_flash_attention(torch, np, ops, ref, dev="cuda", sizes=SIZES):
+    """flash_attention's rows (every case in fp32 and bf16, the main paths'
+    timed in bf16; then ragged cases through the split and wgmma bodies),
+    then its bitwise checks: rows invariant under chunking, and two split
+    calls equal."""
+    rows, checks = [], []
+    extra = sizes["flash_attention_ragged"]
+    for case in sizes["flash_attention"] + extra:
+        for dtype in (torch.float32, torch.bfloat16):
+            timed = (case in sizes["flash_attention"] and case[0] != "ragged"
+                     and dtype == torch.bfloat16)
+            row = check_flash_attention(torch, np, ops, ref, case, dtype,
+                                        timed, dev)
+            rows.append(row)
+            log("flash_attention", json.dumps(row))
+    prefill = sizes["flash_attention"][0]
+    checks.append(check_flash_rows(torch, np, ops, prefill,
+                                   sizes["flash_attention_rows"], dev))
+    log("flash_attention rows", json.dumps(checks[-1]))
+    split_cases = [c for c in sizes["flash_attention"] + extra if c[4] == 1]
+    for case in split_cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            checks.append(check_flash_split_repeat(torch, np, ops, case,
+                                                   dtype, dev))
+            log("flash_attention repeat", json.dumps(checks[-1]))
+    return rows, checks
 
 
 def check_flash_decode(torch, np, ops, ref, case, dtype, timed, dev):
@@ -714,14 +851,9 @@ def check_flash_decode(torch, np, ops, ref, case, dtype, timed, dev):
 
 
 def phase_attention_kernels(torch, np, ops, ref, dev="cuda", sizes=SIZES):
-    fa_rows, fd_rows = [], []
-    for case in sizes["flash_attention"]:
-        for dtype in (torch.float32, torch.bfloat16):
-            timed = case[0] != "ragged" and dtype == torch.bfloat16
-            row = check_flash_attention(torch, np, ops, ref, case, dtype,
-                                        timed, dev)
-            fa_rows.append(row)
-            log("flash_attention", json.dumps(row))
+    fa_rows, fa_checks = phase_flash_attention(torch, np, ops, ref, dev,
+                                               sizes)
+    fd_rows = []
     for i, case in enumerate(sizes["flash_decode"]):
         for dtype in (torch.float32, torch.bfloat16):
             timed = i == 0 and dtype == torch.bfloat16
@@ -729,7 +861,7 @@ def phase_attention_kernels(torch, np, ops, ref, dev="cuda", sizes=SIZES):
                                      dev)
             fd_rows.append(row)
             log("flash_decode", json.dumps(row))
-    return fa_rows, fd_rows
+    return fa_rows, fd_rows, fa_checks
 
 
 def _group_sizes(np, m, e, seed):
@@ -1211,6 +1343,7 @@ def phase_main(torch, ops, dev="cuda", sizes=SIZES, cfg=None):
     stages["eval"] = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     rows = lowrank_rows(ops)
+    bodies = dict(ops.FLASH_BODIES)
     peak = torch.cuda.max_memory_allocated() if on_card else 0
 
     log("main: stage seconds", json.dumps(stages))
@@ -1218,7 +1351,8 @@ def phase_main(torch, ops, dev="cuda", sizes=SIZES, cfg=None):
         f"{peak / 2**30:.3f} GiB")
     log("main: compress_ratio_report",
         json.dumps(repro_torch.compress_ratio_report(params, comp)))
-    log("main: launches", json.dumps(launches))
+    log("main: launches", json.dumps(launches), "flash_attention by body",
+        json.dumps(bodies))
     for u in report["units"]:
         log(f"main: {u['name']} pre/post-refine mse {u['pre_refine_mse']:.6e}"
             f" / {u['post_refine_mse']:.6e}, calib_wall "
@@ -1241,7 +1375,7 @@ def phase_main(torch, ops, dev="cuda", sizes=SIZES, cfg=None):
     require(tuple(lin["v"].shape) == want_shape,
             f"factor shape {tuple(lin['v'].shape)} != {want_shape}")
     return {"stages": stages, "launches": launches,
-            "lowrank_rows": rows, "peak_bytes": peak,
+            "lowrank_rows": rows, "flash_bodies": bodies, "peak_bytes": peak,
             "dense": dense, "compressed": compressed}, cfg, params, comp
 
 
@@ -1293,7 +1427,7 @@ def phase_serve(torch, np, ops, cfg, params, comp, dev="cuda", sizes=SIZES):
     decode_s = t_all - t_prefill
     out["server"] = {
         "launches": launches, "lowrank_rows": lowrank_rows(ops),
-        "prefill_s": t_prefill,
+        "flash_bodies": dict(ops.FLASH_BODIES), "prefill_s": t_prefill,
         "prefill_tokens_per_s": b * plen / t_prefill,
         "decode_tokens_per_s": b * (steps - 1) / decode_s,
         "decode_step_ms": decode_s / (steps - 1) * 1e3,
@@ -1335,6 +1469,7 @@ def phase_serve(torch, np, ops, cfg, params, comp, dev="cuda", sizes=SIZES):
     dense = _cache_bytes(M, cfg, slots, max_len, None)
     out["engine"] = {
         "launches": launches, "lowrank_rows": lowrank_rows(ops),
+        "flash_bodies": dict(ops.FLASH_BODIES),
         "wall_s": wall, "requests": n_req,
         "prompt_lens": lens.tolist(),
         "ttft_s_median": statistics.median(ttft), "ttft_s_max": max(ttft),
@@ -1362,7 +1497,7 @@ def phase_serve(torch, np, ops, cfg, params, comp, dev="cuda", sizes=SIZES):
                for i in range(n_req))
     out["engine_dense"] = {
         "launches": dict(ops.LAUNCHES), "lowrank_rows": lowrank_rows(ops),
-        "wall_s": wall,
+        "flash_bodies": dict(ops.FLASH_BODIES), "wall_s": wall,
         "decode_step_ms_median": statistics.median(times) * 1e3,
         "decode_tokens_per_s": n_req * (steps - 1) / sum(times),
         "tokens_equal_to_latent": same / (n_req * steps)}
@@ -1487,8 +1622,15 @@ def profile_engine(torch, np, TS, cfg, comp, layout, sizes):
             kernels[evt.key[:80]] = evt.self_device_time_total / 1e3
     busy = sum(kernels.values())
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:10])
+    # flash_attention's kernels: the tile bodies, the split body and its
+    # merge (flash_decode's kernel is flash_decode_kernel)
+    fa_ms = sum(ms for name, ms in kernels.items() if any(
+        f"flash_{body}" in name for body in ("tile", "wgmma", "split",
+                                             "merge")))
     return {"wall_ms": wall * 1e3, "wall_ms_profiled": wall_profiled * 1e3,
             "device_busy_ms": busy, "busy_share": busy / (wall * 1e3),
+            "flash_attention_ms": fa_ms,
+            "flash_attention_share": fa_ms / max(busy, 1e-9),
             "decode_step_ms_median": step_ms, "top_kernels_ms": top}
 
 
@@ -1630,6 +1772,7 @@ def phase_moe(torch, ops, dev="cuda", sizes=SIZES, cfg=None):
     stages["eval"] = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     rows = lowrank_rows(ops)
+    bodies = dict(ops.FLASH_BODIES)
     peak = torch.cuda.max_memory_allocated() if on_card else 0
 
     ratio = repro_torch.compress_ratio_report(params, comp)
@@ -1684,7 +1827,7 @@ def phase_moe(torch, ops, dev="cuda", sizes=SIZES, cfg=None):
         log("moe: compressed eval forward, device time by kernel",
             json.dumps(extra["eval_profile"]))
     return {"stages": stages, "launches": launches,
-            "lowrank_rows": rows, "peak_bytes": peak,
+            "lowrank_rows": rows, "flash_bodies": bodies, "peak_bytes": peak,
             "compress_wall_s": t_compress, "ratio": ratio, "ranks": ranks,
             "dense": dense, "compressed": compressed, **extra}
 
@@ -1695,9 +1838,10 @@ def phase_moe(torch, ops, dev="cuda", sizes=SIZES, cfg=None):
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("lowrank", "cov", "grouped"),
+    ap.add_argument("--only", choices=("lowrank", "cov", "grouped",
+                                       "attention"),
                     help="phases 1-2 and lowrank_matmul's (cov_accum's, "
-                    "grouped_matmul's) rows of phase 3")
+                    "grouped_matmul's, flash_attention's) rows of phase 3")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1741,6 +1885,12 @@ def main(argv=None) -> int:
     for line in build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("build:", line.strip())
+    usage = ptxas_usage(build.build_log())
+    fa_wg = {fn: u for fn, u in usage.items() if "flash_wgmma" in fn}
+    log("build: flash_attention wgmma body (registers, spill stores, spill "
+        "loads):", json.dumps(fa_wg))
+    require(fa_wg and not any(u[1] or u[2] for u in fa_wg.values()),
+            f"the flash_attention wgmma body spills: {fa_wg}")
     from repro_torch.kernels import lowrank_matmul as low
     hgmma = sass_report(build.library_path())
     if hgmma is None:
@@ -1756,6 +1906,10 @@ def main(argv=None) -> int:
             rows = {"lowrank_matmul": phase_lowrank(torch, ops, ref)}
         elif args.only == "cov":
             rows = {"cov_accum": phase_cov(torch, ops, ref)}
+        elif args.only == "attention":
+            fa_rows, fa_checks = phase_flash_attention(torch, np, ops, ref)
+            rows = {"flash_attention": fa_rows,
+                    "flash_attention_checks": fa_checks}
         else:
             gm_rows, gm_back = phase_grouped_kernels(torch, np, ops, ref)
             rows = {"grouped_matmul": gm_rows,
@@ -1770,7 +1924,8 @@ def main(argv=None) -> int:
     # 3. kernels
     t0 = time.perf_counter()
     cov_rows, low_rows = phase_kernels(torch, ops, ref)
-    fa_rows, fd_rows = phase_attention_kernels(torch, np, ops, ref)
+    fa_rows, fd_rows, fa_checks = phase_attention_kernels(torch, np, ops,
+                                                          ref)
     gm_rows, gm_back = phase_grouped_kernels(torch, np, ops, ref)
     log(f"phase 3: {time.perf_counter() - t0:.3f} s")
     # 4. smoke parity
@@ -1798,8 +1953,9 @@ def main(argv=None) -> int:
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                 "shape": row["shape"], "dtype": row["dtype"],
-                **{key: row[key] for key in ("device_ms", "library_device_ms")
-                   if key in row}}
+                **{key: row[key] for key in (
+                    "device_ms", "library_device_ms", "library_causal_ms",
+                    "library_causal_device_ms", "body") if key in row}}
 
     def entry(name, source, replaces, rows, path):
         head = next(r for r in rows if "ms" in r)
@@ -1851,13 +2007,24 @@ def main(argv=None) -> int:
     gm["backward_x_v"] = {**timing(next(r for r in gm_back if "ms" in r)),
                           "dx_ms": next(r for r in gm_back
                                         if "ms" in r)["dx_ms"]}
-    # MLA prefill's head dim: the flash_attention instance phase 7 runs
-    next(k for k in kernels if k["name"] == "flash_attention")[
-        "mla_prefill_d192"] = timing(next(
-            r for r in fa_rows if r["case"] == "mla_prefill" and "ms" in r))
+    # MLA prefill's head dim (the instance phase 7 runs), the chunk, and
+    # the split body at decode (dense-cache serving), with the launches of
+    # each body on each path
+    fa = next(k for k in kernels if k["name"] == "flash_attention")
+    for key, case in (("mla_prefill_d192", "mla_prefill"),
+                      ("chunk_Lq256", "chunk"), ("decode_split", "decode")):
+        fa[key] = timing(next(r for r in fa_rows
+                              if r["case"] == case and "ms" in r))
+    fa["launches_by_body"] = {
+        "compress": main_run["flash_bodies"],
+        "serve_server": serve_run["server"]["flash_bodies"],
+        "serve_engine": serve_run["engine"]["flash_bodies"],
+        "serve_engine_dense": serve_run["engine_dense"]["flash_bodies"],
+        "compress_moe": moe_run["flash_bodies"]}
     with open(OUT / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "cov_accum": cov_rows,
                    "lowrank_matmul": low_rows, "flash_attention": fa_rows,
+                   "flash_attention_checks": fa_checks,
                    "flash_decode": fd_rows, "grouped_matmul": gm_rows,
                    "grouped_matmul_backward": gm_back, "smoke": smoke,
                    "main": main_run, "serve": serve_run, "moe": moe_run},

@@ -1,46 +1,76 @@
 // Blockwise online-softmax attention (flash), written for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::flash_attention
-// and computes what the JAX model path computes (src/repro/models/attention.py:31,
-// the kernel's own oracle): scores q·kᵀ with fp32 accumulation times 1/√D at the
-// TRUE head dim, an optional soft cap tanh(s/c)·c, causal / sliding-window /
-// key-padding masks against absolute positions (a scalar query offset or one per
-// slot), masked scores -1e30, running (max, denominator, accumulator) in fp32, and
-// the probabilities cast to v's dtype before the PV product.  The Pallas kernel
-// instead scales q first and multiplies in fp32 throughout; this one keeps the
-// model path's rounding, which is what the port's callers are held to.
+// (its pallas_call at :100) and computes what the JAX model path computes
+// (src/repro/models/attention.py:31, the kernel's own oracle): scores q·kᵀ with
+// fp32 accumulation times 1/√D at the TRUE head dim, an optional soft cap
+// tanh(s/c)·c, causal / sliding-window / key-padding masks against absolute
+// positions (a scalar query offset or one per slot), masked scores -1e30,
+// running (max, denominator, accumulator) in fp32, the probabilities cast to
+// v's dtype before the PV product, and the output divided by max(l, 1e-20).
+// The Pallas kernel instead scales q first and multiplies in fp32 throughout;
+// this one keeps the model path's rounding, which is what the port's callers
+// are held to.
 //
-// Layouts are the model's, read in place: q, o (B, Lq, H, D) and k, v (B, Lk, KV, D)
-// contiguous; query head h reads KV head h / (H / KV) (GQA).
+// Layouts are the model's, read in place: q, o (B, Lq, H·D) and k, v
+// (B, Lk, KV·D) contiguous; query head h reads KV head h / (H / KV) (GQA).
 //
-// Bound on an H100: 4·B·H·Lq·Lk_live·D flops against (q + k + v + o) bytes.  Prefill
-// (Lq = Lk = 1024, D = 128) is above the card's ~295 flops a byte in bf16, so the
-// tensor cores matter there; one-token decode (Lq = 1) reads the whole cache for
-// 4·Lk·D flops a head and is bound by bytes.
+// Bound on an H100: max(4·B·H·Σ live keys·D flops / peak, (q + k + v + o)
+// bytes / 3.35 TB/s).  Prefill (Lq = Lk = 1024, D 128 or 192) does ~500
+// flops a byte in bf16, above the card's ~295: the tensor cores bound it.  A
+// one-token decode reads the whole live cache for 4·D flops a key and head:
+// bytes bound it.  The launch plan (kernels/flash_attention.py::plan) picks
+// one of four bodies a call:
 //
-// Design: one block of 4 warps per (batch·head, 64 query rows) loops over 64-key
-// tiles of its KV head staged in shared memory:
-//   S = Q Kᵀ    bf16: WMMA on the tensor cores (16x16x16 fragments, fp32
-//               accumulators), each warp 16 query rows; fp32: FMA units, each
-//               thread an 8 x 4 micro-tile (TF32 stays off)
-//   softmax     two threads a row: scale, cap, mask, running max / sum in fp32,
-//               p written in v's dtype, the row of O rescaled by exp(m_old - m_new)
-//   O += P V    bf16: WMMA accumulating onto the fp32 O tile loaded from shared
-//               memory; fp32: FMA, each thread 8 rows x D/16 columns
-// Key tiles wholly past the causal limit of the block's last row, or wholly before
-// the window of its first row, are skipped; that is exact (their weights are 0, or
-// are zeroed by the correction factor once a live key arrives).  Rows and keys past
-// Lq / Lk load as zeros; keys past Lk are masked, rows past Lq are not stored.  A
-// row wholly masked in one tile takes m = -1e30 there and exp(-1e30 - m_new) = 0
-// clears what it gathered once a live key arrives, as in the reference.  Nothing
-// is pipelined (no cp.async / TMA ring) and one-row decode blocks use 1/64 of their
-// tile; a split-K decode path and wgmma are later work.
+//   wgmma (bf16, D 64 / 128 / 192; prefill, chunked prefill, latent and MLA
+//     prefill, and any Lq under ops.batch_invariant): one block a (batch·head,
+//     128 query rows), issued longest first (the last query blocks carry the
+//     most causal key tiles).  A producer thread loads Q once and keeps a
+//     2-stage ring of K and V tiles filled by TMA, all three read in place
+//     through 3D tensor maps on (B, L, heads·D), whose zero fill ends each
+//     batch's sequence.  Two consumer warpgroups of 64 query rows each run
+//     S = Q·Kᵀ as wgmma with both operands K-major (128 keys a tile at D <=
+//     128, 64 at D 192 to fit the registers), the softmax in the accumulator
+//     registers (a row is held by 4 lanes, reduced with shuffles), then
+//     O += P·V as wgmma with P in registers (the S accumulator rounded to bf16
+//     in pairs is already wgmma's A fragment) and V read MN-major through the
+//     transpose bit; O stays in registers across the key loop and is rescaled
+//     there.  Register reallocation gives the consumers 232 registers a
+//     thread.  Epilogue: o / max(l, 1e-20) in registers, staged in shared
+//     memory, stored with 16-byte accesses, rows past Lq not stored.
+//   split (Lq 1 outside batch_invariant, both dtypes, every D: dense-cache
+//     decode): one block a (slot, KV head, key span) takes the G = H / KV
+//     query heads of its group; K and V rows of the span's live keys are read
+//     once, by 16-byte cp.async into a 2-stage ring of shared-memory tiles;
+//     scores and P·V on the FMA units in fp32 (bytes bound the work: about
+//     2·D flops a byte), p rounded to v's dtype before P·V.  Each span writes
+//     its fp32 partial (m, l, acc); a span with no live key writes l = 0.  A
+//     second launch (flash_merge, a programmatic dependent launch) merges a
+//     row's partials in span order, skipping empty ones: no atomics, so two
+//     calls give the same bits.
+//   fma32 (fp32, Lq > 1 or batch_invariant) and wmma (bf16 at D 16 / 32):
+//     the first version: one block of 4 warps a (batch·head, 64 query rows),
+//     64-key tiles staged in shared memory through registers; S and P·V on
+//     WMMA 16x16x16 fragments (bf16) or the FMA units (fp32, TF32 off).
 //
-// Contract (checked by the wrapper, kernels/ops.py::flash_attention): q, k, v, o of
-// one dtype, contiguous, 16-byte aligned; D one of 16, 32, 64, 128, 192 (the wrapper
-// zero-pads the head dim and passes the scale of the true one; 192 is MLA prefill's
-// qk_nope 128 + qk_rope 64, with v zero-padded to it); q_off null (every
-// slot at q_off0) or a (B,) int32 device vector.  Returns cudaGetLastError().
+// Key tiles start at absolute key 0 and are walked in one fixed order; tiles
+// wholly past the causal limit of the block's last row, or wholly before the
+// window of its first row, are skipped (key_tiles; Plan.key_tiles is the same
+// arithmetic).  That is exact: a tile past a row's causal limit comes after a
+// live key and adds exactly 0 (p = exp(-1e30 - m) = 0, the correction 1); one
+// before its window is cleared by a correction of exp(-1e30 - m) = 0 once a
+// live key arrives.  So in the tile bodies a query row's bits depend neither
+// on Lq, nor on where its block starts, nor on B: chunked prefill equals whole
+// prefill bit for bit.
+//
+// Contract (checked by the wrapper, kernels/ops.py::flash_attention; the
+// launcher refuses what kernels/flash_attention.py::plan never makes): q, k,
+// v, o of one dtype, contiguous, 16-byte aligned; D one of 16, 32, 64, 128,
+// 192 (the wrapper zero-pads the head dim and passes the scale of the true
+// one; 192 is MLA prefill's qk_nope 128 + qk_rope 64, with v zero-padded to
+// it); q_off null (every slot at q_off0) or a (B,) int32 device vector; the
+// split body's scratch B·H·spans·(D + 2) floats.  Returns the first non-zero
+// cudaError of the call.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,16 +78,14 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 namespace wmma = nvcuda::wmma;
-using bf16 = __nv_bfloat16;
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BKEY = 64;      // keys per tile
-constexpr int THREADS = 128;  // 4 warps
-constexpr int FR = 16;        // WMMA fragment edge
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Args {
   const void* q;
@@ -71,10 +99,17 @@ struct Args {
   float scale, softcap;
 };
 
-// row padding (elements) of the tiles: keeps rows 16-byte aligned for vector
-// stores and the WMMA leading dimensions legal (8 bf16 / 4 fp32 multiples)
-template <typename T>
-__host__ __device__ constexpr int pad() { return std::is_same<T, bf16>::value ? 8 : 4; }
+// The key tiles [begin, end) of width `bkey` that the query rows at absolute
+// positions [first, last] walk: none past the causal limit of the last row,
+// none wholly before the window of the first.
+__device__ __forceinline__ int2 key_tiles(int first, int last, int lk, int causal,
+                                          int window, int bkey) {
+  int end = (lk + bkey - 1) / bkey;
+  if (causal) end = min(end, last / bkey + 1);
+  int begin = 0;
+  if (window > 0 && first - window + 1 > 0) begin = (first - window + 1) / bkey;
+  return make_int2(begin, max(begin, end));
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -83,6 +118,21 @@ template <> __device__ __forceinline__ float from_f<float>(float x) { return x; 
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
   return __float2bfloat16(x);
 }
+
+// ---------------------------------------------------------------------------
+// fma32 / wmma: the first version (fp32 at every D, bf16 at D 16 / 32)
+
+namespace ft {
+
+constexpr int BQ = 64;        // query rows per block
+constexpr int BKEY = 64;      // keys per tile
+constexpr int THREADS = 128;  // 4 warps
+constexpr int FR = 16;        // WMMA fragment edge
+
+// row padding (elements) of the tiles: keeps rows 16-byte aligned for vector
+// stores and the WMMA leading dimensions legal (8 bf16 / 4 fp32 multiples)
+template <typename T>
+__host__ __device__ constexpr int pad() { return std::is_same<T, bf16>::value ? 8 : 4; }
 
 // fp32 tiles write p over the scores they were made from (sP aliases sS): each
 // softmax thread reads its half-row of s into registers before it writes p there,
@@ -230,8 +280,9 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, size_t stride, i
   }
 }
 
+// grid (query blocks, B·H): block (x, y) takes query block x of batch·head y
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_fwd(Args a) {
+__global__ void __launch_bounds__(THREADS) flash_tile(Args a) {
   using Lay = Layout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
@@ -267,17 +318,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd(Args a) {
     sM[i] = NEG_INF;
     sL[i] = 0.f;
   }
-
-  // live key tiles of this block's rows
-  const int q_lo = off + q0;
-  const int q_hi = off + q0 + rows - 1;
-  int kt_end = (a.lk + BKEY - 1) / BKEY;
-  if (a.causal) kt_end = min(kt_end, q_hi / BKEY + 1);
-  int kt_begin = 0;
-  if (a.window > 0) {
-    const int first = q_lo - a.window + 1;  // first key any row may see
-    if (first > 0) kt_begin = first / BKEY;
-  }
+  const int2 kt = key_tiles(off + q0, off + q0 + rows - 1, a.lk, a.causal, a.window, BKEY);
   __syncthreads();
 
   const T* k_head = k + static_cast<size_t>(b) * a.lk * k_stride +
@@ -288,8 +329,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd(Args a) {
   const int part = tid % 2;  // ... each half of the keys
   const int qpos = off + q0 + r;
 
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BKEY;
+  for (int t = kt.x; t < kt.y; ++t) {
+    const int k0 = t * BKEY;
     const int live = min(BKEY, a.lk - k0);
     load_tile<T, D, BKEY>(sK, k_head + k0 * k_stride, k_stride, live, tid);
     load_tile<T, D, BKEY>(sV, v_head + k0 * k_stride, k_stride, live, tid);
@@ -344,43 +385,688 @@ __global__ void __launch_bounds__(THREADS) flash_fwd(Args a) {
   }
 }
 
+}  // namespace ft
+
+// ---------------------------------------------------------------------------
+// wgmma (bf16, D 64 / 128 / 192): a TMA ring of K and V tiles, wgmma for S and
+// for P·V with P in registers
+
+namespace fw {
+
+constexpr int BQ = 128;       // query rows a block: two consumer warpgroups of 64
+constexpr int THREADS = 384;  // two consumer warpgroups + a producer one
+constexpr int STAGES = 2;
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;  // 128·40 + 256·232 <= 65536
+
+template <int D>
+struct Cfg {
+  static constexpr int DC = D / 64;                 // 64-column (128-byte) chunks of a row
+  static constexpr int BKEY = D <= 128 ? 128 : 64;  // keys a tile
+  static constexpr int Q_BOX = BQ * 128;            // bytes: 128 rows x 64 columns
+  static constexpr int KV_BOX = BKEY * 128;         // bytes: BKEY rows x 64 columns
+  static constexpr int Q_BYTES = DC * Q_BOX;
+  static constexpr int KV_BYTES = DC * KV_BOX;      // K (or V) of one stage
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int LD = D + 8;                  // staged output row pitch (bf16)
+  static constexpr int OUT_BYTES = BQ * LD * 2;
+  static constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE_BYTES + OUT_BYTES;
+  // the 128-byte swizzle repeats every 1024 bytes: boxes start 1024-aligned
+  static constexpr int SMEM = 1024 + BAR_OFF + (2 * STAGES + 1) * 8;
+};
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+template <int Id>
+__device__ __forceinline__ void warpgroup_sync() {  // one consumer warpgroup
+  asm volatile("bar.sync %0, 128;" ::"n"(Id) : "memory");
+}
+
+// 2^x on the special function unit (flushes subnormal results to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// S (64 x BKEY, fp32) = Q (the warpgroup's 64 rows) Kᵀ, both K-major: a k16
+// step is 32 bytes along each swizzled 128-byte row, the next 64 columns of
+// D the next box
+template <int D>
+__device__ __forceinline__ void qk(float (&s)[Cfg<D>::BKEY / 2], uint32_t sq, uint32_t sk) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int c = 0; c < C::DC; ++c) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint64_t da = smem_desc(sq + c * C::Q_BOX + j * 32, 16, 1024);
+      const uint64_t db = smem_desc(sk + c * C::KV_BOX + j * 32, 16, 1024);
+      if constexpr (C::BKEY == 128) {
+        wgmma_m64n128k16<0, 0>(s, da, db, (c | j) != 0);
+      } else {
+        wgmma_m64n64k16<0, 0>(s, da, db, (c | j) != 0);
+      }
+    }
+  }
+}
+
+// O (64 x D) += P (64 x 16, registers) V (16 x D): V MN-major, its 64-column
+// chunks (one box each) KV_BOX bytes apart (LBO), 8-key groups 1024 (SBO)
+template <int D>
+__device__ __forceinline__ void pv(float (&o)[D / 2], const uint32_t (&a)[4], uint32_t sv) {
+  const uint64_t db = smem_desc(sv, Cfg<D>::KV_BOX, 1024);
+  if constexpr (D == 64) {
+    wgmma_rs_m64n64k16<1>(o, a, db, 1);
+  } else if constexpr (D == 128) {
+    wgmma_rs_m64n128k16<1>(o, a, db, 1);
+  } else {
+    wgmma_rs_m64n192k16<1>(o, a, db, 1);
+  }
+}
+
+// Block w of the launch order takes batch·head w % (B·H) and query block
+// nqb - 1 - w / (B·H): heads innermost, the last (longest causal) query
+// blocks first.  Plan.tile_at is the same arithmetic.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv, Args a) {
+  using C = Cfg<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const base_ptr = smem_raw + (base - raw);
+  const uint32_t sq = base;
+  const uint32_t ring = base + C::Q_BYTES;
+  bf16* const staged =
+      reinterpret_cast<bf16*>(base_ptr + C::Q_BYTES + STAGES * C::STAGE_BYTES);
+  const uint32_t bars = base + C::BAR_OFF;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (STAGES + s); };
+  const uint32_t qbar = bars + 8u * (2 * STAGES);
+
+  const int heads = a.b * a.h;
+  const int w = blockIdx.x;
+  const int bh = w % heads;
+  const int q0 = ((a.lq + BQ - 1) / BQ - 1 - w / heads) * BQ;
+  const int b = bh / a.h;
+  const int head = bh % a.h;
+  const int kvh = head / (a.h / a.kv);
+  const int rows = min(BQ, a.lq - q0);
+  const int off = a.q_off != nullptr ? a.q_off[b] : a.q_off0;
+  const int2 kt = key_tiles(off + q0, off + q0 + rows - 1, a.lk, a.causal, a.window,
+                            C::BKEY);
+
+  const int tid = threadIdx.x;
+  const int group = tid / 128;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (group == 2) {  // producer warpgroup: one thread issues every load
+    reg_dealloc<PRODUCER_REGS>();
+    if (tid == 2 * 128) {
+      mbar_expect_tx(qbar, C::Q_BYTES);
+      for (int c = 0; c < C::DC; ++c) {
+        tma_load_3d(sq + c * C::Q_BOX, &tq, qbar, head * D + 64 * c, q0, b);
+      }
+      for (int t = kt.x, i = 0; t < kt.y; ++t, ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty(s), ((i / STAGES) - 1) & 1);
+        const uint32_t sk = ring + s * C::STAGE_BYTES;
+        mbar_expect_tx(full(s), C::STAGE_BYTES);
+        for (int c = 0; c < C::DC; ++c) {
+          tma_load_3d(sk + c * C::KV_BOX, &tk, full(s), kvh * D + 64 * c, t * C::BKEY, b);
+        }
+        for (int c = 0; c < C::DC; ++c) {
+          tma_load_3d(sk + C::KV_BYTES + c * C::KV_BOX, &tv, full(s), kvh * D + 64 * c,
+                      t * C::BKEY, b);
+        }
+      }
+    }
+    return;
+  }
+  reg_alloc<CONSUMER_REGS>();
+
+  const int lane = tid % 128;
+  const int r_in = (lane / 32) * 16 + (lane % 32) / 4;  // accumulator row (h = 0); h = 1 at +8
+  const int cq = (lane % 4) * 2;                        // accumulator column pair
+  const int row0 = q0 + group * 64;                     // this warpgroup's first query row
+  if (row0 >= a.lq) {
+    // every row of this warpgroup lies past Lq: keep the ring's count only
+    for (int t = kt.x, i = 0; t < kt.y; ++t, ++i) {
+      mbar_wait(full(i % STAGES), (i / STAGES) & 1);
+      if (lane == 0) mbar_arrive(empty(i % STAGES));
+    }
+    return;
+  }
+  const int pos[2] = {off + row0 + r_in, off + row0 + r_in + 8};
+  const int q_first = off + q0;
+  const int q_last = off + q0 + BQ - 1;
+  const uint32_t sq_wg = sq + group * 64 * 128;  // this warpgroup's rows in each Q box
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};
+  mbar_wait(qbar, 0);
+
+  for (int t = kt.x, i = 0; t < kt.y; ++t, ++i) {
+    const int s = i % STAGES;
+    mbar_wait(full(s), (i / STAGES) & 1);
+    const uint32_t sk = ring + s * C::STAGE_BYTES;
+    float sc[C::BKEY / 2];
+#pragma unroll
+    for (int j = 0; j < C::BKEY / 2; ++j) sc[j] = 0.f;
+    fence_acc(sc);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+    qk<D>(sc, sq_wg, sk);
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    fence_acc(sc);
+
+    // scale, cap, mask: each a pass of its own under one uniform branch (a
+    // branch an element costs more than the element); a tile live for every
+    // row of the block skips the mask
+    const int k0 = t * C::BKEY;
+#pragma unroll
+    for (int j = 0; j < C::BKEY / 2; ++j) sc[j] *= a.scale;
+    if (a.softcap > 0.f) {
+#pragma unroll
+      for (int j = 0; j < C::BKEY / 2; ++j) sc[j] = tanhf(sc[j] / a.softcap) * a.softcap;
+    }
+    if (!(k0 + C::BKEY <= a.lk && (!a.causal || k0 + C::BKEY - 1 <= q_first) &&
+          (a.window <= 0 || k0 > q_last - a.window))) {
+      const bool any_key = !a.causal;
+      const bool any_past = a.window <= 0;
+#pragma unroll
+      for (int j = 0; j < C::BKEY / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kp = k0 + 8 * j + cq + e;
+            const bool ok = (kp < a.lk) & (any_key | (kp <= pos[h])) &
+                            (any_past | (kp > pos[h] - a.window));
+            sc[4 * j + 2 * h + e] = ok ? sc[4 * j + 2 * h + e] : NEG_INF;
+          }
+        }
+      }
+    }
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < C::BKEY / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]));
+      }
+    }
+    float corr[2];
+    float m_new[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      m_new[h] = fmaxf(m[h], mx[h]);
+      corr[h] = ex2((m[h] - m_new[h]) * LOG2E);
+      m[h] = m_new[h];
+    }
+    // p = exp(s - m) summed in fp32; rounded to bf16 in pairs, it is the A
+    // fragment of P·V: registers 4t..4t+3 hold keys 16t..16t+15
+    uint32_t p[C::BKEY / 4];
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < C::BKEY / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // s - m first: a masked score against a row max still at -1e30
+        // gives exactly 2^0 = 1, as the reference's exp(s - m)
+        const float e0 = ex2((sc[4 * j + 2 * h] - m_new[h]) * LOG2E);
+        const float e1 = ex2((sc[4 * j + 2 * h + 1] - m_new[h]) * LOG2E);
+        sum[h] += e0;
+        sum[h] += e1;
+        p[2 * j + h] = pack_bf16(e0, e1);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      l[h] = l[h] * corr[h] + sum[h];
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= corr[0];
+      o[4 * j + 1] *= corr[0];
+      o[4 * j + 2] *= corr[1];
+      o[4 * j + 3] *= corr[1];
+    }
+
+    fence_acc(o);
+    fence_regs(p);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int u = 0; u < C::BKEY / 16; ++u) {
+      const uint32_t frag[4] = {p[4 * u], p[4 * u + 1], p[4 * u + 2], p[4 * u + 3]};
+      pv<D>(o, frag, sk + C::KV_BYTES + u * 16 * 128);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    fence_acc(o);
+    fence_regs(p);
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+
+  // o / max(l, 1e-20), rounded once, staged and stored row-masked
+  bf16* const mine = staged + group * 64 * C::LD;
+  const float lm[2] = {fmaxf(l[0], 1e-20f), fmaxf(l[1], 1e-20f)};
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      *reinterpret_cast<__nv_bfloat162*>(&mine[(r_in + 8 * h) * C::LD + 8 * j + cq]) =
+          __floats2bfloat162_rn(o[4 * j + 2 * h] / lm[h], o[4 * j + 2 * h + 1] / lm[h]);
+    }
+  }
+  if (group == 0) {
+    warpgroup_sync<1>();
+  } else {
+    warpgroup_sync<2>();
+  }
+  bf16* const out = static_cast<bf16*>(a.o);
+  const size_t stride = static_cast<size_t>(a.h) * D;
+  for (int vi = lane; vi < 64 * (D / 8); vi += 128) {
+    const int r = vi / (D / 8);
+    const int c = (vi % (D / 8)) * 8;
+    if (row0 + r < a.lq) {
+      *reinterpret_cast<uint4*>(out + (static_cast<size_t>(b) * a.lq + row0 + r) * stride +
+                                static_cast<size_t>(head) * D + c) =
+          *reinterpret_cast<const uint4*>(&mine[r * C::LD + c]);
+    }
+  }
+}
+
+}  // namespace fw
+
+// ---------------------------------------------------------------------------
+// split (Lq 1): a block a (slot, KV head, key span), then the merge
+
+namespace fs {
+
+constexpr int THREADS = 128;
+constexpr int GMAX = 16;  // query heads a KV head
+
+// GM: the query heads a KV head the instance holds accumulators for (1, or
+// GMAX for grouped-query attention)
+template <typename T, int D, int GM>
+struct Cfg {
+  static constexpr int VEC = 16 / sizeof(T);                   // elements a 16-byte load
+  static constexpr int CPR = D / VEC;                          // 16-byte chunks a row
+  static constexpr int BK = D * sizeof(T) <= 256 ? 64 : 32;    // keys a tile
+  static constexpr int TPK = THREADS / BK;                     // threads a key's score
+  static constexpr int PITCH = D + VEC;                        // staged row (+16 bytes)
+  static constexpr int TILE = BK * PITCH;                      // elements of a K or V tile
+  static constexpr int OPT = (GM * D + THREADS - 1) / THREADS;  // outputs a thread, at most
+  static size_t smem(int g) {
+    return sizeof(T) * 4 * TILE + sizeof(float) * (g * D + g * BK + 3 * g);
+  }
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+// Partials of row (b, head) and span sp at ((b·H + head)·spans + sp): m and l
+// (np floats each), then acc (np·D floats).  A span with no live key of its
+// slot writes l = 0 and nothing else.
+template <typename T, int D, int GM>
+__global__ void __launch_bounds__(THREADS)
+flash_split(Args a, int span, int spans, float* __restrict__ part) {
+  using C = Cfg<T, D, GM>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const sK = reinterpret_cast<T*>(smem);  // [2][TILE]
+  T* const sV = sK + 2 * C::TILE;            // [2][TILE]
+  const int g_count = a.h / a.kv;
+  float* const sQ = reinterpret_cast<float*>(sV + 2 * C::TILE);  // [G][D]
+  float* const sS = sQ + g_count * D;                             // [G][BK]
+  float* const sM = sS + g_count * C::BK;
+  float* const sL = sM + g_count;
+  float* const sC = sL + g_count;
+
+  // the merge may start its blocks now; it waits for this grid before reading
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  const int tid = threadIdx.x;
+  const int sp = blockIdx.x;
+  const int b = blockIdx.y / a.kv;
+  const int kvh = blockIdx.y % a.kv;
+  const int qpos = a.q_off != nullptr ? a.q_off[b] : a.q_off0;
+  int lo = 0;
+  int hi = a.lk;  // the slot's live keys [lo, hi)
+  if (a.causal) hi = min(hi, qpos + 1);
+  if (a.window > 0) lo = max(lo, qpos - a.window + 1);
+  const int k_begin = max(lo, sp * span);
+  const int k_end = min(hi, sp * span + span);
+  const size_t np = static_cast<size_t>(a.b) * a.h * spans;
+  const size_t row0 = (static_cast<size_t>(b) * a.h + static_cast<size_t>(kvh) * g_count) *
+                      spans + sp;  // partial of the group's first head
+  if (k_begin >= k_end) {
+    if (tid < g_count) part[np + row0 + static_cast<size_t>(tid) * spans] = 0.f;
+    return;
+  }
+
+  const T* q = static_cast<const T*>(a.q) + (static_cast<size_t>(b) * a.h +
+                                            static_cast<size_t>(kvh) * g_count) * D;
+  for (int i = tid; i < g_count * D; i += THREADS) sQ[i] = to_f(q[i]);
+  for (int g = tid; g < g_count; g += THREADS) {
+    sM[g] = NEG_INF;
+    sL[g] = 0.f;
+  }
+  const size_t k_stride = static_cast<size_t>(a.kv) * D;
+  const T* const k_head = static_cast<const T*>(a.k) + static_cast<size_t>(b) * a.lk * k_stride +
+                          static_cast<size_t>(kvh) * D;
+  const T* const v_head = static_cast<const T*>(a.v) + static_cast<size_t>(b) * a.lk * k_stride +
+                          static_cast<size_t>(kvh) * D;
+  // rows [k0, k0 + n) of K and V into stage st, 16 bytes a copy
+  auto load = [&](int st, int k0, int n) {
+    for (int idx = tid; idx < n * C::CPR; idx += THREADS) {
+      const int r = idx / C::CPR;
+      const int c = (idx % C::CPR) * C::VEC;
+      const size_t src = static_cast<size_t>(k0 + r) * k_stride + c;
+      cp_async16(sK + st * C::TILE + r * C::PITCH + c, k_head + src);
+      cp_async16(sV + st * C::TILE + r * C::PITCH + c, v_head + src);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+
+  float acc[C::OPT];
+#pragma unroll
+  for (int i = 0; i < C::OPT; ++i) acc[i] = 0.f;
+  const int key = tid / C::TPK;  // scores: TPK threads a key,
+  const int sub = tid % C::TPK;  // interleaved 16-byte chunks each
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  const int tiles = (k_end - k_begin + C::BK - 1) / C::BK;
+  load(0, k_begin, min(C::BK, k_end - k_begin));
+  for (int t = 0; t < tiles; ++t) {
+    const int st = t % 2;
+    const int k0 = k_begin + t * C::BK;
+    const int n = min(C::BK, k_end - k0);
+    if (t + 1 < tiles) {
+      load(st ^ 1, k0 + C::BK, min(C::BK, k_end - k0 - C::BK));
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    }
+    __syncthreads();
+
+    // scores of the G heads against key `key` of the tile, fp32: each of
+    // the key's TPK threads sums its chunks in order, then a shuffle tree
+    const T* kr = sK + st * C::TILE + key * C::PITCH;
+    for (int g = 0; g < g_count; ++g) {
+      const float* qg = sQ + g * D;
+      float s = 0.f;
+      for (int c = sub; c < C::CPR; c += C::TPK) {
+        const uint4 raw4 = *reinterpret_cast<const uint4*>(kr + c * C::VEC);
+        const T* kc = reinterpret_cast<const T*>(&raw4);
+#pragma unroll
+        for (int e = 0; e < C::VEC; ++e) s = fmaf(qg[c * C::VEC + e], to_f(kc[e]), s);
+      }
+#pragma unroll
+      for (int o = 1; o < C::TPK; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (sub == 0) {
+        float x = s * a.scale;
+        if (a.softcap > 0.f) x = tanhf(x / a.softcap) * a.softcap;
+        sS[g * C::BK + key] = key < n ? x : NEG_INF;
+      }
+    }
+    __syncthreads();
+
+    // online softmax, one warp a head: p rounded to v's dtype in place
+    for (int g = warp; g < g_count; g += THREADS / 32) {
+      float mx = NEG_INF;
+      for (int j = lane; j < C::BK; j += 32) mx = fmaxf(mx, sS[g * C::BK + j]);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_old = sM[g];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+      for (int j = lane; j < C::BK; j += 32) {
+        const float p = j < n ? expf(sS[g * C::BK + j] - m_new) : 0.f;
+        sum += p;
+        sS[g * C::BK + j] = to_f(from_f<T>(p));
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (lane == 0) {
+        const float corr = expf(m_old - m_new);
+        sM[g] = m_new;
+        sL[g] = sL[g] * corr + sum;
+        sC[g] = corr;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc·corr + Σ_j p_j v_j, thread-owned outputs (head, column)
+    const T* vt = sV + st * C::TILE;
+#pragma unroll
+    for (int i = 0; i < C::OPT; ++i) {
+      const int idx = tid + i * THREADS;
+      if (idx < g_count * D) {
+        const int g = idx / D;
+        const int d = idx % D;
+        float x = acc[i] * sC[g];
+        for (int j = 0; j < n; ++j) x = fmaf(sS[g * C::BK + j], to_f(vt[j * C::PITCH + d]), x);
+        acc[i] = x;
+      }
+    }
+    __syncthreads();  // the stage is free for the load after next
+  }
+
+#pragma unroll
+  for (int i = 0; i < C::OPT; ++i) {
+    const int idx = tid + i * THREADS;
+    if (idx < g_count * D) {
+      const size_t r = row0 + static_cast<size_t>(idx / D) * spans;
+      part[2 * np + r * D + idx % D] = acc[i];
+    }
+  }
+  if (tid < g_count) {
+    part[row0 + static_cast<size_t>(tid) * spans] = sM[tid];
+    part[np + row0 + static_cast<size_t>(tid) * spans] = sL[tid];
+  }
+}
+
+// One block a (b, head): the row's partials merged in span order, empty ones
+// (l = 0) skipped; o = Σ acc·e^(m - M) / max(Σ l·e^(m - M), 1e-20).
 template <typename T, int D>
-int launch_typed(const Args& a, cudaStream_t s) {
-  const size_t bytes = Layout<T, D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.lq + BQ - 1) / BQ, a.b * a.h);
-  flash_fwd<T, D><<<grid, THREADS, bytes, s>>>(a);
+__global__ void __launch_bounds__(THREADS) flash_merge(Args a, int spans, const float* part) {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const size_t np = static_cast<size_t>(a.b) * a.h * spans;
+  const size_t r0 = static_cast<size_t>(blockIdx.x) * spans;
+  const float* pm = part + r0;
+  const float* pl = part + np + r0;
+  const float* pacc = part + 2 * np + r0 * D;
+  float mx = NEG_INF;
+  for (int s = 0; s < spans; ++s) {
+    if (pl[s] > 0.f) mx = fmaxf(mx, pm[s]);
+  }
+  float l = 0.f;
+  for (int s = 0; s < spans; ++s) {
+    if (pl[s] > 0.f) l += pl[s] * expf(pm[s] - mx);
+  }
+  T* out = static_cast<T*>(a.o) + static_cast<size_t>(blockIdx.x) * D;
+  for (int d = threadIdx.x; d < D; d += THREADS) {
+    float x = 0.f;
+    for (int s = 0; s < spans; ++s) {
+      if (pl[s] > 0.f) x += pacc[static_cast<size_t>(s) * D + d] * expf(pm[s] - mx);
+    }
+    out[d] = from_f<T>(x / fmaxf(l, 1e-20f));
+  }
+}
+
+}  // namespace fs
+
+// ---------------------------------------------------------------------------
+// host side
+
+enum Body { FMA32 = 0, WMMA = 1, WGMMA = 2, SPLIT = 3 };
+
+template <typename T, int D>
+int launch_tile(const Args& a, cudaStream_t s) {
+  const size_t bytes = ft::Layout<T, D>::bytes;
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ft::flash_tile<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  const dim3 grid((a.lq + ft::BQ - 1) / ft::BQ, a.b * a.h);
+  ft::flash_tile<T, D><<<grid, ft::THREADS, bytes, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_wgmma(const Args& a, cudaStream_t s) {
+  using C = fw::Cfg<D>;
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fw::flash_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  CUtensorMap tq, tk, tv;
+  int rc = tensor_map_3d(&tq, a.q, a.b, a.lq, a.h * D, fw::BQ);
+  if (rc != 0) return rc;
+  rc = tensor_map_3d(&tk, a.k, a.b, a.lk, a.kv * D, C::BKEY);
+  if (rc != 0) return rc;
+  rc = tensor_map_3d(&tv, a.v, a.b, a.lk, a.kv * D, C::BKEY);
+  if (rc != 0) return rc;
+  const int blocks = (a.lq + fw::BQ - 1) / fw::BQ * a.b * a.h;
+  fw::flash_wgmma<D><<<blocks, fw::THREADS, C::SMEM, s>>>(tq, tk, tv, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D, int GM>
+int launch_split(const Args& a, int span, int spans, float* part, cudaStream_t s) {
+  using C = fs::Cfg<T, D, GM>;
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fs::flash_split<T, D, GM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(C::smem(GM)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  const dim3 grid(spans, a.b * a.kv);
+  fs::flash_split<T, D, GM><<<grid, fs::THREADS, C::smem(a.h / a.kv), s>>>(a, span, spans,
+                                                                         part);
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  return launch(fs::flash_merge<T, D>, dim3(a.b * a.h), dim3(fs::THREADS), 0, s, true, a,
+                spans, static_cast<const float*>(part));
+}
+
+template <typename T, int D>
+int launch_body(const Args& a, int body, int span, int spans, float* part, cudaStream_t s) {
+  if (body == SPLIT) {
+    return a.h == a.kv ? launch_split<T, D, 1>(a, span, spans, part, s)
+                       : launch_split<T, D, fs::GMAX>(a, span, spans, part, s);
+  }
+  if constexpr (std::is_same<T, bf16>::value && D >= 64) {
+    return launch_wgmma<D>(a, s);
+  } else {
+    return launch_tile<T, D>(a, s);
+  }
+}
+
 template <typename T>
-int launch_dim(const Args& a, int d, cudaStream_t s) {
+int launch_dim(const Args& a, int d, int body, int span, int spans, float* part,
+               cudaStream_t s) {
   switch (d) {
-    case 16: return launch_typed<T, 16>(a, s);
-    case 32: return launch_typed<T, 32>(a, s);
-    case 64: return launch_typed<T, 64>(a, s);
-    case 128: return launch_typed<T, 128>(a, s);
-    case 192: return launch_typed<T, 192>(a, s);
+    case 16: return launch_body<T, 16>(a, body, span, spans, part, s);
+    case 32: return launch_body<T, 32>(a, body, span, spans, part, s);
+    case 64: return launch_body<T, 64>(a, body, span, spans, part, s);
+    case 128: return launch_body<T, 128>(a, body, span, spans, part, s);
+    case 192: return launch_body<T, 192>(a, body, span, spans, part, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+template <typename T>
+int split_keys(int d) {
+  return d * static_cast<int>(sizeof(T)) <= 256 ? 64 : 32;
+}
+
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16 (q, k, v and o share it).
+// One call under a launch plan (kernels/flash_attention.py::plan).  dtype: 0 =
+// fp32, 1 = bf16 (q, k, v and o share it).  body: 0 = fma32 (fp32; bq 64, bkey
+// 64), 1 = wmma (bf16 at d 16 / 32; bq 64, bkey 64), 2 = wgmma (bf16 at d 64 /
+// 128 / 192; bq 128, bkey 128 at d <= 128 else 64), 3 = split (lq 1, at most
+// 16 query heads a KV head; bq 1, bkey the split tile (64 keys when a row is
+// at most 256 bytes, else 32), span a multiple of bkey, spans = ⌈lk / span⌉,
+// scratch b·h·spans·(d + 2) floats).  span, spans and scratch are 0 / null for
+// the other bodies.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       const void* q_off, int q_off0, int b, int lq, int lk,
                                       int h, int kv, int d, int causal, int window,
-                                      float scale, float softcap, int dtype, void* stream) {
-  if (b <= 0 || lq <= 0 || lk <= 0 || kv <= 0 || h % kv != 0 || b * h > 65535) {
+                                      float scale, float softcap, int dtype, int body,
+                                      int bq, int bkey, int span, int spans, void* scratch,
+                                      void* stream) {
+  if (b <= 0 || lq <= 0 || lk <= 0 || kv <= 0 || h % kv != 0 || (dtype != 0 && dtype != 1) ||
+      (d != 16 && d != 32 && d != 64 && d != 128 && d != 192)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const long long heads = static_cast<long long>(b) * h;
+  bool ok = false;
+  switch (body) {
+    case FMA32:
+    case WMMA:
+      ok = (body == FMA32 ? dtype == 0 : dtype == 1 && d <= 32) && bq == ft::BQ &&
+           bkey == ft::BKEY && span == 0 && spans == 0 && scratch == nullptr &&
+           heads <= 65535;
+      break;
+    case WGMMA:
+      ok = dtype == 1 && d >= 64 && bq == fw::BQ && bkey == (d <= 128 ? 128 : 64) &&
+           span == 0 && spans == 0 && scratch == nullptr &&
+           (lq + fw::BQ - 1) / fw::BQ * heads <= 0x7fffffffll;
+      break;
+    case SPLIT: {
+      const int bk = dtype == 0 ? split_keys<float>(d) : split_keys<bf16>(d);
+      ok = lq == 1 && h / kv <= fs::GMAX && bq == 1 && bkey == bk && span > 0 &&
+           span % bk == 0 && spans == (lk + span - 1) / span && scratch != nullptr &&
+           static_cast<long long>(b) * kv <= 65535 && heads <= 0x7fffffffll;
+      break;
+    }
+    default:
+      break;
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   Args a{q, k, v, o, static_cast<const int*>(q_off), q_off0, b, lq, lk, h, kv,
          causal, window, scale, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dim<float>(a, d, s);
-  if (dtype == 1) return launch_dim<bf16>(a, d, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  float* part = static_cast<float*>(scratch);
+  if (dtype == 0) return launch_dim<float>(a, d, body, span, spans, part, s);
+  return launch_dim<bf16>(a, d, body, span, spans, part, s);
 }

@@ -42,7 +42,8 @@ SIGNATURES = {
     "lowrank_matmul_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _F, _F, _I, _P],
+                               _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _I,
+                               _P, _P],
     "flash_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, _I, _I, _I, _I, _I, _P],
     "grouped_matmul_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

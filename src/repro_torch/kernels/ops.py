@@ -34,6 +34,8 @@ LAUNCHES: Dict[str, int] = {"cov_accum": 0, "lowrank_matmul": 0,
                             "grouped_matmul": 0}
 # lowrank_matmul's launches by row count T (its plan's body depends on T)
 LOWRANK_ROWS: Dict[int, int] = collections.Counter()
+# flash_attention's launches by its plan's body
+FLASH_BODIES: Dict[str, int] = collections.Counter()
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -42,6 +44,7 @@ def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     LOWRANK_ROWS.clear()
+    FLASH_BODIES.clear()
 
 
 def pad_dim(x: torch.Tensor, axis: int, multiple: int) -> torch.Tensor:
@@ -182,17 +185,22 @@ def cov_accum_grouped(x, xp, ids, experts: int, *, acc=None):
 # factorized linear
 
 
-# set by ``batch_invariant``: lowrank_matmul takes the large-T body at any T
+# set by ``batch_invariant``: lowrank_matmul takes the large-T body at any
+# T, flash_attention a tile body at any Lq
 _BATCH_INVARIANT = False
 
 
 @contextlib.contextmanager
 def batch_invariant():
     """Inside it ``lowrank_matmul`` runs its large-T body at every row count
-    T, whose rows' results do not depend on T, so a prompt prefilled in
+    T and ``flash_attention`` a tile body at every query length Lq; in
+    both a row's result does not depend on the row count (nor, in
+    attention, on where its query block starts), so a prompt prefilled in
     chunks (a last chunk of any length) gives the bits of whole prefill.
     Outside it T <= ``SMALL_T_MAX`` (decode) takes the small-T body, which
-    rounds t differently.  Prefill (``models.model.prefill``) runs in it."""
+    rounds t differently, and Lq 1 attention the split body, which sums
+    over key spans merged afterwards.  Prefill (``models.model.prefill``)
+    runs in it."""
     global _BATCH_INVARIANT
     before, _BATCH_INVARIANT = _BATCH_INVARIANT, True
     try:
@@ -349,9 +357,11 @@ def _padded_head_dim(d: int) -> int:
 
 
 def _flash_attention_kernel(q, k, v, q_offset, causal, window, softcap):
-    """Checked launch; the head dim is zero-padded to a compiled one (exact:
-    zero dims add nothing to q·k or to the output columns kept) with the
-    scale of the true one."""
+    """Checked launch of the call's plan (``kernels.flash_attention.plan``;
+    ``batch_invariant`` makes it choose by dtype and head dim alone); the
+    head dim is zero-padded to a compiled one (exact: zero dims add nothing
+    to q·k or to the output columns kept) with the scale of the true one.
+    Per-slot offsets stay on the device: the kernel reads them."""
     _check_cuda("flash_attention", [q, k, v], q.dtype)
     b, lq, h, d = q.shape
     if (k.dim() != 4 or k.shape != v.shape or k.shape[0] != b
@@ -367,11 +377,16 @@ def _flash_attention_kernel(q, k, v, q_offset, causal, window, softcap):
         q_off = q_offset.to(torch.int32).contiguous()
     else:
         q_off0 = int(q_offset)
+    p = _fa.plan(b, lq, k.shape[1], h, k.shape[2], dp, q.dtype,
+                 causal=causal, window=window, invariant=_BATCH_INVARIANT)
     q, k, v = (_aligned(pad_dim(t, 3, dp)) for t in (q, k, v))
     out = torch.empty((b, lq, h, dp), dtype=q.dtype, device=q.device)
-    _fa.launch(q, k, v, out, q_off, q_off0, causal=causal, window=window,
-               scale=1.0 / math.sqrt(d), softcap=softcap)
+    scratch = (torch.empty(p.scratch_floats, dtype=torch.float32,
+                           device=q.device) if p.scratch_floats else None)
+    _fa.launch(p, q, k, v, out, q_off, q_off0, scale=1.0 / math.sqrt(d),
+               softcap=softcap, scratch=scratch)
     LAUNCHES["flash_attention"] += 1
+    FLASH_BODIES[p.body] += 1
     return out if dp == d else out[..., :d].contiguous()
 
 
@@ -413,7 +428,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q (B, Lq, H, D); k/v (B, Lk, KV, D) -> (B, Lq, H, D) in q's dtype;
     differentiable.  ``q_offset``: the absolute position of q[:, 0], an int
     or a (B,) integer tensor (one per slot).  ``chunk`` is the key chunk of
-    the plain version; the kernel always walks 64-key tiles."""
+    the plain version; the kernel walks its plan's key tiles or spans."""
     return _FlashAttention.apply(q, k, v, q_offset, causal, window, chunk,
                                  softcap)
 

@@ -6,14 +6,16 @@
     python3 chip_smoke.py --only cov       # phases 1-2 and cov_accum
     python3 chip_smoke.py --only grouped   # phases 1-2 and grouped_matmul
     python3 chip_smoke.py --only attention # phases 1-2 and flash_attention
+    python3 chip_smoke.py --only decode    # phases 1-2 and flash_decode
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. device  — needs CUDA; prints the card's name and power limit.
 2. build   — compiles the hand-written kernels (``src/repro_torch/csrc``);
              prints nvcc's version, each kernel's registers and spills
-             (``-Xptxas -v``; flash_attention's wgmma body must not spill)
-             and whether every wgmma body's SASS holds HGMMA
+             (``-Xptxas -v``; the wgmma bodies of flash_attention and
+             flash_decode must not spill) and whether every wgmma body's
+             SASS holds HGMMA
              (``cuobjdump``, where the toolkit has it).
 3. kernels — every kernel against its plain PyTorch version on the card, at
              the main paths' shapes and ragged ones, in fp32 and bf16, with
@@ -47,8 +49,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
              ``cov_accum`` at llama-7b's taps, MLA's kv_lora tap (T split),
              one expert segment and ragged shapes; xx and xpxp exactly
              symmetric, and two calls with T split give the same bits, in
-             fp32 and bf16.  ``--only lowrank`` / ``--only cov`` /
-             ``--only grouped`` / ``--only attention`` run phases 1-2 and
+             fp32 and bf16.  ``flash_decode`` at the llama-7b serving case
+             (8 slots, lengths 256-2048, rank 1232) and two ragged ones
+             (D 16 with odd ranks; bf16 D 64 with 4 query heads a KV
+             head), fp32 and bf16, with the plan's keys body, ``device_ms``
+             beside ``ms`` and two bounds (fp32 FMA, and the tensor-core
+             work of the bf16 body); each slot of the llama case computed
+             alone (one slot, its cache cut to its own length) bit for bit
+             equal to the same slot inside the batch, fp32 and bf16.
+             ``--only lowrank`` / ``--only cov`` / ``--only grouped`` /
+             ``--only attention`` / ``--only decode`` run phases 1-2 and
              that kernel's rows alone.
 4. smoke   — the smoke compression recipe on the card (kernels) and on the
              CPU (plain versions) from the same params and tokens; then the
@@ -73,7 +83,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
              max_len 2048, 256-token prefill chunks, 12 requests of 128-1024
              tokens and 64 steps through the latent cache.  Counts are
              zeroed before each and read after: flash_attention > 0 in both,
-             flash_decode and lowrank_matmul > 0 in (b).  Then latent-cache
+             flash_decode and lowrank_matmul > 0 in (b), flash_decode's
+             bf16 wgmma body among them.  Then latent-cache
              decode against dense-cache decode, and chunked against whole
              prefill (a last chunk of 256 rows and one of 8), on one
              teacher-forced sequence.  Prints time to first
@@ -187,10 +198,14 @@ SIZES = {
     # phase 7: deepseek-v2-lite at published widths, depth cut 27 -> 2
     "moe_layers": 2,
     # flash_decode: (name, B, H, KV, D, r_k, r_v, L, lengths (lo, hi));
-    # llama-7b at ratio 0.6 (rank 1232, PERF.md row 2), then a ragged one
+    # llama-7b at ratio 0.6 (rank 1232, PERF.md row 2), then ragged ones:
+    # D 16 with odd ranks (the FMA body in both dtypes), and D 64 with 4
+    # query heads a KV head, L not a multiple of the 256-key span, a slot
+    # of length 1 (the wgmma body in bf16)
     "flash_decode": (
         ("llama", 8, 32, 32, 128, 1232, 1232, 2048, (256, 2048)),
-        ("ragged", 3, 4, 2, 16, 19, 24, 77, (1, 77))),
+        ("ragged", 3, 4, 2, 16, 19, 24, 77, (1, 77)),
+        ("ragged_d64_g4", 5, 8, 2, 64, 200, 77, 700, (1, 700))),
     # serving: Server (batch, prompt, steps, max_len) on the dense model;
     # the engine (slots, max_len, chunk, requests, prompt lo/hi, steps) on
     # the compressed one; the teacher-forced checks (prompt, steps, max_len)
@@ -283,6 +298,31 @@ def device_ms(fn, *, calls=10, reps=5):
     torch.cuda.synchronize()
     torch._C._cuda_clearCublasWorkspaces()
     return ms
+
+
+def kernel_ms(fn, *, calls=10):
+    """{kernel name: device ms of one ``fn()``} from ``torch.profiler``
+    over ``calls`` calls after one warm-up (each launch's own device time;
+    the gaps between launches are not counted)."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            m = re.search(r"(\w+)(<[^(]*>)?\(", evt.key)
+            name = m.group(1) + (m.group(2) or "") if m else evt.key[:60]
+            out[name] = out.get(name, 0.0) + (evt.self_device_time_total
+                                              / 1e3 / calls)
+    return out
 
 
 def lowrank_rows(ops):
@@ -808,7 +848,9 @@ def phase_flash_attention(torch, np, ops, ref, dev="cuda", sizes=SIZES):
     return rows, checks
 
 
-def check_flash_decode(torch, np, ops, ref, case, dtype, timed, dev):
+def _decode_inputs(torch, np, case, dtype, dev):
+    """(q, lk, lv, uk, uv, lengths, cos, sin) and the lengths of a
+    ``flash_decode`` case."""
     from repro_torch.models import layers as L
     name, b, h, kv, d, rk, rv, l, spread = case
     gen = torch.Generator(device=dev).manual_seed(rk + rv + l)
@@ -820,7 +862,13 @@ def check_flash_decode(torch, np, ops, ref, case, dtype, timed, dev):
     lens = _spread(np, spread, b)
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     cos, sin = L.rope_table(torch.arange(l, device=dev), d, 10000.0)
-    args = (q, lk, lv, uk, uv, lengths, cos, sin)
+    return (q, lk, lv, uk, uv, lengths, cos, sin), lens
+
+
+def check_flash_decode(torch, np, ops, ref, case, dtype, timed, dev):
+    from repro_torch.kernels import flash_decode as fd
+    name, b, h, kv, d, rk, rv, l, spread = case
+    args, lens = _decode_inputs(torch, np, case, dtype, dev)
     want = ref.flash_decode_ref(*args)
     got = ops.flash_decode(*args)
     err = rel_fro(got, want)
@@ -830,38 +878,86 @@ def check_flash_decode(torch, np, ops, ref, case, dtype, timed, dev):
     lim = 1e-5 if dtype == torch.float32 else 5e-3
     require(err <= lim, f"flash_decode {name} {dtype}: rel err {err:.3e} "
             f"> {lim:.0e}")
+    p = fd.plan(b, l, h, kv, d, rk, rv, dtype)
     row = {"case": name, "shape": [b, h, kv, d, rk, rv, l],
            "dtype": str(dtype).replace("torch.", ""), "lengths": lens,
+           "body": p.body, "work_items": len(p.items(lens)),
            "rel_fro_err": err, "max_abs_err": mae}
     if timed:
         row["ms"] = time_ms(lambda: ops.flash_decode(*args))
+        row["device_ms"] = device_ms(lambda: ops.flash_decode(*args))
+        row["kernels_device_ms"] = kernel_ms(lambda: ops.flash_decode(*args))
         row["plain_ms"] = time_ms(lambda: ref.flash_decode_ref(*args))
         # no single PyTorch call computes attention with in-kernel key
         # up-projection and latent-space values
         row["library_ms"] = None
-        eb = q.element_size()
+        eb = args[0].element_size()
         live = sum(lens)
-        flops = (2 * live * (rk * kv * d + h * d + h * rv)
-                 + 2 * b * h * rv * d)
+        up = fd.bound_flops(lens, rk, kv, d)
+        rest = 2 * live * (h * d + h * rv) + 2 * b * h * rv * d
         nbytes = (live * (rk + rv) * eb + (rk + rv) * kv * d * 4
                   + 2 * b * h * d * eb)
         # the function is defined in fp32 arithmetic: the fp32 peak
-        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, "float32")
+        row["bound_ms"], row["bound_by"] = bound(up + rest, nbytes,
+                                                 "float32")
+        # the wgmma body's work: the up-projection as two bf16 terms on the
+        # tensor cores, the rest on the FMA units (the larger of the two
+        # and the bytes); none for the FMA body
+        row["bound_tc_ms"] = row["bound_tc_by"] = None
+        if p.body == "wgmma":
+            tc_ms, tc_by = bound(2 * up, nbytes, "bfloat16")
+            fma_ms = rest / PEAK_FLOPS["float32"] * 1e3
+            row["bound_tc_ms"] = max(tc_ms, fma_ms)
+            row["bound_tc_by"] = (tc_by if tc_ms >= fma_ms
+                                  else "operations (FMA)")
     return row
+
+
+def check_flash_decode_alone(torch, np, ops, case, dtype, dev):
+    """Each slot computed alone (one slot, its cache cut to its own
+    length) gives the bits of the same slot inside the batch: key spans
+    start at absolute key 0 and a slot's spans merge in order, whatever B,
+    L or the other slots."""
+    args, lens = _decode_inputs(torch, np, case, dtype, dev)
+    q, lk, lv, uk, uv, lengths, cos, sin = args
+    whole = ops.flash_decode(*args)
+    same = []
+    for bi, n in enumerate(lens):
+        alone = ops.flash_decode(
+            q[bi:bi + 1].contiguous(), lk[bi:bi + 1, :n].contiguous(),
+            lv[bi:bi + 1, :n].contiguous(), uk, uv, lengths[bi:bi + 1],
+            cos[:n].contiguous(), sin[:n].contiguous())
+        same.append(bool(torch.equal(alone[0], whole[bi])))
+    row = {"case": case[0], "dtype": str(dtype).replace("torch.", ""),
+           "lengths": lens, "alone_bitwise_equal": same}
+    bad = [n for n, ok in zip(lens, same) if not ok]
+    require(not bad, f"flash_decode {case[0]} {dtype}: slots of lengths "
+            f"{bad} differ alone and inside the batch")
+    return row
+
+
+def phase_decode_kernels(torch, np, ops, ref, dev="cuda", sizes=SIZES):
+    """flash_decode's rows (every case in fp32 and bf16, the llama case
+    timed), then each llama slot alone against the batch, bit for bit."""
+    rows, checks = [], []
+    for i, case in enumerate(sizes["flash_decode"]):
+        for dtype in (torch.float32, torch.bfloat16):
+            row = check_flash_decode(torch, np, ops, ref, case, dtype, i == 0,
+                                     dev)
+            rows.append(row)
+            log("flash_decode", json.dumps(row))
+    for dtype in (torch.float32, torch.bfloat16):
+        checks.append(check_flash_decode_alone(
+            torch, np, ops, sizes["flash_decode"][0], dtype, dev))
+        log("flash_decode alone", json.dumps(checks[-1]))
+    return rows, checks
 
 
 def phase_attention_kernels(torch, np, ops, ref, dev="cuda", sizes=SIZES):
     fa_rows, fa_checks = phase_flash_attention(torch, np, ops, ref, dev,
                                                sizes)
-    fd_rows = []
-    for i, case in enumerate(sizes["flash_decode"]):
-        for dtype in (torch.float32, torch.bfloat16):
-            timed = i == 0 and dtype == torch.bfloat16
-            row = check_flash_decode(torch, np, ops, ref, case, dtype, timed,
-                                     dev)
-            fd_rows.append(row)
-            log("flash_decode", json.dumps(row))
-    return fa_rows, fd_rows, fa_checks
+    fd_rows, fd_checks = phase_decode_kernels(torch, np, ops, ref, dev, sizes)
+    return fa_rows, fd_rows, fa_checks, fd_checks
 
 
 def _group_sizes(np, m, e, seed):
@@ -1455,6 +1551,9 @@ def phase_serve(torch, np, ops, cfg, params, comp, dev="cuda", sizes=SIZES):
     for name in ("flash_attention", "flash_decode", "lowrank_matmul"):
         require(launches[name] > 0,
                 f"kernel {name} never launched on the serving path")
+    decode_bodies = dict(ops.DECODE_BODIES)
+    require(not on_card or decode_bodies.get("wgmma", 0) > 0,
+            f"flash_decode's wgmma body never taken: {decode_bodies}")
     require(sorted(res) == list(range(n_req)) and all(
         len(r["tokens"]) == steps and ((r["tokens"] >= 0)
                                        & (r["tokens"] < cfg.vocab_size)).all()
@@ -1470,7 +1569,7 @@ def phase_serve(torch, np, ops, cfg, params, comp, dev="cuda", sizes=SIZES):
     out["engine"] = {
         "launches": launches, "lowrank_rows": lowrank_rows(ops),
         "flash_bodies": dict(ops.FLASH_BODIES),
-        "wall_s": wall, "requests": n_req,
+        "decode_bodies": decode_bodies, "wall_s": wall, "requests": n_req,
         "prompt_lens": lens.tolist(),
         "ttft_s_median": statistics.median(ttft), "ttft_s_max": max(ttft),
         "ttft_s_first_slots_median": statistics.median(ttft[:slots]),
@@ -1623,14 +1722,17 @@ def profile_engine(torch, np, TS, cfg, comp, layout, sizes):
     busy = sum(kernels.values())
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:10])
     # flash_attention's kernels: the tile bodies, the split body and its
-    # merge (flash_decode's kernel is flash_decode_kernel)
+    # merge; flash_decode's: fdec_split_u, the keys bodies, values and out
     fa_ms = sum(ms for name, ms in kernels.items() if any(
         f"flash_{body}" in name for body in ("tile", "wgmma", "split",
                                              "merge")))
+    fd_ms = sum(ms for name, ms in kernels.items() if "fdec_" in name)
     return {"wall_ms": wall * 1e3, "wall_ms_profiled": wall_profiled * 1e3,
             "device_busy_ms": busy, "busy_share": busy / (wall * 1e3),
             "flash_attention_ms": fa_ms,
             "flash_attention_share": fa_ms / max(busy, 1e-9),
+            "flash_decode_ms": fd_ms,
+            "flash_decode_share": fd_ms / max(busy, 1e-9),
             "decode_step_ms_median": step_ms, "top_kernels_ms": top}
 
 
@@ -1839,9 +1941,10 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("lowrank", "cov", "grouped",
-                                       "attention"),
+                                       "attention", "decode"),
                     help="phases 1-2 and lowrank_matmul's (cov_accum's, "
-                    "grouped_matmul's, flash_attention's) rows of phase 3")
+                    "grouped_matmul's, flash_attention's, flash_decode's) "
+                    "rows of phase 3")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1886,11 +1989,14 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("build:", line.strip())
     usage = ptxas_usage(build.build_log())
-    fa_wg = {fn: u for fn, u in usage.items() if "flash_wgmma" in fn}
-    log("build: flash_attention wgmma body (registers, spill stores, spill "
-        "loads):", json.dumps(fa_wg))
-    require(fa_wg and not any(u[1] or u[2] for u in fa_wg.values()),
-            f"the flash_attention wgmma body spills: {fa_wg}")
+    for kernel, symbol in (("flash_attention", "flash_wgmma"),
+                           ("flash_decode", "fdec_keys_wgmma")):
+        wg_usage = {fn: u for fn, u in usage.items() if symbol in fn}
+        log(f"build: {kernel} wgmma body (registers, spill stores, spill "
+            "loads):", json.dumps(wg_usage))
+        require(wg_usage and not any(u[1] or u[2]
+                                     for u in wg_usage.values()),
+                f"the {kernel} wgmma body spills: {wg_usage}")
     from repro_torch.kernels import lowrank_matmul as low
     hgmma = sass_report(build.library_path())
     if hgmma is None:
@@ -1910,6 +2016,10 @@ def main(argv=None) -> int:
             fa_rows, fa_checks = phase_flash_attention(torch, np, ops, ref)
             rows = {"flash_attention": fa_rows,
                     "flash_attention_checks": fa_checks}
+        elif args.only == "decode":
+            fd_rows, fd_checks = phase_decode_kernels(torch, np, ops, ref)
+            rows = {"flash_decode": fd_rows,
+                    "flash_decode_checks": fd_checks}
         else:
             gm_rows, gm_back = phase_grouped_kernels(torch, np, ops, ref)
             rows = {"grouped_matmul": gm_rows,
@@ -1924,8 +2034,8 @@ def main(argv=None) -> int:
     # 3. kernels
     t0 = time.perf_counter()
     cov_rows, low_rows = phase_kernels(torch, ops, ref)
-    fa_rows, fd_rows, fa_checks = phase_attention_kernels(torch, np, ops,
-                                                          ref)
+    fa_rows, fd_rows, fa_checks, fd_checks = phase_attention_kernels(
+        torch, np, ops, ref)
     gm_rows, gm_back = phase_grouped_kernels(torch, np, ops, ref)
     log(f"phase 3: {time.perf_counter() - t0:.3f} s")
     # 4. smoke parity
@@ -1955,10 +2065,13 @@ def main(argv=None) -> int:
                 "shape": row["shape"], "dtype": row["dtype"],
                 **{key: row[key] for key in (
                     "device_ms", "library_device_ms", "library_causal_ms",
-                    "library_causal_device_ms", "body") if key in row}}
+                    "library_causal_device_ms", "body", "bound_tc_ms",
+                    "bound_tc_by") if key in row}}
 
     def entry(name, source, replaces, rows, path):
-        head = next(r for r in rows if "ms" in r)
+        # the timed bf16 row (flash_decode also times its fp32 row)
+        head = next(r for r in rows if "ms" in r
+                    and r["dtype"] == "bfloat16")
         by_path = {"compress": main_run["launches"][name],
                    "serve_server": serve_run["server"]["launches"][name],
                    "serve_engine": serve_run["engine"]["launches"][name],
@@ -2015,6 +2128,19 @@ def main(argv=None) -> int:
                       ("chunk_Lq256", "chunk"), ("decode_split", "decode")):
         fa[key] = timing(next(r for r in fa_rows
                               if r["case"] == case and "ms" in r))
+    # flash_decode: its kernels by body, the fp32 row (phase 6 (c)'s fp32
+    # route and phase 4's smoke serving take the FMA body), and the
+    # engine's launches by keys body
+    fdk = next(k for k in kernels if k["name"] == "flash_decode")
+    fdk["bodies"] = {"wgmma": ["fdec_split_u", "fdec_keys_wgmma<D>",
+                               "fdec_values<T>", "fdec_merge",
+                               "fdec_out<T, D>"],
+                     "fma": ["fdec_keys_fma<T, D>", "fdec_values<T>",
+                             "fdec_merge", "fdec_out<T, D>"]}
+    fdk["fp32"] = timing(next(r for r in fd_rows if "ms" in r
+                              and r["dtype"] == "float32"))
+    fdk["launches_by_body"] = {
+        "serve_engine": serve_run["engine"]["decode_bodies"]}
     fa["launches_by_body"] = {
         "compress": main_run["flash_bodies"],
         "serve_server": serve_run["server"]["flash_bodies"],
@@ -2025,7 +2151,8 @@ def main(argv=None) -> int:
         json.dump({"card": card, "cov_accum": cov_rows,
                    "lowrank_matmul": low_rows, "flash_attention": fa_rows,
                    "flash_attention_checks": fa_checks,
-                   "flash_decode": fd_rows, "grouped_matmul": gm_rows,
+                   "flash_decode": fd_rows, "flash_decode_checks": fd_checks,
+                   "grouped_matmul": gm_rows,
                    "grouped_matmul_backward": gm_back, "smoke": smoke,
                    "main": main_run, "serve": serve_run, "moe": moe_run},
                   f, indent=1)

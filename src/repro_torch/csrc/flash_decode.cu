@@ -1,62 +1,85 @@
 // One decode step against the factorized latent KV cache, written for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/flash_decode.py::flash_decode and
-// computes what its oracle src/repro/kernels/ref.py:82 computes, all arithmetic in
-// fp32.  The cache holds only the rank-r latents l_k = x V_k and l_v = x V_v of every
-// token; the kernel keeps the two halves of the TPU design:
+// Replaces the Pallas TPU kernel src/repro/kernels/flash_decode.py::flash_decode (its
+// pallas_call at :120, body _kernel at :39) and computes what its oracle computes
+// (src/repro/kernels/ref.py:82; the port's kernels/ref.py::flash_decode_ref), all
+// arithmetic in fp32.  The cache holds only the rank-r latents l_k = x V_k and
+// l_v = x V_v of every token; the kernel keeps the two halves of the TPU design:
 //
-//   key side    each key tile is up-projected in the kernel, K = l_k U_k[:, head],
-//               and RoPE'd (rotate-half at the TRUE head dim, at the keys' absolute
-//               positions) before scoring; the rotation ties dims d and d + D/2 of
-//               the up-projected key, so it cannot be folded into U_k
-//   value side  the accumulator stays in latent space, acc (g, r_v) += p l_v, and
-//               U_v is applied once per head in the epilogue: H·L·r_v + H·r_v·D
-//               flops a step instead of L·r_v·KV·D + H·L·D
+//   key side    keys are up-projected on chip, K = l_k U_k[:, head], and RoPE'd
+//               (rotate-half at the TRUE head dim, at the keys' absolute positions)
+//               before scoring; the up-projected keys never reach device memory
+//   value side  the accumulator stays in latent space, ctx (H, r_v) = Σ p l_v, and
+//               U_v is applied once per head at the end
 //
-// U_k and U_v are read in their STORED (r, KV·D) layout by stride: transposing them
-// to (KV, r, D) first, as the JAX wrapper does, would copy 2 x 1232 x 4096 x 4 B =
-// 40 MB per layer per step at llama-7b.  Ranks are arbitrary (loops are bounded);
-// keys of slot b at positions >= lengths[b] are masked.
+// U_k and U_v are read in their STORED (r, KV·D) fp32 layout, never transposed.
 //
-// Bound on an H100: 2·Σ_b len_b·(r_k·KV·D + H·D + H·r_v) + 2·B·H·r_v·D fp32 flops
-// (the key up-projection dominates: ~83 GFLOP per layer at 8 slots x 1024 positions,
-// r_k 1232) against the live latents, U_k, U_v, q and out once each: it is bound by
-// the fp32 operations (67 TFLOP/s outside the tensor cores), not by the bytes.
+// Bound on an H100: the key up-projection, 2·Σ_b len_b·r_k·KV·D flops (93.0 GFLOP at
+// 8 slots of 256..2048 keys, r_k 1232, KV·D 4096; 93.9 with the scores, values and
+// U_v) dominates the bytes (the live latents and the two factors once, ~85 MB):
+// 1.40 ms on the fp32 FMA units, 0.094 ms for one bf16 tensor-core pass, 0.188 ms for
+// the two this kernel issues.
 //
-// Design: one block of 256 threads per (slot, KV head), covering the g query heads of
-// that KV head and looping over the slot's live key tiles (64 keys) inside the block:
-// no atomics, a deterministic sum.  Per tile:
-//   1. K (64 x D) = l_k tile @ U_k[:, kvh], streamed in 32-rank chunks through shared
-//      memory (U_k[kvh] is r_k x D x 4 B = 630 KB at llama-7b, too large to keep);
-//      each thread owns a register micro-tile of 4 keys x 8 columns (at D 128), so
-//      one shared load feeds 4-8 FMAs
-//   2. RoPE on the K tile in shared memory
-//   3. scores (g x 64) = q · K / √D, masked past lengths[b]
-//   4. online softmax, one warp a head
-//   5. acc (g x r_v) = acc·corr + p l_v, threads over r_v, l_v read straight from
-//      device memory (coalesced along r)
-// then out[h] = (acc[h] / l[h]) U_v[:, kvh].  At llama-7b (KV = 32) and 8 slots that
-// is 256 blocks for 132 SMs.  Every product runs on the FMA units; splitting L
-// across blocks (flash-decoding) and the tensor cores are later work.
+// The work is cut into key spans of SPAN = 256 keys from absolute key 0, whatever B,
+// L or the other slots' lengths; a work item is (slot, KV head, span) and a span at or
+// past its slot's length exits at once.  So a slot's bits depend on its own q,
+// latents, length and the factors alone (continuous batching needs no second body).
+// One call is four or five launches on the stream, no atomics anywhere:
 //
-// Contract (checked by the wrapper, kernels/ops.py::flash_decode): q (B, H, D), lk
-// (B, L, r_k), lv (B, L, r_v) and out (B, H, D) of one dtype (fp32 or bf16); uk
-// (r_k, KV·D), uv (r_v, KV·D), cos, sin (L, D/2) fp32; lengths (B,) int32; all
-// contiguous; D one of 16, 32, 64, 128.  A slot with length 0 gets zeros (the
-// serving path always has length >= 1).  Returns cudaGetLastError().
+//   fdec_split_u (wgmma body only)  U_k fp32 -> two bf16 terms U_hi + U_lo (scratch,
+//     2 x r_k·KV·D bf16, ~40 MB of traffic): TMA cannot convert, and the two terms
+//     keep the keys at fp32 quality (l_k is exact in bf16: the cache holds bf16)
+//   fdec_keys_wgmma<D> (bf16, D 64 / 128, r_k a multiple of 8): one block a work item.
+//     A producer thread keeps a ring of stages filled by TMA, each the span's l_k tile
+//     (256 keys x 64 ranks, K-major, read in place through a 3D map on (B, L, r_k)
+//     whose zero fill ends the cache) and U_hi, U_lo [64 ranks, kvh·D .. + D] (MN-major,
+//     the transpose bit); two consumer warpgroups of 128 keys each issue
+//     K += l_k·U_hi + l_k·U_lo on wgmma into fp32 registers (two m64nD tiles each),
+//     one stage in flight while the next is issued.  RoPE in registers: an m64nD
+//     accumulator holds columns j and j + D/2 of a key row in one thread.  Scores
+//     q·k / √D by quad shuffles, q from shared memory.
+//   fdec_keys_fma<T, D> (fp32 at every D; bf16 at D 16 / 32 or other ranks): the same
+//     work item on the FMA units, 64-key tiles up-projected in 32-rank chunks through
+//     shared memory, U_k fp32 as stored.
+//     Both keys bodies end with the span's softmax: fp32 (m, l, p[256]) per query head
+//     to scratch, p = 0 past the slot's length.
+//   fdec_values<T>: one block a (128 ranks, 32 query heads, slot·span): the span's
+//     latent partial Σ_k p l_v over its live keys on the FMA units, the span's p
+//     staged once in shared memory, a thread one rank of the 32 heads, l_v read 8
+//     keys ahead.  l_v is read once a call for all heads, not once a KV head; p is
+//     256 floats a span and head where a latent partial is r_v.
+//   fdec_merge: one block a (slot·head, 128 ranks): ctx = Σ_span e^(m - M) partial /
+//     max(Σ_span l e^(m - M), 1e-20), the spans in order.
+//   fdec_out<T, D>: one block a (32 columns, KV head) over all slots: out = ctx U_v
+//     [:, kvh], fp32 FMA, 4 columns a thread, the ranks split over 32 thread groups
+//     whose sums are added in split order; U_v is read once a call.
+//
+// Reads per call at the llama-7b case (8 slots, 36 live spans, KV 32, D 128, r 1232;
+// the keys launch in the order kvh fastest, then span, then slot): the 32 work items
+// of a (slot, span) run side by side and share its l_k tile in L2, so from device
+// memory l_k, l_v and U_hi / U_lo (20 MB, resident in the 50 MB L2) come once each,
+// ~65 MB; from L2 each work item reads its l_k tile (630 KB) and its U head slice's
+// two terms (630 KB): 1.45 GB a call, 161 MFLOP per 1.26 MB, 128 flops an L2 byte.
+//
+// Contract (checked by the wrapper, kernels/ops.py::flash_decode; the launcher refuses
+// what kernels/flash_decode.py::plan never makes): q (B, H, D), lk (B, L, r_k), lv
+// (B, L, r_v) and out (B, H, D) of one dtype (fp32 or bf16), 16-byte aligned; uk
+// (r_k, KV·D), uv (r_v, KV·D), cos, sin (L, D/2) fp32; lengths (B,) int32 (clamped to
+// [0, L]; a slot of length 0 gets zeros); all contiguous; D one of 16, 32, 64, 128;
+// scratch fp32 as kernels/flash_decode.py::Plan.offsets lays it out.  Returns the
+// first non-zero cudaError of the call.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int THREADS = 256;
-constexpr int BK = 64;   // keys per tile
-constexpr int RC = 32;   // ranks per shared-memory chunk of the up-projection
+constexpr int SPAN = 256;  // keys a work item, from absolute key 0
 constexpr float NEG_INF = -1e30f;
 constexpr int MAX_SMEM = 232448;
+constexpr long long ALIGN_FLOATS = 64;  // scratch regions start 256 bytes apart
 
 struct Args {
   const void* q;
@@ -68,7 +91,13 @@ struct Args {
   const float* cos;
   const float* sin;
   void* out;
-  int b, l, h, kv, rk, rv, rope;
+  int b, l, h, kv, rk, rv, rope, spans;
+  bf16* u2;     // (2, r_k, KV·D): U_k's hi and lo terms (wgmma body)
+  float* m;     // (B, H, spans): a span's max score
+  float* lsum;  // (B, H, spans): its Σ p
+  float* p;     // (B, H, spans, SPAN): its probabilities, 0 past the length
+  float* pv;    // (B, H, spans, r_v): its latent partial Σ p l_v
+  float* ctx;   // (B, H, r_v): the merged latent context
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -79,16 +108,300 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
   return __float2bfloat16(x);
 }
 
-// shared floats of one block
+__device__ __forceinline__ int slot_len(const Args& a, int b) {
+  return max(0, min(a.lengths[b], a.l));
+}
+
+// Work item w of the keys launch: KV head fastest, then span, then slot
+// (Plan.item_at is the same arithmetic).
+__device__ __forceinline__ int3 work_item(const Args& a, int w) {
+  return make_int3(w / a.kv / a.spans, (w / a.kv) % a.spans, w % a.kv);
+}
+
+__device__ __forceinline__ size_t part_row(const Args& a, int b, int h, int sp) {
+  return (static_cast<size_t>(b) * a.h + h) * a.spans + sp;
+}
+
+// The span's softmax by 8 warps (threads 0..255): warp w takes the group's heads
+// w, w + 8, ...; lane i keys i, i + 32, ....  sS holds g x SPAN scores; keys at or past
+// `live` are masked here (their scores are never read).  Writes m, l and p (0 past
+// `live`) of each head.
+__device__ void span_softmax(const float* sS, int g, int live, const Args& a, int b,
+                             int kvh, int sp, int tid) {
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  for (int j = warp; j < g; j += 8) {
+    float s[SPAN / 32];
+    float mx = NEG_INF;
+#pragma unroll
+    for (int i = 0; i < SPAN / 32; ++i) {
+      const int key = lane + 32 * i;
+      s[i] = key < live ? sS[j * SPAN + key] : NEG_INF;
+      mx = fmaxf(mx, s[i]);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const size_t row = part_row(a, b, kvh * g + j, sp);
+    float* const prow = a.p + row * SPAN;
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < SPAN / 32; ++i) {
+      const int key = lane + 32 * i;
+      const float e = key < live ? expf(s[i] - mx) : 0.f;
+      sum += e;
+      prow[key] = e;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (lane == 0) {
+      a.m[row] = mx;
+      a.lsum[row] = sum;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// U_k -> U_hi + U_lo, two bf16 terms (hi the nearest bf16, lo the nearest to the rest)
+
+__global__ void __launch_bounds__(256) fdec_split_u(const float4* __restrict__ u,
+                                                    bf16* __restrict__ hi,
+                                                    bf16* __restrict__ lo, size_t n4) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n4;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const float4 x = u[i];
+    const float v[4] = {x.x, x.y, x.z, x.w};
+    bf16 h4[4];
+    bf16 l4[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      h4[e] = __float2bfloat16_rn(v[e]);
+      l4[e] = __float2bfloat16_rn(v[e] - __bfloat162float(h4[e]));
+    }
+    *reinterpret_cast<uint2*>(hi + 4 * i) = *reinterpret_cast<const uint2*>(h4);
+    *reinterpret_cast<uint2*>(lo + 4 * i) = *reinterpret_cast<const uint2*>(l4);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// keys, wgmma body (bf16, D 64 / 128)
+
+namespace kw {
+
+constexpr int THREADS = 384;  // two consumer warpgroups (128 keys each) + a producer one
+constexpr int RC = 64;        // ranks a stage: one 128-byte swizzled row of bf16
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;  // 128·40 + 256·232 <= 65536
+
 template <int D>
-size_t smem_floats(int g, int rv) {
-  return static_cast<size_t>(g) * D + RC * (BK + 1) + RC * D + BK * (D + 1) +
-         static_cast<size_t>(g) * BK + static_cast<size_t>(g) * rv + 3 * g;
+struct Cfg {
+  static constexpr int DC = D / 64;                // 64-column boxes of a U row
+  static constexpr int LK_BYTES = SPAN * 128;      // 256 keys x 64 ranks
+  static constexpr int U_BOX = RC * 128;           // 64 ranks x 64 columns
+  static constexpr int U_BYTES = 2 * DC * U_BOX;   // the hi and lo terms
+  static constexpr int STAGE = LK_BYTES + U_BYTES;
+  static constexpr int STAGES = D == 128 ? 3 : 4;
+  static constexpr int RING = STAGES * STAGE;
+  // the 128-byte swizzle repeats every 1024 bytes: the ring starts 1024-aligned
+  static int smem(int g) { return 1024 + RING + 4 * g * (D + SPAN) + 16 * STAGES; }
+};
+
+__device__ __forceinline__ void consumer_sync() {  // both consumer warpgroups
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+}
+
+// K (64 keys x D) += l_k (64 x 16 ranks, K-major) U (16 x D, MN-major)
+template <int D>
+__device__ __forceinline__ void up(float (&acc)[D / 2], uint64_t da, uint64_t db) {
+  if constexpr (D == 128) {
+    wgmma_m64n128k16<0, 1>(acc, da, db, 1);
+  } else {
+    wgmma_m64n64k16<0, 1>(acc, da, db, 1);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+fdec_keys_wgmma(const __grid_constant__ CUtensorMap tlk, const __grid_constant__ CUtensorMap tu,
+                Args a) {
+  using C = Cfg<D>;
+  const int3 it = work_item(a, blockIdx.x);
+  const int b = it.x;
+  const int sp = it.y;
+  const int kvh = it.z;
+  const int len = slot_len(a, b);
+  const int k0 = sp * SPAN;
+  if (k0 >= len) return;  // no live key: no work
+  const int live = min(SPAN, len - k0);
+  const int g = a.h / a.kv;
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const base_ptr = smem_raw + (base - raw);
+  float* const sQ = reinterpret_cast<float*>(base_ptr + C::RING);  // g x D
+  float* const sS = sQ + g * D;                                      // g x SPAN
+  const uint32_t bars = smem_u32(sS + g * SPAN);
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (C::STAGES + s); };
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int chunks = (a.rk + RC - 1) / RC;
+
+  if (tid >= 256) {  // producer warpgroup: one thread issues every load
+    reg_dealloc<PRODUCER_REGS>();
+    if (tid == 256) {
+      for (int c = 0; c < chunks; ++c) {
+        const int s = c % C::STAGES;
+        if (c >= C::STAGES) mbar_wait(empty(s), ((c / C::STAGES) - 1) & 1);
+        const uint32_t st = base + s * C::STAGE;
+        mbar_expect_tx(full(s), C::STAGE);
+        tma_load_3d(st, &tlk, full(s), c * RC, k0, b);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+#pragma unroll
+          for (int cc = 0; cc < C::DC; ++cc) {
+            tma_load_3d(st + C::LK_BYTES + (u * C::DC + cc) * C::U_BOX, &tu, full(s),
+                        kvh * D + 64 * cc, c * RC, u);
+          }
+        }
+      }
+    }
+    return;
+  }
+  reg_alloc<CONSUMER_REGS>();
+
+  const bf16* q = static_cast<const bf16*>(a.q) +
+                  (static_cast<size_t>(b) * a.h + static_cast<size_t>(kvh) * g) * D;
+  for (int i = tid; i < g * D; i += 256) sQ[i] = to_f(q[i]);
+
+  const int wg = tid / 128;    // keys 128·wg .. + 127 of the span
+  const int lane = tid % 128;
+  const int r_in = (lane / 32) * 16 + (lane % 32) / 4;  // accumulator row (h = 0); h = 1 at +8
+  const int cq = (lane % 4) * 2;                        // accumulator column pair
+
+  float acc[2][D / 2];
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[t][i] = 0.f;
+  }
+  for (int c = 0; c < chunks; ++c) {
+    const int s = c % C::STAGES;
+    mbar_wait(full(s), (c / C::STAGES) & 1);
+    const uint32_t st = base + s * C::STAGE;
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const uint32_t lk_t = st + (wg * 128 + t * 64) * 128;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const uint32_t u_t = st + C::LK_BYTES + u * C::DC * C::U_BOX;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          // A: a k16 step is 32 bytes along each swizzled row; B: 16 rank rows
+          // (2048 bytes) further, its 64-column boxes U_BOX apart
+          up<D>(acc[t], smem_desc(lk_t + j * 32, 16, 1024),
+                smem_desc(u_t + j * 2048, C::U_BOX, 1024));
+        }
+      }
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    // the previous stage's products are done: hand its buffers back
+    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+    if (c > 0 && lane == 0) mbar_arrive(empty((c - 1) % C::STAGES));
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+  fence_acc(acc[0]);
+  fence_acc(acc[1]);
+
+  // RoPE in registers: acc[t][4j + 2h + e] is key row r_in + 8h of tile t, column
+  // 8j + cq + e; column c pairs with c + D/2, register group j with j + D/16
+  if (a.rope) {
+    constexpr int HALF = D / 2;
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int key = wg * 128 + t * 64 + r_in + 8 * hh;
+        if (key < live) {
+          const size_t tab = static_cast<size_t>(k0 + key) * HALF + cq;
+#pragma unroll
+          for (int j = 0; j < D / 16; ++j) {
+            const float2 cs = __ldg(reinterpret_cast<const float2*>(a.cos + tab + 8 * j));
+            const float2 sn = __ldg(reinterpret_cast<const float2*>(a.sin + tab + 8 * j));
+            const float c2[2] = {cs.x, cs.y};
+            const float s2[2] = {sn.x, sn.y};
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float& x1 = acc[t][4 * j + 2 * hh + e];
+              float& x2 = acc[t][4 * (j + D / 16) + 2 * hh + e];
+              const float k1 = x1;
+              const float k2 = x2;
+              x1 = k1 * c2[e] - k2 * s2[e];
+              x2 = k2 * c2[e] + k1 * s2[e];
+            }
+          }
+        }
+      }
+    }
+  }
+
+  consumer_sync();  // sQ written
+  // scores q·k / √D: a thread's columns summed in order, then the row's quad
+  const float sqrt_d = sqrtf(static_cast<float>(D));
+  for (int j = 0; j < g; ++j) {
+    const float* qj = sQ + j * D;
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float dot = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj) {
+          const float2 qv = *reinterpret_cast<const float2*>(qj + 8 * jj + cq);
+          dot = fmaf(qv.x, acc[t][4 * jj + 2 * hh], dot);
+          dot = fmaf(qv.y, acc[t][4 * jj + 2 * hh + 1], dot);
+        }
+        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+        if ((lane & 3) == 0) sS[j * SPAN + wg * 128 + t * 64 + r_in + 8 * hh] = dot / sqrt_d;
+      }
+    }
+  }
+  consumer_sync();
+  span_softmax(sS, g, live, a, b, kvh, sp, tid);
+}
+
+}  // namespace kw
+
+// ---------------------------------------------------------------------------
+// keys, FMA body (fp32 at every D; bf16 at D 16 / 32 and ranks off the TMA stride)
+
+namespace kf {
+
+constexpr int THREADS = 256;
+constexpr int BK = 64;  // keys a tile (four a span)
+constexpr int RC = 32;  // ranks a shared-memory chunk of the up-projection
+
+template <int D>
+int smem(int g) {
+  return 4 * (RC * D + RC * (BK + 1) + g * D + BK * (D + 1) + g * SPAN);
 }
 
 // Up-projection micro-tile: each thread owns KPT keys x CPT columns of the
-// (BK x D) key tile, so one shared load of l_k feeds CPT FMAs and one of U_k
-// feeds KPT.
+// (BK x D) key tile, so one shared load of l_k feeds CPT FMAs and one of U_k KPT.
 template <int D>
 struct Tile {
   static constexpr int CPT = D >= 32 ? 8 : 4;  // columns per thread
@@ -99,51 +412,43 @@ struct Tile {
 };
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_decode_kernel(Args a) {
+__global__ void __launch_bounds__(THREADS) fdec_keys_fma(Args a) {
   using Ti = Tile<D>;
   constexpr int HALF = D / 2;
   constexpr int LT = BK + 1;  // row stride of the rank-major l_k chunk
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
+  const int3 it = work_item(a, blockIdx.x);
+  const int b = it.x;
+  const int sp = it.y;
+  const int kvh = it.z;
+  const int len = slot_len(a, b);
+  const int k0 = sp * SPAN;
+  if (k0 >= len) return;
+  const int live = min(SPAN, len - k0);
   const int g = a.h / a.kv;
   const int tid = threadIdx.x;
   const size_t ld_u = static_cast<size_t>(a.kv) * D;
 
   extern __shared__ __align__(16) float smem[];
-  float* sUK = smem;                  // RC x D (16-byte aligned rows)
-  float* sLK = sUK + RC * D;          // RC x LT, l_k chunk rank-major
-  float* sQ = sLK + RC * LT;          // g x D
-  float* sK = sQ + g * D;             // BK x (D + 1)
-  float* sP = sK + BK * (D + 1);      // g x BK
-  float* sAcc = sP + g * BK;          // g x rv
-  float* sM = sAcc + g * a.rv;        // g
-  float* sL = sM + g;                 // g
-  float* sC = sL + g;                 // g
+  float* sUK = smem;              // RC x D (16-byte aligned rows)
+  float* sLK = sUK + RC * D;      // RC x LT, l_k chunk rank-major
+  float* sQ = sLK + RC * LT;      // g x D
+  float* sK = sQ + g * D;         // BK x (D + 1)
+  float* sS = sK + BK * (D + 1);  // g x SPAN
 
-  const int len = min(a.lengths[b], a.l);
-  const T* q = static_cast<const T*>(a.q) + (static_cast<size_t>(b) * a.h + kvh * g) * D;
+  const T* q = static_cast<const T*>(a.q) +
+               (static_cast<size_t>(b) * a.h + static_cast<size_t>(kvh) * g) * D;
   for (int i = tid; i < g * D; i += THREADS) sQ[i] = to_f(q[i]);
-  for (int i = tid; i < g * a.rv; i += THREADS) sAcc[i] = 0.f;
-  for (int i = tid; i < g; i += THREADS) {
-    sM[i] = NEG_INF;
-    sL[i] = 0.f;
-  }
-  __syncthreads();
-
   const T* lk = static_cast<const T*>(a.lk) + static_cast<size_t>(b) * a.l * a.rk;
-  const T* lv = static_cast<const T*>(a.lv) + static_cast<size_t>(b) * a.l * a.rv;
   const float* uk = a.uk + static_cast<size_t>(kvh) * D;
-  const float* uv = a.uv + static_cast<size_t>(kvh) * D;
-  const int tx = tid % Ti::TX;  // columns tx*CPT .. +CPT
-  const int ty = tid / Ti::TX;  // keys ty*KPT .. +KPT
+  const int tx = tid % Ti::TX;  // columns tx·CPT .. + CPT
+  const int ty = tid / Ti::TX;  // keys ty·KPT .. + KPT
   const float sqrt_d = sqrtf(static_cast<float>(D));
-  const int warp = tid / 32;
-  const int lane = tid % 32;
 
-  for (int k0 = 0; k0 < len; k0 += BK) {
-    const int live = min(BK, len - k0);
+  for (int t0 = 0; t0 < live; t0 += BK) {
+    const int kt = k0 + t0;  // absolute key of the tile's first row
+    const int n = min(BK, live - t0);
 
-    // 1. key up-projection, K = l_k @ U_k[:, kvh*D : (kvh+1)*D]
+    // K = l_k @ U_k[:, kvh·D .. + D], fp32
     float acc[Ti::KPT][Ti::CPT];
 #pragma unroll
     for (int i = 0; i < Ti::KPT; ++i) {
@@ -151,13 +456,12 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(Args a) {
       for (int c = 0; c < Ti::CPT; ++c) acc[i][c] = 0.f;
     }
     for (int r0 = 0; r0 < a.rk; r0 += RC) {
+      __syncthreads();  // the previous chunk (or tile) is consumed
       for (int idx = tid; idx < BK * RC; idx += THREADS) {
         const int key = idx / RC;
         const int rr = idx % RC;
         float x = 0.f;
-        if (key < live && r0 + rr < a.rk) {
-          x = to_f(lk[static_cast<size_t>(k0 + key) * a.rk + r0 + rr]);
-        }
+        if (key < n && r0 + rr < a.rk) x = to_f(lk[static_cast<size_t>(kt + key) * a.rk + r0 + rr]);
         sLK[rr * LT + key] = x;
       }
       for (int idx = tid; idx < RC * D; idx += THREADS) {
@@ -186,7 +490,6 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(Args a) {
           for (int c = 0; c < Ti::CPT; ++c) acc[i][c] = fmaf(lkv[i], u[c], acc[i][c]);
         }
       }
-      __syncthreads();
     }
 #pragma unroll
     for (int i = 0; i < Ti::KPT; ++i) {
@@ -197,14 +500,14 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(Args a) {
     }
     __syncthreads();
 
-    // 2. RoPE (rotate-half) at the keys' absolute positions
+    // RoPE (rotate-half) at the keys' absolute positions
     if (a.rope) {
-      for (int idx = tid; idx < live * HALF; idx += THREADS) {
+      for (int idx = tid; idx < n * HALF; idx += THREADS) {
         const int key = idx / HALF;
         const int j = idx % HALF;
-        const size_t t = static_cast<size_t>(k0 + key) * HALF + j;
-        const float c = a.cos[t];
-        const float s = a.sin[t];
+        const size_t tab = static_cast<size_t>(kt + key) * HALF + j;
+        const float c = a.cos[tab];
+        const float s = a.sin[tab];
         float* row = sK + key * (D + 1);
         const float k1 = row[j];
         const float k2 = row[j + HALF];
@@ -214,115 +517,365 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(Args a) {
       __syncthreads();
     }
 
-    // 3. scores of the g query heads, masked past the slot's length
+    // scores of the g query heads
     for (int o = tid; o < g * BK; o += THREADS) {
-      const int hh = o / BK;
+      const int j = o / BK;
       const int key = o % BK;
-      float s = NEG_INF;
-      if (key < live) {
+      if (key < n) {
         float dot = 0.f;
 #pragma unroll 8
-        for (int dd = 0; dd < D; ++dd) dot = fmaf(sQ[hh * D + dd], sK[key * (D + 1) + dd], dot);
-        s = dot / sqrt_d;
-      }
-      sP[o] = s;
-    }
-    __syncthreads();
-
-    // 4. online softmax, one warp a head
-    for (int hh = warp; hh < g; hh += THREADS / 32) {
-      const float s0 = sP[hh * BK + lane];
-      const float s1 = sP[hh * BK + lane + 32];
-      float mx = fmaxf(s0, s1);
-#pragma unroll
-      for (int w = 16; w > 0; w /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
-      const float m_old = sM[hh];
-      const float m_new = fmaxf(m_old, mx);
-      const float p0 = expf(s0 - m_new);
-      const float p1 = expf(s1 - m_new);
-      sP[hh * BK + lane] = p0;
-      sP[hh * BK + lane + 32] = p1;
-      float sum = p0 + p1;
-#pragma unroll
-      for (int w = 16; w > 0; w /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, w);
-      __syncwarp();
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        sC[hh] = corr;
-        sL[hh] = sL[hh] * corr + sum;
-        sM[hh] = m_new;
+        for (int dd = 0; dd < D; ++dd) dot = fmaf(sQ[j * D + dd], sK[key * (D + 1) + dd], dot);
+        sS[j * SPAN + t0 + key] = dot / sqrt_d;
       }
     }
-    __syncthreads();
-
-    // 5. value absorption: the accumulator stays in latent space
-    for (int r = tid; r < a.rv; r += THREADS) {
-      for (int hh = 0; hh < g; ++hh) {
-        float v_acc = sAcc[hh * a.rv + r] * sC[hh];
-        const float* p = sP + hh * BK;
-        for (int key = 0; key < live; ++key) {
-          v_acc = fmaf(p[key], to_f(lv[static_cast<size_t>(k0 + key) * a.rv + r]), v_acc);
-        }
-        sAcc[hh * a.rv + r] = v_acc;
-      }
-    }
-    __syncthreads();
   }
+  __syncthreads();
+  span_softmax(sS, g, live, a, b, kvh, sp, tid);
+}
 
-  // epilogue: out[h] = (acc[h] / l[h]) @ U_v[:, kvh*D : (kvh+1)*D]
-  T* out = static_cast<T*>(a.out) + (static_cast<size_t>(b) * a.h + kvh * g) * D;
-  for (int o = tid; o < g * D; o += THREADS) {
-    const int hh = o / D;
-    const int dd = o % D;
-    const float denom = fmaxf(sL[hh], 1e-20f);
-    float y = 0.f;
-    for (int r = 0; r < a.rv; ++r) {
-      y = fmaf(sAcc[hh * a.rv + r] / denom, uv[static_cast<size_t>(r) * ld_u + dd], y);
+}  // namespace kf
+
+// ---------------------------------------------------------------------------
+// values: a span's latent partial Σ_k p l_v, one block a (128 ranks, 32 query heads,
+// slot·span): the span's p staged once in shared memory, each thread one rank and
+// the 32 heads, l_v read straight from device memory, the next 8 keys in flight
+// while the current 8 are summed
+
+namespace kval {
+
+constexpr int THREADS = 128;   // ranks a block, one a thread
+constexpr int HB = 32;         // query heads a block
+constexpr int PITCH = HB + 4;  // staged p row [key][head] (16-byte aligned)
+constexpr int KU = 8;          // keys a thread loads at once
+constexpr int PL = HB * SPAN / 4 / THREADS;  // float4s of p a thread stages
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS) fdec_values(Args a) {
+  __shared__ __align__(16) float sP[SPAN * PITCH];
+  const int tid = threadIdx.x;
+  const int r = blockIdx.x * THREADS + tid;
+  const int h0 = blockIdx.y * HB;
+  const int b = blockIdx.z / a.spans;
+  const int sp = blockIdx.z % a.spans;
+  const int len = slot_len(a, b);
+  const int k0 = sp * SPAN;
+  if (k0 >= len) return;  // no live key: no work
+  const int live = min(SPAN, len - k0);
+
+  // p of the block's heads (zero past the heads; p is already 0 past the live keys):
+  // a lane a head, so the transposed stores hit 32 banks
+  float4 pr[PL];
+#pragma unroll
+  for (int j = 0; j < PL; ++j) {
+    const int idx = tid + j * THREADS;  // head idx % 32, keys 4·(idx / 32) .. + 3
+    const int h = h0 + idx % HB;
+    pr[j] = h < a.h ? reinterpret_cast<const float4*>(a.p + part_row(a, b, h, sp) * SPAN)
+                          [idx / HB]
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll
+  for (int j = 0; j < PL; ++j) {
+    const int idx = tid + j * THREADS;
+    const int hh = idx % HB;
+    const int kk = 4 * (idx / HB);
+    sP[kk * PITCH + hh] = pr[j].x;
+    sP[(kk + 1) * PITCH + hh] = pr[j].y;
+    sP[(kk + 2) * PITCH + hh] = pr[j].z;
+    sP[(kk + 3) * PITCH + hh] = pr[j].w;
+  }
+  __syncthreads();
+  if (r >= a.rv) return;
+
+  const T* lv = static_cast<const T*>(a.lv) + (static_cast<size_t>(b) * a.l + k0) * a.rv + r;
+  // keys kc .. kc + KU - 1 of l_v (zero past the live keys)
+  auto load = [&](float (&v)[KU], int kc) {
+#pragma unroll
+    for (int j = 0; j < KU; ++j) {
+      v[j] = kc + j < live ? to_f(lv[static_cast<size_t>(kc + j) * a.rv]) : 0.f;
     }
-    out[o] = from_f<T>(y);
+  };
+  float acc[HB];
+#pragma unroll
+  for (int i = 0; i < HB; ++i) acc[i] = 0.f;
+  float next[KU];
+  load(next, 0);
+  for (int kc = 0; kc < live; kc += KU) {
+    float v[KU];
+#pragma unroll
+    for (int j = 0; j < KU; ++j) v[j] = next[j];
+    if (kc + KU < live) load(next, kc + KU);  // in flight while these keys are summed
+#pragma unroll
+    for (int j = 0; j < KU; ++j) {
+      const float* pk = sP + (kc + j) * PITCH;
+#pragma unroll
+      for (int i = 0; i < HB; i += 4) {
+        const float4 p4 = *reinterpret_cast<const float4*>(pk + i);
+        acc[i] = fmaf(p4.x, v[j], acc[i]);
+        acc[i + 1] = fmaf(p4.y, v[j], acc[i + 1]);
+        acc[i + 2] = fmaf(p4.z, v[j], acc[i + 2]);
+        acc[i + 3] = fmaf(p4.w, v[j], acc[i + 3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < HB; ++i) {
+    if (h0 + i < a.h) a.pv[part_row(a, b, h0 + i, sp) * a.rv + r] = acc[i];
   }
 }
 
+// ctx = Σ_span e^(m - M) partial / max(Σ_span l e^(m - M), 1e-20), the spans in
+// order: one block a (slot·head, 128 ranks)
+constexpr int MERGE_THREADS = 128;
+
+__global__ void __launch_bounds__(MERGE_THREADS) fdec_merge(Args a) {
+  const int bh = blockIdx.x;
+  const int b = bh / a.h;
+  const int r = blockIdx.y * MERGE_THREADS + threadIdx.x;
+  const int nsp = (slot_len(a, b) + SPAN - 1) / SPAN;
+  const size_t row0 = static_cast<size_t>(bh) * a.spans;
+  float mx = NEG_INF;
+  for (int sp = 0; sp < nsp; ++sp) mx = fmaxf(mx, a.m[row0 + sp]);
+  float den = 0.f;
+  for (int sp = 0; sp < nsp; ++sp) den += a.lsum[row0 + sp] * expf(a.m[row0 + sp] - mx);
+  if (r < a.rv) {
+    float x = 0.f;
+    for (int sp = 0; sp < nsp; ++sp) {
+      x = fmaf(a.pv[(row0 + sp) * a.rv + r], expf(a.m[row0 + sp] - mx), x);
+    }
+    a.ctx[static_cast<size_t>(bh) * a.rv + r] = x / fmaxf(den, 1e-20f);
+  }
+}
+
+}  // namespace kval
+
+// ---------------------------------------------------------------------------
+// out = ctx U_v[:, kvh·D .. + D]: one block a (column block, KV head) over all
+// slots.  A thread takes 4 columns (one 16-byte load of a U_v row) of 8 rows (slot,
+// head) at once; the block's thread groups split the ranks, U_v rows loaded 8 ahead,
+// and their sums are added in split order, so each output's bits depend on its own
+// row alone.
+
+namespace ko {
+
+constexpr int THREADS = 256;
+constexpr int RPT = 8;     // rows a pass
+constexpr int UNROLL = 8;  // U_v rows a thread loads at once
+
 template <typename T, int D>
-int launch_typed(const Args& a, cudaStream_t s) {
-  const size_t bytes = smem_floats<D>(a.h / a.kv, a.rv) * sizeof(float);
-  if (bytes > static_cast<size_t>(MAX_SMEM)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(flash_decode_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_decode_kernel<T, D><<<dim3(a.kv, a.b), THREADS, bytes, s>>>(a);
+__global__ void __launch_bounds__(THREADS) fdec_out(Args a) {
+  constexpr int CB = D < 32 ? D : 32;  // columns a block
+  constexpr int TC = CB / 4;           // threads across them, 4 columns each
+  constexpr int NS = THREADS / TC;     // rank splits
+  __shared__ __align__(16) float red[NS * RPT * CB];
+  const int tid = threadIdx.x;
+  const int c4 = (tid % TC) * 4;
+  const int si = tid / TC;
+  const int kvh = blockIdx.y;
+  const int g = a.h / a.kv;
+  const int rows = a.b * g;
+  const size_t ld_u = static_cast<size_t>(a.kv) * D;
+  const float* u = a.uv + static_cast<size_t>(kvh) * D + blockIdx.x * CB + c4;
+  const int rs = (a.rv + NS - 1) / NS;
+  const int r_begin = min(a.rv, si * rs);
+  const int r_end = min(a.rv, r_begin + rs);
+  T* out = static_cast<T*>(a.out);
+  for (int row0 = 0; row0 < rows; row0 += RPT) {
+    const float* c[RPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int row = min(row0 + i, rows - 1);  // past the rows: computed, not stored
+      c[i] = a.ctx + (static_cast<size_t>(row / g) * a.h + kvh * g + row % g) * a.rv;
+    }
+    float y[RPT][4];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) y[i][e] = 0.f;
+    }
+    for (int r = r_begin; r < r_end; r += UNROLL) {
+      float4 uu[UNROLL];
+#pragma unroll
+      for (int k = 0; k < UNROLL; ++k) {
+        uu[k] = r + k < r_end
+                    ? __ldg(reinterpret_cast<const float4*>(u + static_cast<size_t>(r + k) * ld_u))
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int k = 0; k < UNROLL; ++k) {
+        if (r + k < r_end) {
+#pragma unroll
+          for (int i = 0; i < RPT; ++i) {
+            const float x = c[i][r + k];
+            y[i][0] = fmaf(x, uu[k].x, y[i][0]);
+            y[i][1] = fmaf(x, uu[k].y, y[i][1]);
+            y[i][2] = fmaf(x, uu[k].z, y[i][2]);
+            y[i][3] = fmaf(x, uu[k].w, y[i][3]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      *reinterpret_cast<float4*>(&red[(si * RPT + i) * CB + c4]) =
+          make_float4(y[i][0], y[i][1], y[i][2], y[i][3]);
+    }
+    __syncthreads();
+    for (int o = tid; o < RPT * CB; o += THREADS) {
+      const int i = o / CB;
+      const int row = row0 + i;
+      if (row < rows) {
+        float x = 0.f;
+        for (int w = 0; w < NS; ++w) x += red[(w * RPT + i) * CB + o % CB];
+        const size_t bh = static_cast<size_t>(row / g) * a.h + kvh * g + row % g;
+        out[bh * D + blockIdx.x * CB + o % CB] = from_f<T>(x);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace ko
+
+// ---------------------------------------------------------------------------
+// host side
+
+enum Body { FMA = 0, WGMMA = 1 };
+
+long long round_up(long long x) { return (x + ALIGN_FLOATS - 1) / ALIGN_FLOATS * ALIGN_FLOATS; }
+
+template <typename T, int D>
+int launch_tail(const Args& a, cudaStream_t s) {
+  const dim3 vgrid((a.rv + kval::THREADS - 1) / kval::THREADS,
+                   (a.h + kval::HB - 1) / kval::HB, a.b * a.spans);
+  kval::fdec_values<T><<<vgrid, kval::THREADS, 0, s>>>(a);
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  const dim3 mgrid(a.b * a.h, (a.rv + kval::MERGE_THREADS - 1) / kval::MERGE_THREADS);
+  kval::fdec_merge<<<mgrid, kval::MERGE_THREADS, 0, s>>>(a);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  constexpr int CB = D < 32 ? D : 32;
+  ko::fdec_out<T, D><<<dim3(D / CB, a.kv), ko::THREADS, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int D>
+int launch_fma(const Args& a, int blocks, cudaStream_t s) {
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kf::fdec_keys_fma<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  kf::fdec_keys_fma<T, D><<<blocks, kf::THREADS, kf::smem<D>(a.h / a.kv), s>>>(a);
+  const int rc = static_cast<int>(cudaGetLastError());
+  return rc != 0 ? rc : launch_tail<T, D>(a, s);
+}
+
+template <int D>
+int launch_wgmma(const Args& a, int blocks, cudaStream_t s) {
+  using C = kw::Cfg<D>;
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kw::fdec_keys_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  const size_t n = static_cast<size_t>(a.rk) * a.kv * D;
+  const size_t want = (n / 4 + 255) / 256;  // blocks of 256 float4s, at most 8 an SM
+  const int split_blocks = static_cast<int>(want < 132 * 8 ? want : 132 * 8);
+  fdec_split_u<<<split_blocks, 256, 0, s>>>(reinterpret_cast<const float4*>(a.uk), a.u2,
+                                            a.u2 + n, n / 4);
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  CUtensorMap tlk, tu;
+  rc = tensor_map_3d(&tlk, a.lk, a.b, a.l, a.rk, SPAN);
+  if (rc != 0) return rc;
+  rc = tensor_map_3d(&tu, a.u2, 2, a.rk, a.kv * D, kw::RC);
+  if (rc != 0) return rc;
+  kw::fdec_keys_wgmma<D><<<blocks, kw::THREADS, C::smem(a.h / a.kv), s>>>(tlk, tu, a);
+  rc = static_cast<int>(cudaGetLastError());
+  return rc != 0 ? rc : launch_tail<bf16, D>(a, s);
+}
+
 template <typename T>
-int launch_dim(const Args& a, int d, cudaStream_t s) {
+int launch_body(const Args& a, int d, int body, int blocks, cudaStream_t s) {
+  if (body == WGMMA) {
+    if constexpr (sizeof(T) == 2) {
+      if (d == 64) return launch_wgmma<64>(a, blocks, s);
+      if (d == 128) return launch_wgmma<128>(a, blocks, s);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (d) {
-    case 16: return launch_typed<T, 16>(a, s);
-    case 32: return launch_typed<T, 32>(a, s);
-    case 64: return launch_typed<T, 64>(a, s);
-    case 128: return launch_typed<T, 128>(a, s);
+    case 16: return launch_fma<T, 16>(a, blocks, s);
+    case 32: return launch_fma<T, 32>(a, blocks, s);
+    case 64: return launch_fma<T, 64>(a, blocks, s);
+    case 128: return launch_fma<T, 128>(a, blocks, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int smem_bytes(int body, int g, int d) {
+  if (body == WGMMA) return d == 64 ? kw::Cfg<64>::smem(g) : kw::Cfg<128>::smem(g);
+  switch (d) {
+    case 16: return kf::smem<16>(g);
+    case 32: return kf::smem<32>(g);
+    case 64: return kf::smem<64>(g);
+    default: return kf::smem<128>(g);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16 (q, lk, lv and out share it; uk, uv, cos, sin fp32).
+// One call under a launch plan (kernels/flash_decode.py::plan).  dtype: 0 = fp32, 1 =
+// bf16 (q, lk, lv and out share it; uk, uv, cos, sin fp32).  body: 0 = fma (any dtype,
+// D 16 / 32 / 64 / 128), 1 = wgmma (bf16, D 64 / 128, r_k a multiple of 8).  span is
+// 256 and spans = ⌈l / span⌉.  The scratch holds, each region rounded up to 64
+// floats: (wgmma) the two bf16 terms of U_k in r_k·KV·D floats, then m and l
+// (b·h·spans each), p (b·h·spans·span), pv (b·h·spans·rv) and ctx (b·h·rv);
+// scratch_floats is its size.
 extern "C" int flash_decode_launch(const void* q, const void* lk, const void* lv,
                                    const void* uk, const void* uv, const void* lengths,
-                                   const void* cos, const void* sin, void* out, int b, int l,
-                                   int h, int kv, int d, int rk, int rv, int rope, int dtype,
-                                   void* stream) {
-  if (b <= 0 || b > 65535 || l <= 0 || kv <= 0 || h % kv != 0 || rk <= 0 || rv <= 0 ||
-      (rope && (cos == nullptr || sin == nullptr))) {
+                                   const void* cos, const void* sin, void* out, void* scratch,
+                                   long long scratch_floats, int b, int l, int h, int kv, int d,
+                                   int rk, int rv, int rope, int dtype, int body, int span,
+                                   int spans, void* stream) {
+  if (b <= 0 || l <= 0 || kv <= 0 || h <= 0 || h % kv != 0 || rk <= 0 || rv <= 0 ||
+      (d != 16 && d != 32 && d != 64 && d != 128) || (dtype != 0 && dtype != 1) ||
+      (body != FMA && body != WGMMA) || span != SPAN || spans != (l + SPAN - 1) / SPAN ||
+      (rope && (cos == nullptr || sin == nullptr)) || scratch == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (body == WGMMA && (dtype != 1 || (d != 64 && d != 128) || rk % 8 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int g = h / kv;
+  const long long blocks = static_cast<long long>(b) * spans * kv;
+  if (smem_bytes(body, g, d) > MAX_SMEM || blocks > 0x7fffffffll ||
+      static_cast<long long>(b) * spans > 65535 || (h + kval::HB - 1) / kval::HB > 65535 ||
+      static_cast<long long>(b) * h > 0x7fffffffll ||
+      (rv + kval::MERGE_THREADS - 1) / kval::MERGE_THREADS > 65535 || kv > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long rows = static_cast<long long>(b) * h * spans;
+  const long long off_m = body == WGMMA ? round_up(static_cast<long long>(rk) * kv * d) : 0;
+  const long long off_l = off_m + round_up(rows);
+  const long long off_p = off_l + round_up(rows);
+  const long long off_pv = off_p + round_up(rows * SPAN);
+  const long long off_ctx = off_pv + round_up(rows * rv);
+  const long long need = off_ctx + round_up(static_cast<long long>(b) * h * rv);
+  if (scratch_floats < need) return static_cast<int>(cudaErrorInvalidValue);
+  float* sf = static_cast<float*>(scratch);
   Args a{q, lk, lv, static_cast<const float*>(uk), static_cast<const float*>(uv),
          static_cast<const int*>(lengths), static_cast<const float*>(cos),
-         static_cast<const float*>(sin), out, b, l, h, kv, rk, rv, rope};
+         static_cast<const float*>(sin), out, b, l, h, kv, rk, rv, rope, spans,
+         reinterpret_cast<bf16*>(sf), sf + off_m, sf + off_l, sf + off_p, sf + off_pv,
+         sf + off_ctx};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dim<float>(a, d, s);
-  if (dtype == 1) return launch_dim<bf16>(a, d, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int n = static_cast<int>(blocks);
+  if (dtype == 0) return launch_body<float>(a, d, body, n, s);
+  return launch_body<bf16>(a, d, body, n, s);
 }

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA / wgmma kernels
-// (cov_accum.cu, flash_attention.cu, grouped_matmul.cu, lowrank_matmul.cu):
+// (cov_accum.cu, flash_attention.cu, flash_decode.cu, grouped_matmul.cu,
+// lowrank_matmul.cu):
 // shared-memory barriers, 2D and 3D TMA loads, wgmma shared-memory
 // descriptors, the bf16 products m64n128k16 and m64n64k16 with both operands
 // in shared memory and m64n{64,128,192}k16 with A in registers, register

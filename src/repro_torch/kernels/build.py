@@ -34,8 +34,9 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of the launchers (every pointer and the stream as c_void_p,
-# floats as c_float)
+# floats as c_float, 64-bit sizes as c_longlong)
 SIGNATURES = {
     "cov_accum_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _P],
@@ -44,8 +45,9 @@ SIGNATURES = {
     "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _I,
                                _P, _P],
-    "flash_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _I, _P],
+    "flash_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I,
+                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _P],
     "grouped_matmul_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _I, _P],
 }

@@ -36,6 +36,8 @@ LAUNCHES: Dict[str, int] = {"cov_accum": 0, "lowrank_matmul": 0,
 LOWRANK_ROWS: Dict[int, int] = collections.Counter()
 # flash_attention's launches by its plan's body
 FLASH_BODIES: Dict[str, int] = collections.Counter()
+# flash_decode's launches by its plan's keys body
+DECODE_BODIES: Dict[str, int] = collections.Counter()
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -45,6 +47,7 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
     LOWRANK_ROWS.clear()
     FLASH_BODIES.clear()
+    DECODE_BODIES.clear()
 
 
 def pad_dim(x: torch.Tensor, axis: int, multiple: int) -> torch.Tensor:
@@ -438,9 +441,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def _check_decode(q, lk, lv, uk, uv, lengths, cos, sin, rope):
-    """The kernel takes mixed dtypes, so it has its own check: q, lk, lv in
-    one kernel dtype (the cache's), uk / uv / cos / sin fp32, lengths
-    int32, everything contiguous on one CUDA device."""
+    """The kernel takes mixed dtypes, so it has its own check: everything
+    contiguous on one CUDA device, then ``_decode_plan``."""
     name = "flash_decode"
     tensors = [q, lk, lv, uk, uv, lengths] + ([cos, sin] if rope else [])
     device = q.device
@@ -452,6 +454,15 @@ def _check_decode(q, lk, lv, uk, uv, lengths, cos, sin, rope):
         if not t.is_contiguous():
             raise ValueError(f"{name}: operand of shape {tuple(t.shape)} is "
                              "not contiguous")
+    return _decode_plan(q, lk, lv, uk, uv, lengths, cos, sin, rope)
+
+
+def _decode_plan(q, lk, lv, uk, uv, lengths, cos, sin, rope):
+    """q, lk, lv in one kernel dtype (the cache's), uk / uv / cos / sin
+    fp32, lengths int32, shapes that fit; returns the call's plan
+    (``kernels.flash_decode.plan``, which refuses head dims and shared
+    memory no body takes)."""
+    name = "flash_decode"
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"{name}: kernel takes float32 or bfloat16 queries "
                         f"and latents, got {q.dtype}")
@@ -483,11 +494,7 @@ def _check_decode(q, lk, lv, uk, uv, lengths, cos, sin, rope):
                          f"{tuple(lk.shape)}, lv {tuple(lv.shape)}, uk "
                          f"{tuple(uk.shape)}, uv {tuple(uv.shape)}, lengths "
                          f"{tuple(lengths.shape)} do not fit")
-    need = _fd.smem_bytes(h, kv, d, lv.shape[2])
-    if need > _fd.MAX_SMEM:
-        raise ValueError(f"{name}: {need} bytes of shared memory for r_v "
-                         f"{lv.shape[2]} and {h // kv} heads per KV head "
-                         f"exceed {_fd.MAX_SMEM}")
+    return _fd.plan(b, l, h, kv, d, lk.shape[2], lv.shape[2], q.dtype)
 
 
 def flash_decode(q, lk, lv, uk, uv, lengths, cos, sin, *, rope: bool = True):
@@ -499,14 +506,24 @@ def flash_decode(q, lk, lv, uk, uv, lengths, cos, sin, *, rope: bool = True):
     transposed); lengths: (B,) live prefix per slot; cos/sin: (L, D/2)
     rope tables at absolute positions.  Returns (B, H, D) in q's dtype.
     Positions at or past ``lengths[b]`` are masked, so L needs no padding;
-    ranks are taken as they are."""
+    ranks are taken as they are.  On the card the plan's key spans start
+    at absolute key 0 and a slot's spans merge in order, so a slot's
+    output bits do not depend on B, L or the other slots; the scratch of
+    the span partials is allocated here."""
     if _on_cpu(q, lk, lv, uk, uv, lengths, cos, sin):
         return ref.flash_decode_ref(q, lk, lv, uk, uv, lengths, cos, sin,
                                     rope=rope)
-    _check_decode(q, lk, lv, uk, uv, lengths, cos, sin, rope)
+    p = _check_decode(q, lk, lv, uk, uv, lengths, cos, sin, rope)
     out = torch.empty_like(q)
-    _fd.launch(q, lk, lv, uk, uv, lengths, cos, sin, out, rope=rope)
+    scratch = torch.empty(p.scratch_floats, dtype=torch.float32,
+                          device=q.device)
+    q, lk, lv, uk, uv = (_aligned(t) for t in (q, lk, lv, uk, uv))
+    if rope:
+        cos, sin = _aligned(cos), _aligned(sin)
+    _fd.launch(p, q, lk, lv, uk, uv, lengths, cos, sin, out, scratch,
+               rope=rope)
     LAUNCHES["flash_decode"] += 1
+    DECODE_BODIES[p.body] += 1
     return out
 
 

@@ -177,10 +177,14 @@ def test_head_dim_padding_is_exact(d):
 
 
 def test_decode_shared_memory_plan():
-    # the llama-7b latent decode (g 1, r_v 1232, D 128) fits one block's
-    # shared memory; a rank no block can hold is refused before launch
-    assert tfd.smem_bytes(32, 32, 128, 1232) < tfd.MAX_SMEM
-    assert tfd.smem_bytes(32, 4, 128, 8192) > tfd.MAX_SMEM
+    # the llama-7b latent decode (g 1, D 128) fits one keys block's shared
+    # memory in either body (no block holds a rank-sized array); a group of
+    # query heads no block can hold is refused before launch
+    assert tfd.smem_bytes("wgmma", 1, 128) < tfd.MAX_SMEM
+    assert tfd.smem_bytes("fma", 1, 128) < tfd.MAX_SMEM
+    assert tfd.smem_bytes("wgmma", 32, 128) > tfd.MAX_SMEM
+    with pytest.raises(ValueError, match="shared memory"):
+        tfd.plan(1, 64, 64, 2, 128, 64, 64, torch.bfloat16)
 
 
 def test_attention_wrappers_refuse_tensors_they_cannot_run():

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
     python3 chip_smoke.py --only lowrank   # phases 1-2 and lowrank_matmul
-    python3 chip_smoke.py --only cov       # phases 1-2 and cov_accum
+    python3 chip_smoke.py --only cov       # phases 1-2, cov_accum (banked too)
     python3 chip_smoke.py --only grouped   # phases 1-2 and grouped_matmul
     python3 chip_smoke.py --only attention # phases 1-2 and flash_attention
     python3 chip_smoke.py --only decode    # phases 1-2 and flash_decode
@@ -49,7 +49,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
              ``cov_accum`` at llama-7b's taps, MLA's kv_lora tap (T split),
              one expert segment and ragged shapes; xx and xpxp exactly
              symmetric, and two calls with T split give the same bits, in
-             fp32 and bf16.  ``flash_decode`` at the llama-7b serving case
+             fp32 and bf16.  ``cov_accum_banked`` (one launch over every
+             expert bank) at phase 8's two bank taps (64 experts, C 480,
+             n 2048 and 1408; bf16 with acc= timed, ``device_ms`` beside
+             ``ms``, three ``torch.baddbmm`` on fp32 upcasts as the
+             yardstick, and the drop-free route's E ``cov_accum`` launches
+             on the same triples) and ragged ones (C 130 / 600, n 72 /
+             100, E 3), each bank against the plain version and exactly
+             symmetric; two calls bitwise equal, and a bank's bits
+             unchanged when every other bank gets new inputs.  ``flash_decode`` at the llama-7b serving case
              (8 slots, lengths 256-2048, rank 1232) and two ragged ones
              (D 16 with odd ranks; bf16 D 64 with 4 query heads a KV
              head), fp32 and bf16, with the plan's keys body, ``device_ms``
@@ -68,7 +76,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
              smoke config compressed with drop-free MoE dispatch on both:
              routed expert ids equal, composed maps (per expert) and loss
              held to stated tolerances; a second compression on the card
-             gives the same bits.
+             gives the same bits.  The same again with the config's own
+             capacity dispatch (factor 1.25): routed ids, the dropped
+             choices and the report's drop rates exactly equal card against
+             CPU.
 5. main    — Algorithm 2 on llama-7b at its published widths, depth cut to
              2 layers, random weights from a seeded ``torch.Generator``:
              calibration 8 × 1024 tokens, ratio 0.6, fused calibration, one
@@ -98,6 +109,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
              refine epoch; then the dense and compressed eval losses.  Counts
              zeroed just before and read just after: grouped_matmul,
              cov_accum, lowrank_matmul and flash_attention must be > 0.
+8. capacity — phase 7 with the config's own dispatch (capacity, factor
+             1.25: C 480 slots an expert a microbatch,
+             ``moe_dispatch="inherit"``): wall by stage, peak memory, each
+             MoE unit's drop rate in [0, 1), finite losses;
+             cov_accum_banked > 0 (2 bank taps x 2 microbatches) and
+             grouped_matmul == 0; no host sync in the capacity MoE
+             forward.
 
 It prints a ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Long output goes to
@@ -137,6 +155,17 @@ SIZES = {
     "cov_timed": 4,
     # two calls at this (T, n) must give the same bits (T split)
     "cov_repeat": (4096, 512),
+    # cov_accum_banked (E, C, n): phase 8's two capacity bank taps at
+    # deepseek-v2-lite's widths (64 experts, C 480 at microbatch 4 x 1024
+    # tokens, top-6, factor 1.25; d_model 2048 and expert d_ff 1408), timed
+    # in bf16 with acc=; then ragged ones: C not a multiple of the 64-row
+    # step, n not of the strip, T split (fp32 at 130 rows, bf16 at 600)
+    "cov_banked": ((64, 480, 2048), (64, 480, 1408), (3, 130, 72),
+                   (3, 130, 100), (3, 600, 100)),
+    "cov_banked_timed": 2,
+    # two calls bitwise equal, and each bank's bits independent of the
+    # other banks' inputs, at these (E, C, n) in fp32 and bf16
+    "cov_banked_repeat": ((64, 480, 1408), (3, 130, 100), (3, 600, 100)),
     "lowrank_nkm": ((4096, 1232, 4096), (4096, 1792, 11008),
                     (11008, 1792, 4096), (64, 19, 160)),
     # lowrank_matmul rows per llama shape: T 4096 (compression, eval, whole
@@ -542,6 +571,149 @@ def phase_cov(torch, ops, ref, dev="cuda", sizes=SIZES):
         row = check_cov_repeat(torch, ops, *sizes["cov_repeat"], dtype, dev)
         rows.append(row)
         log("cov_accum repeat", json.dumps(row))
+    return rows
+
+
+def _banked_inputs(torch, e, c, n, dtype, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(e, c, n, generator=gen, device=dev).to(dtype)
+    xp = (x.float() + 0.1 * torch.randn(e, c, n, generator=gen,
+                                        device=dev)).to(dtype)
+    return gen, x, xp
+
+
+def _banked_library(torch, x, xp, accs):
+    """The yardstick: three ``torch.baddbmm`` calls on fp32 upcasts of the
+    bf16 inputs (TF32 off), adding into fp32 accumulators: the function
+    ``cov_accum_banked(x, xp, acc=accs)`` computes, one PyTorch call a
+    term (a bf16 ``bmm`` would round its output to bf16)."""
+    xf, xpf = x.float(), xp.float()
+    return (torch.baddbmm(accs[0], xf.mT, xf),
+            torch.baddbmm(accs[1], xf.mT, xpf),
+            torch.baddbmm(accs[2], xpf.mT, xpf))
+
+
+def check_cov_banked(torch, ops, ref, e, c, n, dtype, with_acc, timed, dev):
+    """cov_accum_banked at (E, C, n) against its plain version, bank by
+    bank at check_cov's limits, each bank's xx / xpxp exactly symmetric."""
+    gen, x, xp = _banked_inputs(torch, e, c, n, dtype, dev, e * n + c)
+    want = ref.cov_accum_banked_ref(x, xp)
+    if with_acc:
+        acc0 = tuple(torch.randn(e, n, n, generator=gen, device=dev)
+                     for _ in range(3))
+        want = tuple(a + w for a, w in zip(acc0, want))
+        got = ops.cov_accum_banked(x, xp, acc=tuple(a.clone() for a in acc0))
+        del acc0
+    else:
+        got = ops.cov_accum_banked(x, xp)
+    err = max(rel_fro(g[b], w[b]) for g, w in zip(got, want)
+              for b in range(e))
+    mae = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    lim = 1e-5 if dtype == torch.float32 else 5e-5
+    require(err <= lim, f"cov_accum_banked {e}x{c}x{n} {dtype} acc="
+            f"{with_acc}: rel err {err:.3e} > {lim:.0e} (worst bank)")
+    if not with_acc:
+        require(all(torch.equal(got[i], got[i].mT) for i in (0, 2)),
+                f"cov_accum_banked {e}x{c}x{n} {dtype}: a bank's xx / xpxp "
+                "is not exactly symmetric")
+    del got, want
+    row = {"shape": [e, c, n], "dtype": str(dtype).replace("torch.", ""),
+           "acc": with_acc, "rel_fro_err": err, "max_abs_err": mae}
+    if timed:
+        accs = tuple(torch.zeros(e, n, n, device=dev) for _ in range(3))
+        run = lambda: ops.cov_accum_banked(  # noqa: E731
+            x, xp, acc=accs if with_acc else None)
+        row["ms"] = time_ms(run)
+        row["device_ms"] = device_ms(run)
+        row["plain_ms"] = time_ms(lambda: ref.cov_accum_banked_ref(x, xp))
+        row["library_ms"] = time_ms(lambda: _banked_library(torch, x, xp,
+                                                            accs))
+        row["library"] = "torch.baddbmm x3 on fp32 upcasts (TF32 off)"
+        eb = x.element_size()
+        flops = e * (2 * c * n * n + 2 * c * n * (n + 1))
+        nbytes = (2 * e * c * n * eb
+                  + 3 * e * n * n * 4 * (2 if with_acc else 1))
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes,
+                                                 row["dtype"])
+        # the drop-free dispatch's route to the same triples: one cov_accum
+        # launch an expert segment, here E launches of C rows each
+        row["per_bank_cov_accum_ms"] = time_ms(lambda: [
+            ops.cov_accum(x[b], xp[b], acc=(accs[0][b], accs[1][b],
+                                            accs[2][b]))
+            for b in range(e)])
+        del accs
+    return row
+
+
+def check_cov_banked_repeat(torch, ops, e, c, n, dtype, dev):
+    """Two calls give the same bits, written and added into a symmetric
+    acc=; then every bank but one gets new random inputs, and that bank's
+    three outputs keep their bits (written and added)."""
+    from repro_torch.kernels import cov_accum as cov
+    gen, x, xp = _banked_inputs(torch, e, c, n, dtype, dev, 7 * n + c)
+    a, b = (torch.randn(e, n, n, generator=gen, device=dev)
+            for _ in range(2))
+    acc0 = ((a + a.mT) / 2, torch.randn(e, n, n, generator=gen, device=dev),
+            (b + b.mT) / 2)
+    del a, b
+
+    def both(x, xp):
+        return (ops.cov_accum_banked(x, xp),
+                ops.cov_accum_banked(x, xp, acc=tuple(t.clone()
+                                                      for t in acc0)))
+
+    runs = [both(x, xp), both(x, xp)]
+    same = all(torch.equal(g, w) for g, w in zip(runs[0][0] + runs[0][1],
+                                                 runs[1][0] + runs[1][1]))
+    sym = all(torch.equal(o[i], o[i].mT) for o in runs[0] for i in (0, 2))
+    keep = e // 2
+    x2, xp2 = x.clone(), xp.clone()
+    others = [i for i in range(e) if i != keep]
+    x2[others] = torch.randn(len(others), c, n, generator=gen,
+                             device=dev).to(dtype)
+    xp2[others] = torch.randn(len(others), c, n, generator=gen,
+                              device=dev).to(dtype)
+    moved = both(x2, xp2)
+    alone = all(torch.equal(g[keep], w[keep]) for g, w in zip(
+        runs[0][0] + runs[0][1], moved[0] + moved[1]))
+    changed = not torch.equal(runs[0][0][others[0]], moved[0][0][others[0]])
+    p = cov.plan(c, n, dtype, banks=e)
+    row = {"shape": [e, c, n], "dtype": str(dtype).replace("torch.", ""),
+           "splits": p.splits, "bitwise_equal": same, "symmetric": sym,
+           "bank_independent": alone, "bank_kept": keep}
+    require(same, f"cov_accum_banked {e}x{c}x{n} {dtype}: two calls differ")
+    require(sym, f"cov_accum_banked {e}x{c}x{n} {dtype}: xx / xpxp not "
+            "exactly symmetric")
+    require(changed, f"cov_accum_banked {e}x{c}x{n} {dtype}: new inputs "
+            "left another bank unchanged")
+    require(alone, f"cov_accum_banked {e}x{c}x{n} {dtype}: bank {keep}'s "
+            "bits moved with the other banks' inputs")
+    return row
+
+
+def phase_cov_banked(torch, ops, ref, dev="cuda", sizes=SIZES):
+    """cov_accum_banked at each (E, C, n) of ``cov_banked`` (fp32 and bf16,
+    written and added into acc=; timed in bf16 with acc= at the first
+    ``cov_banked_timed``), then the repeat and bank-independence checks in
+    both dtypes."""
+    from repro_torch.kernels import cov_accum as cov
+    rows = []
+    for i, (e, c, n) in enumerate(sizes["cov_banked"]):
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_acc in (False, True):
+                timed = (i < sizes["cov_banked_timed"]
+                         and dtype == torch.bfloat16 and with_acc)
+                row = check_cov_banked(torch, ops, ref, e, c, n, dtype,
+                                       with_acc, timed, dev)
+                p = cov.plan(c, n, dtype, banks=e)
+                row.update(tiles=p.tiles, items=p.items, splits=p.splits)
+                rows.append(row)
+                log("cov_accum_banked", json.dumps(row))
+    for shape in sizes["cov_banked_repeat"]:
+        for dtype in (torch.float32, torch.bfloat16):
+            row = check_cov_banked_repeat(torch, ops, *shape, dtype, dev)
+            rows.append(row)
+            log("cov_accum_banked repeat", json.dumps(row))
     return rows
 
 
@@ -1286,11 +1458,27 @@ def _composed_maps(torch, block):
     return out
 
 
-def phase_smoke_moe(torch, np, dev="cuda"):
-    """deepseek-v2-lite smoke (fp32, 2 layers) compressed with drop-free
-    dispatch on the card and on the CPU from the same params and tokens;
-    then a second time on the card, which must give the same bits (every
-    tap's covariance is split over T: cov_accum sums in a fixed order)."""
+def _routed_ids(torch, L, store, params, cfg):
+    """The MoE layer's routed expert ids from a tapped forward: the
+    drop-free dispatch sows them; under the capacity dispatch they are the
+    router's top-k over the layer's input (the shared experts' tap), the
+    arithmetic of ``moe_apply``."""
+    if "ffn/experts_ids" in store:
+        return store["ffn/experts_ids"].cpu()
+    router = params["stages"][1][0]["ffn"]["router"]
+    logits = L.linear(router, store["ffn/shared/in"].float(),
+                      dtype=torch.float32)
+    return torch.topk(torch.softmax(logits, dim=-1), cfg.moe.top_k,
+                      dim=-1)[1].T.reshape(-1).cpu()
+
+
+def phase_smoke_moe(torch, np, dev="cuda", dispatch="dropfree"):
+    """deepseek-v2-lite smoke (fp32, 2 layers) compressed with ``dispatch``
+    ("dropfree", or "capacity": the config's own) on the card and on the
+    CPU from the same params and tokens: routed ids and, under capacity,
+    the routing's drop stat and the report's drop rates exactly equal; then
+    a second time on the card, which must give the same bits (every tap's
+    covariance is split over T: cov_accum sums in a fixed order)."""
     from repro_torch import configs
     from repro_torch.core import pipeline as P
     from repro_torch.kernels import cov_accum as cov
@@ -1298,8 +1486,12 @@ def phase_smoke_moe(torch, np, dev="cuda"):
     from repro_torch.models import model as M
     from repro_torch.tree import flatten, tree_map
 
-    cfg = _dropfree(configs.get_smoke_config("deepseek-v2-lite-16b")
-                    .replace(dtype="float32"))
+    cfg = configs.get_smoke_config("deepseek-v2-lite-16b").replace(
+        dtype="float32")
+    if dispatch == "dropfree":
+        cfg = _dropfree(cfg)
+    require(cfg.moe.dispatch == dispatch, f"smoke moe: dispatch "
+            f"{cfg.moe.dispatch!r}, not {dispatch!r}")
     params = M.init_params(cfg, 0, device="cpu")
     rng = np.random.default_rng(3)
     # 16 x 64 uniform tokens: ~256 routed rows an expert (top-2 of 8) at
@@ -1310,8 +1502,10 @@ def phase_smoke_moe(torch, np, dev="cuda"):
              "labels": torch.from_numpy(t[:, 1:])}
     recipe = P.CompressConfig(ratio=0.6, rank_multiple=1, microbatch=2,
                               calib_mode="fused", refine_epochs=1,
-                              moe_dispatch="dropfree")
+                              moe_dispatch=("dropfree" if dispatch
+                                            == "dropfree" else "inherit"))
     out = {}
+    dropped = {}
     for name, d in (("card", dev), ("cpu", "cpu")):
         # the original stream's routing: the uncompressed model's forward
         # over the calibration tokens, tapped
@@ -1320,7 +1514,9 @@ def phase_smoke_moe(torch, np, dev="cuda"):
         with torch.no_grad(), L.sowing(store):
             M.forward_hidden(pd, cfg, {"tokens": torch.from_numpy(
                 calib["tokens"]).to(d)})
-        ids = store["ffn/experts_ids"].cpu()
+            ids = _routed_ids(torch, L, store, pd, cfg)
+        if "ffn/experts_dropped" in store:
+            dropped[name] = store["ffn/experts_dropped"].tolist()
         comp, rep = P.compress_model(params, cfg, calib, recipe, device=d)
         with torch.no_grad():
             loss = float(M.loss_fn(comp, cfg, {k: v.to(d) for k, v
@@ -1347,24 +1543,43 @@ def phase_smoke_moe(torch, np, dev="cuda"):
                 if err > worst:
                     worst, worst_at = err, f"stage {si} {path} [{i}]"
     lc, lp = out["card"][2], out["cpu"][2]
-    log(f"smoke moe: routed ids {tuple(out['cpu'][3].shape)} flips (card vs "
+    rates = {name: out[name][1]["calibration"]["moe_drop_rate"]
+             for name in ("card", "cpu")}
+    tag = f"smoke moe ({dispatch})"
+    log(f"{tag}: routed ids {tuple(out['cpu'][3].shape)} flips (card vs "
         f"cpu) {flips}; composed-map rel err {worst:.3e} at {worst_at}; CE "
-        f"card {lc:.6f} cpu {lp:.6f}; drop rates "
-        f"{out['card'][1]['calibration']['moe_drop_rate']}")
-    require(flips == 0, f"smoke moe: {flips} routed expert ids differ "
+        f"card {lc:.6f} cpu {lp:.6f}; drop rates card {rates['card']} cpu "
+        f"{rates['cpu']}; [dropped, total] of the whole calibration set "
+        f"{dropped}")
+    require(flips == 0, f"{tag}: {flips} routed expert ids differ "
             "between the card and the CPU")
+    require(rates["card"] == rates["cpu"], f"{tag}: drop rates differ: "
+            f"{rates}")
+    require(len(set(map(tuple, dropped.values()))) <= 1,
+            f"{tag}: dropped choices differ: {dropped}")
+    if dispatch == "dropfree":
+        require(all(v == 0.0 for v in rates["card"].values()),
+                f"{tag}: drop-free dropped {rates['card']}")
     # fp32 on both, well-conditioned per-expert covariances: 1e-3 as llama
-    require(worst <= 1e-3, f"smoke moe composed maps differ by {worst:.3e} "
+    require(worst <= 1e-3, f"{tag} composed maps differ by {worst:.3e} "
             f"({worst_at})")
-    require(abs(lc / lp - 1) <= 1e-3, f"smoke moe loss {lc} vs {lp}")
-    log(f"smoke moe: a second compression on the card, factors bitwise "
+    require(abs(lc / lp - 1) <= 1e-3, f"{tag} loss {lc} vs {lp}")
+    log(f"{tag}: a second compression on the card, factors bitwise "
         f"equal {repeat_equal} ({len(first)} leaves; d_model taps split "
         f"{tap_splits} ways)")
-    require(repeat_equal, "smoke moe: two compressions on the card differ")
-    return {"routed_ids": int(out["cpu"][3].numel()), "id_flips": flips,
+    require(repeat_equal, f"{tag}: two compressions on the card differ")
+    return {"dispatch": dispatch, "routed_ids": int(out["cpu"][3].numel()),
+            "id_flips": flips, "drop_rates": rates["card"],
+            "dropped_total": dropped.get("card"),
             "repeat_bitwise_equal": repeat_equal, "tap_splits": tap_splits,
             "map_rel_err": worst, "map_worst_at": worst_at, "ce_cuda": lc,
             "ce_cpu": lp}
+
+
+def phase_smoke_moe_capacity(torch, np, dev="cuda"):
+    """``phase_smoke_moe`` under the config's own capacity dispatch (factor
+    1.25): the expert banks' covariances go through cov_accum_banked."""
+    return phase_smoke_moe(torch, np, dev, dispatch="capacity")
 
 
 # ---------------------------------------------------------------------------
@@ -1765,9 +1980,10 @@ def moe_solve_pieces(torch, cfg):
 
 
 def moe_forward_syncs(torch, cfg, comp, batch):
-    """Run the compressed MoE layer's forward (router, drop-free dispatch,
-    three factorized ``grouped_matmul`` banks, shared experts) on phase 7's
-    microbatch under ``torch.cuda.set_sync_debug_mode("error")``, which
+    """Run the compressed MoE layer's forward (router, the config's
+    dispatch: drop-free with three factorized ``grouped_matmul`` banks, or
+    capacity with three batched factorized banks; shared experts) on the
+    phase's microbatch under ``torch.cuda.set_sync_debug_mode("error")``, which
     raises on any operation that synchronizes the host with the card:
     nothing of the routing may be read on the host."""
     from repro_torch.models import layers as L
@@ -1821,7 +2037,12 @@ def eval_busy_share(torch, M, cfg, params, batch):
             "busy_share": busy / wall, "top_kernels_ms": top}
 
 
-def phase_moe(torch, ops, dev="cuda", sizes=SIZES, cfg=None):
+def phase_moe(torch, ops, dev="cuda", sizes=SIZES, cfg=None,
+              dispatch="dropfree"):
+    """Phase 7 (``dispatch="dropfree"``, forced by the recipe) or phase 8
+    (``"capacity"``: the config's own dispatch, ``moe_dispatch="inherit"``):
+    deepseek-v2-lite at published widths compressed on the card, then the
+    dense and compressed eval losses."""
     import repro_torch
     from repro_torch import configs
     from repro_torch.models import model as M
@@ -1829,16 +2050,22 @@ def phase_moe(torch, ops, dev="cuda", sizes=SIZES, cfg=None):
     layers = sizes["moe_layers"]
     if cfg is None:
         cfg = configs.get_config("deepseek-v2-lite-16b")
-    cfg = _dropfree(cfg.replace(num_layers=layers))
+    cfg = cfg.replace(num_layers=layers)
+    if dispatch == "dropfree":
+        cfg = _dropfree(cfg)
+    require(cfg.moe.dispatch == dispatch,
+            f"moe: dispatch {cfg.moe.dispatch!r}, not {dispatch!r}")
+    tag = "moe" if dispatch == "dropfree" else "moe capacity"
     m = cfg.mla
-    log(f"moe: deepseek-v2-lite widths d_model {cfg.d_model} heads "
+    log(f"{tag}: deepseek-v2-lite widths d_model {cfg.d_model} heads "
         f"{cfg.num_heads}, MLA kv_lora {m.kv_lora_rank} nope "
         f"{m.qk_nope_head_dim} rope {m.qk_rope_head_dim} v {m.v_head_dim}, "
         f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} d_ff "
         f"{cfg.moe.d_ff} + {cfg.moe.num_shared_experts} shared, dense d_ff "
         f"{cfg.moe.dense_d_ff}, vocab {cfg.vocab_size}, dtype {cfg.dtype} "
-        f"params {cfg.param_dtype}, dispatch {cfg.moe.dispatch}; num_layers "
-        f"cut 27 -> {layers} for the time limit")
+        f"params {cfg.param_dtype}, dispatch {cfg.moe.dispatch} (capacity "
+        f"factor {cfg.moe.capacity_factor}); num_layers cut 27 -> {layers} "
+        "for the time limit")
     params = M.init_params(cfg, 0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     calib = {"tokens": torch.randint(0, cfg.vocab_size, sizes["calib"],
@@ -1849,10 +2076,10 @@ def phase_moe(torch, ops, dev="cuda", sizes=SIZES, cfg=None):
         t = torch.randint(0, cfg.vocab_size, (b_eval, l_eval + 1),
                           generator=gen, device=dev)
         evals.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
-    ccfg = repro_torch.CompressConfig(ratio=0.6, calib_mode="fused",
-                                      refine_epochs=1,
-                                      microbatch=sizes["microbatch"],
-                                      moe_dispatch="dropfree")
+    ccfg = repro_torch.CompressConfig(
+        ratio=0.6, calib_mode="fused", refine_epochs=1,
+        microbatch=sizes["microbatch"],
+        moe_dispatch="dropfree" if dispatch == "dropfree" else "inherit")
 
     def eval_loss(p):
         with torch.no_grad():
@@ -1878,30 +2105,41 @@ def phase_moe(torch, ops, dev="cuda", sizes=SIZES, cfg=None):
     peak = torch.cuda.max_memory_allocated() if on_card else 0
 
     ratio = repro_torch.compress_ratio_report(params, comp)
-    log("moe: stage seconds", json.dumps(stages))
-    log(f"moe: compress wall {t_compress:.3f} s, peak device memory "
+    log(f"{tag}: stage seconds", json.dumps(stages))
+    log(f"{tag}: compress wall {t_compress:.3f} s, peak device memory "
         f"{peak / 2**30:.3f} GiB")
-    log("moe: compress_ratio_report", json.dumps(ratio))
-    log("moe: launches", json.dumps(launches))
-    log("moe: calibration", json.dumps(
+    log(f"{tag}: compress_ratio_report", json.dumps(ratio))
+    log(f"{tag}: launches", json.dumps(launches))
+    log(f"{tag}: calibration", json.dumps(
         {k: report["calibration"][k] for k in
          ("mode", "tapped_forwards", "moe_dispatch", "moe_drop_rate")}))
     ranks = {}
     for u in report["units"]:
-        log(f"moe: {u['name']} pre/post-refine mse {u['pre_refine_mse']:.6e}"
-            f" / {u['post_refine_mse']:.6e}, calib_wall "
-            f"{u['calib_wall']:.3f} s, refine_wall {u['refine_wall']:.3f} s")
+        log(f"{tag}: {u['name']} pre/post-refine mse "
+            f"{u['pre_refine_mse']:.6e} / {u['post_refine_mse']:.6e}, "
+            f"calib_wall {u['calib_wall']:.3f} s, refine_wall "
+            f"{u['refine_wall']:.3f} s")
         ranks.update({lin["path"]: lin["rank"] for lin in u["linears"]})
-    log("moe: ranks", json.dumps(ranks))
-    log(f"moe: eval CE dense {dense} compressed {compressed}")
+    log(f"{tag}: ranks", json.dumps(ranks))
+    log(f"{tag}: eval CE dense {dense} compressed {compressed}")
     vals = dense + compressed + [v for u in report["units"]
                                  for v in (u["pre_refine_mse"],
                                            u["post_refine_mse"])]
     require(all(math.isfinite(v) for v in vals), f"non-finite: {vals}")
-    for name in ("grouped_matmul", "cov_accum", "lowrank_matmul",
-                 "flash_attention"):
+    rates = report["calibration"]["moe_drop_rate"]
+    require(rates and all(0.0 <= r < 1.0 for r in rates.values()),
+            f"{tag}: drop rates {rates} outside [0, 1)")
+    # the dispatch's own kernels: grouped_matmul under drop-free; under
+    # capacity the banked covariances, and no grouped_matmul at all
+    need = (("grouped_matmul",) if dispatch == "dropfree"
+            else ("cov_accum_banked",))
+    for name in need + ("cov_accum", "lowrank_matmul", "flash_attention"):
         require(launches[name] > 0,
                 f"kernel {name} never launched on the MoE compression path")
+    if dispatch == "capacity":
+        require(launches["grouped_matmul"] == 0,
+                f"{tag}: grouped_matmul launched "
+                f"{launches['grouped_matmul']} times on the capacity path")
     want_ranks = {"attn.wq": 744, "attn.wkv_a": 272, "attn.wk_b": 248,
                   "attn.wv_b": 248, "attn.wo": 616, "ffn.gate": 1040,
                   "ffn.experts.gate": 504, "ffn.experts.down": 504,
@@ -1919,16 +2157,18 @@ def phase_moe(torch, ops, dev="cuda", sizes=SIZES, cfg=None):
     extra = {}
     if on_card:
         extra["host_syncs"] = moe_forward_syncs(torch, cfg, comp, evals[0])
-        log("moe: host syncs in the compressed MoE layer's forward "
+        log(f"{tag}: host syncs in the compressed MoE layer's forward "
             "(torch.cuda.set_sync_debug_mode)", json.dumps(extra["host_syncs"]))
-        extra["solve_pieces_ms"] = moe_solve_pieces(torch, cfg)
-        log("moe: solve pieces, one call each at the MoE path's shapes (ms)",
-            json.dumps(extra["solve_pieces_ms"]))
+        if dispatch == "dropfree":   # phase 8 solves the same shapes
+            extra["solve_pieces_ms"] = moe_solve_pieces(torch, cfg)
+            log(f"{tag}: solve pieces, one call each at the MoE path's "
+                "shapes (ms)", json.dumps(extra["solve_pieces_ms"]))
         extra["eval_profile"] = eval_busy_share(torch, M, cfg, comp,
                                                 evals[0])
-        log("moe: compressed eval forward, device time by kernel",
+        log(f"{tag}: compressed eval forward, device time by kernel",
             json.dumps(extra["eval_profile"]))
-    return {"stages": stages, "launches": launches,
+    return {"dispatch": dispatch, "drop_rates": rates,
+            "stages": stages, "launches": launches,
             "lowrank_rows": rows, "flash_bodies": bodies, "peak_bytes": peak,
             "compress_wall_s": t_compress, "ratio": ratio, "ranks": ranks,
             "dense": dense, "compressed": compressed, **extra}
@@ -2011,7 +2251,8 @@ def main(argv=None) -> int:
         if args.only == "lowrank":
             rows = {"lowrank_matmul": phase_lowrank(torch, ops, ref)}
         elif args.only == "cov":
-            rows = {"cov_accum": phase_cov(torch, ops, ref)}
+            rows = {"cov_accum": phase_cov(torch, ops, ref),
+                    "cov_accum_banked": phase_cov_banked(torch, ops, ref)}
         elif args.only == "attention":
             fa_rows, fa_checks = phase_flash_attention(torch, np, ops, ref)
             rows = {"flash_attention": fa_rows,
@@ -2034,6 +2275,7 @@ def main(argv=None) -> int:
     # 3. kernels
     t0 = time.perf_counter()
     cov_rows, low_rows = phase_kernels(torch, ops, ref)
+    banked_rows = phase_cov_banked(torch, ops, ref)
     fa_rows, fd_rows, fa_checks, fd_checks = phase_attention_kernels(
         torch, np, ops, ref)
     gm_rows, gm_back = phase_grouped_kernels(torch, np, ops, ref)
@@ -2042,6 +2284,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     smoke = phase_smoke(torch, np)
     smoke["moe"] = phase_smoke_moe(torch, np)
+    smoke["moe_capacity"] = phase_smoke_moe_capacity(torch, np)
     log(f"phase 4: {time.perf_counter() - t0:.3f} s")
     # 5. main path: compression
     t0 = time.perf_counter()
@@ -2057,6 +2300,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     moe_run = phase_moe(torch, ops)
     log(f"phase 7: {time.perf_counter() - t0:.3f} s")
+    torch.cuda.empty_cache()
+    # 8. MoE path: the config's own capacity dispatch
+    t0 = time.perf_counter()
+    moe_cap_run = phase_moe(torch, ops, dispatch="capacity")
+    log(f"phase 8: {time.perf_counter() - t0:.3f} s")
 
     def timing(row):
         return {"max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -2075,7 +2323,8 @@ def main(argv=None) -> int:
         by_path = {"compress": main_run["launches"][name],
                    "serve_server": serve_run["server"]["launches"][name],
                    "serve_engine": serve_run["engine"]["launches"][name],
-                   "compress_moe": moe_run["launches"][name]}
+                   "compress_moe": moe_run["launches"][name],
+                   "compress_moe_capacity": moe_cap_run["launches"][name]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": by_path[path],
                 "launches_by_path": by_path, **timing(head)}
@@ -2095,7 +2344,18 @@ def main(argv=None) -> int:
         entry("grouped_matmul", "src/repro_torch/csrc/grouped_matmul.cu",
               "src/repro/kernels/grouped_matmul.py:105", gm_rows,
               "compress_moe"),
+        entry("cov_accum_banked", "src/repro_torch/csrc/cov_accum.cu",
+              "src/repro/kernels/ops.py:182", banked_rows,
+              "compress_moe_capacity"),
     ]
+    # cov_accum_banked's second tap (expert d_ff), with the library named
+    # and the same triples by the drop-free route (a launch an expert)
+    cb = next(k for k in kernels if k["name"] == "cov_accum_banked")
+    timed_banked = [r for r in banked_rows if "ms" in r]
+    cb["library"] = timed_banked[0]["library"]
+    cb["per_bank_cov_accum_ms"] = timed_banked[0]["per_bank_cov_accum_ms"]
+    cb["experts_down_in"] = {**timing(timed_banked[1]), "per_bank_cov_accum_ms":
+                             timed_banked[1]["per_bank_cov_accum_ms"]}
     # lowrank_matmul's other bodies, where the engine runs them: decode's
     # T 8 (small_t) and the prefill chunk's T 256 (wgmma, split), and its
     # launches on each path by row count
@@ -2111,7 +2371,8 @@ def main(argv=None) -> int:
         "compress": main_run["lowrank_rows"],
         "serve_server": serve_run["server"]["lowrank_rows"],
         "serve_engine": serve_run["engine"]["lowrank_rows"],
-        "compress_moe": moe_run["lowrank_rows"]}
+        "compress_moe": moe_run["lowrank_rows"],
+        "compress_moe_capacity": moe_cap_run["lowrank_rows"]}
     # grouped_matmul at decode's 48 rows (serving deepseek, ROADMAP 1.1) and
     # one bf16 backward (dx and dW) at the x @ V shape
     gm = next(k for k in kernels if k["name"] == "grouped_matmul")
@@ -2146,15 +2407,18 @@ def main(argv=None) -> int:
         "serve_server": serve_run["server"]["flash_bodies"],
         "serve_engine": serve_run["engine"]["flash_bodies"],
         "serve_engine_dense": serve_run["engine_dense"]["flash_bodies"],
-        "compress_moe": moe_run["flash_bodies"]}
+        "compress_moe": moe_run["flash_bodies"],
+        "compress_moe_capacity": moe_cap_run["flash_bodies"]}
     with open(OUT / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "cov_accum": cov_rows,
+                   "cov_accum_banked": banked_rows,
                    "lowrank_matmul": low_rows, "flash_attention": fa_rows,
                    "flash_attention_checks": fa_checks,
                    "flash_decode": fd_rows, "flash_decode_checks": fd_checks,
                    "grouped_matmul": gm_rows,
                    "grouped_matmul_backward": gm_back, "smoke": smoke,
-                   "main": main_run, "serve": serve_run, "moe": moe_run},
+                   "main": main_run, "serve": serve_run, "moe": moe_run,
+                   "moe_capacity": moe_cap_run},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

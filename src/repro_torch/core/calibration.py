@@ -11,14 +11,18 @@ with X given as rows (tokens, n).  Every product goes through
 ``kernels.ops.cov_accum`` — the hand-written CUDA kernel on the card, which
 adds into the accumulators in place.
 
-Expert banks under the drop-free dispatch accumulate per-expert triples
-((E, n, n)) from grouped rows: the (R, n) choice-major routed rows of both
-streams plus the (R,) expert ids of the ORIGINAL stream
-(``kernels.ops.cov_accum_grouped``: the rows sorted by id, one
-``cov_accum`` per expert segment).  The rows are exactly the T·k routed
-choices, so the triple is batch-size invariant.  Capacity banks
-((E, C, n) buffers, ``cov_accum_banked``) come with the capacity-dispatch
-slice.
+Expert banks accumulate per-expert triples ((E, n, n)) in one of two
+layouts, as in the JAX package:
+
+- capacity dispatch: the routed (E, C, n) capacity buffers of both streams
+  (``kernels.ops.cov_accum_banked``: one launch of the kernel over all E
+  banks; zero-padded slots add nothing).  ``count`` grows by C a microbatch,
+  as the JAX package counts it;
+- drop-free dispatch: the (R, n) choice-major routed rows of both streams
+  plus the (R,) expert ids of the ORIGINAL stream
+  (``kernels.ops.cov_accum_grouped``: the rows sorted by id, one
+  ``cov_accum`` per expert segment).  The rows are exactly the T·k routed
+  choices, so the triple is batch-size invariant.
 """
 
 from __future__ import annotations
@@ -49,24 +53,31 @@ def ids_tap_name(tap: str) -> str:
 
 def update_covs(covs: Dict, x: torch.Tensor, xp: torch.Tensor,
                 ids=None) -> Dict:
-    """x, xp: (..., tokens, n) activations (original / shifted), flattened
-    to token rows.  With an (E, n, n) accumulator, ``ids`` gives each row's
-    expert (the grouped drop-free layout).  The triple is updated IN PLACE
+    """x, xp: activations (original / shifted).  With ``ids`` (the grouped
+    drop-free layout) they are routed rows binned by expert into an
+    (E, n, n) accumulator; without, an (E, n, n) accumulator takes
+    (..., E, C, n) capacity buffers and an (n, n) one (..., tokens, n)
+    activations flattened to token rows.  The triple is updated IN PLACE
     (the kernel adds into the accumulators) and the dict is returned."""
     acc = (covs["xx"], covs["xxp"], covs["xpxp"])
-    x = x.reshape(-1, x.shape[-1])
-    xp = xp.reshape(-1, xp.shape[-1])
-    if covs["xx"].ndim == 3:
-        if ids is None:
-            raise NotImplementedError(
-                "capacity-bank (E, C, n) covariance updates are not ported "
-                "to repro_torch yet (come with the capacity-dispatch slice)")
+    if ids is not None:
+        if covs["xx"].ndim != 3:
+            raise ValueError("expert ids given for a dense (n, n) "
+                             "accumulator")
+        x = x.reshape(-1, x.shape[-1])
+        xp = xp.reshape(-1, xp.shape[-1])
         ops.cov_accum_grouped(x, xp, ids, covs["xx"].shape[0], acc=acc)
-    elif ids is not None:
-        raise ValueError("expert ids given for a dense (n, n) accumulator")
+        covs["count"] += x.shape[0]
+    elif covs["xx"].ndim == 3:   # capacity banks: (E, C, n)
+        x = x.reshape((-1,) + x.shape[-2:])
+        xp = xp.reshape((-1,) + xp.shape[-2:])
+        ops.cov_accum_banked(x, xp, acc=acc)
+        covs["count"] += x.shape[-2]
     else:
+        x = x.reshape(-1, x.shape[-1])
+        xp = xp.reshape(-1, xp.shape[-1])
         ops.cov_accum(x, xp, acc=acc)
-    covs["count"] += x.shape[0]
+        covs["count"] += x.shape[0]
     return covs
 
 

@@ -2,7 +2,8 @@
 
 Counterpart of ``src/repro/core/pipeline.py`` for ``rank_mode="uniform"``,
 ``calib_mode`` "fused" or "sequential", ``calib_mesh=None``, on dense GQA
-models (llama) and on deepseek's MLA + drop-free MoE.  The model is
+models (llama) and on deepseek's MLA + MoE (capacity or drop-free
+dispatch).  The model is
 unrolled into units (one transformer block each; stacked stages are sliced
 and restacked afterwards).  Per unit:
 
@@ -11,12 +12,14 @@ and restacked afterwards).  Per unit:
      triple {XᵀX, XᵀX', X'ᵀX'}, X from the ORIGINAL unit on the original
      stream and X' from the partially compressed unit on the shifted
      stream, accumulated by the ``cov_accum`` CUDA kernel (per expert for
-     the MoE's grouped bank taps).  Then solve Thm 3.2 per linear (per
+     the MoE's bank taps: one banked launch over the capacity buffers, or
+     one launch an expert segment of the drop-free dispatch's rows).  Then solve Thm 3.2 per linear (per
      expert for a bank) and swap the weight for its (U, V) factors.
   2. block-level refinement (``core.refine``) against the original outputs.
   3. propagate both streams: X ← L_i(X) with original weights,
      X' ← L'_i(X') with compressed weights (factorized linears run the
-     ``lowrank_matmul`` CUDA kernel, expert banks ``grouped_matmul``).
+     ``lowrank_matmul`` CUDA kernel; expert banks batched products under
+     the capacity dispatch, ``grouped_matmul`` under the drop-free one).
 
 ``compress_model`` runs on the card unless the caller passes
 ``device="cpu"``, where the kernels' plain versions run instead.  The
@@ -56,10 +59,10 @@ class CompressConfig:
     Ported: ``rank_mode="uniform"``, ``calib_mode`` "fused" and
     "sequential", ``calib_mesh=None``, every objective, eigh and cholesky
     whitening, the ``refine_*`` knobs, and ``moe_dispatch`` /
-    ``moe_capacity_factor`` (applied once at entry, as in the JAX package).
-    ``hybrid`` calibration, ``rank_mode="adaptive"``, ``calib_mesh`` and
-    the capacity MoE dispatch raise ``NotImplementedError`` naming the
-    slice that brings them.
+    ``moe_capacity_factor`` (applied once at entry, as in the JAX package;
+    both MoE dispatches).  ``hybrid`` calibration, ``rank_mode="adaptive"``
+    and ``calib_mesh`` raise ``NotImplementedError`` naming the slice that
+    brings them.
 
     ``scan_collect`` and ``refine_scan`` choose between the JAX package's
     ``lax.scan`` dispatch and its per-microbatch loop.  The port always runs
@@ -310,12 +313,6 @@ def _check_supported(cfg, ccfg: CompressConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} / attention {cfg.attention!r} is not "
             "ported to repro_torch yet (comes with that architecture's slice)")
-    if cfg.moe is not None and cfg.moe.num_experts \
-            and cfg.moe.dispatch != "dropfree":
-        raise NotImplementedError(
-            f"the {cfg.moe.dispatch!r} MoE dispatch is not ported to "
-            "repro_torch yet (comes with the capacity-dispatch slice); pass "
-            "CompressConfig(moe_dispatch='dropfree')")
 
 
 def _effective_cfg(cfg, ccfg: CompressConfig):
@@ -333,6 +330,19 @@ def _effective_cfg(cfg, ccfg: CompressConfig):
                              if ccfg.moe_capacity_factor is None
                              else ccfg.moe_capacity_factor)))
     return cfg
+
+
+def _drop_rate(cfg, fwd_taps, orig_p, x0, clock: "_StageClock") -> float:
+    """Share of routed choices the unit drops on the first calibration
+    microbatch: one tapped forward of the original stream, which the engine
+    does not count (the JAX package's probe, :954-968).  The drop-free
+    dispatch never drops: 0.0, with no forward."""
+    if cfg.moe.dispatch == "dropfree":
+        return 0.0
+    with clock("collect"):
+        _, probe = fwd_taps(orig_p, x0, None)
+        dropped, total = probe["ffn/experts_dropped"].tolist()
+    return dropped / max(total, 1.0)
 
 
 def _embed_stream(params, cfg, calib: Dict[str, torch.Tensor], mb: int):
@@ -389,7 +399,9 @@ def compress_model(params, cfg, calib: Dict[str, Any],
     ``STAGES`` (the device is synchronized around each stage for that).
     Returns (compressed_params, report).  An MoE model compressed with
     ``moe_dispatch="dropfree"`` is evaluated with the same override
-    (``cfg.moe.dispatch = "dropfree"``), as in the JAX package.
+    (``cfg.moe.dispatch = "dropfree"``), as in the JAX package; the
+    report's ``calibration.moe_drop_rate`` gives each MoE unit's share of
+    routed choices dropped on the first calibration microbatch.
     """
     dev = resolve_device(device)
     cfg = _effective_cfg(cfg, ccfg)
@@ -426,8 +438,8 @@ def _compress_sweep(params, cfg, calib, ccfg: CompressConfig,
         unit_report = {"name": unit.name, "kind": unit.kind,
                        "calib_mode": ccfg.calib_mode, "linears": []}
         if unit.kind.endswith("_moe"):
-            # the drop-free dispatch never drops a routed choice
-            unit_report["moe_drop_rate"] = 0.0
+            unit_report["moe_drop_rate"] = _drop_rate(
+                cfg, fwd_taps, orig_p, xs[0], clock)
 
         # ---- stage 1: streaming covariance accumulation + closed-form solve
         t_s1 = time.perf_counter()

@@ -3,8 +3,9 @@
 Counterpart of ``src/repro/core/streaming.py`` (``TapAccumulator`` :187,
 ``CalibrationEngine`` :207).  Per unit, every tap group's covariance triple
 is accumulated from tapped block forwards on both streams (per expert for
-the drop-free MoE's grouped bank taps, binned by the original stream's
-expert ids):
+the MoE's bank taps: the capacity dispatch's (E, C, n) buffers, or the
+drop-free dispatch's grouped rows binned by the original stream's expert
+ids):
 
 - ``collect_fused`` — ONE tapped forward per microbatch per stream; every
   sown tap feeds its accumulator from the same pass, and the original-stream
@@ -37,8 +38,10 @@ Groups = Sequence[Tuple[str, Sequence[Spec]]]
 class TapAccumulator:
     """Streaming covariance state for one tap.  Dense taps: (B, L, n)
     activations flatten to token rows, 3·n² fp32 whatever the token count.
-    Grouped (drop-free) bank taps: (T·k, n) choice-major routed rows plus
-    the original stream's (T·k,) expert ids, into an (E, n, n) triple."""
+    Bank taps fill an (E, n, n) triple from (E, C, n) routed capacity
+    buffers (zero-padded slots add nothing) or, under the drop-free
+    dispatch, from (T·k, n) choice-major routed rows plus the original
+    stream's (T·k,) expert ids."""
 
     tap: str
     is_bank: bool
@@ -63,19 +66,21 @@ class CalibrationEngine:
         self.device = device
         # tap -> (is_bank, n, experts).  A bank tap sown as 2-D rows is the
         # grouped (drop-free) layout: it carries no expert axis, so E comes
-        # from ``num_experts``.  3-D capacity buffers are not ported.
+        # from ``num_experts``; a 3-D bank tap is an (E, C, n) capacity
+        # buffer, E its first axis (C depends on the token count, so only E
+        # and n are read from the sizing forward).  Without a mesh there is
+        # no microbatch folding to turn off for capacity banks.
         self._spec: Dict[str, Tuple[bool, int, int]] = {}
         for tap, group in self.groups:
             is_bank = group[0][2]
-            if is_bank and len(shapes[tap]) != 2:
-                raise NotImplementedError(
-                    f"capacity-bank tap {tap!r} is not ported to repro_torch "
-                    "yet (comes with the capacity-dispatch slice)")
-            if is_bank and num_experts <= 0:
+            shape = shapes[tap]
+            grouped = is_bank and len(shape) == 2
+            if grouped and num_experts <= 0:
                 raise ValueError(
                     f"grouped bank tap {tap!r} needs num_experts > 0")
-            self._spec[tap] = (is_bank, shapes[tap][-1],
-                               num_experts if is_bank else 0)
+            experts = (num_experts if grouped
+                       else shape[0] if is_bank else 0)
+            self._spec[tap] = (is_bank, shape[-1], experts)
         self.accumulators: Dict[str, TapAccumulator] = {}
         self._released: Set[str] = set()
         self.stats: Dict[str, int] = {"tapped_forwards": 0, "tap_updates": 0}
@@ -86,7 +91,8 @@ class CalibrationEngine:
         """Size the registry from the taps of one forward on a single
         sequence of the first microbatch (the JAX package uses a shape-only
         evaluation; eager PyTorch has none, so one short forward stands in
-        and is not counted).  ``num_experts`` sizes grouped bank taps."""
+        and is not counted).  ``num_experts`` sizes grouped bank taps; a
+        capacity bank tap takes E and n from this forward, never C."""
         with torch.no_grad():
             _, store = fwd_taps(params, x0[:1],
                                 None if aux0 is None else aux0[:1])

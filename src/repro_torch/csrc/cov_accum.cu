@@ -2,8 +2,14 @@
 //
 //     xx = Xᵀ X      xxp = Xᵀ X'      xpxp = X'ᵀ X'        X, X': (T, n) token rows
 //
+// and, with a bank axis, the same triple for each of E banks at once:
+// X, X' (E, C, n) -> xx, xxp, xpxp (E, n, n), one launch for all E.
+//
 // Replaces the Pallas TPU kernel src/repro/kernels/cov_accum.py::cov_accum
-// (its pallas_call at :73).  What it keeps from that kernel: one pass over
+// (its pallas_call at :73) and its vmap over an expert axis,
+// src/repro/kernels/ops.py::_cov_triple_banked (:182), the capacity MoE
+// dispatch's per-expert triples (one launch whose grid carries the bank
+// axis, on the TPU as here).  What it keeps from that kernel: one pass over
 // the token stream with fp32 sums, `acc=` folding into existing
 // accumulators, and a fixed summation order.  What differs: the TPU kernel
 // keeps three accumulators per (i, j) tile in VMEM and computes all of xx,
@@ -45,6 +51,16 @@
 //     register tile per thread over 16-row token steps, rows and columns
 //     masked.
 //
+// Banks: a work item is (bank, tile, slice), the bank slowest, so the blocks
+// in flight share one bank's strips in L2.  The bf16 body reads X and X'
+// through 3D tensor maps (n, C, E): TMA zero-fills a box's rows past C
+// within its own bank and never reads the next bank's rows (laid flat as
+// (E·C, n), a 64-row step past C would).  The fp32 body bounds its rows per
+// bank.  Each bank's triple is written at bank·n² (outputs) from bank·C·n
+// (inputs): both contiguous.  One expert bank of the capacity dispatch
+// (C ~480, n 2048) reads its rows for few flops and writes 3·n² fp32 (read
+// too at acc=): bound by the accumulators' bytes.
+//
 // Epilogue: the output is written exactly symmetric.  A tile of xx or xpxp
 // off the diagonal is stored at (i, j) and, transposed, at (j, i); a diagonal
 // tile stores its upper half and mirrors it; xxp tiles are stored once.  So
@@ -57,13 +73,13 @@
 // cov_reduce adds the slices in slice order and owns the epilogue.  Two
 // calls on the same inputs give the same bits.
 //
-// Contract (checked by the Python wrapper, kernels/ops.py::cov_accum; the
-// launcher refuses what the plan never produces):
-//   x, xp contiguous (T, n), 16-byte aligned, bf16 (edge 128, n % 8 == 0) or
-//   fp32 (edge 64, n % 4 == 0); outputs contiguous, 16-byte aligned (n, n)
-//   fp32;
+// Contract (checked by the Python wrappers, kernels/ops.py::cov_accum and
+// ::cov_accum_banked; the launcher refuses what the plan never produces):
+//   x, xp contiguous (banks, T, n) (banks 1: (T, n)), 16-byte aligned, bf16 (edge 128, n % 8 == 0) or
+//   fp32 (edge 64, n % 4 == 0); outputs contiguous, 16-byte aligned
+//   (banks, n, n) fp32; 1 <= banks <= 65535;
 //   accumulate 0: out = sum, 1: out += sum;  splits > 1 needs the scratch,
-//   splits · edge² · tiles floats, and slices of rows_per_split rows, a
+//   banks · splits · edge² · tiles floats, and slices of rows_per_split rows, a
 //   multiple of the body's step (64 / 16), that cover T with none empty.
 // Returns the first non-zero cudaError of the call's launches.
 
@@ -198,18 +214,18 @@ __device__ __forceinline__ void store_pass(const float* s, float* out, int n,
 }
 
 // A persistent grid of at most one block an SM walks the work items w =
-// z·tiles + t, tile t of the triangle over token slice z (rows
-// [z·rows_per_split, +rows_per_split) ∩ [0, T)), w += gridDim.x.  The
-// producer's ring runs on into the next item while the consumers finish
-// the last one's epilogue.  With part != null an item stores its fp32
-// partial sum to part[z][t][128][128] for cov_reduce; otherwise the
-// epilogue writes (or adds) it into the triple.
+// (bank·splits + z)·tiles + t, tile t of the triangle over token slice z
+// (rows [z·rows_per_split, +rows_per_split) ∩ [0, T)) of bank `bank`,
+// w += gridDim.x.  The producer's ring runs on into the next item while the
+// consumers finish the last one's epilogue.  With part != null an item
+// stores its fp32 partial sum to part[w][128][128] for cov_reduce;
+// otherwise the epilogue writes (or adds) it into the bank's triple.
 __global__ void __launch_bounds__(cw::THREADS, 1)
 cov_wgmma(const __grid_constant__ CUtensorMap tma_x,
           const __grid_constant__ CUtensorMap tma_xp, float* __restrict__ xx,
           float* __restrict__ xxp, float* __restrict__ xpxp,
           float* __restrict__ part, int T, int n, int rows_per_split, int tiles,
-          int items, int accumulate) {
+          int splits, int items, int accumulate) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -237,7 +253,8 @@ cov_wgmma(const __grid_constant__ CUtensorMap tma_x,
       int it = 0;  // stages filled so far, over every item
       for (int w = blockIdx.x; w < items; w += gridDim.x) {
         const Tile tl = tile_at(w % tiles, 2 * half);
-        const int t0 = (w / tiles) * rows_per_split;
+        const int bank = w / tiles / splits;
+        const int t0 = (w / tiles % splits) * rows_per_split;
         const int nk = (min(T, t0 + rows_per_split) - t0 + cw::BK - 1) / cw::BK;
         const CUtensorMap* ma = tl.a < half ? &tma_x : &tma_xp;
         const CUtensorMap* mb = tl.b < half ? &tma_x : &tma_xp;
@@ -250,11 +267,11 @@ cov_wgmma(const __grid_constant__ CUtensorMap tma_x,
           const int row = t0 + kt * cw::BK;
           // a diagonal tile loads its strip once and reads it as both operands
           mbar_expect_tx(full(s), (tl.a == tl.b ? 2 : 4) * cw::ATOM);
-          tma_load(sa, ma, full(s), ca, row);
-          tma_load(sa + cw::ATOM, ma, full(s), ca + 64, row);
+          tma_load_3d(sa, ma, full(s), ca, row, bank);
+          tma_load_3d(sa + cw::ATOM, ma, full(s), ca + 64, row, bank);
           if (tl.a != tl.b) {
-            tma_load(sa + 2 * cw::ATOM, mb, full(s), cb, row);
-            tma_load(sa + 3 * cw::ATOM, mb, full(s), cb + 64, row);
+            tma_load_3d(sa + 2 * cw::ATOM, mb, full(s), cb, row, bank);
+            tma_load_3d(sa + 3 * cw::ATOM, mb, full(s), cb + 64, row, bank);
           }
         }
       }
@@ -266,7 +283,7 @@ cov_wgmma(const __grid_constant__ CUtensorMap tma_x,
   for (int w = blockIdx.x; w < items; w += gridDim.x) {
     const int t = w % tiles;
     const Tile tl = tile_at(t, 2 * half);
-    const int t0 = (w / tiles) * rows_per_split;
+    const int t0 = (w / tiles % splits) * rows_per_split;
     const int nk = (min(T, t0 + rows_per_split) - t0 + cw::BK - 1) / cw::BK;
     float d[64];
 #pragma unroll
@@ -326,11 +343,12 @@ cov_wgmma(const __grid_constant__ CUtensorMap tma_x,
     const int j0 = (tl.b - (bp ? half : 0)) * cw::EDGE;
     const int ni = min(cw::EDGE, n - i0);
     const int nj = min(cw::EDGE, n - j0);
+    const size_t at = static_cast<size_t>(w / tiles / splits) * n * n;  // the bank's triple
     if (ap != bp) {
-      store_pass<false>(staged, xxp, n, i0, j0, ni, nj, false, accumulate, tid);
+      store_pass<false>(staged, xxp + at, n, i0, j0, ni, nj, false, accumulate, tid);
       continue;
     }
-    float* out = ap ? xpxp : xx;
+    float* out = (ap ? xpxp : xx) + at;
     store_pass<false>(staged, out, n, i0, j0, ni, nj, tl.a == tl.b, accumulate, tid);
     if (tl.a != tl.b) store_pass<true>(staged, out, n, j0, i0, nj, ni, false, accumulate, tid);
   }
@@ -345,9 +363,10 @@ constexpr int BT = 16;        // token rows a step
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
 }  // namespace cf
 
-// Block (t, z): tile t over token slice z (cov_wgmma's work item z·tiles +
-// t), 64 x 64 tiles; token rows past T and columns past n load as zeros.
-// Split, it stores its partial sum to part[z][t][64][64].
+// Block (t, z, bank): tile t over token slice z of bank `bank` (cov_wgmma's
+// work item (bank·splits + z)·tiles + t), 64 x 64 tiles; token rows past
+// the bank's T and columns past n load as zeros.  Split, it stores its
+// partial sum to part[bank][z][t][64][64].
 __global__ void __launch_bounds__(cf::THREADS)
 cov_fma(const float* __restrict__ x, const float* __restrict__ xp,
         float* __restrict__ xx, float* __restrict__ xxp,
@@ -358,8 +377,10 @@ cov_fma(const float* __restrict__ x, const float* __restrict__ xp,
 
   const int half = (n + cf::EDGE - 1) / cf::EDGE;
   const Tile tl = tile_at(blockIdx.x, 2 * half);
-  const float* src_a = tl.a < half ? x : xp;
-  const float* src_b = tl.b < half ? x : xp;
+  const size_t in_at = static_cast<size_t>(blockIdx.z) * T * n;  // the bank's rows
+  const size_t out_at = static_cast<size_t>(blockIdx.z) * n * n;
+  const float* src_a = (tl.a < half ? x : xp) + in_at;
+  const float* src_b = (tl.b < half ? x : xp) + in_at;
   const int ca = (tl.a % half) * cf::EDGE;
   const int cb = (tl.b % half) * cf::EDGE;
   const int t_begin = blockIdx.y * rows_per_split;
@@ -403,8 +424,8 @@ cov_fma(const float* __restrict__ x, const float* __restrict__ xp,
 
   float* p = part == nullptr
                  ? nullptr
-                 : part + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) *
-                              cf::EDGE * cf::EDGE;
+                 : part + ((static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) *
+                               gridDim.x + blockIdx.x) * cf::EDGE * cf::EDGE;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -414,7 +435,8 @@ cov_fma(const float* __restrict__ x, const float* __restrict__ xp,
       if (p != nullptr) {
         p[r * cf::EDGE + c] = acc[i][j];
       } else {
-        put(xx, xxp, xpxp, n, half, cf::EDGE, tl, r, c, acc[i][j], accumulate);
+        put(xx + out_at, xxp + out_at, xpxp + out_at, n, half, cf::EDGE, tl, r, c,
+            acc[i][j], accumulate);
       }
     }
   }
@@ -422,6 +444,7 @@ cov_fma(const float* __restrict__ x, const float* __restrict__ xp,
 
 // ---------------------------------------------------------------------------
 // split T: the slices' partial sums added in slice order, then the epilogue
+// (block (·, t, bank): tile t of bank `bank`)
 
 template <int EDGE>
 __global__ void __launch_bounds__(256)
@@ -432,10 +455,12 @@ cov_reduce(const float* __restrict__ part, int splits, int tiles,
   const Tile tl = tile_at(blockIdx.y, 2 * half);
   const int e = blockIdx.x * blockDim.x + threadIdx.x;  // grid covers EDGE² exactly
   const size_t plane = static_cast<size_t>(tiles) * EDGE * EDGE;
-  const float* p = part + static_cast<size_t>(blockIdx.y) * EDGE * EDGE + e;
+  const float* p = part + static_cast<size_t>(blockIdx.z) * splits * plane +
+                   static_cast<size_t>(blockIdx.y) * EDGE * EDGE + e;
   float s = p[0];
   for (int z = 1; z < splits; ++z) s += p[z * plane];
-  put(xx, xxp, xpxp, n, half, EDGE, tl, e / EDGE, e % EDGE, s, accumulate);
+  const size_t at = static_cast<size_t>(blockIdx.z) * n * n;
+  put(xx + at, xxp + at, xpxp + at, n, half, EDGE, tl, e / EDGE, e % EDGE, s, accumulate);
 }
 
 // ---------------------------------------------------------------------------
@@ -454,21 +479,24 @@ int set_smem() {
 
 }  // namespace
 
-// One call of the covariance triple under a launch plan
-// (kernels/cov_accum.py::plan).  dtype: 0 = fp32 (edge 64), 1 = bf16 (edge
-// 128).  The work is (tiles, splits) over the upper block triangle of
-// Zᵀ Z's 2·⌈n/edge⌉ strips; with splits > 1, T is cut into slices of
-// rows_per_split rows whose partials go to `scratch` and cov_reduce adds
-// them in order.  accumulate: 0 = write, 1 = add into the outputs.
+// One call of the covariance triple of each of `banks` banks under a launch
+// plan (kernels/cov_accum.py::plan).  dtype: 0 = fp32 (edge 64), 1 = bf16
+// (edge 128).  The work is (banks, tiles, splits) over the upper block
+// triangle of each bank's Zᵀ Z, 2·⌈n/edge⌉ strips; with splits > 1, each
+// bank's T rows are cut into slices of rows_per_split rows whose partials
+// go to `scratch` and cov_reduce adds them in order.  A bank's rows lie at
+// bank·rows·n, its triple at bank·n·n.  accumulate: 0 = write, 1 = add into
+// the outputs.
 extern "C" int cov_accum_launch(const void* x, const void* xp, void* xx,
                                 void* xxp, void* xpxp, void* scratch,
-                                int rows, int n, int dtype, int edge,
+                                int banks, int rows, int n, int dtype, int edge,
                                 int splits, int rows_per_split, int accumulate,
                                 void* stream) {
   const int step = dtype == 1 ? cw::BK : cf::BT;
   const int want_edge = dtype == 1 ? cw::EDGE : cf::EDGE;
   const int align = dtype == 1 ? 8 : 4;
-  if ((dtype != 0 && dtype != 1) || edge != want_edge || rows < 1 || n < 1 ||
+  if ((dtype != 0 && dtype != 1) || edge != want_edge || banks < 1 ||
+      banks > 65535 || rows < 1 || n < 1 ||
       n % align != 0 || splits < 1 || splits > 65535 || rows_per_split < 1 ||
       (accumulate != 0 && accumulate != 1) ||
       static_cast<long long>(splits) * rows_per_split < rows ||
@@ -478,7 +506,7 @@ extern "C" int cov_accum_launch(const void* x, const void* xp, void* xx,
   }
   const long long strips = 2ll * ((n + edge - 1) / edge);
   const long long tiles = strips * (strips + 1) / 2;
-  const long long items = tiles * splits;
+  const long long items = tiles * splits * banks;
   if (items > 0x7fffffffll || (splits > 1 && tiles > 65535)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -496,25 +524,26 @@ extern "C" int cov_accum_launch(const void* x, const void* xp, void* xx,
     rc = static_cast<int>(
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
     if (rc != 0) return rc;
+    // (n, rows, banks): a box never reads past its own bank's last row
     CUtensorMap tx, txp;
-    rc = tensor_map(&tx, x, rows, n, cw::BK);
+    rc = tensor_map_3d(&tx, x, banks, rows, n, cw::BK);
     if (rc != 0) return rc;
-    rc = tensor_map(&txp, xp, rows, n, cw::BK);
+    rc = tensor_map_3d(&txp, xp, banks, rows, n, cw::BK);
     if (rc != 0) return rc;
-    // persistent: one block an SM walks the (tile, slice) items
+    // persistent: one block an SM walks the (bank, slice, tile) items
     const int blocks = static_cast<int>(items < sms ? items : sms);
     cov_wgmma<<<blocks, cw::THREADS, cw::SMEM, s>>>(
         tx, txp, o0, o1, o2, part, rows, n, rows_per_split, static_cast<int>(tiles),
-        static_cast<int>(items), accumulate);
+        splits, static_cast<int>(items), accumulate);
   } else {
-    const dim3 grid(static_cast<unsigned>(tiles), splits);
+    const dim3 grid(static_cast<unsigned>(tiles), splits, banks);
     cov_fma<<<grid, cf::THREADS, 0, s>>>(static_cast<const float*>(x),
                                          static_cast<const float*>(xp), o0, o1, o2,
                                          part, rows, n, rows_per_split, accumulate);
   }
   int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0 || splits == 1) return rc;
-  const dim3 rgrid(edge * edge / 256, static_cast<unsigned>(tiles));
+  const dim3 rgrid(edge * edge / 256, static_cast<unsigned>(tiles), banks);
   if (dtype == 1) {
     cov_reduce<cw::EDGE><<<rgrid, 256, 0, s>>>(part, splits, static_cast<int>(tiles),
                                                o0, o1, o2, n, accumulate);

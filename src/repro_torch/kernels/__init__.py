@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
 
-- ``cov_accum``      — one-pass {XᵀX, XᵀX', X'ᵀX'} calibration triple
-  (replaces ``src/repro/kernels/cov_accum.py``)
+- ``cov_accum``      — one-pass {XᵀX, XᵀX', X'ᵀX'} calibration triple, and
+  with a bank axis every expert bank's triple in one launch (replaces
+  ``src/repro/kernels/cov_accum.py`` and its vmap in
+  ``src/repro/kernels/ops.py::_cov_triple_banked``)
 - ``lowrank_matmul`` — factorized linear (x@V)@U with fused bias/residual
   epilogue (replaces ``src/repro/kernels/lowrank_matmul.py``)
 - ``flash_attention`` — blockwise online-softmax attention with causal,

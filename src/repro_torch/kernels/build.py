@@ -39,7 +39,7 @@ _L = ctypes.c_longlong
 # floats as c_float, 64-bit sizes as c_longlong)
 SIGNATURES = {
     "cov_accum_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _P],
+                         _I, _P],
     "lowrank_matmul_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -3,6 +3,9 @@
 Replaces the Pallas TPU kernel ``src/repro/kernels/cov_accum.py::cov_accum``
 (its ``pallas_call`` at :73): one pass over (T, n) token rows X, X' gives
 XᵀX, XᵀX', X'ᵀX' in fp32, ``acc=`` folding into existing accumulators.
+With a bank count E it also replaces that kernel's vmap over an expert axis
+(``src/repro/kernels/ops.py::_cov_triple_banked``, :182): (E, C, n) inputs
+give E triples (E, n, n) in one launch.
 
 The triple is the Gram matrix of Z = [X | X'] (T, 2n): Zᵀ Z = [[xx, xxp],
 [xxpᵀ, xpxp]].  Z's columns are cut into strips of ``edge`` columns
@@ -20,12 +23,13 @@ FMA body (64-column strips; TF32 stays off).
 
 ``plan`` gives everything one call needs: the strips, the tile order (square
 super-tiles of ``GROUP`` strips, so blocks in flight share strips in L2),
-and, when the triangle's tiles leave the card under-filled, a split of T
-into slices whose fp32 partials a reduce launch adds in slice order (no
-atomics: two calls give the same bits).  Neither T nor n is padded in
+the work items (bank, slice, tile), the bank slowest, and, when the banks'
+tiles leave the card under-filled, a split of T into slices whose fp32
+partials a reduce launch adds in slice order (no atomics: two calls give
+the same bits, and a bank's bits do not depend on the other banks).  Neither T nor n is padded in
 memory beyond n's 16-byte row alignment.  Callers go through
-``kernels.ops.cov_accum``, which checks, pads n to ``align`` and owns
-``acc=``; ``emulate`` repeats a plan's arithmetic in plain PyTorch for the
+``kernels.ops.cov_accum`` / ``cov_accum_banked``, which check, pad n to
+``align`` and own ``acc=``; ``emulate`` repeats a plan's arithmetic in plain PyTorch for the
 CPU tests.
 """
 
@@ -52,16 +56,18 @@ STEP = {torch.bfloat16: 64, torch.float32: 16}
 ALIGN = {torch.bfloat16: 8, torch.float32: 4}
 WAVE = {torch.bfloat16: SMS, torch.float32: 3 * SMS}
 MIN_STEPS = {torch.bfloat16: 4, torch.float32: 1}
+MAX_BANKS = 65535               # a grid axis of the fp32 and reduce launches
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """How one call runs.  ``n`` is the width the kernel sees (padded to
-    ``align``), ``rows`` is T (never padded).  The work is (tiles, splits):
-    item (t, z) computes tile ``tile_at(t)`` over token slice z, T cut into
-    slices of ``rows_per_split`` rows (``splits`` == 1: all of T); the bf16
-    body's persistent blocks walk the items z·tiles + t in order, the fp32
-    body launches one block an item."""
+    ``align``), ``rows`` is T, a bank's rows (never padded).  The work is
+    (banks, splits, tiles): item (e, z, t) computes bank e's tile
+    ``tile_at(t)`` over token slice z, T cut into slices of
+    ``rows_per_split`` rows (``splits`` == 1: all of T); the bf16 body's
+    persistent blocks walk the items (e·splits + z)·tiles + t in order
+    (``item_at``), the fp32 body launches one block an item."""
     rows: int
     n: int
     dtype: torch.dtype
@@ -70,6 +76,7 @@ class Plan:
     step: int
     splits: int
     rows_per_split: int
+    banks: int = 1
 
     @property
     def half(self) -> int:
@@ -125,6 +132,18 @@ class Plan:
             return a0 + t // nb, b0 + t % nb
         raise IndexError(f"tile {t} past the triangle's {self.tiles}")
 
+    @property
+    def items(self) -> int:
+        return self.banks * self.splits * self.tiles
+
+    def item_at(self, w: int) -> Tuple[int, int, int]:
+        """(bank, slice, tile) of work item ``w``, by the kernels'
+        arithmetic."""
+        if not 0 <= w < self.items:
+            raise IndexError(f"item {w} past the plan's {self.items}")
+        return w // self.tiles // self.splits, w // self.tiles % self.splits, \
+            w % self.tiles
+
     def slices(self) -> List[Tuple[int, int]]:
         """The token slices in summation order, half-open."""
         per = self.rows_per_split
@@ -136,31 +155,32 @@ class Plan:
         """fp32 elements of the slices' partial sums (0: no split)."""
         if self.splits == 1:
             return 0
-        return self.splits * self.tiles * self.edge * self.edge
+        return self.items * self.edge * self.edge
 
 
 @functools.lru_cache(maxsize=4096)
-def plan(rows: int, n: int, dtype: torch.dtype) -> Plan:
-    """The launch plan of a (rows, n) triple in ``dtype``: T is split only
-    when the triangle's tiles fill less than a wave of blocks and T holds
-    at least two slices of ``MIN_STEPS`` steps; then into as many slices as
-    the idle blocks of that wave take, each a whole number of steps."""
+def plan(rows: int, n: int, dtype: torch.dtype, banks: int = 1) -> Plan:
+    """The launch plan of ``banks`` (rows, n) triples in ``dtype``: T is
+    split only when the banks' tiles fill less than a wave of blocks and T
+    holds at least two slices of ``MIN_STEPS`` steps; then into as many
+    slices as the idle blocks of that wave take, each a whole number of
+    steps.  The plan depends on (banks, rows, n, dtype) alone."""
     if dtype not in DTYPES:
         raise TypeError(f"cov_accum: no kernel for {dtype}")
-    if rows < 1 or n < 1:
-        raise ValueError(f"cov_accum: no plan for ({rows}, {n})")
+    if rows < 1 or n < 1 or not 1 <= banks <= MAX_BANKS:
+        raise ValueError(f"cov_accum: no plan for {banks} x ({rows}, {n})")
     align, edge, step = ALIGN[dtype], EDGE[dtype], STEP[dtype]
     n = -(-n // align) * align
     strips = 2 * -(-n // edge)
-    tiles = strips * (strips + 1) // 2
+    work = banks * strips * (strips + 1) // 2
     steps = -(-rows // step)
     splits, per = 1, rows
-    if tiles < WAVE[dtype] and steps >= 2 * MIN_STEPS[dtype]:
-        want = min(WAVE[dtype] // tiles, steps // MIN_STEPS[dtype])
+    if work < WAVE[dtype] and steps >= 2 * MIN_STEPS[dtype]:
+        want = min(WAVE[dtype] // work, steps // MIN_STEPS[dtype])
         if want > 1:
             per = -(-steps // want) * step
             splits = -(-rows // per)
-    return Plan(rows, n, dtype, align, edge, step, splits, per)
+    return Plan(rows, n, dtype, align, edge, step, splits, per, banks)
 
 
 def _store(out, i0, j0, block, acc):
@@ -174,14 +194,21 @@ def _store(out, i0, j0, block, acc):
 
 
 def emulate(p: Plan, x, xp, acc=None):
-    """Plan ``p``'s arithmetic in plain PyTorch on unpadded (T, n) inputs:
-    for each tile of the triangle, the fp32 products of its two strips of
-    Z = [X | X'] over each token slice, added in slice order, then the
-    kernels' epilogue (xxp stored once; an off-diagonal tile of xx / xpxp
-    also stored transposed; a diagonal tile's upper half stored and
-    mirrored), written or added into ``acc`` (not modified: the sums come
-    back as new tensors).  Within a slice the order of the sum is
-    torch's."""
+    """Plan ``p``'s arithmetic in plain PyTorch on unpadded (T, n) inputs,
+    or (E, C, n) with E == ``p.banks``, bank by bank: for each tile of the
+    triangle, the fp32 products of its two strips of Z = [X | X'] over each
+    token slice, added in slice order, then the kernels' epilogue (xxp
+    stored once; an off-diagonal tile of xx / xpxp also stored transposed;
+    a diagonal tile's upper half stored and mirrored), written or added
+    into ``acc`` (not modified: the sums come back as new tensors).  Within
+    a slice the order of the sum is torch's."""
+    if x.ndim == 3:
+        if x.shape[0] != p.banks:
+            raise ValueError(f"{x.shape[0]} banks under a plan of {p.banks}")
+        per_bank = [emulate(dataclasses.replace(p, banks=1), x[e], xp[e],
+                            None if acc is None else tuple(a[e] for a in acc))
+                    for e in range(p.banks)]
+        return tuple(torch.stack(outs) for outs in zip(*per_bank))
     t_rows, n = x.shape
     e, half = p.edge, p.half
     width = half * e
@@ -220,14 +247,15 @@ def emulate(p: Plan, x, xp, acc=None):
 
 def launch(p: Plan, x, xp, xx, xxp, xpxp, scratch, *,
            accumulate: bool) -> None:
-    """Run plan ``p`` on checked (T, p.n) inputs into (p.n, p.n) fp32
-    outputs: ``accumulate`` adds into them in place, else they are
-    overwritten.  ``scratch``: fp32, at least ``p.scratch_floats``."""
+    """Run plan ``p`` on checked contiguous (p.banks, T, p.n) inputs into
+    (p.banks, p.n, p.n) fp32 outputs: a bank's rows lie at bank·T·n, its
+    triple at bank·n²; ``accumulate`` adds into them in place, else they
+    are overwritten.  ``scratch``: fp32, at least ``p.scratch_floats``."""
     lib = build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.cov_accum_launch(
         x.data_ptr(), xp.data_ptr(), xx.data_ptr(), xxp.data_ptr(),
         xpxp.data_ptr(), None if scratch is None else scratch.data_ptr(),
-        p.rows, p.n, DTYPES[p.dtype], p.edge, p.splits, p.rows_per_split,
-        int(accumulate), stream)
+        p.banks, p.rows, p.n, DTYPES[p.dtype], p.edge, p.splits,
+        p.rows_per_split, int(accumulate), stream)
     build.check(rc, "cov_accum")

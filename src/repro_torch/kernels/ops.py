@@ -29,9 +29,9 @@ from repro_torch.kernels import grouped_matmul as _gm
 from repro_torch.kernels import lowrank_matmul as _lowrank
 from repro_torch.kernels import ref
 
-LAUNCHES: Dict[str, int] = {"cov_accum": 0, "lowrank_matmul": 0,
-                            "flash_attention": 0, "flash_decode": 0,
-                            "grouped_matmul": 0}
+LAUNCHES: Dict[str, int] = {"cov_accum": 0, "cov_accum_banked": 0,
+                            "lowrank_matmul": 0, "flash_attention": 0,
+                            "flash_decode": 0, "grouped_matmul": 0}
 # lowrank_matmul's launches by row count T (its plan's body depends on T)
 LOWRANK_ROWS: Dict[int, int] = collections.Counter()
 # flash_attention's launches by its plan's body
@@ -90,6 +90,53 @@ def _check_cuda(name: str, tensors: Sequence[Optional[torch.Tensor]],
 # covariance triple
 
 
+def _add_into(acc, outs):
+    """``outs`` when there is no ``acc``; else ``outs`` added into ``acc``
+    IN PLACE and ``acc`` returned."""
+    if acc is None:
+        return outs
+    for a, o in zip(acc, outs):
+        a.add_(o)
+    return acc
+
+
+def _cov_kernel(name: str, x, xp, acc):
+    """The covariance kernel on (E, T, n) CUDA inputs (E 1 for a dense
+    tap): one launch for all E triples, counted under ``name``.  n is
+    padded to the body's 16-byte multiple, T never.  ``acc`` (E, n, n)
+    fp32 is added into in place, straight by the kernel when n needs no
+    padding and it is 16-byte aligned, else from a fresh triple."""
+    e, t, n = x.shape
+    _check_cuda(name, [x, xp], x.dtype)
+    if acc is not None:
+        for a in acc:
+            if (a.device != x.device or a.dtype != torch.float32
+                    or tuple(a.shape) != (e, n, n) or not a.is_contiguous()):
+                raise ValueError(f"{name}: acc= must be contiguous float32 "
+                                 f"of the triple's shape on {x.device}")
+    if e == 0 or t == 0:
+        return _add_into(acc, tuple(x.new_zeros((e, n, n),
+                                                dtype=torch.float32)
+                                    for _ in range(3)))
+    p = _cov.plan(t, n, x.dtype, banks=e)
+    xk = _aligned(pad_dim(x, 2, p.align))
+    xpk = _aligned(pad_dim(xp, 2, p.align))
+    scratch = (torch.empty(p.scratch_floats, dtype=torch.float32,
+                           device=x.device) if p.scratch_floats else None)
+    if (acc is not None and p.n == n
+            and all(a.data_ptr() % 16 == 0 for a in acc)):
+        _cov.launch(p, xk, xpk, *acc, scratch, accumulate=True)
+        LAUNCHES[name] += 1
+        return acc
+    outs = tuple(torch.empty((e, p.n, p.n), dtype=torch.float32,
+                             device=x.device) for _ in range(3))
+    _cov.launch(p, xk, xpk, *outs, scratch, accumulate=False)
+    LAUNCHES[name] += 1
+    if p.n != n:
+        outs = tuple(o[:, :n, :n].contiguous() for o in outs)
+    return _add_into(acc, outs)
+
+
 def cov_accum(x, xp, *, acc=None):
     """(T, n) x2 -> (xx, xxp, xpxp) fp32 (leading axes flatten into T).
 
@@ -109,45 +156,28 @@ def cov_accum(x, xp, *, acc=None):
         raise ValueError(f"cov_accum: shapes {tuple(x.shape)} and "
                          f"{tuple(xp.shape)} differ")
     if x.device.type == "cpu" and xp.device.type == "cpu":
-        outs = ref.cov_accum_ref(x, xp)
-        if acc is None:
-            return outs
-        for a, o in zip(acc, outs):
-            a.add_(o)
-        return acc
-    _check_cuda("cov_accum", [x, xp], x.dtype)
-    if acc is not None:
-        for a in acc:
-            if (a.device != x.device or a.dtype != torch.float32
-                    or tuple(a.shape) != (n, n) or not a.is_contiguous()):
-                raise ValueError("cov_accum: acc= must be contiguous (n, n) "
-                                 f"float32 on {x.device}")
-    if x.shape[0] == 0:
-        if acc is not None:
-            return acc
-        return tuple(x.new_zeros((n, n), dtype=torch.float32)
-                     for _ in range(3))
-    p = _cov.plan(x.shape[0], n, x.dtype)
-    xk = _aligned(pad_dim(x, 1, p.align))
-    xpk = _aligned(pad_dim(xp, 1, p.align))
-    scratch = (torch.empty(p.scratch_floats, dtype=torch.float32,
-                           device=x.device) if p.scratch_floats else None)
-    if (acc is not None and p.n == n
-            and all(a.data_ptr() % 16 == 0 for a in acc)):
-        _cov.launch(p, xk, xpk, *acc, scratch, accumulate=True)
-        LAUNCHES["cov_accum"] += 1
-        return acc
-    outs = tuple(torch.empty((p.n, p.n), dtype=torch.float32,
-                             device=x.device) for _ in range(3))
-    _cov.launch(p, xk, xpk, *outs, scratch, accumulate=False)
-    LAUNCHES["cov_accum"] += 1
-    if p.n != n:
-        outs = tuple(o[:n, :n].contiguous() for o in outs)
-    if acc is None:
-        return outs
-    for a, o in zip(acc, outs):
-        a.add_(o)
-    return acc
+        return _add_into(acc, ref.cov_accum_ref(x, xp))
+    outs = _cov_kernel("cov_accum", x[None], xp[None],
+                       None if acc is None else tuple(a[None] for a in acc))
+    return acc if acc is not None else tuple(o[0] for o in outs)
+
+
+def cov_accum_banked(x, xp, *, acc=None):
+    """Expert-bank covariance triple: (E, C, n) x2 -> (xx, xxp, xpxp), each
+    (E, n, n) fp32, the capacity dispatch's per-expert triples.
+
+    One launch of ``cov_accum``'s kernel over all E banks (the counterpart
+    of the JAX package's vmapped ``cov_accum_banked``, without ``mesh``).
+    Capacity padding is exact: zero slots add zero outer products.  ``acc``
+    is an existing (E, n, n) fp32 triple, updated IN PLACE as in
+    ``cov_accum``.  On the card each bank's xx and xpxp come out exactly
+    symmetric, and a bank's bits depend on its own inputs alone."""
+    if x.ndim != 3 or x.shape != xp.shape:
+        raise ValueError(f"cov_accum_banked: shapes {tuple(x.shape)} and "
+                         f"{tuple(xp.shape)} are not one (E, C, n)")
+    if x.device.type == "cpu" and xp.device.type == "cpu":
+        return _add_into(acc, ref.cov_accum_banked_ref(x, xp))
+    return _cov_kernel("cov_accum_banked", x, xp, acc)
 
 
 def cov_accum_grouped(x, xp, ids, experts: int, *, acc=None):

@@ -26,6 +26,20 @@ def cov_accum_ref(x, xp):
     return xf.T @ xf, xf.T @ xpf, xpf.T @ xpf
 
 
+def cov_accum_banked_ref(x, xp):
+    """Per-expert covariance triple, the counterpart of the JAX package's
+    ``ref.cov_accum_banked_ref``.  x, xp: (E, C, n) routed capacity
+    buffers -> (xx, xxp, xpxp), each (E, n, n) fp32.  Zero-padded capacity
+    slots add zero outer products."""
+    xf = x.float()
+    xpf = xp.float()
+
+    def upd(a, b):
+        return torch.einsum("etn,etm->enm", a, b)
+
+    return upd(xf, xf), upd(xf, xpf), upd(xpf, xpf)
+
+
 def cov_accum_grouped_ref(x, xp, ids, experts: int):
     """Routed-rows covariance triple oracle, the counterpart of the JAX
     package's ``ref.cov_accum_grouped_ref``.  x, xp: (R, n) choice-major

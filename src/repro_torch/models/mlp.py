@@ -1,8 +1,21 @@
 """Feed-forward layers: gated silu / plain gelu MLP and mixture-of-experts.
 
 Counterpart of ``src/repro/models/mlp.py``: ``ffn_init`` / ``ffn_apply``
-(:39, :52), ``moe_init`` (:67), ``moe_apply`` (:91) with the drop-free
-dispatch ``_dispatch_dropfree`` (:210) and ``grouped_bank_apply`` (:262).
+(:39, :52), ``moe_init`` (:67), ``moe_apply`` (:91) with the capacity
+dispatch (:162-196, ``bank_apply`` :274) and the drop-free dispatch
+``_dispatch_dropfree`` (:210, ``grouped_bank_apply`` :262).
+
+Capacity dispatch (Switch): each expert takes at most C = max(⌈T·k/E ·
+capacity_factor⌉, k) of the (T, k) routed choices, in choice-major order
+(a one-hot cumsum gives each choice its slot); later choices drop and
+contribute zero.  Kept choices are copied into an (E, C, d) buffer (each
+slot has one source row; dropped choices go to a spare row past E·C),
+the three expert GEMMs run batched over E (``torch.einsum``: plain
+products, as the JAX package leaves them to XLA), and each token's k
+gate-weighted choices are gathered back and summed in fp32 in choice
+order, choice 0 first from zeros: no atomics, so two runs give the same
+bits.  C comes from the shapes and nothing of the routing is read on the
+host.
 
 Drop-free dispatch: the (T, k) routed choices are laid out choice-major as
 (k·T, d) rows, stably sorted by expert id into contiguous segments, run
@@ -12,9 +25,8 @@ choice order in fp32.  No token is dropped and every output row is a
 per-row function of (token, expert weights), so the layer is
 batch-size invariant.  Nothing of the routing is read on the host.
 
-Not ported: the ``capacity`` dispatch (raises ``NotImplementedError``; it
-comes with the slice that ports ``cov_accum_banked``) and the mesh /
-expert-parallel branches (:125-141, with ``torch.distributed``).
+Not ported: the mesh / expert-parallel branches (:125-141, with
+``torch.distributed``).
 """
 
 from __future__ import annotations
@@ -82,25 +94,20 @@ def moe_init(gen: torch.Generator, cfg, *, lead=(), dtype=torch.float32,
     return p
 
 
-def moe_apply(p, x, cfg, *, dispatch=None):
+def moe_apply(p, x, cfg, *, capacity_factor=None, dispatch=None):
     """x: (B, L, d) -> ((B, L, d), aux load-balance loss, fp32 scalar).
 
     Router in fp32: softmax, top-k, gates renormalized over the k choices;
     the Switch aux loss E · Σ_e f_e · p_e times ``aux_loss_coef``.
-    ``dispatch`` overrides ``cfg.moe.dispatch`` per call; only "dropfree"
-    is ported (the JAX package's ``capacity_factor`` keyword comes with the
-    capacity dispatch)."""
+    ``dispatch`` and ``capacity_factor`` override ``cfg.moe``'s per call."""
     m = cfg.moe
     if dispatch is None:
         dispatch = m.dispatch
     if dispatch not in ("capacity", "dropfree"):
         raise ValueError(f"unknown moe dispatch {dispatch!r} "
                          "(capacity | dropfree)")
-    if dispatch == "capacity":
-        raise NotImplementedError(
-            "the capacity MoE dispatch is not ported to repro_torch yet "
-            "(comes with the capacity-dispatch slice, with cov_accum_banked);"
-            " use dispatch='dropfree'")
+    if capacity_factor is None:
+        capacity_factor = m.capacity_factor
     b, l, d = x.shape
     t = b * l
     e, k = m.num_experts, m.top_k
@@ -117,12 +124,68 @@ def moe_apply(p, x, cfg, *, dispatch=None):
     ce = torch.nn.functional.one_hot(expert_ids, e).float().sum(1).mean(0)
     aux = m.aux_loss_coef * e * torch.sum(me * ce)
 
-    y = _dispatch_dropfree(p["experts"], xt, gate_vals, expert_ids, cfg)
+    if dispatch == "dropfree":
+        y = _dispatch_dropfree(p["experts"], xt, gate_vals, expert_ids, cfg)
+    else:
+        y = _dispatch_capacity(p["experts"], xt, gate_vals, expert_ids, cfg,
+                               capacity_factor)
     y = y.to(x.dtype)
     if "shared" in p:
         with L.scope("shared"):
             y = y + ffn_apply(p["shared"], xt, cfg.act_fn)
     return y.reshape(b, l, d), aux
+
+
+def _dispatch_capacity(w, xt, gate_vals, expert_ids, cfg, capacity_factor):
+    """Capacity-routed expert compute for one flat token matrix; returns
+    the combined (T, d) routed output in fp32.  Sows ``experts_dropped``
+    ([dropped, total] routed choices) and the (E, C, n) buffers
+    ``experts_in`` / ``experts_down_in`` that calibration reads."""
+    t, d = xt.shape
+    k = cfg.moe.top_k
+    e = cfg.moe.num_experts
+    cap = max(int(math.ceil(t * k / e * capacity_factor)), k)
+
+    # slot of each choice within its expert, choice-major priority
+    flat_ids = expert_ids.T.reshape(-1)                          # (kT,)
+    onehot = torch.nn.functional.one_hot(flat_ids, e)            # (kT, E)
+    slot = ((torch.cumsum(onehot, dim=0) - 1) * onehot).sum(1)
+    keep = slot < cap
+    # dropped choices land on the spare row e·cap, sliced away
+    dest = torch.where(keep, flat_ids * cap + slot,
+                       torch.full_like(slot, e * cap))
+    gates_flat = gate_vals.T.reshape(-1) * keep.float()
+    if L.tapping():
+        L.sow("experts_dropped", torch.stack(
+            [(1.0 - keep.float()).sum(),
+             torch.full((), float(k * t), device=xt.device)]))
+
+    rows = xt.repeat(k, 1)                                       # (kT, d)
+    buf = xt.new_zeros((e * cap + 1, d)).index_copy(0, dest, rows)
+    buf = buf[:e * cap].reshape(e, cap, d)
+    L.sow("experts_in", buf)
+    h = L.act(cfg.act_fn, bank_apply(w["gate"], buf)) \
+        * bank_apply(w["up"], buf)
+    L.sow("experts_down_in", h)
+    y_buf = bank_apply(w["down"], h).reshape(e * cap, d)
+
+    # gather-combine: the spare row reads zeros; k choices in order
+    y_buf = torch.cat([y_buf, y_buf.new_zeros((1, d))])
+    y_rows = y_buf.index_select(0, dest).float() * gates_flat[:, None]
+    y = xt.new_zeros((t, d), dtype=torch.float32)
+    for j in range(k):
+        y = y + y_rows[j * t:(j + 1) * t]
+    return y
+
+
+def bank_apply(bp, x):
+    """Batched expert GEMM.  x: (E, C, d_in); bank dense {"w": (E, d_in,
+    d_out)} or factorized {"u": (E, k, d_out), "v": (E, d_in, k)}; the bank
+    is cast to the buffer's dtype first, as the JAX package does."""
+    if "w" in bp:
+        return torch.einsum("ecd,edf->ecf", x, bp["w"].to(x.dtype))
+    t = torch.einsum("ecd,edk->eck", x, bp["v"].to(x.dtype))
+    return torch.einsum("eck,ekf->ecf", t, bp["u"].to(x.dtype))
 
 
 def _dispatch_dropfree(w, xt, gate_vals, expert_ids, cfg):

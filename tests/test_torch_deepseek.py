@@ -196,13 +196,6 @@ def test_params_untouched_and_ratio_report(run):
     assert got == want
 
 
-def test_capacity_dispatch_raises_before_any_work():
-    tcfg = TC.get_smoke_config(ARCH).replace(dtype="float32")
-    with pytest.raises(NotImplementedError, match="capacity"):
-        TP.compress_model({}, tcfg, {"tokens": [[0, 1]]},
-                          TP.CompressConfig(), device="cpu")
-
-
 def test_refinement_steps_the_expert_banks(run):
     # one refine epoch moves every leaf of the MoE unit — the factorized
     # expert banks and the router included — away from the closed-form

@@ -256,12 +256,10 @@ def test_moe_apply_backward_matches_reference():
                                    rtol=1e-4, atol=1e-5)
 
 
-def test_capacity_dispatch_is_not_ported():
+def test_unknown_dispatch_raises():
     jcfg, tcfg = _cfgs()
     _, tp = _moe_params(jcfg)
     x = torch.zeros(1, 4, tcfg.d_model)
-    with pytest.raises(NotImplementedError, match="capacity"):
-        tmlp.moe_apply(tp, x, tcfg, dispatch="capacity")
     with pytest.raises(ValueError, match="unknown moe dispatch"):
         tmlp.moe_apply(tp, x, tcfg, dispatch="bogus")
 

@@ -38,6 +38,8 @@ LOWRANK_ROWS: Dict[int, int] = collections.Counter()
 FLASH_BODIES: Dict[str, int] = collections.Counter()
 # flash_decode's launches by its plan's keys body
 DECODE_BODIES: Dict[str, int] = collections.Counter()
+# grouped_matmul's launches by routed row count M
+GROUPED_ROWS: Dict[int, int] = collections.Counter()
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -48,6 +50,7 @@ def reset_launches() -> None:
     LOWRANK_ROWS.clear()
     FLASH_BODIES.clear()
     DECODE_BODIES.clear()
+    GROUPED_ROWS.clear()
 
 
 def pad_dim(x: torch.Tensor, axis: int, multiple: int) -> torch.Tensor:
@@ -602,6 +605,7 @@ def _grouped_kernel(x, w, group_sizes, trans=False):
     y = torch.empty((m, p.n), dtype=x.dtype, device=x.device)
     _gm.launch(p, xk, wk, group_sizes.contiguous(), y)
     LAUNCHES["grouped_matmul"] += 1
+    GROUPED_ROWS[m] += 1
     return y if p.n == n else y[:, :n].contiguous()
 
 

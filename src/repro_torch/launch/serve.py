@@ -7,16 +7,25 @@ on the card unless the caller passes ``device="cpu"``; the params are moved
 there (no copy when they already live there).
 
 ``Server`` — fixed batch: one prefill of every prompt, then lock-step
-decode.  Its cache is built WITHOUT params, so it is always dense:
-prefill through ``gqa_prefill`` and decode through ``gqa_decode``, both on
-the ``flash_attention`` kernel (decode with Lq = 1 at one position).
+decode.  Its cache is built WITHOUT params.  For llama's ``"attn"`` blocks
+it is dense: prefill through ``gqa_prefill`` and decode through
+``gqa_decode``, both on the ``flash_attention`` kernel (decode with Lq = 1
+at one position).  For deepseek's MLA blocks it is the compressed {"c",
+"kr"} cache: whole prefill through ``mla_prefill`` (``flash_attention`` at
+head dim 192) and decode through ``mla_decode`` (absorbed fp32 einsums).
 
 ``ContinuousBatchingServer`` — the engine.  The cache is allocated once for
 ``slots`` sequences of ``max_len`` positions with the params, so a
-compressed model gets the latent {"lk", "lv"} layout: prefill through
+compressed llama gets the latent {"lk", "lv"} layout: prefill through
 ``gqa_prefill_latent`` (``flash_attention`` over the up-projected cache) and
 decode through ``gqa_decode_latent`` (the ``flash_decode`` kernel);
-``cache_layout="dense"`` forces dense k/v everywhere.  ``run(requests)``
+``cache_layout="dense"`` forces dense k/v everywhere.  MLA blocks keep
+{"c", "kr"} under either layout: chunked prefill through
+``mla_prefill_cached`` and decode through ``mla_decode`` (absorbed), whole
+prefill through ``mla_prefill``.  Under deepseek's capacity MoE dispatch
+the outputs depend on the batch, as in the JAX package: the zero rows
+``Server`` pads to its batch, the zero tokens of a padded prefill bucket
+and the parked slots of a decode step all take capacity slots.  ``run(requests)``
 admits requests into free slots once their ``arrival`` offset has passed,
 prefills each alone (``cache_slot_take`` -> prefill -> ``cache_slot_put``,
 whole or in ``prefill_chunk``-wide chunks), then decodes ALL slots as one
@@ -28,6 +37,8 @@ decode step of the last run (each ends in a host read of the tokens, which
 waits for the card).
 
     python -m repro_torch.launch.serve --arch llama-7b --smoke --ratio 0.6 \\
+        [--engine] [--device cpu]
+    python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --smoke \\
         [--engine] [--device cpu]
 
 ``Server.from_checkpoint`` is not ported yet (it needs the checkpoint

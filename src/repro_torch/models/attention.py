@@ -6,10 +6,10 @@ decode paths ``_cache_write`` :161, ``gqa_decode`` :174,
 ``gqa_prefill_cached`` :186 and ``_decode_attention`` :204 (without its
 sequence-parallel mesh branch), and the factorized latent-cache paths
 ``latent_ranks`` :528, ``_latent_kv`` :546, ``gqa_prefill_latent`` :554 and
-``gqa_decode_latent`` :583, and the MLA prefill path ``mla_init`` /
-``_mla_q`` / ``_mla_ckv`` / ``mla_prefill`` / ``_pad_last`` :378-449.  MLA's
-cache paths (``mla_decode``, ``mla_prefill_cached``,
-``_mla_absorbed_attend``) come with the deepseek serving slice.
+``gqa_decode_latent`` :583, and MLA: the expanded prefill path ``mla_init``
+/ ``_mla_q`` / ``_mla_ckv`` / ``mla_prefill`` / ``_pad_last`` :378-449 and
+the compressed-cache paths over {"c", "kr"} ``_mla_absorbed_attend`` :451,
+``mla_decode`` :481 and ``mla_prefill_cached`` :499.
 
 Every attention product goes through the hand-written kernels on the card:
 ``flash_attention`` (prefill, MLA prefill at head dim 192, chunked and
@@ -307,11 +307,14 @@ def _pad_last(x, to: int):
     return x if pad == 0 else F.pad(x, (0, pad))
 
 
-def mla_prefill(p, x, cfg, cos, sin, *, chunk: int = 512):
+def mla_prefill(p, x, cfg, cos, sin, *, chunk: int = 512,
+                return_cache: bool = False):
     """Expanded path: decompress per-token k/v from the latent, run
     ``flash_attention`` as MHA at head dim qk_nope + qk_rope (v zero-padded
     to it, the padded output columns sliced away).  ``cos`` / ``sin`` are
-    tables over ``qk_rope_head_dim``."""
+    tables over ``qk_rope_head_dim``.  ``return_cache`` also returns the
+    compressed cache entries (c (B, L, kv_lora_rank) after ``kv_norm``,
+    k_rope (B, L, qk_rope_head_dim) after RoPE)."""
     b, l, _ = x.shape
     h, m = cfg.num_heads, cfg.mla
     q_nope, q_rope = _mla_q(p, x, cfg, cos, sin)
@@ -326,4 +329,83 @@ def mla_prefill(p, x, cfg, cos, sin, *, chunk: int = 512):
                         chunk=chunk)[..., :m.v_head_dim]
     o = o.reshape(b, l, -1)
     L.sow("o_in", o)
-    return L.linear(p["wo"], o)
+    out = L.linear(p["wo"], o)
+    if return_cache:
+        return out, (c, k_rope)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MLA against the compressed {"c", "kr"} cache (absorbed path)
+
+NEG_INF = -1e30
+
+
+def _composed(lin):
+    """A kv up-projection's dense (r, out) matrix: its "w", or v @ u of a
+    factorized pair (a plain matmul, as the JAX package composes it)."""
+    return lin["w"] if "w" in lin else torch.matmul(lin["v"], lin["u"])
+
+
+def _mla_absorbed_attend(p, q_nope, q_rope, cache_c, cache_kr, q_pos, cfg):
+    """Attend against the compressed cache with W_uk / W_uv absorbed.
+
+    q_nope / q_rope: (B, Lq, H, ·); caches (B, Lmax, r / rope_dim).
+    ``q_pos`` is a (1|B, Lq) tensor of absolute query positions: (1, 1) for
+    one position, (B, 1) per slot, (1, Lq) for a chunk; keys past a query's
+    position are masked.  W_uk folds into the query and W_uv into the
+    context, so the cache stays compressed.  Every product is fp32 over the
+    whole cache.  Returns (B, Lq, H, v_head_dim) fp32."""
+    h, m = cfg.num_heads, cfg.mla
+    r = m.kv_lora_rank
+    f32 = torch.float32
+    wk_b = _composed(p["wk_b"]).reshape(r, h, m.qk_nope_head_dim)
+    q_eff = torch.einsum("bqhd,rhd->bqhr", q_nope.to(f32), wk_b.to(f32))
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    c = cache_c.to(f32)
+    s = (torch.einsum("bqhr,blr->bhql", q_eff, c)
+         + torch.einsum("bqhd,bld->bhql", q_rope.to(f32),
+                        cache_kr.to(f32))) * scale
+    keys = torch.arange(cache_c.shape[1], device=cache_c.device)
+    valid = keys[None, None] <= q_pos[..., None]      # (1|B, Lq, Lmax)
+    s = s.masked_fill(~valid[:, None], NEG_INF)
+    pattn = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhql,blr->bqhr", pattn, c)
+    wv_b = _composed(p["wv_b"]).reshape(r, h, m.v_head_dim)
+    return torch.einsum("bqhr,rhd->bqhd", ctx, wv_b.to(f32))
+
+
+def mla_decode(p, x, cache_c, cache_kr, pos, cfg, cos, sin):
+    """Absorbed decode: write this token's {c, kr} at ``pos`` (an int, or a
+    per-slot (B,) tensor) and score against the compressed cache.
+    x: (B, 1, d); cache_c (B, Lmax, r); cache_kr (B, Lmax, rope_dim)."""
+    b = x.shape[0]
+    q_nope, q_rope = _mla_q(p, x, cfg, cos, sin)
+    c_t, kr_t = _mla_ckv(p, x, cfg, cos, sin)
+    cache_c = _cache_write(cache_c, c_t, pos)
+    cache_kr = _cache_write(cache_kr, kr_t, pos)
+    if _per_slot(pos):
+        q_pos = pos[:, None]
+    else:
+        q_pos = torch.full((1, 1), int(pos), device=x.device)
+    o = _mla_absorbed_attend(p, q_nope, q_rope, cache_c, cache_kr, q_pos,
+                             cfg)
+    out = L.linear(p["wo"], o.reshape(b, 1, -1).to(x.dtype))
+    return out, cache_c, cache_kr
+
+
+def mla_prefill_cached(p, x, cache_c, cache_kr, start: int, cfg, cos, sin):
+    """Chunked prefill for MLA: write this chunk's {c, kr} at ``start``,
+    then run the absorbed path against the whole cache (unwritten future
+    positions masked).  Absorbed and expanded prefill are different
+    arithmetic: they agree to fp32 rounding, not bit for bit."""
+    b, l, _ = x.shape
+    q_nope, q_rope = _mla_q(p, x, cfg, cos, sin)
+    c, kr = _mla_ckv(p, x, cfg, cos, sin)
+    cache_c = _write_at(cache_c, c, start)
+    cache_kr = _write_at(cache_kr, kr, start)
+    q_pos = (start + torch.arange(l, device=x.device))[None]
+    o = _mla_absorbed_attend(p, q_nope, q_rope, cache_c, cache_kr, q_pos,
+                             cfg)
+    out = L.linear(p["wo"], o.reshape(b, l, -1).to(x.dtype))
+    return out, cache_c, cache_kr

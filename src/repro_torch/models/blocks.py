@@ -5,8 +5,10 @@ Counterpart of ``src/repro/models/blocks.py`` (``stage_program`` :43,
 ``init_sub_cache`` :207, ``prefill_sub_block`` :256, ``decode_sub_block``
 :334) for the dense family's ``"attn"`` kind and deepseek's
 ``"mla_dense_first"`` / ``"mla_moe"`` kinds (MLA attention; a dense FFN or
-a drop-free MoE).  The MLA kinds have no cache paths yet: serving deepseek
-is its own slice.  A stage with ``scan=True`` and ``n > 1`` stacks its
+a MoE under either dispatch).  Every kind has its cache paths: ``"attn"``
+a dense {"k", "v"} or latent {"lk", "lv"} cache, the MLA kinds their own
+compressed {"c", "kr"} cache (expanded whole prefill, absorbed chunked
+prefill and decode).  A stage with ``scan=True`` and ``n > 1`` stacks its
 sub-block params (and caches) on a leading axis, as the JAX package does;
 the port walks that axis in a Python loop.
 """
@@ -107,14 +109,6 @@ def apply_sub_block(kind: str, p, x, cfg, ctx):
         return x + M.ffn_apply(p["ffn"], h2, cfg.act_fn), zero
 
 
-def _check_cache_kind(kind: str) -> None:
-    if kind.startswith("mla"):
-        raise _not_ported(f"the cache paths of sub-block kind {kind!r} "
-                          "(MLA decode)", "deepseek serving")
-    if kind != "attn":
-        raise _not_ported(f"sub-block kind {kind!r}", "later")
-
-
 # ---------------------------------------------------------------------------
 # caches
 
@@ -123,9 +117,11 @@ def latent_layout(kind: str, params, cfg) -> Optional[Tuple[int, int]]:
     """(rank_k, rank_v) when this sub-block can store the factorized rank-r
     kv latent instead of dense k/v: bias-free factorized wk AND wv, no
     qk-norm (applied after the up-projection, so it cannot be absorbed) and
-    no logit softcap (the decode kernel has none)."""
-    _check_cache_kind(kind)
-    if params is None or cfg.qk_norm or cfg.attn_logit_softcap:
+    no logit softcap (the decode kernel has none).  MLA kinds keep their
+    own compressed cache: ``None``."""
+    _check_kind(kind)
+    if (params is None or kind.startswith("mla") or cfg.qk_norm
+            or cfg.attn_logit_softcap):
         return None
     return A.latent_ranks(params.get("attn")) if isinstance(params, dict) \
         else None
@@ -133,11 +129,17 @@ def latent_layout(kind: str, params, cfg) -> Optional[Tuple[int, int]]:
 
 def init_sub_cache(kind: str, cfg, batch: int, max_len: int, dtype,
                    params=None, *, device="cpu"):
-    """Zero cache for one sub-block: the latent {"lk", "lv"} layout (rank-r
-    floats per token) when ``params`` has factorized kv projections, else
-    dense {"k", "v"}."""
-    ranks = latent_layout(kind, params, cfg)
+    """Zero cache for one sub-block: MLA's compressed {"c", "kr"}
+    (kv_lora_rank + qk_rope_head_dim floats per token); for ``"attn"`` the
+    latent {"lk", "lv"} layout (rank-r floats per token) when ``params`` has
+    factorized kv projections, else dense {"k", "v"}."""
     kw = dict(dtype=dtype, device=device)
+    if kind.startswith("mla"):
+        m = cfg.mla
+        return {"c": torch.zeros((batch, max_len, m.kv_lora_rank), **kw),
+                "kr": torch.zeros((batch, max_len, m.qk_rope_head_dim),
+                                  **kw)}
+    ranks = latent_layout(kind, params, cfg)
     if ranks is not None:
         return {"lk": torch.zeros((batch, max_len, ranks[0]), **kw),
                 "lv": torch.zeros((batch, max_len, ranks[1]), **kw)}
@@ -150,14 +152,23 @@ def prefill_sub_block(kind: str, p, x, cache, cfg, ctx):
     """Forward over the prompt, filling the cache (in place) from
     ``ctx["pos"]``.  ``ctx["chunked"]`` attends against the WHOLE cache with
     absolute-position masking, so a prompt can be prefilled chunk by chunk.
-    Returns (x, cache, aux)."""
-    _check_cache_kind(kind)
+    Returns (x, cache, aux).  MLA's chunked path (absorbed) and whole path
+    (expanded) are different arithmetic, equal to a tolerance."""
+    _check_kind(kind)
     start = ctx.get("pos", 0)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
     cos, sin = ctx["cos"], ctx["sin"]
     h = L.apply_norm(p["ln1"], x, eps=cfg.norm_eps)
     cache = dict(cache)
-    if "lk" in cache:
+    if kind.startswith("mla"):
+        if ctx.get("chunked"):
+            attn_out, cache["c"], cache["kr"] = A.mla_prefill_cached(
+                p["attn"], h, cache["c"], cache["kr"], start, cfg, cos, sin)
+        else:
+            attn_out, (c, kr) = A.mla_prefill(p["attn"], h, cfg, cos, sin,
+                                              return_cache=True)
+            cache["c"] = A._write_at(cache["c"], c, start)
+            cache["kr"] = A._write_at(cache["kr"], kr, start)
+    elif "lk" in cache:
         attn_out, cache["lk"], cache["lv"] = A.gqa_prefill_latent(
             p["attn"], h, cache["lk"], cache["lv"], start, cfg, cos, sin,
             theta=cfg.rope_theta)
@@ -171,18 +182,25 @@ def prefill_sub_block(kind: str, p, x, cache, cfg, ctx):
         cache["v"] = A._write_at(cache["v"], v, start)
     x = x + attn_out
     h2 = L.apply_norm(p["ln2"], x, eps=cfg.norm_eps)
+    if kind == "mla_moe":
+        y, aux = M.moe_apply(p["ffn"], h2, cfg)
+        return x + y, cache, aux
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + M.ffn_apply(p["ffn"], h2, cfg.act_fn), cache, zero
 
 
 def decode_sub_block(kind: str, p, x, cache, cfg, ctx):
     """x: (B, 1, d) -> (x, cache), the cache updated in place at
     ``ctx["pos"]`` (an int or a per-slot (B,) tensor)."""
-    _check_cache_kind(kind)
+    _check_kind(kind)
     pos = ctx["pos"]
     cos, sin = ctx["cos"], ctx["sin"]
     h = L.apply_norm(p["ln1"], x, eps=cfg.norm_eps)
     cache = dict(cache)
-    if "lk" in cache:
+    if kind.startswith("mla"):
+        attn_out, cache["c"], cache["kr"] = A.mla_decode(
+            p["attn"], h, cache["c"], cache["kr"], pos, cfg, cos, sin)
+    elif "lk" in cache:
         attn_out, cache["lk"], cache["lv"] = A.gqa_decode_latent(
             p["attn"], h, cache["lk"], cache["lv"], pos, cfg, cos, sin,
             theta=cfg.rope_theta)
@@ -191,4 +209,6 @@ def decode_sub_block(kind: str, p, x, cache, cfg, ctx):
             p["attn"], h, cache["k"], cache["v"], pos, cfg, cos, sin)
     x = x + attn_out
     h2 = L.apply_norm(p["ln2"], x, eps=cfg.norm_eps)
+    if kind == "mla_moe":
+        return x + M.moe_apply(p["ffn"], h2, cfg)[0], cache
     return x + M.ffn_apply(p["ffn"], h2, cfg.act_fn), cache

@@ -130,8 +130,8 @@ def rope_table(positions, head_dim: int, theta: float):
     half = head_dim // 2
     exps = -torch.arange(0, half, dtype=torch.float32,
                          device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=positions.device), exps)
+    # a Python base: no host-to-device copy (which synchronizes)
+    freqs = torch.pow(float(theta), exps)
     angles = positions.float()[..., None] * freqs
     return torch.cos(angles), torch.sin(angles)
 

@@ -145,7 +145,8 @@ def init_cache(cfg, batch: int, max_len: int, *,
     ``params`` is given, else the card).  With ``params``, attention
     sub-blocks whose kv projections are factorized get the latent
     {"lk", "lv"} layout (rank-r floats per token), which the flash_decode
-    kernel up-projects; without ``params`` the layout is always dense."""
+    kernel up-projects; without ``params`` the layout is dense.  MLA
+    sub-blocks always get their compressed {"c", "kr"} cache."""
     if device is None and params is not None:
         device = params["embed"]["table"].device
     dev = resolve_device(device)
@@ -220,8 +221,12 @@ def prefill(params, cfg, batch, cache, *, pos: int = 0,
     ``chunked=True`` attends against the whole cache with absolute-position
     masking, so a prompt can be prefilled in chunks.  ``last_idx`` picks
     the logits row (a prompt right-padded to a chunk width); default: the
-    last row.  Runs under ``ops.batch_invariant``, so every chunking of a
-    prompt gives the logits and cache of whole prefill."""
+    last row.  Runs under ``ops.batch_invariant``, so for ``"attn"`` blocks
+    every chunking of a prompt gives the logits and cache of whole
+    prefill.  Not for MLA blocks, whose chunked path (absorbed) and whole
+    path (expanded) are different arithmetic and agree to a tolerance, nor
+    under the capacity MoE dispatch, whose outputs depend on the tokens
+    routed together (in the JAX package too)."""
     with ops.batch_invariant():
         return _prefill(params, cfg, batch, cache, pos, chunked, last_idx)
 
@@ -249,7 +254,7 @@ def decode_step(params, cfg, cache, tokens, pos):
     if torch.is_tensor(pos) and pos.dim() == 1:
         positions = pos[:, None]
     else:
-        positions = torch.tensor([int(pos)], device=x.device)
+        positions = torch.full((1,), int(pos), device=x.device)
     ctx = make_ctx(cfg, positions)
     ctx["pos"] = pos
     for st, sp, sc in zip(B.stage_program(cfg), params["stages"], cache):

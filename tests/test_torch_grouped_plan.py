@@ -300,6 +300,7 @@ def test_wrapper_launches_the_plan(monkeypatch):
     ops._grouped_kernel(torch.zeros(0, 2048, dtype=torch.bfloat16, **meta),
                         w, gs)
     assert ops.LAUNCHES["grouped_matmul"] == 3 and len(seen) == 3
+    assert dict(ops.GROUPED_ROWS) == {24576: 1, 48: 1, 33: 1}
 
 
 def test_backward_runs_dx_on_the_bank_as_it_lies(monkeypatch):

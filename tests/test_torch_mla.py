@@ -165,12 +165,6 @@ def test_stage_program_matches_reference():
             == want
 
 
-def test_mla_cache_paths_wait_for_their_slice():
-    _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="deepseek serving"):
-        TM.init_cache(tcfg, 1, 8, device="cpu")
-
-
 @pytest.mark.parametrize("d", [150, 192])
 def test_head_dim_192_is_compiled(d):
     # MLA prefill's head dim (qk_nope 128 + qk_rope 64) has its own kernel

@@ -238,11 +238,17 @@ def test_latent_decode_equals_dense_decode(models):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("arch,ratio", [("llama-7b", "0.6"),
+                                        ("deepseek-v2-lite-16b", None)])
 @pytest.mark.parametrize("engine", [False, True])
-def test_serve_main_on_cpu(engine, capsys):
-    argv = ["--arch", "llama-7b", "--smoke", "--ratio", "0.6", "--batch",
-            "2", "--prompt-len", "8", "--steps", "4", "--device", "cpu"]
+def test_serve_main_on_cpu(engine, arch, ratio, capsys):
+    # llama compressed before serving; deepseek served dense under its own
+    # capacity dispatch over MLA's {"c", "kr"} cache
+    argv = ["--arch", arch, "--smoke", "--batch", "2", "--prompt-len", "8",
+            "--steps", "4", "--device", "cpu"]
+    argv += ["--ratio", ratio] if ratio else []
     toks = TS.main(argv + (["--engine"] if engine else []))
     assert toks.shape == (2, 4)
     assert ((0 <= toks) & (toks < 256)).all()
-    assert "compressed to ratio 0.6" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert ("compressed to ratio 0.6" in out) == (ratio is not None)

@@ -31,13 +31,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
              its rows bit for bit the same when
              they run again behind extra rows of other experts (every
              segment offset moved; bf16, forward and dx); ``flash_attention``
-             at MLA prefill's head dim 192, its split body (Lq 1) at decode
-             and a ragged shape, with ``device_ms`` / ``library_device_ms``
+             at MLA prefill's head dim 192, at gemma3's head dim 256 (a
+             local layer's windowed prefill, a global layer's, the Server's
+             8 x 512 prompts, decode over a global layer's dense cache, and
+             ragged D-256 shapes through every body), its split body (Lq 1)
+             at decode and a ragged shape, with ``device_ms`` / ``library_device_ms``
              beside ``ms`` and, where the mask is plain causal at offset 0,
              ``scaled_dot_product_attention(is_causal=True)`` as a second
              yardstick (``library_causal_ms``); the prefill case's rows
-             bit for bit the same when computed again inside chunks of 256,
-             8 and 1 rows under ``batch_invariant``, and two split-body
+             (and gemma3's windowed D-256 rows) bit for bit the same when
+             computed again inside chunks of 256, 8 and 1 rows under
+             ``batch_invariant``, and two split-body
              calls bit for bit equal.  ``lowrank_matmul`` at T 4096,
              256 and 8 for each llama shape, ragged T through every body,
              and T 1-64 with each bf16 body forced; beside its ``ms`` (one
@@ -60,9 +64,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
              100, E 3), each bank against the plain version and exactly
              symmetric; two calls bitwise equal, and a bank's bits
              unchanged when every other bank gets new inputs.  ``flash_decode`` at the llama-7b serving case
-             (8 slots, lengths 256-2048, rank 1232) and two ragged ones
+             (8 slots, lengths 256-2048, rank 1232), granite-3-8b's GQA
+             one (32 query heads on 8 KV heads, rank 496), and ragged ones
              (D 16 with odd ranks; bf16 D 64 with 4 query heads a KV
-             head), fp32 and bf16, with the plan's keys body, ``device_ms``
+             head; granite's and phi3-medium's smoke head dims 8 and 20),
+             fp32 and bf16, with the plan's keys body, ``device_ms``
              beside ``ms`` and two bounds (fp32 FMA, and the tensor-core
              work of the bf16 body); each slot of the llama case computed
              alone (one slot, its cache cut to its own length) bit for bit
@@ -83,7 +89,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
              choices and the report's drop rates exactly equal card against
              CPU.  Each compressed deepseek smoke model is then served on
              both the same way, over MLA's {"c", "kr"} cache under its
-             dispatch.
+             dispatch.  Then qwen3, granite, phi3-medium and gemma3 smoke
+             (16 x 32 tokens) the same way as llama: ranks equal, maps and
+             loss held, served on both with equal tokens (gemma3's prompts
+             past its window of 8, so the rings wrap).
 5. main    — Algorithm 2 on llama-7b at its published widths, depth cut to
              2 layers, random weights from a seeded ``torch.Generator``:
              calibration 8 × 1024 tokens, ratio 0.6, fused calibration, one
@@ -141,6 +150,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
              syncs (``set_sync_debug_mode``: none in ``decode_step``, the
              engine step's own uploads and read counted) and one profiled
              engine run's device time by kernel and busy share.
+10. gemma  — gemma3-1b at its published widths (head dim 256, 4 query
+             heads on 1 KV head, window 512, RoPE theta 1e4 local / 1e6
+             global), depth cut 26 -> 8 (one 5 local + 1 global group, then
+             the 2-layer local remainder stage), random weights: phase 5's
+             recipe, then served at phase 6's shapes by ``Server`` and the
+             engine (every request exact-length whole prefill, prompts past
+             512 write the ring's L >= W branch); counts zeroed before each
+             run: ``flash_attention`` in the wgmma body (prefill, D 256) and
+             the split body (decode of the global layers) > 0,
+             ``flash_decode`` == 0 (qk_norm keeps the caches dense); decode
+             against one forward over 608 positions across the rings' wrap
+             (fp32 1e-3; bf16 within twice the bf16 forward's own distance
+             from fp32); ring cache bytes against an all-dense cache;
+             ``decode_step`` under ``set_sync_debug_mode("error")``; one
+             profiled engine run.
 
 It prints a ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Long output goes to
@@ -217,28 +241,43 @@ SIZES = {
     # latent prefill against a 2048 cache, dense decode of 8 slots), the
     # fourth deepseek-v2-lite's MLA prefill in phase 7 (microbatch 4, 16
     # heads, head dim qk_nope 128 + qk_rope 64), the fifth its whole prefill
-    # in phase 9's Server (8 x 512); all but "ragged" are timed
+    # in phase 9's Server (8 x 512); then gemma3-1b's head dim 256 (4 query
+    # heads on 1 KV head) as phase 10 runs it: a local layer's windowed
+    # prefill and a global layer's in compression (microbatch 4 x 1024),
+    # the Server's 8 x 512 prompts, and decode over a global layer's dense
+    # cache of 8 slots (the split body); all but "ragged" are timed
     "flash_attention": (
         ("prefill", 1, 32, 32, 1024, 1024, 128, True, 0, 0.0, 0),
         ("chunk", 1, 32, 32, 256, 2048, 128, True, 0, 0.0, 768),
         ("decode", 8, 32, 32, 1, 2048, 128, True, 0, 0.0, (100, 2047)),
         ("mla_prefill", 4, 16, 16, 1024, 1024, 192, True, 0, 0.0, 0),
         ("mla_server", 8, 16, 16, 512, 512, 192, True, 0, 0.0, 0),
+        ("gemma_local", 4, 4, 1, 1024, 1024, 256, True, 512, 0.0, 0),
+        ("gemma_global", 4, 4, 1, 1024, 1024, 256, True, 0, 0.0, 0),
+        ("gemma_server", 8, 4, 1, 512, 512, 256, True, 512, 0.0, 0),
+        ("gemma_decode", 8, 4, 1, 1, 2048, 256, True, 0, 0.0, (100, 2047)),
         ("ragged", 2, 4, 2, 77, 77, 16, True, 16, 30.0, 0)),
     # flash_attention at ragged shapes through its new bodies: the split
     # body (Lq 1 outside batch_invariant; "decode" above is the other split
     # case) and the wgmma body (bf16; fp32 takes the FMA body) with GQA,
     # window, soft cap, per-slot offsets, Lk not a multiple of the key
     # tile, a query block whose second warpgroup holds no row; and
-    # non-causal at head dim 192 with Lq > Lk
+    # non-causal at head dim 192 with Lq > Lk; at head dim 256 (g 4) a
+    # window, per-slot offsets and Lk not a multiple of the key tile through
+    # the wgmma and fp32 tile bodies, and the same through the split body
     "flash_attention_ragged": (
         ("ragged_decode", 3, 4, 2, 1, 77, 16, True, 16, 30.0, (0, 76)),
         ("ragged_wgmma", 2, 4, 2, 77, 200, 64, True, 48, 30.0, (5, 100)),
-        ("noncausal_d192", 1, 2, 1, 130, 70, 192, False, 0, 0.0, 0)),
-    # the row-invariance check: the prefill case's rows computed again in
-    # chunks of Lq rows starting at these rows, under batch_invariant
+        ("noncausal_d192", 1, 2, 1, 130, 70, 192, False, 0, 0.0, 0),
+        ("ragged_d256", 3, 4, 1, 70, 333, 256, True, 100, 0.0, (5, 263)),
+        ("ragged_decode_d256", 3, 4, 1, 1, 333, 256, True, 100, 0.0,
+         (0, 332))),
+    # the row-invariance check: the prefill case's rows (and gemma_local's,
+    # head dim 256 with a window) computed again in chunks of Lq rows
+    # starting at these rows, under batch_invariant
     "flash_attention_rows": ((256, (0, 256, 512, 768)), (8, (0, 100, 1016)),
                              (1, (0, 77, 1023))),
+    "flash_attention_rows_cases": ("prefill", "gemma_local"),
     # grouped_matmul: (name, M, d, f, E) — phase 7's expert GEMMs, M = 4 x
     # 1024 tokens x top-6 routed rows over 64 experts: the dense bank's
     # gate/up and down, the factorized banks' x @ V and t @ U at rank 504;
@@ -276,16 +315,43 @@ SIZES = {
     # D 16 with odd ranks (the FMA body in both dtypes), and D 64 with 4
     # query heads a KV head, L not a multiple of the 256-key span, a slot
     # of length 1 (the wgmma body in bf16)
+    # granite-3-8b's full-width GQA decode (32 query heads on 8 KV heads,
+    # wk / wv at rank 496 = ranks.rank_for_ratio(1024, 4096, 0.6)) is timed
+    # too; then granite's and phi3-medium's smoke head dims 8 and 20 (the
+    # FMA body; RoPE pairs 4 and 10 dims)
     "flash_decode": (
         ("llama", 8, 32, 32, 128, 1232, 1232, 2048, (256, 2048)),
+        ("granite", 8, 32, 8, 128, 496, 496, 2048, (256, 2048)),
         ("ragged", 3, 4, 2, 16, 19, 24, 77, (1, 77)),
-        ("ragged_d64_g4", 5, 8, 2, 64, 200, 77, 700, (1, 700))),
+        ("ragged_d64_g4", 5, 8, 2, 64, 200, 77, 700, (1, 700)),
+        ("ragged_d8_g4", 3, 8, 2, 8, 24, 20, 300, (1, 300)),
+        ("ragged_d20", 3, 4, 2, 20, 32, 19, 90, (1, 90))),
+    "flash_decode_timed": ("llama", "granite"),
     # serving: Server (batch, prompt, steps, max_len) on the dense model;
     # the engine (slots, max_len, chunk, requests, prompt lo/hi, steps) on
     # the compressed one; the teacher-forced checks (prompt, steps, max_len)
     "serve_dense": (8, 512, 32, 1024),
     "serve_engine": (8, 2048, 256, 12, (128, 1024), 64),
     "serve_check": (512, 16, 1024),
+    # phase 4: the dense-attention archs whose smoke configs are compressed
+    # and served card against CPU beside llama's
+    "smoke_archs": ("qwen3-0.6b", "granite-3-8b", "phi3-medium-14b",
+                    "gemma3-1b"),
+    # their calibration: 16 x 32 uniform tokens.  The card-vs-CPU gap of
+    # the composed maps grows with depth (each unit solves on the stream the
+    # compressed units before it made): on gemma3 smoke's 6 layers at 8 x
+    # 32 it rose from 4e-6 (unit 0) to 1.25e-3 (unit 5) with the unit MSEs
+    # equal to 5 digits; at 16 x 32 the worst was 2.6e-4 (this script's
+    # phase 4 on an H100)
+    "smoke_calib": (16, 32),
+    # phase 10: gemma3-1b at its published widths, depth cut 26 -> 8: one
+    # 5 local + 1 global group, then the 2-layer local remainder stage, so
+    # both stages run (all 26 layers took the phase 148 s on an H100, 97 s
+    # of it the teacher-forced check's host-bound decode steps); the check
+    # (prompt, decode steps, max_len): 608 decode positions, 32-639, past
+    # the 512-slot rings
+    "gemma_layers": 8,
+    "gemma_check": (32, 608, 1024),
 }
 
 
@@ -978,19 +1044,22 @@ def check_flash_attention(torch, np, ops, ref, case, dtype, timed, dev):
         if window:
             mask &= kpos > qpos - window
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        masked = None if softcap or kv != h else (
-            lambda: sdpa(qt, kt, vt, attn_mask=mask))
+        # grouped-query heads through enable_gqa (gemma3: 4 on 1)
+        gqa = {} if kv == h else {"enable_gqa": True}
+        masked = None if softcap else (
+            lambda: sdpa(qt, kt, vt, attn_mask=mask, **gqa))
         row["library_ms"] = None if masked is None else time_ms(masked)
         row["library_device_ms"] = (None if masked is None
                                     else device_ms(masked))
         # a second yardstick where the mask is plain causal at offset 0:
         # is_causal may reach SDPA's flash backend, a boolean mask may not
-        plain_causal = (causal and not window and not softcap and kv == h
-                        and lq == lk and not any(offs))
+        # (a window as long as Lk masks nothing more)
+        plain_causal = (causal and (not window or window >= lk)
+                        and not softcap and lq == lk and not any(offs))
         row["library_causal_ms"] = row["library_causal_device_ms"] = None
         if plain_causal:
             def causal_call():
-                return sdpa(qt, kt, vt, is_causal=True)
+                return sdpa(qt, kt, vt, is_causal=True, **gqa)
             row["library_causal_ms"] = time_ms(causal_call)
             row["library_causal_device_ms"] = device_ms(causal_call)
         eb = q.element_size()
@@ -1059,10 +1128,11 @@ def phase_flash_attention(torch, np, ops, ref, dev="cuda", sizes=SIZES):
                                         timed, dev)
             rows.append(row)
             log("flash_attention", json.dumps(row))
-    prefill = sizes["flash_attention"][0]
-    checks.append(check_flash_rows(torch, np, ops, prefill,
-                                   sizes["flash_attention_rows"], dev))
-    log("flash_attention rows", json.dumps(checks[-1]))
+    for name in sizes["flash_attention_rows_cases"]:
+        case = next(c for c in sizes["flash_attention"] if c[0] == name)
+        checks.append(check_flash_rows(torch, np, ops, case,
+                                       sizes["flash_attention_rows"], dev))
+        log("flash_attention rows", json.dumps(checks[-1]))
     split_cases = [c for c in sizes["flash_attention"] + extra if c[4] == 1]
     for case in split_cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1161,12 +1231,14 @@ def check_flash_decode_alone(torch, np, ops, case, dtype, dev):
 
 
 def phase_decode_kernels(torch, np, ops, ref, dev="cuda", sizes=SIZES):
-    """flash_decode's rows (every case in fp32 and bf16, the llama case
-    timed), then each llama slot alone against the batch, bit for bit."""
+    """flash_decode's rows (every case in fp32 and bf16, llama's and
+    granite's timed), then each llama slot alone against the batch, bit
+    for bit."""
     rows, checks = [], []
-    for i, case in enumerate(sizes["flash_decode"]):
+    for case in sizes["flash_decode"]:
         for dtype in (torch.float32, torch.bfloat16):
-            row = check_flash_decode(torch, np, ops, ref, case, dtype, i == 0,
+            row = check_flash_decode(torch, np, ops, ref, case, dtype,
+                                     case[0] in sizes["flash_decode_timed"],
                                      dev)
             rows.append(row)
             log("flash_decode", json.dumps(row))
@@ -1412,17 +1484,35 @@ def phase_grouped_kernels(torch, np, ops, ref, dev="cuda", sizes=SIZES):
 # phase 4: smoke recipe on the card against the CPU
 
 
-def phase_smoke(torch, np, dev="cuda"):
+def _factor_pairs(tree, path=""):
+    """(path, {"v", "u"}) of every factorized linear of a param tree, in
+    order."""
+    if isinstance(tree, dict):
+        if "u" in tree and "v" in tree:
+            return [(path, tree)]
+        return [f for key in sorted(tree)
+                for f in _factor_pairs(tree[key], f"{path}.{key}")]
+    if isinstance(tree, (list, tuple)):
+        return [f for i, item in enumerate(tree)
+                for f in _factor_pairs(item, f"{path}[{i}]")]
+    return []
+
+
+def phase_smoke(torch, np, dev="cuda", arch="llama-7b", calib_shape=(8, 32)):
+    """A dense-attention arch's smoke config compressed on the card and on
+    the CPU from the same params and ``calib_shape`` uniform tokens (ranks
+    equal, every composed map and the loss held to stated tolerances),
+    then served on both (``phase_smoke_serve``)."""
     from repro_torch import configs
     from repro_torch.core import pipeline as P
     from repro_torch.models import model as M
 
-    cfg = configs.get_smoke_config("llama-7b").replace(dtype="float32")
+    cfg = configs.get_smoke_config(arch).replace(dtype="float32")
     params = M.init_params(cfg, 0, device="cpu")
     rng = np.random.default_rng(0)
-    # 8 x 32 uniform tokens: every tap covariance has full rank, so the
-    # solve is well conditioned and the two devices must agree closely
-    calib = {"tokens": rng.integers(0, cfg.vocab_size, (8, 32))}
+    # 8 x 32 uniform tokens or more: every tap covariance has full rank, so
+    # the solve is well conditioned and the two devices must agree closely
+    calib = {"tokens": rng.integers(0, cfg.vocab_size, calib_shape)}
     t = rng.integers(0, cfg.vocab_size, (8, 65))
     batch = {"tokens": torch.from_numpy(t[:, :-1]),
              "labels": torch.from_numpy(t[:, 1:])}
@@ -1435,34 +1525,46 @@ def phase_smoke(torch, np, dev="cuda"):
             loss = float(M.loss_fn(comp, cfg, {k: v.to(d)
                                                for k, v in batch.items()})[0])
         out[name] = (comp, rep, loss)
-    worst = 0.0
-    for part, names in (("attn", ("wq", "wk", "wv", "wo")),
-                        ("ffn", ("gate", "up", "down"))):
-        for name in names:
-            maps = []
-            for run in ("card", "cpu"):
-                lin = out[run][0]["stages"][0][0][part][name]
-                maps.append(torch.einsum("lnk,lkm->lnm", lin["v"].cpu(),
-                                         lin["u"].cpu()))
-            for layer in range(maps[0].shape[0]):
-                worst = max(worst, rel_fro(maps[0][layer], maps[1][layer]))
+    ranks = {run: [[lin["rank"] for lin in u["linears"]]
+                   for u in out[run][1]["units"]] for run in ("card", "cpu")}
+    require(ranks["card"] == ranks["cpu"], f"smoke {arch}: ranks differ "
+            f"card {ranks['card']} cpu {ranks['cpu']}")
+    worst, where = 0.0, None
+    pairs = [_factor_pairs(out[run][0]["stages"]) for run in ("card", "cpu")]
+    require(len(pairs[0]) == len(pairs[1]) > 0,
+            f"smoke {arch}: factorized linears {len(pairs[0])} / "
+            f"{len(pairs[1])}")
+    for (path, a), (_, b) in zip(*pairs):
+        maps = [torch.einsum("...nk,...km->...nm", lin["v"].cpu(),
+                             lin["u"].cpu()).reshape(
+                                 -1, lin["v"].shape[-2], lin["u"].shape[-1])
+                for lin in (a, b)]
+        for layer in range(maps[0].shape[0]):
+            err = rel_fro(maps[0][layer], maps[1][layer])
+            if err > worst:
+                worst, where = err, f"{path} [{layer}]"
     lc, lp = out["card"][2], out["cpu"][2]
-    log(f"smoke: composed-map rel err (card vs cpu) {worst:.3e}; loss card "
-        f"{lc:.6f} cpu {lp:.6f}")
-    require(worst <= 1e-3, f"smoke composed maps differ by {worst:.3e}")
-    require(abs(lc / lp - 1) <= 1e-3, f"smoke loss {lc} vs {lp}")
+    tag = "smoke" if arch == "llama-7b" else f"smoke {arch}"
+    log(f"{tag}: composed-map rel err (card vs cpu) {worst:.3e} at {where} "
+        f"({calib_shape[0]} x {calib_shape[1]} tokens); loss card {lc:.6f} "
+        f"cpu {lp:.6f}; ranks {ranks['card'][0]}")
+    require(worst <= 1e-3, f"{tag} composed maps differ by {worst:.3e}")
+    require(abs(lc / lp - 1) <= 1e-3, f"{tag} loss {lc} vs {lp}")
     served = phase_smoke_serve(torch, np, cfg, out["cpu"][0], dev)
     return {"map_rel_err": worst, "loss_cuda": lc, "loss_cpu": lp,
-            "serve": served}
+            "ranks": ranks["card"][0], "serve": served}
 
 
 def phase_smoke_serve(torch, np, cfg, comp, dev):
-    """A compressed smoke model (fp32; llama over the latent cache,
-    deepseek over MLA's {"c", "kr"} cache under ``cfg``'s dispatch) served
-    on the card (kernels) and on the CPU (plain versions) from the same
-    params and prompts: the engine (3 requests on 2 slots, chunk 8 and
-    chunk 0) and ``Server`` (3 prompts on 4 slots); tokens equal,
-    teacher-forced logits held to a stated tolerance."""
+    """A compressed smoke model (fp32; llama, granite and phi3-medium over
+    the latent cache, qwen3 over the dense one, gemma3 over its ring and
+    dense caches, deepseek over MLA's {"c", "kr"} cache under ``cfg``'s
+    dispatch) served on the card (kernels) and on the CPU (plain versions)
+    from the same params and prompts: the engine (3 requests on 2 slots,
+    chunk 8 and chunk 0; gemma3's ring caches take exact-length whole
+    prefill either way) and ``Server`` (3 prompts on 4 slots); tokens
+    equal, teacher-forced logits held to a stated tolerance.  Prompts of
+    13-24 tokens run past gemma3's smoke window of 8, so its rings wrap."""
     from repro_torch.launch import serve as TS
     from repro_torch.models import model as M
 
@@ -1496,8 +1598,9 @@ def phase_smoke_serve(torch, np, cfg, comp, dev):
                                           pos)[0])
         logits[name] = torch.stack(rows).cpu()
     err = rel_fro(logits["card"], logits["cpu"])
-    tag = "smoke serve" if cfg.moe is None else \
-        f"smoke moe serve ({cfg.moe.dispatch})"
+    tag = (f"smoke moe serve ({cfg.moe.dispatch})" if cfg.moe is not None
+           else "smoke serve" if cfg.name == "llama-7b-smoke"
+           else f"smoke serve {cfg.name}")
     log(f"{tag}: tokens card {json.dumps(toks['card'])} cpu "
         f"{json.dumps(toks['cpu'])}; teacher-forced logits rel err (card vs "
         f"cpu) {err:.3e}")
@@ -2616,6 +2719,271 @@ def phase_serve_moe(torch, np, ops, cfg, comp, dev="cuda", sizes=SIZES):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: gemma3-1b at its published widths (sliding-window family)
+
+
+def phase_gemma(torch, np, ops, dev="cuda", sizes=SIZES, cfg=None):
+    """gemma3-1b at published widths compressed with phase 5's recipe, then
+    served at phase 6's shapes: (a) ``Server`` (whole prefill: windowed
+    ``flash_attention`` in the local layers, plain causal in the global
+    ones, all at head dim 256; decode: ``ring_decode``'s einsums in the
+    local layers, the split body over the global layers' dense cache), (b)
+    the engine (every request exact-length whole prefill; prompts past 512
+    take ``_write_ring``'s L >= W branch), (c) one teacher-forced sequence,
+    decode against one forward over the same tokens across the rings'
+    wrap, in bf16 and fp32 activations, (d) the decode step's host syncs,
+    (e) a profiled engine run.  Counts zeroed before each run and read
+    after."""
+    import repro_torch
+    from repro_torch import configs
+    from repro_torch.launch import serve as TS
+    from repro_torch.models import blocks as B
+    from repro_torch.models import model as M
+
+    on_card = torch.device(dev).type == "cuda"
+    if cfg is None:
+        cfg = configs.get_config("gemma3-1b")
+    full_layers = cfg.num_layers
+    layers = sizes["gemma_layers"]
+    cfg = cfg.replace(num_layers=layers)
+    tag = "gemma"
+    program = [(st.kinds, st.n) for st in B.stage_program(cfg)]
+    log(f"{tag}: gemma3-1b widths d_model {cfg.d_model} heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} head_dim {cfg.head_dim} d_ff "
+        f"{cfg.d_ff} vocab {cfg.vocab_size}, window {cfg.sliding_window}, "
+        f"global every {cfg.global_every}, rope theta {cfg.rope_theta} / "
+        f"{cfg.rope_theta_global}, dtype {cfg.dtype} params "
+        f"{cfg.param_dtype}; {layers} of {full_layers} layers; stages "
+        f"{program}")
+    kinds = {k for kk, _ in program for k in kk}
+    require(kinds <= {"attn_local", "attn_global"},
+            f"{tag}: sub-block kinds {sorted(kinds)}")
+    # every attention call pads nothing: head dim 256 is compiled, so the
+    # wgmma launches below are flash_wgmma<256>
+    dpad = ops._padded_head_dim(cfg.head_dim)
+    require(dpad == cfg.head_dim, f"{tag}: head dim {cfg.head_dim} pads to "
+            f"{dpad}")
+    out = {"layers": layers, "program": [[list(k), n] for k, n in program]}
+
+    # compression (phase 5's recipe)
+    params = M.init_params(cfg, 0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    calib = {"tokens": torch.randint(0, cfg.vocab_size, sizes["calib"],
+                                     generator=gen, device=dev)}
+    evals = []
+    n_eval, b_eval, l_eval = sizes["evals"]
+    for _ in range(n_eval):
+        t = torch.randint(0, cfg.vocab_size, (b_eval, l_eval + 1),
+                          generator=gen, device=dev)
+        evals.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    ccfg = repro_torch.CompressConfig(ratio=0.6, calib_mode="fused",
+                                      refine_epochs=1,
+                                      microbatch=sizes["microbatch"])
+
+    def eval_loss(p):
+        with torch.no_grad():
+            return [float(M.loss_fn(p, cfg, b)[0]) for b in evals]
+
+    _sync(torch, dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    stages = {}
+    t0 = time.perf_counter()
+    comp, report = repro_torch.compress_model(params, cfg, calib, ccfg,
+                                              device=dev, stage_times=stages)
+    t_compress = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dense = eval_loss(params)
+    compressed = eval_loss(comp)
+    stages["eval"] = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    bodies = dict(ops.FLASH_BODIES)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    del params
+    out["compress"] = {
+        "stages": stages, "wall_s": t_compress, "peak_bytes": peak,
+        "launches": launches, "lowrank_rows": lowrank_rows(ops),
+        "flash_bodies": bodies, "dense": dense, "compressed": compressed,
+        "ranks": [lin["rank"] for lin in report["units"][0]["linears"]],
+        "units": [[u["name"], u["pre_refine_mse"], u["post_refine_mse"]]
+                  for u in report["units"]]}
+    log(f"{tag}: compress", json.dumps(out["compress"]))
+    vals = dense + compressed + [v for u in report["units"]
+                                 for v in (u["pre_refine_mse"],
+                                           u["post_refine_mse"])]
+    require(all(math.isfinite(v) for v in vals), f"{tag}: non-finite {vals}")
+    for name in ("cov_accum", "lowrank_matmul", "flash_attention"):
+        require(launches[name] > 0,
+                f"{tag}: kernel {name} never launched on compression")
+    require(not on_card or bodies.get("wgmma", 0) > 0,
+            f"{tag}: flash_attention's wgmma body never taken: {bodies}")
+    require(len(report["units"]) == layers,
+            f"{tag}: {len(report['units'])} units for {layers} layers")
+
+    def kernel_gates(run, launches, bodies):
+        require(launches["lowrank_matmul"] > 0,
+                f"{tag} {run}: lowrank_matmul never launched")
+        require(launches["flash_decode"] == 0, f"{tag} {run}: flash_decode "
+                f"launched {launches['flash_decode']} times (qk_norm keeps "
+                "the caches dense)")
+        require(not on_card or bodies.get("wgmma", 0) > 0,
+                f"{tag} {run}: no prefill in the wgmma body: {bodies}")
+        require(not on_card or bodies.get("split", 0) > 0,
+                f"{tag} {run}: no decode in the split body: {bodies}")
+
+    # (a) fixed batch
+    rng = np.random.default_rng(23)
+    b, plen, steps, max_len = sizes["serve_dense"]
+    prompts = rng.integers(0, cfg.vocab_size, (b, plen), dtype=np.int32)
+    srv = TS.Server(cfg, comp, max_len=max_len, batch=b, device=dev)
+    _sync(torch, dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    first = srv.generate(prompts, steps=1).cpu()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    toks = srv.generate(prompts, steps=steps).cpu()
+    t_all = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    bodies = dict(ops.FLASH_BODIES)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    kernel_gates("Server", launches, bodies)
+    require(tuple(toks.shape) == (b, steps) and torch.equal(toks[:, :1],
+                                                            first)
+            and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+            f"{tag}: Server tokens malformed: {tuple(toks.shape)}")
+    decode_s = t_all - t_prefill
+    out["server"] = {
+        "launches": launches, "lowrank_rows": lowrank_rows(ops),
+        "flash_bodies": bodies, "prefill_s": t_prefill, "ttft_s": t_prefill,
+        "prefill_tokens_per_s": b * plen / t_prefill,
+        "decode_tokens_per_s": b * (steps - 1) / decode_s,
+        "decode_step_ms": decode_s / (steps - 1) * 1e3,
+        "generate_s": t_all, "peak_bytes": peak,
+        "tokens_head": toks[:, :8].tolist()}
+    log(f"{tag} (a) Server:", json.dumps(out["server"]))
+
+    # (b) continuous batching: exact-length whole prefill, batched decode
+    slots, max_len, chunk, n_req, (lo, hi), steps = sizes["serve_engine"]
+    lens = rng.integers(lo, hi + 1, n_req)
+    reqs = [TS.Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, (n,),
+                                                  dtype=np.int32),
+                       steps=steps) for i, n in enumerate(lens)]
+    eng = TS.ContinuousBatchingServer(cfg, comp, max_len=max_len,
+                                      slots=slots, prefill_chunk=chunk,
+                                      device=dev)
+    _sync(torch, dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run(reqs)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    bodies = dict(ops.FLASH_BODIES)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    kernel_gates("engine", launches, bodies)
+    require(sorted(res) == list(range(n_req)) and all(
+        len(r["tokens"]) == steps and ((r["tokens"] >= 0)
+                                       & (r["tokens"] < cfg.vocab_size)).all()
+        for r in res.values()), f"{tag}: engine results malformed")
+    require(set(eng.prefill_routes.values()) == {"whole_exact"},
+            f"{tag}: prefill routes {eng.prefill_routes}")
+    window = cfg.sliding_window
+    require(int(lens.max()) >= window,
+            f"{tag}: no prompt reaches the window {window}: {lens.tolist()}")
+    ttft = [res[i]["first_token"] - res[i]["arrival"] for i in range(n_req)]
+    prefill_s = [res[i]["first_token"] - res[i]["admitted"]
+                 for i in range(n_req)]
+    times = eng.decode_step_times
+    # cache bytes from the shapes: rings of min(window, max_len) slots in
+    # the local layers, full-length dense caches in the global ones, against
+    # a full-length dense cache in every layer
+    eb = 2 if cfg.dtype == "bfloat16" else 4
+    ring = _cache_bytes(M, cfg, slots, max_len, eng.params)
+    full = layers * slots * max_len * 2 * cfg.num_kv_heads * cfg.head_dim * eb
+    out["engine"] = {
+        "launches": launches, "lowrank_rows": lowrank_rows(ops),
+        "flash_bodies": bodies, "wall_s": wall, "requests": n_req,
+        "prompt_lens": lens.tolist(),
+        "prompts_past_window": int((lens >= window).sum()),
+        "ttft_s_median": statistics.median(ttft), "ttft_s_max": max(ttft),
+        "ttft_s_first_slots_median": statistics.median(ttft[:slots]),
+        "prefill_tokens_per_s": float(sum(lens)) / sum(prefill_s),
+        "decode_steps": len(times),
+        "decode_step_ms_median": statistics.median(times) * 1e3,
+        "decode_tokens_per_s": n_req * (steps - 1) / sum(times),
+        "cache_bytes": ring, "cache_bytes_dense_full_length": full,
+        "cache_share": ring / full, "peak_bytes": peak}
+    log(f"{tag} (b) engine:", json.dumps(out["engine"]))
+
+    # (c) one teacher-forced sequence: a prefill, then decode step by step
+    # across the rings' wrap, against one forward over the same tokens
+    plen, n_dec, max_len = sizes["gemma_check"]
+    seq = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, plen + n_dec),
+                                        dtype=np.int32)).to(dev)
+    p = eng.params
+    checks = {"decode_positions": [plen, plen + n_dec - 1]}
+    logits = {}
+    with torch.inference_mode():
+        for name, c in (("bf16", cfg), ("fp32", cfg.replace(dtype="float32"))):
+            hidden, _ = M.forward_hidden(p, c, {"tokens": seq})
+            full_rows = M.logits_from_hidden(p, c, hidden[:, plen - 1:])[0]
+            del hidden
+            cache = M.init_cache(c, 1, max_len, device=dev)
+            rows = [M.prefill(p, c, {"tokens": seq[:, :plen]}, cache)[0]]
+            for i in range(plen, plen + n_dec):
+                rows.append(M.decode_step(p, c, cache, seq[:, i:i + 1],
+                                          i)[0])
+            rows = torch.cat(rows)
+            checks[f"prefill_vs_forward_{name}"] = rel_fro(rows[:1],
+                                                           full_rows[:1])
+            checks[f"decode_vs_forward_{name}"] = rel_fro(rows[1:],
+                                                          full_rows[1:])
+            logits[name] = (rows[1:], full_rows[1:])
+            del rows, full_rows, cache
+    # how far each bf16 route lies from the fp32 forward: bf16's own
+    # rounding of this model, which bounds the two routes' disagreement
+    checks["forward_bf16_vs_fp32"] = rel_fro(logits["bf16"][1],
+                                             logits["fp32"][1])
+    checks["decode_bf16_vs_fp32"] = rel_fro(logits["bf16"][0],
+                                            logits["fp32"][1])
+    del logits
+    out["checks"] = checks
+    log(f"{tag} (c) checks (rel Frobenius):", json.dumps(checks))
+    # fp32: decode (ring einsums, the split body) and the forward
+    # (flash_attention's tile bodies) are one function summed in other
+    # orders: 1e-3.  bf16: each route rounds its own activations, and this
+    # model's bf16 forward lies 2.4e-2 from its fp32 forward on one
+    # sequence (an H100 probe); the two bf16 routes' errors are independent
+    # and alike, so they may disagree by about sqrt(2) times that: at most
+    # twice the bf16 forward's own distance from fp32
+    for key in ("prefill_vs_forward_fp32", "decode_vs_forward_fp32"):
+        require(math.isfinite(checks[key]) and checks[key] <= 1e-3,
+                f"{tag}: {key} {checks[key]:.3e} > 1e-3")
+    lim16 = 2 * checks["forward_bf16_vs_fp32"]
+    for key in ("prefill_vs_forward_bf16", "decode_vs_forward_bf16"):
+        require(math.isfinite(checks[key]) and checks[key] <= lim16,
+                f"{tag}: {key} {checks[key]:.3e} > {lim16:.3e} (twice the "
+                "bf16 forward's distance from fp32)")
+
+    if on_card:
+        out["host_syncs"] = decode_syncs(torch, M, cfg, eng)
+        log(f"{tag} (d) host syncs (torch.cuda.set_sync_debug_mode):",
+            json.dumps(out["host_syncs"]))
+        require(out["host_syncs"]["decode_step_raised"] is None,
+                f"{tag}: the decode step synchronized the host: "
+                f"{out['host_syncs']['decode_step_raised']}")
+        out["profile"] = profile_engine(torch, np, TS, cfg, comp, "auto",
+                                        sizes)
+        log(f"{tag} (e) device time by kernel:", json.dumps(out["profile"]))
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -2726,6 +3094,9 @@ def main(argv=None) -> int:
     smoke = phase_smoke(torch, np)
     smoke["moe"] = phase_smoke_moe(torch, np)
     smoke["moe_capacity"] = phase_smoke_moe_capacity(torch, np)
+    smoke["archs"] = {arch: phase_smoke(torch, np, arch=arch,
+                                        calib_shape=SIZES["smoke_calib"])
+                      for arch in SIZES["smoke_archs"]}
     log(f"phase 4: {time.perf_counter() - t0:.3f} s")
     # 5. main path: compression
     t0 = time.perf_counter()
@@ -2758,6 +3129,14 @@ def main(argv=None) -> int:
     moe_paths = {f"serve_moe_{run}_{d}": serve_moe[d][run]
                  for d in ("dropfree", "capacity")
                  for run in ("server", "engine")}
+    torch.cuda.empty_cache()
+    # 10. gemma3-1b at published widths: compression and serving
+    t0 = time.perf_counter()
+    gemma = phase_gemma(torch, np, ops)
+    log(f"phase 10: {time.perf_counter() - t0:.3f} s")
+    gemma_paths = {"compress_gemma": gemma["compress"],
+                   "serve_gemma_server": gemma["server"],
+                   "serve_gemma_engine": gemma["engine"]}
 
     def timing(row):
         return {"max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -2779,7 +3158,9 @@ def main(argv=None) -> int:
                    "compress_moe": moe_run["launches"][name],
                    "compress_moe_capacity": moe_cap_run["launches"][name],
                    **{path: run["launches"][name]
-                      for path, run in moe_paths.items()}}
+                      for path, run in moe_paths.items()},
+                   **{path: run["launches"][name]
+                      for path, run in gemma_paths.items()}}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": by_path[path],
                 "launches_by_path": by_path, **timing(head)}
@@ -2828,7 +3209,8 @@ def main(argv=None) -> int:
         "serve_engine": serve_run["engine"]["lowrank_rows"],
         "compress_moe": moe_run["lowrank_rows"],
         "compress_moe_capacity": moe_cap_run["lowrank_rows"],
-        **{path: run["lowrank_rows"] for path, run in moe_paths.items()}}
+        **{path: run["lowrank_rows"] for path, run in moe_paths.items()},
+        **{path: run["lowrank_rows"] for path, run in gemma_paths.items()}}
     # grouped_matmul at decode's 48 rows (the dense bank and the factorized
     # x @ V), at an engine chunk's 1536 (x @ V), and one bf16 backward (dx
     # and dW) at the x @ V shape
@@ -2852,7 +3234,11 @@ def main(argv=None) -> int:
     fa = next(k for k in kernels if k["name"] == "flash_attention")
     for key, case in (("mla_prefill_d192", "mla_prefill"),
                       ("mla_server_d192", "mla_server"),
-                      ("chunk_Lq256", "chunk"), ("decode_split", "decode")):
+                      ("chunk_Lq256", "chunk"), ("decode_split", "decode"),
+                      ("gemma_local_d256", "gemma_local"),
+                      ("gemma_global_d256", "gemma_global"),
+                      ("gemma_server_d256", "gemma_server"),
+                      ("gemma_decode_split_d256", "gemma_decode")):
         fa[key] = timing(next(r for r in fa_rows
                               if r["case"] == case and "ms" in r))
     # flash_decode: its kernels by body, the fp32 row (phase 6 (c)'s fp32
@@ -2866,6 +3252,10 @@ def main(argv=None) -> int:
                              "fdec_merge", "fdec_out<T, D>"]}
     fdk["fp32"] = timing(next(r for r in fd_rows if "ms" in r
                               and r["dtype"] == "float32"))
+    # granite-3-8b's full-width GQA decode (32 query heads on 8 KV heads)
+    fdk["granite_gqa"] = timing(next(r for r in fd_rows if "ms" in r
+                                     and r["case"] == "granite"
+                                     and r["dtype"] == "bfloat16"))
     fdk["launches_by_body"] = {
         "serve_engine": serve_run["engine"]["decode_bodies"]}
     fa["launches_by_body"] = {
@@ -2875,7 +3265,8 @@ def main(argv=None) -> int:
         "serve_engine_dense": serve_run["engine_dense"]["flash_bodies"],
         "compress_moe": moe_run["flash_bodies"],
         "compress_moe_capacity": moe_cap_run["flash_bodies"],
-        **{path: run["flash_bodies"] for path, run in moe_paths.items()}}
+        **{path: run["flash_bodies"] for path, run in moe_paths.items()},
+        **{path: run["flash_bodies"] for path, run in gemma_paths.items()}}
     with open(OUT / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "cov_accum": cov_rows,
                    "cov_accum_banked": banked_rows,
@@ -2885,7 +3276,8 @@ def main(argv=None) -> int:
                    "grouped_matmul": gm_rows,
                    "grouped_matmul_backward": gm_back, "smoke": smoke,
                    "main": main_run, "serve": serve_run, "moe": moe_run,
-                   "moe_capacity": moe_cap_run, "serve_moe": serve_moe},
+                   "moe_capacity": moe_cap_run, "serve_moe": serve_moe,
+                   "gemma": gemma},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,12 @@
 """Architecture config registry of the port.
 
 ``get_config(arch_id)`` / ``get_smoke_config(arch_id)`` mirror
-``repro.configs``.  Ported so far: llama-7b (the paper's own model) and
-deepseek-v2-lite-16b (MLA attention, drop-free MoE); the other registered
-archs of the JAX package come with later slices.
+``repro.configs``.  Ported so far: llama-7b (the paper's own model),
+deepseek-v2-lite-16b (MLA attention, MoE under either dispatch), the other
+dense-attention archs qwen3-0.6b (qk_norm, tied embeddings), granite-3-8b
+and phi3-medium-14b (GQA), and gemma3-1b (5 sliding-window local layers to
+1 global, ring caches, a second RoPE theta).  The other registered archs of
+the JAX package come with later slices.
 """
 
 from __future__ import annotations
@@ -21,6 +24,10 @@ from repro_torch.configs.base import (  # noqa: F401  (re-exported)
 _REGISTRY: Dict[str, str] = {
     "llama-7b": "llama_7b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "qwen3-0.6b": "qwen3_0_6b",
+    "granite-3-8b": "granite_3_8b",
+    "phi3-medium-14b": "phi3_medium_14b",
+    "gemma3-1b": "gemma3_1b",
 }
 
 

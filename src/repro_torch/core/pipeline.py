@@ -2,7 +2,8 @@
 
 Counterpart of ``src/repro/core/pipeline.py`` for ``rank_mode="uniform"``,
 ``calib_mode`` "fused" or "sequential", ``calib_mesh=None``, on dense GQA
-models (llama) and on deepseek's MLA + MoE (capacity or drop-free
+models (llama, qwen3, granite, phi3-medium; gemma3's sliding-window local
+and global layers) and on deepseek's MLA + MoE (capacity or drop-free
 dispatch).  The model is
 unrolled into units (one transformer block each; stacked stages are sliced
 and restacked afterwards).  Per unit:
@@ -309,7 +310,9 @@ def _check_supported(cfg, ccfg: CompressConfig) -> None:
             "collection comes with the torch.distributed slice)")
     if ccfg.moe_dispatch not in ("inherit", "capacity", "dropfree"):
         raise ValueError(f"unknown moe_dispatch {ccfg.moe_dispatch!r}")
-    if (cfg.family, cfg.attention) not in (("dense", "full"), ("moe", "mla")):
+    if (cfg.family, cfg.attention) not in (("dense", "full"),
+                                           ("dense", "sliding_mix"),
+                                           ("moe", "mla")):
         raise NotImplementedError(
             f"family {cfg.family!r} / attention {cfg.attention!r} is not "
             "ported to repro_torch yet (comes with that architecture's slice)")

@@ -22,22 +22,27 @@
 // bytes bound it.  The launch plan (kernels/flash_attention.py::plan) picks
 // one of four bodies a call:
 //
-//   wgmma (bf16, D 64 / 128 / 192; prefill, chunked prefill, latent and MLA
-//     prefill, and any Lq under ops.batch_invariant): one block a (batch·head,
+//   wgmma (bf16, D 64 / 128 / 192 / 256; prefill, chunked prefill, latent and
+//     MLA prefill, and any Lq under ops.batch_invariant): one block a (batch·head,
 //     128 query rows), issued longest first (the last query blocks carry the
 //     most causal key tiles).  A producer thread loads Q once and keeps a
 //     2-stage ring of K and V tiles filled by TMA, all three read in place
 //     through 3D tensor maps on (B, L, heads·D), whose zero fill ends each
 //     batch's sequence.  Two consumer warpgroups of 64 query rows each run
 //     S = Q·Kᵀ as wgmma with both operands K-major (128 keys a tile at D <=
-//     128, 64 at D 192 to fit the registers), the softmax in the accumulator
+//     128, 64 at D 192 / 256 to fit the registers), the softmax in the accumulator
 //     registers (a row is held by 4 lanes, reduced with shuffles), then
 //     O += P·V as wgmma with P in registers (the S accumulator rounded to bf16
 //     in pairs is already wgmma's A fragment) and V read MN-major through the
 //     transpose bit; O stays in registers across the key loop and is rescaled
-//     there.  Register reallocation gives the consumers 232 registers a
-//     thread.  Epilogue: o / max(l, 1e-20) in registers, staged in shared
-//     memory, stored with 16-byte accesses, rows past Lq not stored.
+//     there.  Register reallocation gives the consumers 232 registers a thread;
+//     at D 256, where O alone is 128 of them, the block is the two consumer
+//     warpgroups alone (255 registers a thread), and lane 0 of the first issues
+//     the loads.  Epilogue: o / max(l, 1e-20) in registers, staged
+//     in the warpgroup's own rows of the Q tile once its last Q·Kᵀ is done (in
+//     Q's 128-byte swizzle, so neither side conflicts on banks), stored with
+//     16-byte accesses, rows past Lq not stored.  Shared memory at D 256: Q 64
+//     KB and two stages of 64-key K + V tiles, 128 KB.
 //   split (Lq 1 outside batch_invariant, both dtypes, every D: dense-cache
 //     decode): one block a (slot, KV head, key span) takes the G = H / KV
 //     query heads of its group; K and V rows of the span's live keys are read
@@ -50,8 +55,9 @@
 //     calls give the same bits.
 //   fma32 (fp32, Lq > 1 or batch_invariant) and wmma (bf16 at D 16 / 32):
 //     the first version: one block of 4 warps a (batch·head, 64 query rows),
-//     64-key tiles staged in shared memory through registers; S and P·V on
-//     WMMA 16x16x16 fragments (bf16) or the FMA units (fp32, TF32 off).
+//     64-key tiles (32 at D 256, whose fp32 tiles would need 272 KB at 64)
+//     staged in shared memory through registers; S and P·V on WMMA 16x16x16
+//     fragments (bf16) or the FMA units (fp32, TF32 off).
 //
 // Key tiles start at absolute key 0 and are walked in one fixed order; tiles
 // wholly past the causal limit of the block's last row, or wholly before the
@@ -66,9 +72,9 @@
 // Contract (checked by the wrapper, kernels/ops.py::flash_attention; the
 // launcher refuses what kernels/flash_attention.py::plan never makes): q, k,
 // v, o of one dtype, contiguous, 16-byte aligned; D one of 16, 32, 64, 128,
-// 192 (the wrapper zero-pads the head dim and passes the scale of the true
-// one; 192 is MLA prefill's qk_nope 128 + qk_rope 64, with v zero-padded to
-// it); q_off null (every slot at q_off0) or a (B,) int32 device vector; the
+// 192, 256 (the wrapper zero-pads the head dim and passes the scale of the
+// true one; 192 is MLA prefill's qk_nope 128 + qk_rope 64, with v zero-padded
+// to it; 256 is gemma3's head dim); q_off null (every slot at q_off0) or a (B,) int32 device vector; the
 // split body's scratch B·H·spans·(D + 2) floats.  Returns the first non-zero
 // cudaError of the call.
 
@@ -125,7 +131,6 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
 namespace ft {
 
 constexpr int BQ = 64;        // query rows per block
-constexpr int BKEY = 64;      // keys per tile
 constexpr int THREADS = 128;  // 4 warps
 constexpr int FR = 16;        // WMMA fragment edge
 
@@ -134,6 +139,10 @@ constexpr int FR = 16;        // WMMA fragment edge
 template <typename T>
 __host__ __device__ constexpr int pad() { return std::is_same<T, bf16>::value ? 8 : 4; }
 
+// keys per tile: 64, and 32 at D 256 (at 64 its fp32 tiles need 272 KB)
+template <int D>
+__host__ __device__ constexpr int bkey() { return D == 256 ? 32 : 64; }
+
 // fp32 tiles write p over the scores they were made from (sP aliases sS): each
 // softmax thread reads its half-row of s into registers before it writes p there,
 // and no other thread touches that half-row.  That keeps the fp32 D = 192 tile
@@ -141,6 +150,7 @@ __host__ __device__ constexpr int pad() { return std::is_same<T, bf16>::value ? 
 template <typename T, int D>
 struct Layout {
   static constexpr bool P_IN_S = std::is_same<T, float>::value;
+  static constexpr int BKEY = bkey<D>();
   static constexpr int LD = D + pad<T>();       // sQ, sK, sV rows
   static constexpr int LS = BKEY + 4;           // sS rows (fp32)
   static constexpr int LP = P_IN_S ? LS : BKEY + pad<T>();  // sP rows
@@ -160,6 +170,7 @@ struct Layout {
 template <typename T, int D>
 __device__ __forceinline__ void scores(const T* sQ, const T* sK, float* sS, int tid) {
   using Lay = Layout<T, D>;
+  constexpr int BKEY = Lay::BKEY;
   if constexpr (std::is_same<T, bf16>::value) {
     const int w = tid / 32;
     wmma::fragment<wmma::accumulator, FR, FR, FR, float> acc[BKEY / FR];
@@ -183,30 +194,31 @@ __device__ __forceinline__ void scores(const T* sQ, const T* sK, float* sS, int 
                               wmma::mem_row_major);
     }
   } else {
-    const int ty = tid / 16;  // rows ty*8 .. +8
-    const int tx = tid % 16;  // keys tx*4 .. +4
-    float acc[8][4];
+    constexpr int KPT = BKEY / 16;  // keys per thread
+    const int ty = tid / 16;        // rows ty*8 .. +8
+    const int tx = tid % 16;        // keys tx*KPT .. +KPT
+    float acc[8][KPT];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      for (int j = 0; j < KPT; ++j) acc[i][j] = 0.f;
     }
     for (int d = 0; d < D; ++d) {
-      float a[8], bk[4];
+      float a[8], bk[KPT];
 #pragma unroll
       for (int i = 0; i < 8; ++i) a[i] = sQ[(ty * 8 + i) * Lay::LD + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = sK[(tx * 4 + j) * Lay::LD + d];
+      for (int j = 0; j < KPT; ++j) bk[j] = sK[(tx * KPT + j) * Lay::LD + d];
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bk[j], acc[i][j]);
+        for (int j = 0; j < KPT; ++j) acc[i][j] = fmaf(a[i], bk[j], acc[i][j]);
       }
     }
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sS[(ty * 8 + i) * Lay::LS + tx * 4 + j] = acc[i][j];
+      for (int j = 0; j < KPT; ++j) sS[(ty * 8 + i) * Lay::LS + tx * KPT + j] = acc[i][j];
     }
   }
 }
@@ -216,6 +228,7 @@ template <typename T, int D>
 __device__ __forceinline__ void accumulate_pv(const T* sP, const T* sV, float* sO,
                                               int tid) {
   using Lay = Layout<T, D>;
+  constexpr int BKEY = Lay::BKEY;
   if constexpr (std::is_same<T, bf16>::value) {
     const int w = tid / 32;
 #pragma unroll
@@ -284,6 +297,7 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, size_t stride, i
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) flash_tile(Args a) {
   using Lay = Layout<T, D>;
+  constexpr int BKEY = Lay::BKEY;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
   T* sK = reinterpret_cast<T*>(smem + Lay::q_bytes);
@@ -388,13 +402,12 @@ __global__ void __launch_bounds__(THREADS) flash_tile(Args a) {
 }  // namespace ft
 
 // ---------------------------------------------------------------------------
-// wgmma (bf16, D 64 / 128 / 192): a TMA ring of K and V tiles, wgmma for S and
-// for P·V with P in registers
+// wgmma (bf16, D 64 / 128 / 192 / 256): a TMA ring of K and V tiles, wgmma for
+// S and for P·V with P in registers
 
 namespace fw {
 
-constexpr int BQ = 128;       // query rows a block: two consumer warpgroups of 64
-constexpr int THREADS = 384;  // two consumer warpgroups + a producer one
+constexpr int BQ = 128;  // query rows a block: two consumer warpgroups of 64
 constexpr int STAGES = 2;
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;  // 128·40 + 256·232 <= 65536
@@ -403,14 +416,21 @@ template <int D>
 struct Cfg {
   static constexpr int DC = D / 64;                 // 64-column (128-byte) chunks of a row
   static constexpr int BKEY = D <= 128 ? 128 : 64;  // keys a tile
+  // two consumer warpgroups and a producer warpgroup whose registers go to
+  // them (setmaxnreg).  At D 256 no producer warpgroup: ptxas gives each
+  // thread of a 12-warp block at most 168 registers (3 warps share a
+  // quarter of the register file), O alone takes 128 of them, and it
+  // spills; with 8 warps a thread may have 255.  Lane 0 of the first
+  // consumer warp then issues the loads, each stage's refill as soon as
+  // both warpgroups are done with it.
+  static constexpr bool PRODUCER_WARPGROUP = D != 256;
+  static constexpr int THREADS = PRODUCER_WARPGROUP ? 384 : 256;
   static constexpr int Q_BOX = BQ * 128;            // bytes: 128 rows x 64 columns
   static constexpr int KV_BOX = BKEY * 128;         // bytes: BKEY rows x 64 columns
   static constexpr int Q_BYTES = DC * Q_BOX;
   static constexpr int KV_BYTES = DC * KV_BOX;      // K (or V) of one stage
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
-  static constexpr int LD = D + 8;                  // staged output row pitch (bf16)
-  static constexpr int OUT_BYTES = BQ * LD * 2;
-  static constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE_BYTES + OUT_BYTES;
+  static constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE_BYTES;
   // the 128-byte swizzle repeats every 1024 bytes: boxes start 1024-aligned
   static constexpr int SMEM = 1024 + BAR_OFF + (2 * STAGES + 1) * 8;
 };
@@ -468,8 +488,10 @@ __device__ __forceinline__ void pv(float (&o)[D / 2], const uint32_t (&a)[4], ui
     wgmma_rs_m64n64k16<1>(o, a, db, 1);
   } else if constexpr (D == 128) {
     wgmma_rs_m64n128k16<1>(o, a, db, 1);
-  } else {
+  } else if constexpr (D == 192) {
     wgmma_rs_m64n192k16<1>(o, a, db, 1);
+  } else {
+    wgmma_rs_m64n256k16<1>(o, a, db, 1);
   }
 }
 
@@ -477,7 +499,7 @@ __device__ __forceinline__ void pv(float (&o)[D / 2], const uint32_t (&a)[4], ui
 // nqb - 1 - w / (B·H): heads innermost, the last (longest causal) query
 // blocks first.  Plan.tile_at is the same arithmetic.
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
 flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
             const __grid_constant__ CUtensorMap tv, Args a) {
   using C = Cfg<D>;
@@ -487,8 +509,6 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
   uint8_t* const base_ptr = smem_raw + (base - raw);
   const uint32_t sq = base;
   const uint32_t ring = base + C::Q_BYTES;
-  bf16* const staged =
-      reinterpret_cast<bf16*>(base_ptr + C::Q_BYTES + STAGES * C::STAGE_BYTES);
   const uint32_t bars = base + C::BAR_OFF;
   auto full = [&](int s) { return bars + 8u * s; };
   auto empty = [&](int s) { return bars + 8u * (STAGES + s); };
@@ -518,30 +538,42 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
   }
   __syncthreads();
 
-  if (group == 2) {  // producer warpgroup: one thread issues every load
-    reg_dealloc<PRODUCER_REGS>();
-    if (tid == 2 * 128) {
-      mbar_expect_tx(qbar, C::Q_BYTES);
-      for (int c = 0; c < C::DC; ++c) {
-        tma_load_3d(sq + c * C::Q_BOX, &tq, qbar, head * D + 64 * c, q0, b);
-      }
-      for (int t = kt.x, i = 0; t < kt.y; ++t, ++i) {
-        const int s = i % STAGES;
-        if (i >= STAGES) mbar_wait(empty(s), ((i / STAGES) - 1) & 1);
-        const uint32_t sk = ring + s * C::STAGE_BYTES;
-        mbar_expect_tx(full(s), C::STAGE_BYTES);
-        for (int c = 0; c < C::DC; ++c) {
-          tma_load_3d(sk + c * C::KV_BOX, &tk, full(s), kvh * D + 64 * c, t * C::BKEY, b);
-        }
-        for (int c = 0; c < C::DC; ++c) {
-          tma_load_3d(sk + C::KV_BYTES + c * C::KV_BOX, &tv, full(s), kvh * D + 64 * c,
-                      t * C::BKEY, b);
-        }
-      }
+  // Q (once), and key tile t into stage s: one thread issues each
+  auto load_q = [&]() {
+    mbar_expect_tx(qbar, C::Q_BYTES);
+    for (int c = 0; c < C::DC; ++c) {
+      tma_load_3d(sq + c * C::Q_BOX, &tq, qbar, head * D + 64 * c, q0, b);
     }
-    return;
+  };
+  auto load_kv = [&](int t, int s) {
+    const uint32_t sk = ring + s * C::STAGE_BYTES;
+    mbar_expect_tx(full(s), C::STAGE_BYTES);
+    for (int c = 0; c < C::DC; ++c) {
+      tma_load_3d(sk + c * C::KV_BOX, &tk, full(s), kvh * D + 64 * c, t * C::BKEY, b);
+    }
+    for (int c = 0; c < C::DC; ++c) {
+      tma_load_3d(sk + C::KV_BYTES + c * C::KV_BOX, &tv, full(s), kvh * D + 64 * c,
+                  t * C::BKEY, b);
+    }
+  };
+  if constexpr (C::PRODUCER_WARPGROUP) {
+    if (group == 2) {  // producer warpgroup: one thread issues every load
+      reg_dealloc<PRODUCER_REGS>();
+      if (tid == 2 * 128) {
+        load_q();
+        for (int t = kt.x, i = 0; t < kt.y; ++t, ++i) {
+          const int s = i % STAGES;
+          if (i >= STAGES) mbar_wait(empty(s), ((i / STAGES) - 1) & 1);
+          load_kv(t, s);
+        }
+      }
+      return;
+    }
+    reg_alloc<CONSUMER_REGS>();
+  } else if (tid == 0) {  // the first stages; the rest as stages drain
+    load_q();
+    for (int t = kt.x, i = 0; t < kt.y && i < STAGES; ++t, ++i) load_kv(t, i);
   }
-  reg_alloc<CONSUMER_REGS>();
 
   const int lane = tid % 128;
   const int r_in = (lane / 32) * 16 + (lane % 32) / 4;  // accumulator row (h = 0); h = 1 at +8
@@ -671,16 +703,33 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
     fence_acc(o);
     fence_regs(p);
     if (lane == 0) mbar_arrive(empty(s));
+    if constexpr (!C::PRODUCER_WARPGROUP) {
+      // the first warp refills stage s with tile t + STAGES once both
+      // warpgroups have released it (the whole warp waits, so it stays
+      // converged for the next wgmma)
+      if (tid < 32 && t + STAGES < kt.y) {
+        if (tid == 0) {
+          mbar_wait(empty(s), (i / STAGES) & 1);
+          load_kv(t + STAGES, s);
+        }
+        __syncwarp();
+      }
+    }
   }
 
-  // o / max(l, 1e-20), rounded once, staged and stored row-masked
-  bf16* const mine = staged + group * 64 * C::LD;
+  // o / max(l, 1e-20), rounded once, staged in this warpgroup's own rows of
+  // the Q tile (its last Q·Kᵀ has completed; the other warpgroup reads only
+  // its own rows) in Q's layout: row r of box c at c·Q_BOX + r·128 bytes, its
+  // 16-byte chunk k at chunk k ^ (r % 8); then stored row-masked
+  uint8_t* const mine = base_ptr + group * 64 * 128;
   const float lm[2] = {fmaxf(l[0], 1e-20f), fmaxf(l[1], 1e-20f)};
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      *reinterpret_cast<__nv_bfloat162*>(&mine[(r_in + 8 * h) * C::LD + 8 * j + cq]) =
+      const int r = r_in + 8 * h;
+      *reinterpret_cast<__nv_bfloat162*>(
+          mine + (j / 8) * C::Q_BOX + r * 128 + (((j % 8) ^ (r % 8)) * 16) + cq * 2) =
           __floats2bfloat162_rn(o[4 * j + 2 * h] / lm[h], o[4 * j + 2 * h + 1] / lm[h]);
     }
   }
@@ -693,11 +742,12 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
   const size_t stride = static_cast<size_t>(a.h) * D;
   for (int vi = lane; vi < 64 * (D / 8); vi += 128) {
     const int r = vi / (D / 8);
-    const int c = (vi % (D / 8)) * 8;
+    const int k = vi % (D / 8);  // the row's 16-byte chunk
     if (row0 + r < a.lq) {
       *reinterpret_cast<uint4*>(out + (static_cast<size_t>(b) * a.lq + row0 + r) * stride +
-                                static_cast<size_t>(head) * D + c) =
-          *reinterpret_cast<const uint4*>(&mine[r * C::LD + c]);
+                                static_cast<size_t>(head) * D + 8 * k) =
+          *reinterpret_cast<const uint4*>(mine + (k / 8) * C::Q_BOX + r * 128 +
+                                          (((k % 8) ^ (r % 8)) * 16));
     }
   }
 }
@@ -963,7 +1013,7 @@ int launch_wgmma(const Args& a, cudaStream_t s) {
   rc = tensor_map_3d(&tv, a.v, a.b, a.lk, a.kv * D, C::BKEY);
   if (rc != 0) return rc;
   const int blocks = (a.lq + fw::BQ - 1) / fw::BQ * a.b * a.h;
-  fw::flash_wgmma<D><<<blocks, fw::THREADS, C::SMEM, s>>>(tq, tk, tv, a);
+  fw::flash_wgmma<D><<<blocks, C::THREADS, C::SMEM, s>>>(tq, tk, tv, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1009,6 +1059,7 @@ int launch_dim(const Args& a, int d, int body, int span, int spans, float* part,
     case 64: return launch_body<T, 64>(a, body, span, spans, part, s);
     case 128: return launch_body<T, 128>(a, body, span, spans, part, s);
     case 192: return launch_body<T, 192>(a, body, span, spans, part, s);
+    case 256: return launch_body<T, 256>(a, body, span, spans, part, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1022,11 +1073,11 @@ int split_keys(int d) {
 
 // One call under a launch plan (kernels/flash_attention.py::plan).  dtype: 0 =
 // fp32, 1 = bf16 (q, k, v and o share it).  body: 0 = fma32 (fp32; bq 64, bkey
-// 64), 1 = wmma (bf16 at d 16 / 32; bq 64, bkey 64), 2 = wgmma (bf16 at d 64 /
-// 128 / 192; bq 128, bkey 128 at d <= 128 else 64), 3 = split (lq 1, at most
-// 16 query heads a KV head; bq 1, bkey the split tile (64 keys when a row is
-// at most 256 bytes, else 32), span a multiple of bkey, spans = ⌈lk / span⌉,
-// scratch b·h·spans·(d + 2) floats).  span, spans and scratch are 0 / null for
+// 64, 32 at d 256), 1 = wmma (bf16 at d 16 / 32; bq 64, bkey 64), 2 = wgmma
+// (bf16 at d 64 / 128 / 192 / 256; bq 128, bkey 128 at d <= 128 else 64), 3 =
+// split (lq 1, at most 16 query heads a KV head; bq 1, bkey the split tile (64
+// keys when a row is at most 256 bytes, else 32), span a multiple of bkey,
+// spans = ⌈lk / span⌉, scratch b·h·spans·(d + 2) floats).  span, spans and scratch are 0 / null for
 // the other bodies.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       const void* q_off, int q_off0, int b, int lq, int lk,
@@ -1035,7 +1086,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       int bq, int bkey, int span, int spans, void* scratch,
                                       void* stream) {
   if (b <= 0 || lq <= 0 || lk <= 0 || kv <= 0 || h % kv != 0 || (dtype != 0 && dtype != 1) ||
-      (d != 16 && d != 32 && d != 64 && d != 128 && d != 192)) {
+      (d != 16 && d != 32 && d != 64 && d != 128 && d != 192 && d != 256)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long heads = static_cast<long long>(b) * h;
@@ -1044,7 +1095,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     case FMA32:
     case WMMA:
       ok = (body == FMA32 ? dtype == 0 : dtype == 1 && d <= 32) && bq == ft::BQ &&
-           bkey == ft::BKEY && span == 0 && spans == 0 && scratch == nullptr &&
+           bkey == (d == 256 ? 32 : 64) && span == 0 && spans == 0 && scratch == nullptr &&
            heads <= 65535;
       break;
     case WGMMA:

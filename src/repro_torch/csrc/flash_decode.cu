@@ -38,7 +38,7 @@
 //     one stage in flight while the next is issued.  RoPE in registers: an m64nD
 //     accumulator holds columns j and j + D/2 of a key row in one thread.  Scores
 //     q·k / √D by quad shuffles, q from shared memory.
-//   fdec_keys_fma<T, D> (fp32 at every D; bf16 at D 16 / 32 or other ranks): the same
+//   fdec_keys_fma<T, D> (fp32 at every D; bf16 at D 8 / 16 / 20 / 32 or other ranks): the same
 //     work item on the FMA units, 64-key tiles up-projected in 32-rank chunks through
 //     shared memory, U_k fp32 as stored.
 //     Both keys bodies end with the span's softmax: fp32 (m, l, p[256]) per query head
@@ -65,7 +65,8 @@
 // what kernels/flash_decode.py::plan never makes): q (B, H, D), lk (B, L, r_k), lv
 // (B, L, r_v) and out (B, H, D) of one dtype (fp32 or bf16), 16-byte aligned; uk
 // (r_k, KV·D), uv (r_v, KV·D), cos, sin (L, D/2) fp32; lengths (B,) int32 (clamped to
-// [0, L]; a slot of length 0 gets zeros); all contiguous; D one of 16, 32, 64, 128;
+// [0, L]; a slot of length 0 gets zeros); all contiguous; D one of 8, 16, 20, 32, 64, 128
+// (8 and 20: granite's and phi3-medium's smoke configs);
 // scratch fp32 as kernels/flash_decode.py::Plan.offsets lays it out.  Returns the
 // first non-zero cudaError of the call.
 
@@ -387,7 +388,8 @@ fdec_keys_wgmma(const __grid_constant__ CUtensorMap tlk, const __grid_constant__
 }  // namespace kw
 
 // ---------------------------------------------------------------------------
-// keys, FMA body (fp32 at every D; bf16 at D 16 / 32 and ranks off the TMA stride)
+// keys, FMA body (fp32 at every D; bf16 at D 8 / 16 / 20 / 32 and ranks off the TMA
+// stride)
 
 namespace kf {
 
@@ -402,9 +404,10 @@ int smem(int g) {
 
 // Up-projection micro-tile: each thread owns KPT keys x CPT columns of the
 // (BK x D) key tile, so one shared load of l_k feeds CPT FMAs and one of U_k KPT.
+// Below D 32 four threads span a row (CPT 2, 4, 5 at D 8, 16, 20).
 template <int D>
 struct Tile {
-  static constexpr int CPT = D >= 32 ? 8 : 4;  // columns per thread
+  static constexpr int CPT = D >= 32 ? 8 : D / 4;  // columns per thread
   static constexpr int TX = D / CPT;           // threads across D
   static constexpr int TY = THREADS / TX;      // threads across keys
   static constexpr int KPT = BK / TY;          // keys per thread
@@ -476,13 +479,18 @@ __global__ void __launch_bounds__(THREADS) fdec_keys_fma(Args a) {
         float u[Ti::CPT];
 #pragma unroll
         for (int i = 0; i < Ti::KPT; ++i) lkv[i] = sLK[rr * LT + ty * Ti::KPT + i];
+        if constexpr (Ti::CPT % 4 == 0) {
 #pragma unroll
-        for (int c = 0; c < Ti::CPT; c += 4) {
-          const float4 u4 = *reinterpret_cast<const float4*>(sUK + rr * D + tx * Ti::CPT + c);
-          u[c] = u4.x;
-          u[c + 1] = u4.y;
-          u[c + 2] = u4.z;
-          u[c + 3] = u4.w;
+          for (int c = 0; c < Ti::CPT; c += 4) {
+            const float4 u4 = *reinterpret_cast<const float4*>(sUK + rr * D + tx * Ti::CPT + c);
+            u[c] = u4.x;
+            u[c + 1] = u4.y;
+            u[c + 2] = u4.z;
+            u[c + 3] = u4.w;
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < Ti::CPT; ++c) u[c] = sUK[rr * D + tx * Ti::CPT + c];
         }
 #pragma unroll
         for (int i = 0; i < Ti::KPT; ++i) {
@@ -665,18 +673,18 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) fdec_out(Args a) {
   constexpr int CB = D < 32 ? D : 32;  // columns a block
   constexpr int TC = CB / 4;           // threads across them, 4 columns each
-  constexpr int NS = THREADS / TC;     // rank splits
+  constexpr int NS = THREADS / TC;     // rank splits (threads past NS·TC idle: D 20)
   __shared__ __align__(16) float red[NS * RPT * CB];
   const int tid = threadIdx.x;
   const int c4 = (tid % TC) * 4;
-  const int si = tid / TC;
+  const int si = min(tid / TC, NS);
   const int kvh = blockIdx.y;
   const int g = a.h / a.kv;
   const int rows = a.b * g;
   const size_t ld_u = static_cast<size_t>(a.kv) * D;
   const float* u = a.uv + static_cast<size_t>(kvh) * D + blockIdx.x * CB + c4;
   const int rs = (a.rv + NS - 1) / NS;
-  const int r_begin = min(a.rv, si * rs);
+  const int r_begin = si < NS ? min(a.rv, si * rs) : a.rv;
   const int r_end = min(a.rv, r_begin + rs);
   T* out = static_cast<T*>(a.out);
   for (int row0 = 0; row0 < rows; row0 += RPT) {
@@ -714,10 +722,12 @@ __global__ void __launch_bounds__(THREADS) fdec_out(Args a) {
         }
       }
     }
+    if (si < NS) {
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      *reinterpret_cast<float4*>(&red[(si * RPT + i) * CB + c4]) =
-          make_float4(y[i][0], y[i][1], y[i][2], y[i][3]);
+      for (int i = 0; i < RPT; ++i) {
+        *reinterpret_cast<float4*>(&red[(si * RPT + i) * CB + c4]) =
+            make_float4(y[i][0], y[i][1], y[i][2], y[i][3]);
+      }
     }
     __syncthreads();
     for (int o = tid; o < RPT * CB; o += THREADS) {
@@ -810,7 +820,9 @@ int launch_body(const Args& a, int d, int body, int blocks, cudaStream_t s) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (d) {
+    case 8: return launch_fma<T, 8>(a, blocks, s);
     case 16: return launch_fma<T, 16>(a, blocks, s);
+    case 20: return launch_fma<T, 20>(a, blocks, s);
     case 32: return launch_fma<T, 32>(a, blocks, s);
     case 64: return launch_fma<T, 64>(a, blocks, s);
     case 128: return launch_fma<T, 128>(a, blocks, s);
@@ -821,7 +833,9 @@ int launch_body(const Args& a, int d, int body, int blocks, cudaStream_t s) {
 int smem_bytes(int body, int g, int d) {
   if (body == WGMMA) return d == 64 ? kw::Cfg<64>::smem(g) : kw::Cfg<128>::smem(g);
   switch (d) {
+    case 8: return kf::smem<8>(g);
     case 16: return kf::smem<16>(g);
+    case 20: return kf::smem<20>(g);
     case 32: return kf::smem<32>(g);
     case 64: return kf::smem<64>(g);
     default: return kf::smem<128>(g);
@@ -832,7 +846,7 @@ int smem_bytes(int body, int g, int d) {
 
 // One call under a launch plan (kernels/flash_decode.py::plan).  dtype: 0 = fp32, 1 =
 // bf16 (q, lk, lv and out share it; uk, uv, cos, sin fp32).  body: 0 = fma (any dtype,
-// D 16 / 32 / 64 / 128), 1 = wgmma (bf16, D 64 / 128, r_k a multiple of 8).  span is
+// D 8 / 16 / 20 / 32 / 64 / 128), 1 = wgmma (bf16, D 64 / 128, r_k a multiple of 8).  span is
 // 256 and spans = ⌈l / span⌉.  The scratch holds, each region rounded up to 64
 // floats: (wgmma) the two bf16 terms of U_k in r_k·KV·D floats, then m and l
 // (b·h·spans each), p (b·h·spans·span), pv (b·h·spans·rv) and ctx (b·h·rv);
@@ -844,7 +858,8 @@ extern "C" int flash_decode_launch(const void* q, const void* lk, const void* lv
                                    int rk, int rv, int rope, int dtype, int body, int span,
                                    int spans, void* stream) {
   if (b <= 0 || l <= 0 || kv <= 0 || h <= 0 || h % kv != 0 || rk <= 0 || rv <= 0 ||
-      (d != 16 && d != 32 && d != 64 && d != 128) || (dtype != 0 && dtype != 1) ||
+      (d != 8 && d != 16 && d != 20 && d != 32 && d != 64 && d != 128) ||
+      (dtype != 0 && dtype != 1) ||
       (body != FMA && body != WGMMA) || span != SPAN || spans != (l + SPAN - 1) / SPAN ||
       (rope && (cos == nullptr || sin == nullptr)) || scratch == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -13,10 +13,10 @@ Bound on the card: max(4·B·H·Σ live keys·D flops / peak, (q + k + v + o)
 bytes / bandwidth) — operations for prefill, bytes for one-token decode.
 ``plan`` picks one of four bodies and everything it needs:
 
-* ``wgmma`` (bf16 at D 64 / 128 / 192): one block a (batch·head, 128 query
-  rows), issued longest first; a TMA ring of K and V tiles feeds wgmma for
-  S = Q·Kᵀ and for O += P·V with P in registers.  Key tiles are 128 wide at
-  D <= 128, 64 at D 192.
+* ``wgmma`` (bf16 at D 64 / 128 / 192 / 256): one block a (batch·head, 128
+  query rows), issued longest first; a TMA ring of K and V tiles feeds wgmma
+  for S = Q·Kᵀ and for O += P·V with P in registers.  Key tiles are 128 wide
+  at D <= 128, 64 at D 192 and 256.
 * ``split`` (Lq 1 outside ``ops.batch_invariant``, every dtype and D, at most
   ``SPLIT_MAX_GROUP`` query heads a KV head): one block a (slot, KV head,
   key span) over the span's live keys on the FMA units, each writing an fp32
@@ -24,7 +24,8 @@ bytes / bandwidth) — operations for prefill, bytes for one-token decode.
   The span length is picked from (B·KV, Lk) so about ``SPLIT_BLOCKS``
   blocks fill the card.
 * ``fma32`` (fp32) and ``wmma`` (bf16 at D 16 / 32): the first version, one
-  block a (batch·head, 64 query rows), 64-key tiles.
+  block a (batch·head, 64 query rows), 64-key tiles (32 at D 256, so that
+  the fp32 tiles fit shared memory).
 
 In the three tile bodies key tiles start at absolute key 0 and tiles wholly
 outside a block's causal limit or window are skipped (``Plan.key_tiles``),
@@ -54,19 +55,25 @@ SMS = 132                                      # H100 SXM streaming multiprocess
 NEG_INF = -1e30
 
 # head dims the kernel is compiled for; the wrapper zero-pads up to one
-# (192: MLA prefill, qk_nope 128 + qk_rope 64)
-HEAD_DIMS = (16, 32, 64, 128, 192)
+# (192: MLA prefill, qk_nope 128 + qk_rope 64; 256: gemma3)
+HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 # wgmma: query rows a block (two consumer warpgroups of 64), keys a tile by D
 WG_BQ = 128
-WG_BKEY = {64: 128, 128: 128, 192: 64}
-# fma32 / wmma: query rows a block, keys a tile
-TILE_BQ = TILE_BKEY = 64
+WG_BKEY = {64: 128, 128: 128, 192: 64, 256: 64}
+# fma32 / wmma: query rows a block; keys a tile by D (``tile_bkey``)
+TILE_BQ = 64
 # split: query heads a KV head at most (the block's shared arrays), the
 # blocks a launch aims at (8 a streaming multiprocessor), keys a tile (a row
 # of at most 256 bytes: 64, else 32)
 SPLIT_MAX_GROUP = 16
 SPLIT_BLOCKS = 8 * SMS
 MAX_GRID_Y = 65535
+
+
+def tile_bkey(d: int) -> int:
+    """Keys a tile of the fma32 / wmma bodies: 64, and 32 at D 256, whose
+    fp32 tiles would need 272 KB of shared memory at 64."""
+    return 32 if d == 256 else 64
 
 
 def split_keys(dtype: torch.dtype, d: int) -> int:
@@ -226,7 +233,7 @@ def _plan(b, lq, lk, h, kv, d, dtype, causal, window, offsets, invariant):
         raise ValueError(f"flash_attention: B·H {b * h} exceeds the tile "
                          "body's grid")
     return Plan(**base, body="wmma" if dtype == torch.bfloat16 else "fma32",
-                bq=TILE_BQ, bkey=TILE_BKEY)
+                bq=TILE_BQ, bkey=tile_bkey(d))
 
 
 def plan(b: int, lq: int, lk: int, h: int, kv: int, d: int,

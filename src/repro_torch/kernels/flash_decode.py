@@ -21,8 +21,8 @@ device).  A slot's bits then depend on its own inputs alone.  A call is:
 * ``body`` "wgmma" (bf16, D 64 / 128, r_k a multiple of ``RANK_MULTIPLE``:
   TMA's 16-byte row stride): U_k split into two bf16 terms (hi + lo,
   ``split_factor``), then the keys on wgmma, K = l_k U_hi + l_k U_lo;
-  "fma" (fp32; bf16 at D 16 / 32 or other ranks): the keys on the FMA units
-  from fp32 U_k.  Both write a span's fp32 (m, l, p[SPAN]) per query head;
+  "fma" (fp32; bf16 at D 8 / 16 / 20 / 32 or other ranks): the keys on the
+  FMA units from fp32 U_k.  Both write a span's fp32 (m, l, p[SPAN]) per query head;
 * the values launch: each live span's latent partial Σ p l_v, one block a
   (ranks, heads, slot·span);
 * the merge launch: ctx = Σ e^(m - M) partial / max(Σ l e^(m - M), 1e-20)
@@ -50,7 +50,9 @@ from repro_torch.kernels.flash_attention import _exp
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BODIES = ("fma", "wgmma")       # index = the launcher's body code
 
-HEAD_DIMS = (16, 32, 64, 128)
+# head dims the kernel is compiled for (8 and 20: granite's and phi3-medium's
+# smoke configs; RoPE pairs the true dims, so none is padded)
+HEAD_DIMS = (8, 16, 20, 32, 64, 128)
 WGMMA_HEAD_DIMS = (64, 128)
 SPAN = 256                      # keys a work item, from absolute key 0
 RANK_MULTIPLE = 8               # the wgmma body's r_k: 16-byte bf16 rows

@@ -384,7 +384,7 @@ def _on_cpu(*tensors) -> bool:
 
 def _padded_head_dim(d: int) -> int:
     """The smallest head dim ``flash_attention`` is compiled for that holds
-    ``d``."""
+    ``d`` (raises past 256: no body takes it)."""
     for dp in _fa.HEAD_DIMS:
         if dp >= d:
             return dp

@@ -7,19 +7,26 @@ on the card unless the caller passes ``device="cpu"``; the params are moved
 there (no copy when they already live there).
 
 ``Server`` — fixed batch: one prefill of every prompt, then lock-step
-decode.  Its cache is built WITHOUT params.  For llama's ``"attn"`` blocks
-it is dense: prefill through ``gqa_prefill`` and decode through
+decode.  Its cache is built WITHOUT params.  For the dense archs' ``"attn"``
+blocks (llama, qwen3, granite, phi3-medium) and gemma3's ``"attn_global"``
+ones it is dense: prefill through ``gqa_prefill`` and decode through
 ``gqa_decode``, both on the ``flash_attention`` kernel (decode with Lq = 1
-at one position).  For deepseek's MLA blocks it is the compressed {"c",
+at one position).  gemma3's ``"attn_local"`` blocks keep a ring of
+``sliding_window`` slots: windowed prefill on ``flash_attention``, then
+``ring_decode`` (fp32 einsums).  For deepseek's MLA blocks it is the compressed {"c",
 "kr"} cache: whole prefill through ``mla_prefill`` (``flash_attention`` at
 head dim 192) and decode through ``mla_decode`` (absorbed fp32 einsums).
 
 ``ContinuousBatchingServer`` — the engine.  The cache is allocated once for
 ``slots`` sequences of ``max_len`` positions with the params, so a
-compressed llama gets the latent {"lk", "lv"} layout: prefill through
+compressed llama (granite, phi3-medium: every arch without qk_norm) gets
+the latent {"lk", "lv"} layout: prefill through
 ``gqa_prefill_latent`` (``flash_attention`` over the up-projected cache) and
 decode through ``gqa_decode_latent`` (the ``flash_decode`` kernel);
-``cache_layout="dense"`` forces dense k/v everywhere.  MLA blocks keep
+``cache_layout="dense"`` forces dense k/v everywhere.  gemma3 keeps its
+rings and dense global caches (qk_norm), and every request takes
+exact-length whole prefill (``"whole_exact"``): a ring can neither resume
+mid-sequence nor take right-padding.  MLA blocks keep
 {"c", "kr"} under either layout: chunked prefill through
 ``mla_prefill_cached`` and decode through ``mla_decode`` (absorbed), whole
 prefill through ``mla_prefill``.  Under deepseek's capacity MoE dispatch
@@ -40,6 +47,9 @@ waits for the card).
         [--engine] [--device cpu]
     python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --smoke \\
         [--engine] [--device cpu]
+    python -m repro_torch.launch.serve --arch gemma3-1b --smoke --ratio 0.6 \\
+        [--engine] [--device cpu]     # also qwen3-0.6b, granite-3-8b,
+                                      # phi3-medium-14b
 
 ``Server.from_checkpoint`` is not ported yet (it needs the checkpoint
 manager of a later slice).

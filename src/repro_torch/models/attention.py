@@ -6,7 +6,8 @@ decode paths ``_cache_write`` :161, ``gqa_decode`` :174,
 ``gqa_prefill_cached`` :186 and ``_decode_attention`` :204 (without its
 sequence-parallel mesh branch), and the factorized latent-cache paths
 ``latent_ranks`` :528, ``_latent_kv`` :546, ``gqa_prefill_latent`` :554 and
-``gqa_decode_latent`` :583, and MLA: the expanded prefill path ``mla_init``
+``gqa_decode_latent`` :583, the sliding-window ring cache's
+``ring_decode`` :311, and MLA: the expanded prefill path ``mla_init``
 / ``_mla_q`` / ``_mla_ckv`` / ``mla_prefill`` / ``_pad_last`` :378-449 and
 the compressed-cache paths over {"c", "kr"} ``_mla_absorbed_attend`` :451,
 ``mla_decode`` :481 and ``mla_prefill_cached`` :499.
@@ -15,7 +16,8 @@ Every attention product goes through the hand-written kernels on the card:
 ``flash_attention`` (prefill, MLA prefill at head dim 192, chunked and
 latent prefill, dense-cache decode, and the forwards of compression) and ``flash_decode`` (decode
 against the latent {"lk", "lv"} cache).  On the CPU their plain versions
-run (``kernels.ref``).
+run (``kernels.ref``).  ``ring_decode`` and MLA's absorbed path are plain
+fp32 torch ops, as the JAX package leaves them to XLA.
 
 Layouts: q (B, Lq, H, D); k, v (B, Lk, KV, D) with H % KV == 0; dense
 caches (B, Lmax, KV, D); latent caches (B, Lmax, r).  The cache functions
@@ -32,6 +34,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+
+NEG_INF = -1e30
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -157,6 +161,44 @@ def gqa_prefill_cached(p, x, cache_k, cache_v, start: int, cfg, cos, sin, *,
                         chunk=chunk, softcap=cfg.attn_logit_softcap)
     out = L.linear(p["wo"], o.reshape(*x.shape[:2], -1))
     return out, cache_k, cache_v
+
+
+def ring_decode(p, x, cache_k, cache_v, pos, cfg, cos, sin, *,
+                window: int):
+    """One-token decode against a ring-buffer sliding-window cache of W
+    slots (B, W, KV, D).  pos is an int or a per-slot (B,) tensor; this
+    token's k / v go to slot pos % W.  Slot i holds the key written at
+    absolute position p_i = pos - ((pos - i) mod W); slots with p_i < 0 (not
+    yet written) or p_i <= pos - window are masked.  RoPE was applied at
+    write time with absolute positions, so scores are taken against the
+    stored keys: fp32 einsums and a masked softmax."""
+    b = x.shape[0]
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = h // kv
+    w = cache_k.shape[1]
+    q, k, v = _project_qkv(p, x, cfg, cos, sin)
+    slot = pos % w
+    cache_k = _cache_write(cache_k, k, slot)
+    cache_v = _cache_write(cache_v, v, slot)
+    slots = torch.arange(w, device=x.device)
+    if _per_slot(pos):
+        posb = pos.long()[:, None]                           # (B, 1)
+        key_pos = posb - torch.remainder(posb - slots[None], w)
+        valid = (key_pos >= 0) & (key_pos > posb - window)  # (B, W)
+        vmask = valid[:, None, None, None, :]
+    else:
+        key_pos = pos - torch.remainder(pos - slots, w)
+        valid = (key_pos >= 0) & (key_pos > pos - window)
+        vmask = valid[None, None, None, None]
+    qg = q.reshape(b, 1, kv, g, hd).float() / math.sqrt(hd)
+    s = torch.einsum("bqkgd,bwkd->bkgqw", qg, cache_k.float())
+    if cfg.attn_logit_softcap:
+        s = torch.tanh(s / cfg.attn_logit_softcap) * cfg.attn_logit_softcap
+    s = torch.where(vmask, s, NEG_INF)
+    pattn = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqw,bwkd->bqkgd", pattn, cache_v.float())
+    o = o.reshape(b, 1, h * hd).to(x.dtype)
+    return L.linear(p["wo"], o), cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------
@@ -337,8 +379,6 @@ def mla_prefill(p, x, cfg, cos, sin, *, chunk: int = 512,
 
 # ---------------------------------------------------------------------------
 # MLA against the compressed {"c", "kr"} cache (absorbed path)
-
-NEG_INF = -1e30
 
 
 def _composed(lin):

@@ -1,16 +1,19 @@
 """Block assembly: stage programs and the sub-blocks ported so far.
 
 Counterpart of ``src/repro/models/blocks.py`` (``stage_program`` :43,
-``init_sub_block`` :100, ``apply_sub_block`` :150, ``latent_layout`` :190,
-``init_sub_cache`` :207, ``prefill_sub_block`` :256, ``decode_sub_block``
-:334) for the dense family's ``"attn"`` kind and deepseek's
+``init_sub_block`` :100, ``_tables`` / ``_window`` / ``_theta`` :130-143,
+``apply_sub_block`` :150, ``latent_layout`` :190, ``init_sub_cache`` :207,
+``_write_ring`` :244, ``prefill_sub_block`` :256, ``decode_sub_block``
+:334) for the dense family's ``"attn"`` kind, gemma3's sliding-window
+``"attn_local"`` / ``"attn_global"`` kinds, and deepseek's
 ``"mla_dense_first"`` / ``"mla_moe"`` kinds (MLA attention; a dense FFN or
 a MoE under either dispatch).  Every kind has its cache paths: ``"attn"``
-a dense {"k", "v"} or latent {"lk", "lv"} cache, the MLA kinds their own
-compressed {"c", "kr"} cache (expanded whole prefill, absorbed chunked
-prefill and decode).  A stage with ``scan=True`` and ``n > 1`` stacks its
-sub-block params (and caches) on a leading axis, as the JAX package does;
-the port walks that axis in a Python loop.
+and ``"attn_global"`` a dense {"k", "v"} or latent {"lk", "lv"} cache,
+``"attn_local"`` a ring of ``sliding_window`` dense slots, the MLA kinds
+their own compressed {"c", "kr"} cache (expanded whole prefill, absorbed
+chunked prefill and decode).  A stage with ``scan=True`` and ``n > 1``
+stacks its sub-block params (and caches) on a leading axis, as the JAX
+package does; the port walks that axis in a Python loop.
 """
 
 from __future__ import annotations
@@ -38,14 +41,23 @@ def _not_ported(what: str, slice_name: str):
         f"{slice_name} slice)")
 
 
-FORWARD_KINDS = ("attn", "mla_dense_first", "mla_moe")
+FORWARD_KINDS = ("attn", "attn_local", "attn_global", "mla_dense_first",
+                 "mla_moe")
 
 
 def stage_program(cfg) -> List[Stage]:
     if cfg.family in ("hybrid", "ssm"):
         raise _not_ported(f"family {cfg.family!r}", "SSM / hybrid")
     if cfg.attention == "sliding_mix":
-        raise _not_ported("sliding-window attention", "dense-archs")
+        # gemma3: (global_every - 1) local layers, then a global one, scanned
+        # over the groups; the remainder layers are local
+        period = cfg.global_every
+        groups, rem = divmod(cfg.num_layers, period)
+        stages = [Stage(("attn_local",) * (period - 1) + ("attn_global",),
+                        groups)]
+        if rem:
+            stages.append(Stage(("attn_local",), rem))
+        return stages
     if cfg.family == "encdec":
         raise _not_ported("encoder-decoder models", "multimodal")
     if cfg.moe is not None and cfg.moe.num_experts:
@@ -88,18 +100,38 @@ def init_sub_block(kind: str, gen: torch.Generator, cfg, *, lead=(),
     return p
 
 
+# ---------------------------------------------------------------------------
+# rope table, window and theta per kind
+
+
+def _tables(kind: str, ctx):
+    if kind == "attn_global" and "cos_global" in ctx:
+        return ctx["cos_global"], ctx["sin_global"]
+    return ctx["cos"], ctx["sin"]
+
+
+def _window(kind: str, cfg) -> int:
+    return cfg.sliding_window if kind == "attn_local" else 0
+
+
+def _theta(kind: str, cfg) -> float:
+    if kind == "attn_global" and cfg.rope_theta_global:
+        return cfg.rope_theta_global
+    return cfg.rope_theta
+
+
 def apply_sub_block(kind: str, p, x, cfg, ctx):
     """x: (B, L, d) -> (x, aux_loss)."""
     _check_kind(kind)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    cos, sin = _tables(kind, ctx)
     h = L.apply_norm(p["ln1"], x, eps=cfg.norm_eps)
     with L.scope("attn"):
         if kind.startswith("mla"):
-            attn_out = A.mla_prefill(p["attn"], h, cfg, ctx["cos"],
-                                     ctx["sin"])
+            attn_out = A.mla_prefill(p["attn"], h, cfg, cos, sin)
         else:
-            attn_out = A.gqa_prefill(p["attn"], h, cfg, ctx["cos"],
-                                     ctx["sin"])
+            attn_out = A.gqa_prefill(p["attn"], h, cfg, cos, sin,
+                                     window=_window(kind, cfg))
     x = x + attn_out
     h2 = L.apply_norm(p["ln2"], x, eps=cfg.norm_eps)
     with L.scope("ffn"):
@@ -117,11 +149,12 @@ def latent_layout(kind: str, params, cfg) -> Optional[Tuple[int, int]]:
     """(rank_k, rank_v) when this sub-block can store the factorized rank-r
     kv latent instead of dense k/v: bias-free factorized wk AND wv, no
     qk-norm (applied after the up-projection, so it cannot be absorbed) and
-    no logit softcap (the decode kernel has none).  MLA kinds keep their
-    own compressed cache: ``None``."""
+    no logit softcap (the decode kernel has none), and an absolute-position
+    cache: MLA kinds keep their own compressed cache and ``"attn_local"`` its
+    ring, so both give ``None``."""
     _check_kind(kind)
-    if (params is None or kind.startswith("mla") or cfg.qk_norm
-            or cfg.attn_logit_softcap):
+    if (params is None or kind.startswith("mla") or kind == "attn_local"
+            or cfg.qk_norm or cfg.attn_logit_softcap):
         return None
     return A.latent_ranks(params.get("attn")) if isinstance(params, dict) \
         else None
@@ -130,10 +163,17 @@ def latent_layout(kind: str, params, cfg) -> Optional[Tuple[int, int]]:
 def init_sub_cache(kind: str, cfg, batch: int, max_len: int, dtype,
                    params=None, *, device="cpu"):
     """Zero cache for one sub-block: MLA's compressed {"c", "kr"}
-    (kv_lora_rank + qk_rope_head_dim floats per token); for ``"attn"`` the
-    latent {"lk", "lv"} layout (rank-r floats per token) when ``params`` has
-    factorized kv projections, else dense {"k", "v"}."""
+    (kv_lora_rank + qk_rope_head_dim floats per token); ``"attn_local"``'s
+    ring of min(sliding_window, max_len) dense slots; for ``"attn"`` and
+    ``"attn_global"`` the latent {"lk", "lv"} layout (rank-r floats per
+    token) when ``params`` has factorized kv projections, else dense
+    {"k", "v"}."""
     kw = dict(dtype=dtype, device=device)
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    if kind == "attn_local":
+        w = min(cfg.sliding_window, max_len)
+        return {"k": torch.zeros((batch, w, kv, hd), **kw),
+                "v": torch.zeros((batch, w, kv, hd), **kw)}
     if kind.startswith("mla"):
         m = cfg.mla
         return {"c": torch.zeros((batch, max_len, m.kv_lora_rank), **kw),
@@ -143,20 +183,34 @@ def init_sub_cache(kind: str, cfg, batch: int, max_len: int, dtype,
     if ranks is not None:
         return {"lk": torch.zeros((batch, max_len, ranks[0]), **kw),
                 "lv": torch.zeros((batch, max_len, ranks[1]), **kw)}
-    kv, hd = cfg.num_kv_heads, cfg.head_dim
     return {"k": torch.zeros((batch, max_len, kv, hd), **kw),
             "v": torch.zeros((batch, max_len, kv, hd), **kw)}
+
+
+def _write_ring(cache, new, start: int):
+    """Write new (B, L, ...) into the ring cache (B, W, ...) at absolute
+    position ``start``, in place: key p lands in slot p % W, and of a
+    prompt longer than the ring only its last W keys are kept."""
+    w, l = cache.shape[1], new.shape[1]
+    if l >= w:
+        slots = (start + l - w + torch.arange(w, device=cache.device)) % w
+        cache[:, slots] = new[:, l - w:].to(cache.dtype)
+    else:
+        slots = (start + torch.arange(l, device=cache.device)) % w
+        cache[:, slots] = new.to(cache.dtype)
+    return cache
 
 
 def prefill_sub_block(kind: str, p, x, cache, cfg, ctx):
     """Forward over the prompt, filling the cache (in place) from
     ``ctx["pos"]``.  ``ctx["chunked"]`` attends against the WHOLE cache with
-    absolute-position masking, so a prompt can be prefilled chunk by chunk.
-    Returns (x, cache, aux).  MLA's chunked path (absorbed) and whole path
-    (expanded) are different arithmetic, equal to a tolerance."""
+    absolute-position masking, so a prompt can be prefilled chunk by chunk
+    (not into a ring cache, as in the JAX package).  Returns (x, cache,
+    aux).  MLA's chunked path (absorbed) and whole path (expanded) are
+    different arithmetic, equal to a tolerance."""
     _check_kind(kind)
     start = ctx.get("pos", 0)
-    cos, sin = ctx["cos"], ctx["sin"]
+    cos, sin = _tables(kind, ctx)
     h = L.apply_norm(p["ln1"], x, eps=cfg.norm_eps)
     cache = dict(cache)
     if kind.startswith("mla"):
@@ -171,15 +225,19 @@ def prefill_sub_block(kind: str, p, x, cache, cfg, ctx):
     elif "lk" in cache:
         attn_out, cache["lk"], cache["lv"] = A.gqa_prefill_latent(
             p["attn"], h, cache["lk"], cache["lv"], start, cfg, cos, sin,
-            theta=cfg.rope_theta)
+            theta=_theta(kind, cfg))
     elif ctx.get("chunked"):
+        if kind == "attn_local":
+            raise ValueError("chunked prefill unsupported for ring caches")
         attn_out, cache["k"], cache["v"] = A.gqa_prefill_cached(
             p["attn"], h, cache["k"], cache["v"], start, cfg, cos, sin)
     else:
         attn_out, (k, v) = A.gqa_prefill(p["attn"], h, cfg, cos, sin,
+                                         window=_window(kind, cfg),
                                          return_kv=True)
-        cache["k"] = A._write_at(cache["k"], k, start)
-        cache["v"] = A._write_at(cache["v"], v, start)
+        write = _write_ring if kind == "attn_local" else A._write_at
+        cache["k"] = write(cache["k"], k, start)
+        cache["v"] = write(cache["v"], v, start)
     x = x + attn_out
     h2 = L.apply_norm(p["ln2"], x, eps=cfg.norm_eps)
     if kind == "mla_moe":
@@ -194,16 +252,20 @@ def decode_sub_block(kind: str, p, x, cache, cfg, ctx):
     ``ctx["pos"]`` (an int or a per-slot (B,) tensor)."""
     _check_kind(kind)
     pos = ctx["pos"]
-    cos, sin = ctx["cos"], ctx["sin"]
+    cos, sin = _tables(kind, ctx)
     h = L.apply_norm(p["ln1"], x, eps=cfg.norm_eps)
     cache = dict(cache)
     if kind.startswith("mla"):
         attn_out, cache["c"], cache["kr"] = A.mla_decode(
             p["attn"], h, cache["c"], cache["kr"], pos, cfg, cos, sin)
+    elif kind == "attn_local":
+        attn_out, cache["k"], cache["v"] = A.ring_decode(
+            p["attn"], h, cache["k"], cache["v"], pos, cfg, cos, sin,
+            window=cfg.sliding_window)
     elif "lk" in cache:
         attn_out, cache["lk"], cache["lv"] = A.gqa_decode_latent(
             p["attn"], h, cache["lk"], cache["lv"], pos, cfg, cos, sin,
-            theta=cfg.rope_theta)
+            theta=_theta(kind, cfg))
     else:
         attn_out, cache["k"], cache["v"] = A.gqa_decode(
             p["attn"], h, cache["k"], cache["v"], pos, cfg, cos, sin)

@@ -79,9 +79,15 @@ def _rope_dim(cfg) -> int:
 
 
 def make_ctx(cfg, positions) -> Dict[str, Any]:
+    """RoPE tables at ``positions``: {"cos", "sin"}, plus {"cos_global",
+    "sin_global"} at ``rope_theta_global`` when the config sets one
+    (gemma3's global layers; ``blocks._tables`` picks them)."""
     ctx: Dict[str, Any] = {}
-    ctx["cos"], ctx["sin"] = L.rope_table(positions, _rope_dim(cfg),
-                                          cfg.rope_theta)
+    rd = _rope_dim(cfg)
+    ctx["cos"], ctx["sin"] = L.rope_table(positions, rd, cfg.rope_theta)
+    if cfg.rope_theta_global:
+        ctx["cos_global"], ctx["sin_global"] = L.rope_table(
+            positions, rd, cfg.rope_theta_global)
     return ctx
 
 
@@ -146,7 +152,9 @@ def init_cache(cfg, batch: int, max_len: int, *,
     sub-blocks whose kv projections are factorized get the latent
     {"lk", "lv"} layout (rank-r floats per token), which the flash_decode
     kernel up-projects; without ``params`` the layout is dense.  MLA
-    sub-blocks always get their compressed {"c", "kr"} cache."""
+    sub-blocks always get their compressed {"c", "kr"} cache, gemma3's
+    ``"attn_local"`` ones a dense ring of min(sliding_window, max_len)
+    slots."""
     if device is None and params is not None:
         device = params["embed"]["table"].device
     dev = resolve_device(device)

@@ -28,6 +28,16 @@ def test_deepseek_config_field_equal(getter):
                                           + tc.mla.qk_rope_head_dim)
 
 
+@pytest.mark.parametrize("getter", ["get_config", "get_smoke_config"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "granite-3-8b",
+                                  "phi3-medium-14b", "gemma3-1b"])
+def test_dense_attention_config_field_equal(arch, getter):
+    jc = getattr(JC, getter)(arch)
+    tc = getattr(TC, getter)(arch)
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    assert tc.head_dim == jc.head_dim
+
+
 def test_head_dim_default_rule():
     cfg = TC.get_config("llama-7b")
     assert cfg.head_dim == cfg.d_model // cfg.num_heads == 128
@@ -36,4 +46,4 @@ def test_head_dim_default_rule():
 
 def test_unported_arch_raises():
     with pytest.raises(KeyError, match="not ported"):
-        TC.get_config("qwen3-0.6b")
+        TC.get_config("falcon-mamba-7b")

@@ -36,6 +36,11 @@ CASES = [
     ("fma_fp32_g2_d128", 2, 2, 1, 128, 16, 12, 260, [260, 256], F32),
     ("fma_bf16_odd_rank", 2, 4, 4, 64, 19, 24, 300, [300, 77], BF16),
     ("fma_bf16_d32_g4", 2, 4, 1, 32, 16, 16, 100, [100, 3], BF16),
+    # granite's and phi3-medium's smoke head dims (RoPE pairs 4 and 10 dims)
+    ("fma_fp32_d8_g4", 2, 8, 2, 8, 24, 20, 300, [300, 5], F32),
+    ("fma_bf16_d8_g4", 2, 8, 2, 8, 24, 20, 300, [1, 257], BF16),
+    ("fma_fp32_d20_g2", 2, 4, 2, 20, 32, 19, 90, [90, 1], F32),
+    ("fma_bf16_d20_g2", 3, 4, 2, 20, 32, 24, 260, [260, 40, 256], BF16),
 ]
 IDS = [c[0] for c in CASES]
 
@@ -76,6 +81,12 @@ def test_plan_bodies():
     assert fd.plan(3, 77, 4, 2, 16, 24, 24, BF16).body == "fma"
     assert fd.plan(3, 77, 4, 2, 32, 24, 24, BF16).body == "fma"
     assert fd.plan(3, 77, 4, 2, 128, 19, 24, BF16).body == "fma"
+    # granite's (D 8) and phi3-medium's (D 20) smoke head dims: the FMA body
+    # in both dtypes, also at ranks a multiple of 8
+    for d, h, kv in ((8, 8, 2), (20, 4, 2)):
+        for dtype in (F32, BF16):
+            p = fd.plan(4, 64, h, kv, d, 32, 32, dtype)
+            assert p.body == "fma" and p.smem <= fd.MAX_SMEM
     with pytest.raises(ValueError, match="head dim"):
         fd.plan(1, 64, 4, 4, 96, 16, 16, BF16)
     with pytest.raises(TypeError):
@@ -154,7 +165,8 @@ def test_scratch_layout(case):
 def _launcher_accepts(p: fd.Plan, scratch_floats=None) -> bool:
     """csrc/flash_decode.cu's flash_decode_launch checks, mirrored."""
     if (min(p.b, p.l, p.kv, p.h, p.rk, p.rv) <= 0 or p.h % p.kv
-            or p.d not in (16, 32, 64, 128) or p.dtype not in (F32, BF16)
+            or p.d not in (8, 16, 20, 32, 64, 128)
+            or p.dtype not in (F32, BF16)
             or p.body not in ("fma", "wgmma") or p.span != 256
             or p.spans != -(-p.l // 256)):
         return False
@@ -184,6 +196,8 @@ PLANS = [_plan(c) for c in CASES] + [
     fd.plan(5, 700, 8, 2, 64, 200, 77, BF16),
     fd.plan(3, 77, 4, 2, 16, 19, 24, BF16),
     fd.plan(1, 1, 1, 1, 32, 1, 1, F32),
+    fd.plan(8, 64, 8, 2, 8, 56, 56, F32),
+    fd.plan(8, 64, 4, 2, 20, 48, 48, BF16),
 ]
 
 
@@ -197,6 +211,7 @@ _FMA = fd.plan(2, 300, 4, 2, 128, 16, 16, F32)
 REFUSED = {
     "wgmma_fp32": dataclasses.replace(_WG, dtype=F32),
     "wgmma_d32": dataclasses.replace(_WG, d=32),
+    "wgmma_d8": dataclasses.replace(_WG, d=8),
     "wgmma_rank": dataclasses.replace(_WG, rk=19),
     "wgmma_group": dataclasses.replace(_WG, h=64, kv=2),
     "fma_group": dataclasses.replace(_FMA, h=512, kv=2),
@@ -276,7 +291,8 @@ def _pallas(args, rope):
 
 
 @pytest.mark.parametrize("rope", [True, False])
-@pytest.mark.parametrize("name", ["fma_fp32_d16", "fma_fp32_g2_d128"])
+@pytest.mark.parametrize("name", ["fma_fp32_d16", "fma_fp32_g2_d128",
+                                  "fma_fp32_d8_g4", "fma_fp32_d20_g2"])
 def test_emulate_matches_pallas(name, rope):
     # the FMA body's plan against the JAX kernel in interpret mode, all
     # fp32, U in the stored layout on both sides: rtol 1e-5, atol 1e-6

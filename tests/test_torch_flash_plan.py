@@ -41,6 +41,14 @@ CASES = [
      True),
     ("decode_fma32_invariant", 2, 1, 90, 2, 2, 16, F32, True, 0, [5, 89],
      True),
+    # gemma3's head dim 256: a window, GQA g 4 and per-slot offsets in each
+    # body (wgmma with 64-key tiles, fma32 with 32-key tiles, split)
+    ("d256_window", 2, 70, 150, 4, 1, 256, BF16, True, 40, [10, 80], False),
+    ("d256_fma32", 2, 70, 150, 4, 1, 256, F32, True, 40, [10, 80], False),
+    ("d256_decode", 3, 1, 150, 4, 1, 256, BF16, True, 64, [0, 70, 149],
+     False),
+    ("d256_decode_f32", 3, 1, 150, 4, 1, 256, F32, True, 64, [0, 70, 149],
+     False),
 ]
 TILE_CASES = [c for c in CASES if not (c[2] == 1 and not c[11])]
 SPLIT_CASES = [c for c in CASES if c[2] == 1 and not c[11]]
@@ -79,6 +87,13 @@ def test_plan_bodies_and_tiles():
     assert fa.plan(1, 1024, 1024, 32, 32, 128, BF16).body == "wgmma"
     assert fa.plan(1, 1024, 1024, 32, 32, 128, BF16).bkey == 128
     assert fa.plan(4, 1024, 1024, 16, 16, 192, BF16).bkey == 64
+    # head dim 256 (gemma3): wgmma with 64-key tiles in bf16, the fp32 tile
+    # body with 32-key tiles (its 64-key tiles would not fit shared memory)
+    assert fa.plan(4, 1024, 1024, 4, 1, 256, BF16).body == "wgmma"
+    assert fa.plan(4, 1024, 1024, 4, 1, 256, BF16).bkey == 64
+    assert fa.plan(4, 1024, 1024, 4, 1, 256, F32).body == "fma32"
+    assert fa.plan(4, 1024, 1024, 4, 1, 256, F32).bkey == 32
+    assert fa.plan(4, 1024, 1024, 4, 1, 128, F32).bkey == 64
     assert fa.plan(1, 8, 2048, 32, 32, 64, BF16).bq == 128
     assert fa.plan(2, 77, 77, 4, 2, 32, BF16).body == "wmma"
     assert fa.plan(2, 77, 77, 4, 2, 128, F32).body == "fma32"
@@ -102,7 +117,8 @@ def test_split_spans_fill_the_card(b, kv, lk):
     # spans are whole tiles, as long as the (slot, KV head, span) blocks
     # reach SPLIT_BLOCKS: want = ⌈SPLIT_BLOCKS / (B·KV)⌉ spans a row, each
     # ⌈Lk / want⌉ keys rounded up to a tile
-    for dtype, d in ((BF16, 128), (F32, 128), (BF16, 192), (BF16, 16)):
+    for dtype, d in ((BF16, 128), (F32, 128), (BF16, 192), (BF16, 16),
+                     (BF16, 256), (F32, 256)):
         p = fa.plan(b, 1, lk, kv, kv, d, dtype)
         want = -(-fa.SPLIT_BLOCKS // (b * kv))
         assert p.bkey == fa.split_keys(dtype, d)
@@ -183,14 +199,15 @@ def _launcher_accepts(p: fa.Plan) -> bool:
     """csrc/flash_attention.cu's flash_attention_launch checks, mirrored."""
     d, h, kv = p.d, p.h, p.kv
     if (min(p.b, p.lq, p.lk, kv) <= 0 or h % kv
-            or d not in (16, 32, 64, 128, 192)):
+            or d not in (16, 32, 64, 128, 192, 256)):
         return False
     heads = p.b * h
     body = fa.BODIES.index(p.body)
     scratch = p.scratch_floats > 0
     if body in (0, 1):
         ok = (p.dtype == F32) if body == 0 else (p.dtype == BF16 and d <= 32)
-        return (ok and p.bq == 64 and p.bkey == 64 and p.span == 0
+        return (ok and p.bq == 64 and p.bkey == (32 if d == 256 else 64)
+                and p.span == 0
                 and p.spans == 0 and not scratch and heads <= 65535)
     if body == 2:
         return (p.dtype == BF16 and d >= 64 and p.bq == 128
@@ -211,6 +228,12 @@ PLANS = [_plan(c) for c in CASES] + [
     fa.plan(4, 1024, 1024, 16, 16, 192, BF16),
     fa.plan(1, 256, 2048, 32, 32, 128, BF16),
     fa.plan(4, 1024, 1024, 16, 16, 192, F32),
+    # gemma3 at its published widths: local / global prefill, the Server's
+    # prompts, decode over the global layers' dense cache
+    fa.plan(4, 1024, 1024, 4, 1, 256, BF16, window=512),
+    fa.plan(8, 512, 512, 4, 1, 256, BF16, window=512),
+    fa.plan(8, 1, 2048, 4, 1, 256, BF16),
+    fa.plan(4, 1024, 1024, 4, 1, 256, F32, window=512),
 ]
 
 
@@ -230,6 +253,9 @@ REFUSED = {
     "wgmma_split_fields": dataclasses.replace(_WG, span=448, spans=1),
     "fma32_bf16": dataclasses.replace(_F32, dtype=BF16),
     "fma32_tile": dataclasses.replace(_F32, bkey=128),
+    # D 256's fp32 tiles are 32 keys wide: 64 would overflow shared memory
+    "fma32_d256_tile": dataclasses.replace(
+        fa.plan(1, 300, 300, 4, 1, 256, F32), bkey=64),
     "wmma_d128": dataclasses.replace(_F32, dtype=BF16, body="wmma"),
     "head_dim": dataclasses.replace(_WG, d=96),
     "heads": dataclasses.replace(_WG, kv=3),
@@ -288,13 +314,13 @@ def test_emulate_matches_pallas(lq, lk, causal, window, d):
                                rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("d", [64, 192])
+@pytest.mark.parametrize("d", [64, 192, 256])
 def test_invariant_rows_do_not_depend_on_the_chunk(d):
     # under batch_invariant a row's emulated bits are the same whether it
     # is computed inside Lq 1, 8, 256 or the whole prompt, at any block
     # start (bf16, the wgmma body; its key tiles start at absolute key 0)
     rng = np.random.default_rng(d)
-    b, h, kv, l = 1, 1, 1, 1024 if d == 64 else 300
+    b, h, kv, l = 1, 1, 1, 1024 if d == 64 else 300 if d == 192 else 192
     q, k, v = _inputs(rng, b, l, l, h, kv, d, BF16)
     scale = 1.0 / math.sqrt(d)
 
@@ -304,7 +330,8 @@ def test_invariant_rows_do_not_depend_on_the_chunk(d):
         return fa.emulate(p, q[:, q0:q0 + n].contiguous(), k, v, scale=scale)
 
     whole = run(0, l)
-    for n, starts in ((256, (0, 44, l - 256)), (8, (0, 100, l - 8)),
+    first = 256 if l >= 300 else 128
+    for n, starts in ((first, (0, 44, l - first)), (8, (0, 100, l - 8)),
                       (1, (0, 77, 128, l - 1))):
         for q0 in starts:
             assert torch.equal(run(q0, n), whole[:, q0:q0 + n]), (n, q0)

@@ -178,5 +178,6 @@ def test_head_dim_192_is_compiled(d):
         scale=1.0 / math.sqrt(d))[..., :d]
     torch.testing.assert_close(padded, ref.flash_attention_ref(q, k, v),
                                rtol=1e-6, atol=1e-6)
+    assert ops._padded_head_dim(193) == 256
     with pytest.raises(ValueError, match="no kernel"):
-        ops._padded_head_dim(193)
+        ops._padded_head_dim(257)

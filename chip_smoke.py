@@ -92,7 +92,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
              dispatch.  Then qwen3, granite, phi3-medium and gemma3 smoke
              (16 x 32 tokens) the same way as llama: ranks equal, maps and
              loss held, served on both with equal tokens (gemma3's prompts
-             past its window of 8, so the rings wrap).
+             past its window of 8, so the rings wrap).  Then the
+             calibration policies: llama smoke with ``rank_mode=
+             "adaptive"``, ``calib_mode="hybrid"`` and ``replay_taps=
+             "auto"`` (ranks and replay taps equal, maps 1e-3, replayed
+             groups on their shifted stream), saved, restored onto the card
+             bit for bit and served by ``Server.from_checkpoint`` (tokens
+             equal the in-memory ``Server``'s); deepseek smoke drop-free
+             with adaptive ranks (routed ids exact, ``rank_per_expert``
+             tuples equal).  Each adaptive run prints the allocator's
+             smallest relative lambda gap.
 5. main    — Algorithm 2 on llama-7b at its published widths, depth cut to
              2 layers, random weights from a seeded ``torch.Generator``:
              calibration 8 × 1024 tokens, ratio 0.6, fused calibration, one
@@ -165,6 +174,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
              from fp32); ring cache bytes against an all-dense cache;
              ``decode_step`` under ``set_sync_debug_mode("error")``; one
              profiled engine run.
+11. policies — (a) phase 5's llama-7b configuration, weights, data and
+             recipe with ``rank_mode="adaptive"``, ``calib_mode="hybrid"``
+             and ``replay_taps="auto"``: the allocation (budget met within
+             one lane step), each linear's rank beside its uniform rank,
+             each unit's drift, replays and tapped forwards (2·B + 2·R·B;
+             unit 0 never replays; the solve sweep issues none), both
+             sweeps' stage seconds, the kept triples' bytes, peak memory,
+             the eval loss beside phase 5's; then saved with the port's
+             ``CheckpointManager``, restored onto the card and served at
+             phase 6's shapes by ``Server.from_checkpoint`` and
+             ``ContinuousBatchingServer.from_checkpoint``: tokens bit for
+             bit the in-memory model's, ``flash_decode`` > 0.  (b) phase
+             8's deepseek-v2-lite (capacity) with ``calib_mode="hybrid"``
+             and the static replay list: the MoE unit replays its two bank
+             taps, the forward law holds, ``cov_accum_banked`` > 0, eval
+             CE beside phase 8's.
 
 It prints a ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Long output goes to
@@ -2986,6 +3011,525 @@ def phase_gemma(torch, np, ops, dev="cuda", sizes=SIZES, cfg=None):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# calibration policies and checkpoints (phase 4's adaptive runs, phase 11)
+
+
+class _GapCapture:
+    """Collects the allocator's smallest relative λ gap (the ``lambda_gap``
+    record ``core.pipeline._allocate_ranks`` logs) while it is entered."""
+
+    def __enter__(self):
+        import logging
+
+        class Handler(logging.Handler):
+            def emit(inner, record):
+                gap = getattr(record, "lambda_gap", None)
+                if gap is not None:
+                    self.gaps.append(gap)
+
+        self.gaps = []
+        self._logger = logging.getLogger("repro_torch.core.pipeline")
+        self._level = self._logger.level
+        self._handler = Handler(logging.DEBUG)
+        self._logger.addHandler(self._handler)
+        self._logger.setLevel(logging.DEBUG)
+        return self.gaps
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self._handler)
+        self._logger.setLevel(self._level)
+
+
+class _SolveSweepForwards:
+    """Records the adaptive solve sweep's own tapped forwards (its report's
+    count before ``_merge_adaptive_report`` folds the estimate sweep's
+    in) while it is entered."""
+
+    def __enter__(self):
+        from repro_torch.core import pipeline as P
+        self.P, self.merge, self.counts = P, P._merge_adaptive_report, []
+
+        def spy(report, rep1, est, alloc):
+            self.counts.append(report["calibration"]["tapped_forwards"])
+            self.merge(report, rep1, est, alloc)
+
+        P._merge_adaptive_report = spy
+        return self.counts
+
+    def __exit__(self, *exc):
+        self.P._merge_adaptive_report = self.merge
+
+
+def adaptive_checks(P, R, cfg, ccfg, report, n_microbatches, tag):
+    """The allocation's invariants and the forward law, from a report:
+    the budget met within one lane step (the largest copies · rank cost ·
+    rank_multiple of any linear), unit 0 never replayed with drift 0, and
+    2·B + 2·R·B tapped forwards a unit.  Returns the summary it logs."""
+    alloc = report["calibration"]["rank_mode"]
+    lane = max((lin["shape"][0] if len(lin["shape"]) == 3
+                and "rank_per_expert" not in lin else 1)
+               * R.rank_cost(lin["shape"][-1], lin["shape"][-2],
+                             remap=ccfg.remap) * ccfg.rank_multiple
+               for u in report["units"] for lin in u["linears"])
+    slack = alloc["budget_params"] - alloc["allocated_params"]
+    require(0 <= slack <= lane, f"{tag}: budget {alloc['budget_params']} "
+            f"allocated {alloc['allocated_params']} (one lane step {lane})")
+    first = report["units"][0]
+    require(first["replay_taps"] == [] and all(
+        v == 0.0 for v in first["shift_drift"].values()),
+        f"{tag}: unit 0 replayed {first['replay_taps']} or drifted "
+        f"{first['shift_drift']}")
+    b = n_microbatches
+    for u in report["units"]:
+        want = 2 * b + 2 * len(u["replay_taps"]) * b
+        require(u["tapped_forwards"] == want, f"{tag}: {u['name']} "
+                f"tapped {u['tapped_forwards']} forwards, not {want}")
+    return {"alloc": alloc, "lane_step_params": lane,
+            "budget_slack_params": slack}
+
+
+def kept_triple_bytes(P, cfg, report):
+    """Bytes of the covariance triples the estimate sweep keeps: three
+    fp32 (n, n) per tap group, (E, n, n) for an expert bank."""
+    total = 0
+    for u in report["units"]:
+        shapes = {lin["path"]: lin["shape"] for lin in u["linears"]}
+        for _, group in P.tap_groups(P.linear_specs(u["kind"], cfg)):
+            shape = shapes[group[0].path]
+            experts = shape[0] if group[0].bank else 1
+            total += 3 * experts * shape[-2] ** 2 * 4
+    return total
+
+
+def _replayed_map_error(torch, comp_a, comp_b, report_b, cfg):
+    """Worst relative error of comp_a's composed maps against comp_b's, a
+    dense stacked stage (llama).  A tap group the unit replayed saw a
+    shifted stream that is rank-deficient by construction (``attn/o_in``
+    mixes the compressed ``wv``'s values), so there the maps are compared
+    as they act on it: ||X′(A − B)||_F / ||X′ B||_F from comp_b's X′ᵀX′
+    (``debug_covs``)."""
+    from repro_torch.core import pipeline as P
+    worst, where = 0.0, None
+    for (path, a), (_, b) in zip(_factor_pairs(comp_a["stages"]),
+                                 _factor_pairs(comp_b["stages"])):
+        lin = ".".join(path.split(".")[-2:])
+        maps = [torch.einsum("lnk,lkm->lnm", f["v"].cpu().double(),
+                             f["u"].cpu().double()) for f in (a, b)]
+        for layer, unit in enumerate(report_b["units"]):
+            tap = next(s.tap for s in P.linear_specs(unit["kind"], cfg)
+                       if s.path == lin)
+            dw, w = maps[0][layer] - maps[1][layer], maps[1][layer]
+            if tap in unit["replay_taps"]:
+                lam, q = torch.linalg.eigh(
+                    unit["covs"][tap]["xpxp"].cpu().double())
+                half = q * lam.clamp(min=0.0).sqrt()[None, :]
+                dw, w = half.T @ dw, half.T @ w
+            err = float(torch.linalg.norm(dw) / torch.linalg.norm(w))
+            if err > worst:
+                worst, where = err, f"{lin} [{layer}]"
+    return worst, where
+
+
+def phase_smoke_adaptive(torch, np, dev="cuda"):
+    """llama smoke (fp32) compressed with ``rank_mode="adaptive"``,
+    ``calib_mode="hybrid"`` and ``replay_taps="auto"`` on the card and on
+    the CPU from the same params and 8 × 32 uniform tokens: ranks and
+    replay taps equal, composed maps to 1e-3 (replayed groups on their
+    shifted stream).  Then the card's compression saved, restored onto the
+    card with ``restore_tree`` (every leaf bit for bit) and served by
+    ``Server.from_checkpoint``: the same tokens as the in-memory
+    ``Server``."""
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import pipeline as P
+    from repro_torch.core import ranks as R
+    from repro_torch.launch import serve as TS
+    from repro_torch.models import model as M
+    from repro_torch.tree import flatten
+
+    cfg = configs.get_smoke_config("llama-7b").replace(dtype="float32")
+    params = M.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(0)
+    calib = {"tokens": rng.integers(0, cfg.vocab_size, (8, 32))}
+    recipe = P.CompressConfig(ratio=0.6, microbatch=2, refine_epochs=1,
+                              calib_mode="hybrid", replay_taps="auto",
+                              rank_mode="adaptive", debug_covs=True)
+    out = {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        with _GapCapture() as gaps:
+            comp, rep = P.compress_model(params, cfg, calib, recipe,
+                                         device=d)
+        out[name] = (comp, rep, gaps[0])
+    ranks = {run: [[lin["rank"] for lin in u["linears"]]
+                   for u in out[run][1]["units"]] for run in out}
+    replays = {run: [u["replay_taps"] for u in out[run][1]["units"]]
+               for run in out}
+    worst, where = _replayed_map_error(torch, out["card"][0],
+                                       out["cpu"][0], out["cpu"][1], cfg)
+    tag = "smoke adaptive"
+    log(f"{tag}: ranks card {ranks['card']} cpu {ranks['cpu']}; replay taps "
+        f"card {replays['card']} cpu {replays['cpu']}; composed-map rel err "
+        f"{worst:.3e} at {where}; smallest relative lambda gap card "
+        f"{json.dumps(out['card'][2])} cpu {json.dumps(out['cpu'][2])}; "
+        f"allocation {json.dumps(out['card'][1]['calibration']['rank_mode'])}")
+    require(ranks["card"] == ranks["cpu"], f"{tag}: ranks differ")
+    require(replays["card"] == replays["cpu"], f"{tag}: replay taps differ")
+    require(worst <= 1e-3, f"{tag}: composed maps differ by {worst:.3e}")
+    checks = adaptive_checks(P, R, cfg, recipe, out["card"][1], 4, tag)
+
+    # the card's compression through a checkpoint
+    comp = out["card"][0]
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, cfg.vocab_size, (3, 24), dtype=np.int32)
+    with tempfile.TemporaryDirectory() as d:
+        CheckpointManager(d, async_save=False).save(0, comp,
+                                                    meta={"tag": tag})
+        _, back, meta = CheckpointManager(d, async_save=False).restore_tree(
+            0, device=dev)
+        leaves, tdef = flatten(comp)
+        back_leaves, back_tdef = flatten(back)
+        same = tdef == back_tdef and all(
+            a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+            for a, b in zip(leaves, back_leaves))
+        srv = TS.Server.from_checkpoint(cfg, d, max_len=48, batch=4,
+                                        device=dev)
+        got = srv.generate(prompts, steps=8).cpu().tolist()
+    want = TS.Server(cfg, comp, max_len=48, batch=4,
+                     device=dev).generate(prompts, steps=8).cpu().tolist()
+    log(f"{tag}: checkpoint round trip on the card, {len(leaves)} leaves "
+        f"bit for bit {same}; meta {meta}; Server.from_checkpoint tokens "
+        f"{json.dumps(got)} in-memory {json.dumps(want)}")
+    require(same, f"{tag}: restored leaves differ from the saved ones")
+    require(got == want and srv.checkpoint_meta == {"tag": tag},
+            f"{tag}: Server.from_checkpoint tokens differ")
+    return {"ranks": ranks["card"], "replay_taps": replays["card"],
+            "map_rel_err": worst, "map_worst_at": where,
+            "lambda_gap": {k: out[k][2] for k in out},
+            "checks": checks, "checkpoint_leaves": len(leaves),
+            "checkpoint_bitwise": same, "tokens": got}
+
+
+def phase_smoke_moe_adaptive(torch, np, dev="cuda"):
+    """deepseek-v2-lite smoke (fp32, 2 layers) compressed under the
+    drop-free dispatch with ``rank_mode="adaptive"`` (``rank_multiple=1``:
+    per-expert ranks spread) on the card and on the CPU from the same
+    params and 16 × 64 uniform tokens: the routed ids exactly equal, the
+    banks' ``rank_per_expert`` tuples equal."""
+    from repro_torch import configs
+    from repro_torch.core import pipeline as P
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+
+    cfg = _dropfree(configs.get_smoke_config("deepseek-v2-lite-16b").replace(
+        dtype="float32"))
+    params = M.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(3)
+    calib = {"tokens": rng.integers(0, cfg.vocab_size, (16, 64))}
+    recipe = P.CompressConfig(ratio=0.6, rank_multiple=1, microbatch=2,
+                              calib_mode="fused", refine_epochs=1,
+                              moe_dispatch="dropfree", rank_mode="adaptive")
+    out = {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        store = {}
+        pd = tree_map(lambda x, d=d: x.to(d), params)
+        with torch.no_grad(), L.sowing(store):
+            M.forward_hidden(pd, cfg, {"tokens": torch.from_numpy(
+                calib["tokens"]).to(d)})
+        ids = _routed_ids(torch, L, store, pd, cfg)
+        with _GapCapture() as gaps:
+            _, rep = P.compress_model(params, cfg, calib, recipe, device=d)
+        per_expert = [lin["rank_per_expert"] for u in rep["units"]
+                      for lin in u["linears"] if "rank_per_expert" in lin]
+        out[name] = (per_expert, ids, rep, gaps[0])
+    flips = int((out["card"][1] != out["cpu"][1]).sum())
+    tag = "smoke moe adaptive (dropfree)"
+    log(f"{tag}: rank_per_expert card {out['card'][0]} cpu "
+        f"{out['cpu'][0]}; routed ids {tuple(out['cpu'][1].shape)} flips "
+        f"{flips}; smallest relative lambda gap card "
+        f"{json.dumps(out['card'][3])} cpu {json.dumps(out['cpu'][3])}; "
+        f"allocation {json.dumps(out['card'][2]['calibration']['rank_mode'])}")
+    require(flips == 0, f"{tag}: {flips} routed ids differ")
+    require(len(out["card"][0]) == 3 and out["card"][0] == out["cpu"][0],
+            f"{tag}: rank_per_expert differ")
+    require(any(len(set(ks)) > 1 for ks in out["card"][0]),
+            f"{tag}: every expert of every bank got one rank")
+    return {"rank_per_expert": out["card"][0], "id_flips": flips,
+            "lambda_gap": {k: out[k][3] for k in out},
+            "alloc": out["card"][2]["calibration"]["rank_mode"]}
+
+
+def _dir_bytes(path):
+    return sum(f.stat().st_size for f in pathlib.Path(path).rglob("*")
+               if f.is_file())
+
+
+def phase_policies(torch, np, ops, dev="cuda", sizes=SIZES, cfg=None,
+                   uniform=None):
+    """Phase 11 (a): phase 5's llama-7b configuration, weights, data and
+    recipe, compressed with ``rank_mode="adaptive"``, ``calib_mode=
+    "hybrid"`` and ``replay_taps="auto"``; saved with the port's
+    ``CheckpointManager``, restored onto the card by
+    ``Server.from_checkpoint`` / ``ContinuousBatchingServer
+    .from_checkpoint`` and served at phase 6's shapes, tokens bit for bit
+    the in-memory model's.  ``uniform``: phase 5's compressed eval losses,
+    printed beside this one's."""
+    import tempfile
+
+    import repro_torch
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import pipeline as P
+    from repro_torch.core import ranks as R
+    from repro_torch.launch import serve as TS
+    from repro_torch.models import model as M
+
+    on_card = torch.device(dev).type == "cuda"
+    layers = sizes["layers"]
+    if cfg is None:
+        cfg = configs.get_config("llama-7b")
+    cfg = cfg.replace(num_layers=layers)
+    tag = "policies"
+    # phase 5's weights and data: the same seeds, drawn in the same order
+    params = M.init_params(cfg, 0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    calib = {"tokens": torch.randint(0, cfg.vocab_size, sizes["calib"],
+                                     generator=gen, device=dev)}
+    evals = []
+    n_eval, b_eval, l_eval = sizes["evals"]
+    for _ in range(n_eval):
+        t = torch.randint(0, cfg.vocab_size, (b_eval, l_eval + 1),
+                          generator=gen, device=dev)
+        evals.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    ccfg = repro_torch.CompressConfig(
+        ratio=0.6, calib_mode="hybrid", replay_taps="auto",
+        rank_mode="adaptive", refine_epochs=1,
+        microbatch=sizes["microbatch"])
+    log(f"{tag}: llama-7b widths, num_layers 32 -> {layers}, phase 5's "
+        f"weights and data; {json.dumps({k: getattr(ccfg, k) for k in ('ratio', 'calib_mode', 'replay_taps', 'drift_threshold', 'rank_mode', 'rank_multiple', 'rank_floor_ratio', 'refine_epochs', 'microbatch')})}")
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    stages = {}
+    t0 = time.perf_counter()
+    with _GapCapture() as gaps, _SolveSweepForwards() as solve_forwards:
+        comp, report = repro_torch.compress_model(
+            params, cfg, calib, ccfg, device=dev, stage_times=stages)
+    t_compress = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    with torch.no_grad():
+        loss = [float(M.loss_fn(comp, cfg, b)[0]) for b in evals]
+    n_mb = -(-sizes["calib"][0] // sizes["microbatch"])
+    checks = adaptive_checks(P, R, cfg, ccfg, report, n_mb, tag)
+    kept = kept_triple_bytes(P, cfg, report)
+    alloc = report["calibration"]["rank_mode"]
+    log(f"{tag}: allocation min_rank {alloc['min_rank']} max_rank "
+        f"{alloc['max_rank']} achieved_ratio {alloc['achieved_ratio']} "
+        f"allocated_params {alloc['allocated_params']} budget_params "
+        f"{alloc['budget_params']} (slack {checks['budget_slack_params']},"
+        f" one lane step {checks['lane_step_params']}); smallest relative "
+        f"lambda gap {json.dumps(gaps)}")
+    for u in report["units"]:
+        log(f"{tag}: {u['name']} ranks (uniform) "
+            + ", ".join(f"{lin['path']} {lin['rank']} ({lin['uniform_rank']})"
+                        for lin in u["linears"])
+            + f"; shift_drift {json.dumps(u['shift_drift'])}; replay_taps "
+            f"{u['replay_taps']}; tapped_forwards {u['tapped_forwards']}; "
+            f"pre/post-refine mse {u['pre_refine_mse']:.6e} / "
+            f"{u['post_refine_mse']:.6e}")
+    log(f"{tag}: stage seconds (both sweeps; estimate.* the estimate "
+        f"sweep's)", json.dumps(stages))
+    log(f"{tag}: compress wall {t_compress:.3f} s, peak device memory "
+        f"{peak / 2**30:.3f} GiB, kept triples {kept / 2**30:.3f} GiB "
+        f"({kept} B), solve sweep tapped forwards {solve_forwards}; "
+        f"launches {json.dumps(launches)}")
+    log(f"{tag}: eval loss adaptive {loss} uniform (phase 5) {uniform}")
+    require(solve_forwards == [0], f"{tag}: the solve sweep issued "
+            f"{solve_forwards} tapped forwards")
+    require(all(math.isfinite(v) for v in loss), f"{tag}: loss {loss}")
+    for name in ("cov_accum", "lowrank_matmul", "flash_attention"):
+        require(launches[name] > 0, f"{tag}: {name} never launched")
+
+    out = {"stages": stages, "compress_wall_s": t_compress,
+           "peak_bytes": peak, "kept_triple_bytes": kept,
+           "launches": launches, "lowrank_rows": lowrank_rows(ops),
+           "flash_bodies": dict(ops.FLASH_BODIES), "lambda_gap": gaps,
+           "checks": checks, "loss": loss, "uniform_loss": uniform,
+           "ranks": {u["name"]: {lin["path"]: [lin["rank"],
+                                               lin["uniform_rank"]]
+                                 for lin in u["linears"]}
+                     for u in report["units"]},
+           "shift_drift": {u["name"]: u["shift_drift"]
+                           for u in report["units"]},
+           "replay_taps": {u["name"]: u["replay_taps"]
+                           for u in report["units"]},
+           "tapped_forwards": {u["name"]: u["tapped_forwards"]
+                               for u in report["units"]}}
+    attn = comp["stages"][0][0]["attn"]
+    out["r_k_r_v"] = [int(attn["wk"]["v"].shape[-1]),
+                      int(attn["wv"]["v"].shape[-1])]
+
+    rng = np.random.default_rng(7)
+    b, plen, steps, max_len = sizes["serve_dense"]
+    prompts = rng.integers(0, cfg.vocab_size, (b, plen), dtype=np.int32)
+    slots, e_len, chunk, n_req, (lo, hi), e_steps = sizes["serve_engine"]
+    lens = rng.integers(lo, hi + 1, n_req)
+    reqs = [TS.Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, (n,),
+                                                  dtype=np.int32),
+                       steps=e_steps) for i, n in enumerate(lens)]
+    with tempfile.TemporaryDirectory() as d:
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        CheckpointManager(d, async_save=False).save(
+            0, comp, meta={"arch": "llama-7b", "layers": layers})
+        out["save_s"] = time.perf_counter() - t0
+        out["checkpoint_bytes"] = _dir_bytes(d)
+        t0 = time.perf_counter()
+        _, back, _ = CheckpointManager(d, async_save=False).restore_tree(
+            0, device=dev)
+        _sync(torch, dev)
+        out["restore_s"] = time.perf_counter() - t0
+        pairs = list(zip(_factor_pairs(comp), _factor_pairs(back)))
+        require(pairs and all(torch.equal(a[key], b_[key])
+                              for (_, a), (_, b_) in pairs
+                              for key in ("u", "v")),
+                f"{tag}: restored factors differ from the saved ones")
+        del back
+        srv = TS.Server(cfg, comp, max_len=max_len, batch=b, device=dev)
+        want = srv.generate(prompts, steps=steps).cpu()
+        del srv
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        srv = TS.Server.from_checkpoint(cfg, d, max_len=max_len, batch=b,
+                                        device=dev)
+        got = srv.generate(prompts, steps=steps).cpu()
+        out["server"] = {"wall_s": time.perf_counter() - t0,
+                         "launches": dict(ops.LAUNCHES),
+                         "tokens_equal": bool(torch.equal(got, want)),
+                         "meta": srv.checkpoint_meta}
+        del srv
+        eng = TS.ContinuousBatchingServer(cfg, comp, max_len=e_len,
+                                          slots=slots, prefill_chunk=chunk,
+                                          device=dev)
+        want_e = eng.run(reqs)
+        del eng
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        eng = TS.ContinuousBatchingServer.from_checkpoint(
+            cfg, d, max_len=e_len, slots=slots, prefill_chunk=chunk,
+            device=dev)
+        got_e = eng.run(reqs)
+        out["engine"] = {
+            "wall_s": time.perf_counter() - t0,
+            "launches": dict(ops.LAUNCHES),
+            "lowrank_rows": lowrank_rows(ops),
+            "decode_bodies": dict(ops.DECODE_BODIES),
+            "decode_step_ms_median": statistics.median(
+                eng.decode_step_times) * 1e3,
+            "tokens_equal": all(np.array_equal(got_e[i]["tokens"],
+                                               want_e[i]["tokens"])
+                                for i in range(n_req))}
+        del eng
+    log(f"{tag}: checkpoint {out['checkpoint_bytes']} B, save "
+        f"{out['save_s']:.3f} s, restore onto the card "
+        f"{out['restore_s']:.3f} s; r_k / r_v {out['r_k_r_v']}")
+    log(f"{tag}: Server.from_checkpoint", json.dumps(out["server"]))
+    log(f"{tag}: ContinuousBatchingServer.from_checkpoint",
+        json.dumps(out["engine"]))
+    require(out["server"]["tokens_equal"], f"{tag}: Server.from_checkpoint "
+            "tokens differ from the in-memory model's")
+    require(out["engine"]["tokens_equal"], f"{tag}: the engine's "
+            "from_checkpoint tokens differ from the in-memory model's")
+    require(out["engine"]["launches"]["flash_decode"] > 0,
+            f"{tag}: flash_decode never launched by the restored engine")
+    return out
+
+
+def phase_policies_moe(torch, ops, dev="cuda", sizes=SIZES, cfg=None,
+                       uniform=None):
+    """Phase 11 (b): phase 8's deepseek-v2-lite configuration (its own
+    capacity dispatch), weights and data, compressed with
+    ``calib_mode="hybrid"`` and the static replay list (the expert banks)
+    at uniform ranks.  ``uniform``: phase 8's compressed eval CEs."""
+    import repro_torch
+    from repro_torch import configs
+    from repro_torch.models import model as M
+
+    on_card = torch.device(dev).type == "cuda"
+    layers = sizes["moe_layers"]
+    if cfg is None:
+        cfg = configs.get_config("deepseek-v2-lite-16b")
+    cfg = cfg.replace(num_layers=layers)
+    tag = "policies moe"
+    params = M.init_params(cfg, 0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    calib = {"tokens": torch.randint(0, cfg.vocab_size, sizes["calib"],
+                                     generator=gen, device=dev)}
+    evals = []
+    n_eval, b_eval, l_eval = sizes["evals"]
+    for _ in range(n_eval):
+        t = torch.randint(0, cfg.vocab_size, (b_eval, l_eval + 1),
+                          generator=gen, device=dev)
+        evals.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    ccfg = repro_torch.CompressConfig(ratio=0.6, calib_mode="hybrid",
+                                      refine_epochs=1,
+                                      microbatch=sizes["microbatch"])
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    stages = {}
+    t0 = time.perf_counter()
+    comp, report = repro_torch.compress_model(params, cfg, calib, ccfg,
+                                              device=dev, stage_times=stages)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    with torch.no_grad():
+        ce = [float(M.loss_fn(comp, cfg, b)[1]["ce"]) for b in evals]
+    n_mb = -(-sizes["calib"][0] // sizes["microbatch"])
+    rates = report["calibration"]["moe_drop_rate"]
+    log(f"{tag}: deepseek-v2-lite widths, num_layers 27 -> {layers}, "
+        f"dispatch {cfg.moe.dispatch} (capacity factor "
+        f"{cfg.moe.capacity_factor}), calib_mode hybrid (static replay); "
+        f"wall {wall:.3f} s, stage seconds {json.dumps(stages)}, peak "
+        f"{peak / 2**30:.3f} GiB; launches {json.dumps(launches)}; drop "
+        f"rates {json.dumps(rates)}")
+    for u in report["units"]:
+        log(f"{tag}: {u['name']} replay_taps {u['replay_taps']} "
+            f"tapped_forwards {u['tapped_forwards']} shift_drift "
+            f"{json.dumps(u['shift_drift'])}")
+    log(f"{tag}: eval CE hybrid {ce} fused (phase 8) {uniform}")
+    for u in report["units"]:
+        want_taps = (["ffn/experts_in", "ffn/experts_down_in"]
+                     if u["kind"].endswith("_moe") else [])
+        require(u["replay_taps"] == want_taps, f"{tag}: {u['name']} "
+                f"replayed {u['replay_taps']}, not {want_taps}")
+        want = 2 * n_mb + 2 * len(want_taps) * n_mb
+        require(u["tapped_forwards"] == want, f"{tag}: {u['name']} tapped "
+                f"{u['tapped_forwards']} forwards, not {want}")
+    require(launches["cov_accum_banked"] > 0,
+            f"{tag}: cov_accum_banked never launched")
+    require(launches["grouped_matmul"] == 0,
+            f"{tag}: grouped_matmul launched on the capacity path")
+    require(all(math.isfinite(v) for v in ce), f"{tag}: CE {ce}")
+    require(rates and all(0.0 <= r < 1.0 for r in rates.values()),
+            f"{tag}: drop rates {rates}")
+    return {"wall_s": wall, "stages": stages, "peak_bytes": peak,
+            "launches": launches, "lowrank_rows": lowrank_rows(ops),
+            "flash_bodies": dict(ops.FLASH_BODIES), "drop_rates": rates,
+            "replay_taps": {u["name"]: u["replay_taps"]
+                            for u in report["units"]},
+            "tapped_forwards": {u["name"]: u["tapped_forwards"]
+                                for u in report["units"]},
+            "ce": ce, "uniform_ce": uniform}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3097,6 +3641,8 @@ def main(argv=None) -> int:
     smoke["archs"] = {arch: phase_smoke(torch, np, arch=arch,
                                         calib_shape=SIZES["smoke_calib"])
                       for arch in SIZES["smoke_archs"]}
+    smoke["adaptive"] = phase_smoke_adaptive(torch, np)
+    smoke["moe_adaptive"] = phase_smoke_moe_adaptive(torch, np)
     log(f"phase 4: {time.perf_counter() - t0:.3f} s")
     # 5. main path: compression
     t0 = time.perf_counter()
@@ -3137,6 +3683,22 @@ def main(argv=None) -> int:
     gemma_paths = {"compress_gemma": gemma["compress"],
                    "serve_gemma_server": gemma["server"],
                    "serve_gemma_engine": gemma["engine"]}
+    torch.cuda.empty_cache()
+    # 11. calibration policies: adaptive hybrid llama through a checkpoint,
+    # then deepseek's capacity banks replayed by hybrid calibration
+    t0 = time.perf_counter()
+    policies = phase_policies(torch, np, ops, uniform=main_run["compressed"])
+    log(f"phase 11 (a): {time.perf_counter() - t0:.3f} s")
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    policies_moe = phase_policies_moe(torch, ops,
+                                      uniform=moe_cap_run["compressed"])
+    log(f"phase 11 (b): {time.perf_counter() - t1:.3f} s")
+    log(f"phase 11: {time.perf_counter() - t0:.3f} s")
+    policy_paths = {"compress_adaptive": policies,
+                    "serve_ckpt_server": policies["server"],
+                    "serve_ckpt_engine": policies["engine"],
+                    "compress_moe_hybrid": policies_moe}
 
     def timing(row):
         return {"max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -3160,7 +3722,9 @@ def main(argv=None) -> int:
                    **{path: run["launches"][name]
                       for path, run in moe_paths.items()},
                    **{path: run["launches"][name]
-                      for path, run in gemma_paths.items()}}
+                      for path, run in gemma_paths.items()},
+                   **{path: run["launches"][name]
+                      for path, run in policy_paths.items()}}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": by_path[path],
                 "launches_by_path": by_path, **timing(head)}
@@ -3210,7 +3774,9 @@ def main(argv=None) -> int:
         "compress_moe": moe_run["lowrank_rows"],
         "compress_moe_capacity": moe_cap_run["lowrank_rows"],
         **{path: run["lowrank_rows"] for path, run in moe_paths.items()},
-        **{path: run["lowrank_rows"] for path, run in gemma_paths.items()}}
+        **{path: run["lowrank_rows"] for path, run in gemma_paths.items()},
+        **{path: run["lowrank_rows"] for path, run in policy_paths.items()
+           if "lowrank_rows" in run}}
     # grouped_matmul at decode's 48 rows (the dense bank and the factorized
     # x @ V), at an engine chunk's 1536 (x @ V), and one bf16 backward (dx
     # and dW) at the x @ V shape
@@ -3257,7 +3823,8 @@ def main(argv=None) -> int:
                                      and r["case"] == "granite"
                                      and r["dtype"] == "bfloat16"))
     fdk["launches_by_body"] = {
-        "serve_engine": serve_run["engine"]["decode_bodies"]}
+        "serve_engine": serve_run["engine"]["decode_bodies"],
+        "serve_ckpt_engine": policies["engine"]["decode_bodies"]}
     fa["launches_by_body"] = {
         "compress": main_run["flash_bodies"],
         "serve_server": serve_run["server"]["flash_bodies"],
@@ -3277,7 +3844,8 @@ def main(argv=None) -> int:
                    "grouped_matmul_backward": gm_back, "smoke": smoke,
                    "main": main_run, "serve": serve_run, "moe": moe_run,
                    "moe_capacity": moe_cap_run, "serve_moe": serve_moe,
-                   "gemma": gemma},
+                   "gemma": gemma, "policies": policies,
+                   "policies_moe": policies_moe},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

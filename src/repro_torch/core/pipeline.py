@@ -1,12 +1,11 @@
 """Algorithm 2: end-to-end block-wise AA-SVD compression with refinement.
 
-Counterpart of ``src/repro/core/pipeline.py`` for ``rank_mode="uniform"``,
-``calib_mode`` "fused" or "sequential", ``calib_mesh=None``, on dense GQA
-models (llama, qwen3, granite, phi3-medium; gemma3's sliding-window local
-and global layers) and on deepseek's MLA + MoE (capacity or drop-free
-dispatch).  The model is
-unrolled into units (one transformer block each; stacked stages are sliced
-and restacked afterwards).  Per unit:
+Counterpart of ``src/repro/core/pipeline.py`` with ``calib_mesh=None``, on
+dense GQA models (llama, qwen3, granite, phi3-medium; gemma3's
+sliding-window local and global layers) and on deepseek's MLA + MoE
+(capacity or drop-free dispatch).  The model is unrolled into units (one
+transformer block each; stacked stages are sliced and restacked
+afterwards).  Per unit:
 
   1. calibration statistics via the streaming engine (``core.streaming``):
      every tap group (q/k/v share a tap, gate/up share) owns a covariance
@@ -14,13 +13,37 @@ and restacked afterwards).  Per unit:
      stream and X' from the partially compressed unit on the shifted
      stream, accumulated by the ``cov_accum`` CUDA kernel (per expert for
      the MoE's bank taps: one banked launch over the capacity buffers, or
-     one launch an expert segment of the drop-free dispatch's rows).  Then solve Thm 3.2 per linear (per
-     expert for a bank) and swap the weight for its (U, V) factors.
+     one launch an expert segment of the drop-free dispatch's rows).  Then
+     solve Thm 3.2 per linear (per expert for a bank) and swap the weight
+     for its (U, V) factors.
   2. block-level refinement (``core.refine``) against the original outputs.
   3. propagate both streams: X ← L_i(X) with original weights,
      X' ← L'_i(X') with compressed weights (factorized linears run the
      ``lowrank_matmul`` CUDA kernel; expert banks batched products under
      the capacity dispatch, ``grouped_matmul`` under the drop-free one).
+
+``CompressConfig.calib_mode`` selects the collection policy, as in the JAX
+package:
+
+  * ``"sequential"`` — both streams replayed for every tap group, so later
+    groups calibrate against the already-compressed earlier ones (2·G·B
+    tapped forwards a unit for G groups and B microbatches);
+  * ``"fused"`` — one tapped forward a microbatch a stream feeds every
+    group (2·B); shifted taps see the unit pre-solve;
+  * ``"hybrid"`` — one fused pass for every group except the *replay*
+    groups (expert banks, specs flagged ``replay=True``, taps listed in
+    ``replay_taps``), each re-collected sequentially at its solve turn
+    (2·B + 2·R·B for R replay groups).  ``replay_taps="auto"`` fuses every
+    group and replays those whose shift drift passes ``drift_threshold``.
+
+``CompressConfig.rank_mode="adaptive"`` runs two sweeps: an ESTIMATE sweep
+(the collection policy at uniform ranks, no refinement) that reads each
+linear's truncation-loss estimate off its solve's own SVD and keeps every
+covariance triple, ``ranks.allocate_by_loss`` water-filling the global
+budget, then a SOLVE sweep that re-solves from the kept triples at the
+allocated ranks (zero tapped forwards) and refines.  Under the drop-free
+dispatch every expert is its own item: the bank is solved once at its
+largest rank and each expert's factor tail masked (``_mask_expert_tails``).
 
 ``compress_model`` runs on the card unless the caller passes
 ``device="cpu"``, where the kernels' plain versions run instead.  The
@@ -33,7 +56,8 @@ import contextlib
 import dataclasses
 import logging
 import time
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import (Any, Dict, List, NamedTuple, Optional, Sequence,
+                    Set, Tuple)
 
 import numpy as np
 import torch
@@ -57,13 +81,15 @@ class CompressConfig:
     """Knobs for ``compress_model`` (Algorithm 2); every field and default of
     the JAX package's ``CompressConfig``.
 
-    Ported: ``rank_mode="uniform"``, ``calib_mode`` "fused" and
-    "sequential", ``calib_mesh=None``, every objective, eigh and cholesky
-    whitening, the ``refine_*`` knobs, and ``moe_dispatch`` /
-    ``moe_capacity_factor`` (applied once at entry, as in the JAX package;
-    both MoE dispatches).  ``hybrid`` calibration, ``rank_mode="adaptive"``
-    and ``calib_mesh`` raise ``NotImplementedError`` naming the slice that
-    brings them.
+    Ported: both ``rank_mode`` values (``"adaptive"``: the two sweeps of the
+    module docstring, ``rank_floor_ratio`` / ``rank_ceil_ratio`` the
+    allocator's trust region), every ``calib_mode`` (``"hybrid"`` with a
+    static ``replay_taps`` tuple or ``"auto"`` and ``drift_threshold``),
+    every objective, eigh and cholesky whitening, the ``refine_*`` knobs,
+    and ``moe_dispatch`` / ``moe_capacity_factor`` (applied once at entry,
+    as in the JAX package; both MoE dispatches).  ``calib_mesh`` raises
+    ``NotImplementedError``: data-parallel collection comes with the
+    ``torch.distributed`` slice.
 
     ``scan_collect`` and ``refine_scan`` choose between the JAX package's
     ``lax.scan`` dispatch and its per-microbatch loop.  The port always runs
@@ -88,9 +114,9 @@ class CompressConfig:
     whiten: str = "eigh"          # eigh | cholesky
     rank_multiple: int = 8
     microbatch: int = 8           # calibration sequences per forward
-    calib_mode: str = "sequential"  # sequential | fused (hybrid: later)
-    replay_taps: Any = ()
-    drift_threshold: float = 0.25
+    calib_mode: str = "sequential"  # sequential | fused | hybrid
+    replay_taps: Any = ()         # hybrid: extra tap names, or "auto"
+    drift_threshold: float = 0.25  # replay_taps="auto": replay past this
     scan_collect: Optional[bool] = None
     calib_mesh: Any = None
     moe_dispatch: str = "inherit"
@@ -104,12 +130,14 @@ class CompressConfig:
 
 
 class LinearSpec(NamedTuple):
-    """One compressible linear: where its weight lives and which activation
-    tap feeds its covariances."""
+    """One compressible linear: where its weight lives, which activation
+    tap feeds its covariances, and whether hybrid calibration replays its
+    tap group sequentially (``replay=True``: the expert banks)."""
 
     path: str
     tap: str
     bank: bool = False
+    replay: bool = False
 
 
 def linear_specs(kind: str, cfg) -> List[LinearSpec]:
@@ -130,9 +158,9 @@ def linear_specs(kind: str, cfg) -> List[LinearSpec]:
                  S_("attn.wv", "attn/qkv_in"),
                  S_("attn.wo", "attn/o_in")]
     if kind.endswith("_moe"):
-        specs += [S_("ffn.experts.gate", "ffn/experts_in", True),
-                  S_("ffn.experts.up", "ffn/experts_in", True),
-                  S_("ffn.experts.down", "ffn/experts_down_in", True)]
+        specs += [S_("ffn.experts.gate", "ffn/experts_in", True, True),
+                  S_("ffn.experts.up", "ffn/experts_in", True, True),
+                  S_("ffn.experts.down", "ffn/experts_down_in", True, True)]
         if cfg.moe.num_shared_experts:
             specs += [S_("ffn.shared.gate", "ffn/shared/in"),
                       S_("ffn.shared.up", "ffn/shared/in"),
@@ -154,6 +182,20 @@ def tap_groups(specs) -> List[Tuple[str, List[LinearSpec]]]:
         else:
             groups.append((spec[1], [spec]))
     return groups
+
+
+def replay_taps_for(groups, ccfg: "CompressConfig") -> Set[str]:
+    """Taps whose groups hybrid mode re-collects sequentially: expert banks,
+    specs flagged ``replay=True``, and the tap names of a
+    ``replay_taps`` tuple.  ``replay_taps="auto"`` contributes no taps here
+    (the driver flags groups by measured drift instead) and never
+    substring-matches a tap name."""
+    extra = () if isinstance(ccfg.replay_taps, str) else ccfg.replay_taps
+    out: Set[str] = set()
+    for tap, group in groups:
+        if tap in extra or any(s.bank or s.replay for s in group):
+            out.add(tap)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -258,27 +300,40 @@ def make_unit_apply(kind: str, cfg, seq_len: int, want_taps: bool):
 # per-weight solve
 
 
-def _solve_weight(w, covs, k: int, ccfg: CompressConfig):
+def _solve_weight(w, covs, k: int, ccfg: CompressConfig, *,
+                  want_spectrum: bool = False):
     """Closed-form solve of one (n, m) weight, or of an (E, n, m) expert
     bank one expert at a time (the JAX package vmaps it) with the expert's
-    own (E, n, n) covariances, all at the uniform rank k."""
+    own (E, n, n) covariances, at rank k.  ``want_spectrum=True`` (the
+    adaptive estimate sweep) also returns the full singular spectrum of the
+    solved matrix from the SAME whitening and SVD, stacked (E, s) for a
+    bank."""
     if ccfg.objective == "agnostic":
         def solve(wi, *_):
-            return LR.solve_agnostic(wi, k)
+            return (LR.solve_agnostic_with_spectrum(wi, k) if want_spectrum
+                    else LR.solve_agnostic(wi, k))
         cov_ab = cov_bb = None
     else:
         cov_ab, cov_bb = C.objective_covs(covs, ccfg.objective)
+        fn = (LR.solve_anchored_with_spectrum if want_spectrum
+              else LR.solve_anchored)
 
         def solve(wi, ca, cb):
-            return LR.solve_anchored(wi, ca, cb, k, eps=ccfg.eps,
-                                     method=ccfg.whiten)
+            return fn(wi, ca, cb, k, eps=ccfg.eps, method=ccfg.whiten)
     if w.dim() == 2:
         return solve(w, cov_ab, cov_bb)
     per_expert = [solve(w[e], None if cov_ab is None else cov_ab[e],
                         None if cov_bb is None else cov_bb[e])
                   for e in range(w.shape[0])]
-    return {key: torch.stack([f[key] for f in per_expert])
-            for key in per_expert[0]}
+
+    def stack(factors):
+        return {key: torch.stack([f[key] for f in factors])
+                for key in factors[0]}
+
+    if want_spectrum:
+        factors, spectra = zip(*per_expert)
+        return stack(factors), torch.stack(spectra)
+    return stack(per_expert)
 
 
 def _weight_rank(w, ccfg: CompressConfig) -> int:
@@ -288,28 +343,212 @@ def _weight_rank(w, ccfg: CompressConfig) -> int:
 
 
 # ---------------------------------------------------------------------------
+# adaptive rank allocation (rank_mode="adaptive")
+
+
+def _estimate_items(unit: Unit, spec: LinearSpec, w, spectrum,
+                    k_uniform: int, *,
+                    per_expert: bool = False) -> List[Dict[str, Any]]:
+    """Allocator inputs of one linear (the JAX package's, :558-620): the
+    RELATIVE tail energy Σ_{j>k} σ_j² / Σ σ_j² of its solve's spectrum at
+    the uniform rank, weighted by the linear's dense parameter count.  An
+    expert bank is one pooled item (copies=E, one rank a bank), except
+    under ``per_expert`` (drop-free dispatch), where every expert is its
+    own item with its own tail.  Iterations of one stacked stage share a
+    ``tie`` (one stacked factor buffer, one rank)."""
+    section, si, _, ki = unit.where
+    spectrum = spectrum.detach().float().cpu().numpy()
+    base = {"unit": unit.name, "path": spec.path, "tap": spec.tap,
+            "shape": (w.shape[-1], w.shape[-2]),
+            "uniform_rank": k_uniform}
+    if per_expert and w.dim() == 3:
+        items = []
+        for e in range(w.shape[0]):
+            tail = LR.spectrum_tail_energy(spectrum[e], k_uniform)
+            total = LR.spectrum_tail_energy(spectrum[e], 0)
+            items.append(dict(
+                base, copies=1, expert=e,
+                tie=(section, si, ki, spec.path, e),
+                loss=(tail / max(total, 1e-30)) * int(w[e].numel())))
+        return items
+    tail = LR.spectrum_tail_energy(spectrum, k_uniform)
+    total = LR.spectrum_tail_energy(spectrum, 0)
+    return [dict(
+        base, copies=w.shape[0] if w.dim() == 3 else 1,
+        tie=(section, si, ki, spec.path),
+        loss=(tail / max(total, 1e-30)) * int(w.numel()))]
+
+
+def _lambda_gap(keys, shapes, losses, ranks,
+                ccfg: CompressConfig) -> Dict[str, Any]:
+    """The allocation's margin against near-ties: the smallest relative gap
+    between the water level λ at which an item reached its final rank (a
+    step the fill took; items still at their floor took none) and the λ of
+    another item's next lattice step (one it did not take), with the two
+    items' keys.  λ is the allocator's own (ratio at the rank / loss^½); a
+    gap of the order of the losses' rounding means two backends may
+    allocate differently."""
+    weights = [max(float(l), 1e-12) ** 0.5 for l in losses]
+    taken, nexts = [], []
+    for i, ((m, n), k) in enumerate(zip(shapes, ranks)):
+        kmax = R.rank_cap(m, n, remap=ccfg.remap)
+        floor = R._lattice_floor(
+            R._real_rank(m, n, ccfg.rank_floor_ratio * ccfg.ratio,
+                         remap=ccfg.remap), kmax, ccfg.rank_multiple)
+        if k > floor:
+            taken.append((R.achieved_ratio(m, n, k, remap=ccfg.remap)
+                          / weights[i], i))
+        nk = R._lattice_next(k, kmax, ccfg.rank_multiple)
+        if nk is not None:
+            nexts.append((R.achieved_ratio(m, n, nk, remap=ccfg.remap)
+                          / weights[i], i))
+    best = {"rel_gap": None, "taken": None, "next": None}
+    for lt, i in taken:
+        for ln, j in nexts:
+            gap = abs(lt - ln) / max(lt, ln)
+            if i != j and (best["rel_gap"] is None or gap < best["rel_gap"]):
+                best = {"rel_gap": gap, "taken": keys[i], "next": keys[j]}
+    return best
+
+
+def _allocate_ranks(est: Dict[str, Any], ccfg: CompressConfig):
+    """Global water-filling over every compressed linear: one parameter
+    budget (ratio × the compressible linears' dense parameters),
+    budget-exact to one lane multiple (``ranks.allocate_by_loss``).
+    Returns ({(unit, path): rank, or a tuple of per-expert ranks}, the
+    ``calibration.rank_mode`` summary), as the JAX package's (:623-671)."""
+    items = est["items"]
+    ties: Dict[Tuple, Dict[str, Any]] = {}
+    for it in items:
+        t = ties.get(it["tie"])
+        if t is None:
+            ties[it["tie"]] = {"shape": it["shape"], "loss": it["loss"],
+                               "copies": it["copies"]}
+        else:
+            t["loss"] += it["loss"]
+            t["copies"] += it["copies"]
+    keys = list(ties)
+    shapes = [ties[k]["shape"] for k in keys]
+    losses = [ties[k]["loss"] for k in keys]
+    ranks = R.allocate_by_loss(
+        shapes, losses, ccfg.ratio, remap=ccfg.remap,
+        multiple=ccfg.rank_multiple, floor_ratio=ccfg.rank_floor_ratio,
+        ceil_ratio=ccfg.rank_ceil_ratio,
+        copies=[ties[k]["copies"] for k in keys])
+    gap = _lambda_gap(keys, shapes, losses, ranks, ccfg)
+    LOG.log(logging.INFO if ccfg.verbose else logging.DEBUG,
+            "adaptive allocation: %d rank groups, smallest relative "
+            "lambda gap %s (%s taken, %s next)", len(keys), gap["rel_gap"],
+            gap["taken"], gap["next"], extra={"lambda_gap": gap})
+    by_tie = dict(zip(keys, ranks))
+    # per-expert items (drop-free banks) share one (unit, path) key: their
+    # entry is the TUPLE of per-expert ranks in expert order
+    table: Dict[Tuple[str, str], Any] = {}
+    per_exp: Dict[Tuple[str, str], Dict[int, int]] = {}
+    key_shape: Dict[Tuple[str, str], Tuple[int, int]] = {}
+    for it in items:
+        key = (it["unit"], it["path"])
+        key_shape[key] = it["shape"]
+        if "expert" in it:
+            per_exp.setdefault(key, {})[it["expert"]] = by_tie[it["tie"]]
+        else:
+            table[key] = by_tie[it["tie"]]
+    for key, by_e in per_exp.items():
+        table[key] = tuple(by_e[e] for e in range(len(by_e)))
+    dense = sum(it["copies"] * it["shape"][0] * it["shape"][1]
+                for it in items)
+    stored = sum(it["copies"] * R.rank_cost(*it["shape"], remap=ccfg.remap)
+                 * by_tie[it["tie"]] for it in items)
+    # a per-expert bank keeps its stacked buffers at the max allocated rank
+    # (masked tails): report the budget (logical) and stored (padded) sizes
+    padded = stored
+    for key, ks in ((k, v) for k, v in table.items()
+                    if isinstance(v, tuple)):
+        logical, pad = R.bank_padded_cost(*key_shape[key], ks,
+                                          remap=ccfg.remap)
+        padded += pad - logical
+    alloc = {"mode": "adaptive", "target_ratio": ccfg.ratio,
+             "achieved_ratio": stored / dense,
+             "budget_params": int(ccfg.ratio * dense),
+             "allocated_params": stored, "padded_params": padded,
+             "linears": len(items),
+             "rank_groups": len(keys),
+             "min_rank": min(ranks), "max_rank": max(ranks)}
+    return table, alloc
+
+
+def _mask_expert_tails(factors: Dict[str, torch.Tensor],
+                       ks: Sequence[int]) -> Dict[str, torch.Tensor]:
+    """Zero each expert's factor components beyond its allocated rank.
+
+    ``factors`` come from ONE bank solve at kmax = max(ks): v (E, n, kmax),
+    u (E, kmax, m), σ-descending, so zeroing column j of v and row j of u
+    removes exactly the rank-j component.  The mask MULTIPLIES, as the JAX
+    package's does, so a negative entry of a masked tail becomes -0.0: the
+    bits (and the checkpoint manifest's ``rank_per_expert``, which counts
+    bitwise-zero slices) match the reference's."""
+    kmax = factors["u"].shape[-2]
+    dev = factors["u"].device
+    keep = (torch.arange(kmax, device=dev)[None, :]
+            < torch.tensor(ks, dtype=torch.int32, device=dev)[:, None])
+    return {"v": factors["v"] * keep[:, None, :].to(factors["v"].dtype),
+            "u": factors["u"] * keep[:, :, None].to(factors["u"].dtype)}
+
+
+def _merge_adaptive_report(report, rep1, est: Dict[str, Any],
+                           alloc: Dict[str, Any]) -> None:
+    """Fold the estimate sweep's measurements into the solve sweep's
+    report: its tapped forwards (all collection happened there), replay
+    accounting, drift and per-linear loss estimates (the JAX package's,
+    :690-723).  The solve sweep itself issued zero tapped forwards."""
+    by_key = {(it["unit"], it["path"]): it for it in est["items"]}
+    for u2, u1 in zip(report["units"], rep1["units"]):
+        u2["tapped_forwards"] = u1["tapped_forwards"]
+        for field in ("replayed_groups", "replay_taps", "shift_drift",
+                      "moe_drop_rate"):
+            if field in u1:
+                u2[field] = u1[field]
+        drift_by_path = {lin["path"]: lin["shift_drift"]
+                         for lin in u1.get("linears", [])
+                         if "shift_drift" in lin}
+        for lin in u2.get("linears", []):
+            item = by_key.get((u2["name"], lin["path"]))
+            if item is not None:
+                lin["trunc_loss_est"] = item["loss"]
+                lin["uniform_rank"] = item["uniform_rank"]
+            if lin["path"] in drift_by_path:
+                lin["shift_drift"] = drift_by_path[lin["path"]]
+    for field in ("tapped_forwards", "replayed_groups"):
+        report["calibration"][field] = rep1["calibration"][field]
+    if "moe_drop_rate" in rep1["calibration"]:
+        report["calibration"]["moe_drop_rate"] = \
+            rep1["calibration"]["moe_drop_rate"]
+    report["calibration"]["rank_mode"] = dict(
+        alloc, estimate_forwards=rep1["calibration"]["tapped_forwards"])
+
+
+# ---------------------------------------------------------------------------
 # driver
 
 
 def _check_supported(cfg, ccfg: CompressConfig) -> None:
-    if ccfg.calib_mode == "hybrid":
-        raise NotImplementedError(
-            "calib_mode='hybrid' is not ported to repro_torch yet (comes "
-            "with the calibration-policies slice)")
-    if ccfg.calib_mode not in ("sequential", "fused"):
+    """The JAX package's validation (:786-795): unknown mode strings raise
+    ``ValueError``; ``calib_mesh`` and unported archs raise
+    ``NotImplementedError``."""
+    if ccfg.calib_mode not in ("sequential", "fused", "hybrid"):
         raise ValueError(f"unknown calib_mode {ccfg.calib_mode!r}")
-    if ccfg.rank_mode == "adaptive":
-        raise NotImplementedError(
-            "rank_mode='adaptive' is not ported to repro_torch yet (comes "
-            "with the calibration-policies slice)")
-    if ccfg.rank_mode != "uniform":
-        raise ValueError(f"unknown rank_mode {ccfg.rank_mode!r}")
+    if ccfg.rank_mode not in ("uniform", "adaptive"):
+        raise ValueError(f"unknown rank_mode {ccfg.rank_mode!r} "
+                         "(expected 'uniform' or 'adaptive')")
+    if isinstance(ccfg.replay_taps, str) and ccfg.replay_taps != "auto":
+        raise ValueError(f"unknown replay_taps {ccfg.replay_taps!r} "
+                         "(expected a tuple of tap names or 'auto')")
+    if ccfg.moe_dispatch not in ("inherit", "capacity", "dropfree"):
+        raise ValueError(f"unknown moe_dispatch {ccfg.moe_dispatch!r}")
     if ccfg.calib_mesh is not None:
         raise NotImplementedError(
             "calib_mesh is not ported to repro_torch yet (data-parallel "
             "collection comes with the torch.distributed slice)")
-    if ccfg.moe_dispatch not in ("inherit", "capacity", "dropfree"):
-        raise ValueError(f"unknown moe_dispatch {ccfg.moe_dispatch!r}")
     if (cfg.family, cfg.attention) not in (("dense", "full"),
                                            ("dense", "sliding_mix"),
                                            ("moe", "mla")):
@@ -399,7 +638,9 @@ def compress_model(params, cfg, calib: Dict[str, Any],
     modified); cfg: ModelConfig; calib: {"tokens": (N, L)} as tensors or
     numpy arrays; device: None (the card) or e.g. "cpu".  ``stage_times``,
     when given a dict, receives the wall seconds spent in each of
-    ``STAGES`` (the device is synchronized around each stage for that).
+    ``STAGES`` (the device is synchronized around each stage for that);
+    under ``rank_mode="adaptive"`` those are summed over both sweeps and
+    ``"estimate.<stage>"`` holds the estimate sweep's share.
     Returns (compressed_params, report).  An MoE model compressed with
     ``moe_dispatch="dropfree"`` is evaluated with the same override
     (``cfg.moe.dispatch = "dropfree"``), as in the JAX package; the
@@ -407,24 +648,59 @@ def compress_model(params, cfg, calib: Dict[str, Any],
     routed choices dropped on the first calibration microbatch.
     """
     dev = resolve_device(device)
-    cfg = _effective_cfg(cfg, ccfg)
     _check_supported(cfg, ccfg)
+    cfg = _effective_cfg(cfg, ccfg)
     params = tree_map(lambda t: t.to(dev), params)
     calib = {k: (v if torch.is_tensor(v) else torch.from_numpy(np.array(v)))
              .to(dev) for k, v in calib.items()}
     with torch.no_grad():
-        new_params, report = _compress_sweep(
+        if ccfg.rank_mode == "adaptive":
+            # estimate sweep: the collection policy at uniform ranks, no
+            # refinement; keeps every covariance triple
+            est_times = None if stage_times is None else {}
+            _, rep1, est = _compress_sweep(
+                params, cfg, calib, ccfg, _StageClock(est_times, dev),
+                estimate=True)
+            rank_table, alloc = _allocate_ranks(est, ccfg)
+            # solve sweep: re-solve from the kept triples at the allocated
+            # ranks (zero tapped forwards), refinement at the final ranks
+            new_params, report, _ = _compress_sweep(
+                params, cfg, calib, ccfg, _StageClock(stage_times, dev),
+                rank_table=rank_table, covs_table=est["covs"])
+            _merge_adaptive_report(report, rep1, est, alloc)
+            if stage_times is not None:
+                for stage, t in est_times.items():
+                    stage_times[stage] += t
+                    stage_times[f"estimate.{stage}"] = t
+            return new_params, report
+        new_params, report, _ = _compress_sweep(
             params, cfg, calib, ccfg, _StageClock(stage_times, dev))
     return new_params, report
 
 
 def _compress_sweep(params, cfg, calib, ccfg: CompressConfig,
-                    clock: _StageClock):
-    """One pass over the units (the uniform driver of the JAX package's
-    ``_compress_sweep``, :848)."""
+                    clock: _StageClock, *, estimate: bool = False,
+                    rank_table: Optional[Dict[Tuple[str, str], Any]] = None,
+                    covs_table: Optional[Dict[str, Dict]] = None):
+    """One pass over the units (the JAX package's ``_compress_sweep``,
+    :848).  The default call is the uniform driver.
+
+    ``estimate`` (adaptive sweep 1): solve at uniform ranks, skip
+    refinement and the MSE probe, record each linear's allocator items and
+    keep every covariance triple (returned in the estimate record).
+    ``rank_table`` ((unit name, path) → rank or per-expert rank tuple,
+    sweep 2) overrides the uniform ranks; ``covs_table`` (unit name → tap →
+    triple, sweep 2) replaces collection: no engine, no tapped forwards, no
+    drop-rate probe, and each triple is freed at its unit's solve turn.
+    Returns (params, report, estimate record or None)."""
     params = _clone(params)
     report: Dict[str, Any] = {"units": [],
                               "config": dataclasses.asdict(ccfg)}
+    est: Optional[Dict[str, Any]] = None
+    if estimate:
+        est = {"items": [], "covs": {}}
+    auto_replay = (ccfg.calib_mode == "hybrid"
+                   and isinstance(ccfg.replay_taps, str))
     mb = ccfg.microbatch
     with clock("embed"):
         xs = _embed_stream(params, cfg, calib, mb)      # original stream
@@ -440,64 +716,129 @@ def _compress_sweep(params, cfg, calib, ccfg: CompressConfig,
         fwd = make_unit_apply(unit.kind, cfg, seq_len, want_taps=False)
         unit_report = {"name": unit.name, "kind": unit.kind,
                        "calib_mode": ccfg.calib_mode, "linears": []}
-        if unit.kind.endswith("_moe"):
+        if unit.kind.endswith("_moe") and covs_table is None:
             unit_report["moe_drop_rate"] = _drop_rate(
                 cfg, fwd_taps, orig_p, xs[0], clock)
 
         # ---- stage 1: streaming covariance accumulation + closed-form solve
         t_s1 = time.perf_counter()
         groups = tap_groups(linear_specs(unit.kind, cfg))
+        replays: Set[str] = set()
+        if ccfg.calib_mode == "hybrid" and not auto_replay:
+            replays = replay_taps_for(groups, ccfg)
         engine: Optional[S.CalibrationEngine] = None
         anchors = None  # original-stream outputs captured by the fused pass
-        if ccfg.objective != "agnostic":
+        if ccfg.objective != "agnostic" and covs_table is None:
             with clock("collect"):
                 engine = S.CalibrationEngine.for_unit(
                     groups, fwd_taps, orig_p, xs[0], None,
                     num_experts=(cfg.moe.num_experts
                                  if unit.kind.endswith("_moe") else 0))
-                if ccfg.calib_mode == "fused":
+                if ccfg.calib_mode in ("fused", "hybrid"):
+                    # hybrid: every non-replay group and the anchors (with
+                    # replay_taps="auto" the skip set is empty: the drift
+                    # measured below decides)
                     anchors = engine.collect_fused(fwd_taps, orig_p, cur_p,
-                                                   xs, xps, None, None)
+                                                   xs, xps, None, None,
+                                                   skip=replays)
+        replayed: List[str] = []
         drifts: Dict[str, float] = {}
         for tap, group in groups:
             covs = None
+            drift: Optional[float] = None
+            if engine is not None and auto_replay:
+                # past the threshold the fused statistics are discarded and
+                # the group replays sequentially
+                drift = engine.drift(tap)
+                if drift > ccfg.drift_threshold:
+                    engine.reset(tap)
+                    replays.add(tap)
+            if engine is not None and (ccfg.calib_mode == "sequential"
+                                       or tap in replays):
+                # both streams replayed for this group, so its shifted
+                # taps see every group solved so far
+                with clock("collect"):
+                    engine.collect_group(tap, fwd_taps, orig_p, cur_p,
+                                         xs, xps, None, None)
+                if tap in replays:
+                    replayed.append(tap)
             if engine is not None:
-                if ccfg.calib_mode == "sequential":
-                    # both streams replayed for this group, so its shifted
-                    # taps see every group solved so far
-                    with clock("collect"):
-                        engine.collect_group(tap, fwd_taps, orig_p, cur_p,
-                                             xs, xps, None, None)
-                drifts[tap] = engine.drift(tap)
+                if drift is None:
+                    drift = engine.drift(tap)
+                drifts[tap] = drift
                 covs = engine.covs_for(tap)
-                if ccfg.debug_covs:
-                    unit_report.setdefault("covs", {})[tap] = {
-                        k: (v.detach().cpu() if torch.is_tensor(v) else v)
-                        for k, v in covs.items()}
+            elif covs_table is not None and ccfg.objective != "agnostic":
+                # strict lookup: a (unit, tap) the estimate sweep did not
+                # keep fails loudly
+                covs = covs_table[unit.name][tap]
+            if ccfg.debug_covs and covs is not None:
+                unit_report.setdefault("covs", {})[tap] = {
+                    k: (v.detach().cpu() if torch.is_tensor(v) else v)
+                    for k, v in covs.items()}
             for spec in group:
                 wp = get_path(cur_p, spec.path)
                 w = wp["w"]
                 k = _weight_rank(w, ccfg)
+                if rank_table is not None:
+                    k = rank_table[(unit.name, spec.path)]
                 with clock("solve"):
-                    factors = _solve_weight(w, covs, k, ccfg)
+                    if est is not None:
+                        # one decomposition serves both: the solve's own
+                        # SVD gives the spectrum the loss estimate reads.
+                        # Drop-free banks estimate per expert (the
+                        # dispatch is batch-size invariant)
+                        per_expert = (spec.bank and w.dim() == 3
+                                      and cfg.moe is not None
+                                      and cfg.moe.dispatch == "dropfree")
+                        factors, spectrum = _solve_weight(
+                            w, covs, k, ccfg, want_spectrum=True)
+                        est["items"].extend(_estimate_items(
+                            unit, spec, w, spectrum, k,
+                            per_expert=per_expert))
+                    elif isinstance(k, tuple):
+                        # per-expert ranks: one bank solve at the max, each
+                        # expert's factor tail masked (nested truncation)
+                        factors = _mask_expert_tails(
+                            _solve_weight(w, covs, max(k), ccfg), k)
+                    else:
+                        factors = _solve_weight(w, covs, k, ccfg)
                 new_p = {kk: vv for kk, vv in wp.items() if kk != "w"}
                 new_p.update(factors)
                 set_path(cur_p, spec.path, new_p)
-                entry = {"path": spec.path, "rank": k,
-                         "shape": list(w.shape),
-                         "ratio": R.achieved_ratio(w.shape[-1], w.shape[-2],
-                                                   k, remap=ccfg.remap)}
-                if tap in drifts:
-                    entry["shift_drift"] = drifts[tap]
+                if isinstance(k, tuple):
+                    logical, pad = R.bank_padded_cost(
+                        w.shape[-1], w.shape[-2], k, remap=ccfg.remap)
+                    entry = {"path": spec.path, "rank": max(k),
+                             "rank_per_expert": list(k),
+                             "shape": list(w.shape),
+                             "ratio": logical / int(w.numel()),
+                             "padded_ratio": pad / int(w.numel())}
+                else:
+                    entry = {"path": spec.path, "rank": k,
+                             "shape": list(w.shape),
+                             "ratio": R.achieved_ratio(
+                                 w.shape[-1], w.shape[-2], k,
+                                 remap=ccfg.remap)}
+                if drift is not None:
+                    entry["shift_drift"] = drift
                 unit_report["linears"].append(entry)
-            if engine is not None:
+            if engine is not None and est is None:
                 engine.release(tap)  # solved: free this group's covariances
+            if covs_table is not None:
+                # a kept triple is read only at its unit's solve turn: free
+                # it there, so peak memory tracks the unsolved remainder
+                covs_table[unit.name].pop(tap, None)
             LOG.debug("%s: group %s -> rank %d", unit.name, tap,
                       unit_report["linears"][-1]["rank"])
+        if est is not None:
+            # keep the triples: the solve sweep re-solves from exactly these
+            est["covs"][unit.name] = (
+                {tap: engine.covs_for(tap) for tap, _ in groups}
+                if engine is not None else {})
         unit_report["tapped_forwards"] = \
             engine.stats["tapped_forwards"] if engine is not None else 0
-        unit_report["replayed_groups"] = 0
-        unit_report["replay_taps"] = []
+        unit_report["replayed_groups"] = len(replayed)
+        unit_report["replay_taps"] = replayed
         if xs[0].is_cuda:
             torch.cuda.synchronize(xs[0].device)
         unit_report["calib_wall"] = time.perf_counter() - t_s1
@@ -510,7 +851,7 @@ def _compress_sweep(params, cfg, calib, ccfg: CompressConfig,
         else:
             with clock("propagate"):
                 y_anchor = [fwd(orig_p, x, None) for x in xs]
-        if ccfg.refine:
+        if ccfg.refine and not estimate:
             t0 = time.perf_counter()
             with clock("refine"):
                 cur_p, hist = RF.refine_unit(
@@ -525,7 +866,7 @@ def _compress_sweep(params, cfg, calib, ccfg: CompressConfig,
                                refine_mode=hist["mode"],
                                refine_dispatches=hist["dispatches"],
                                refine_wall=time.perf_counter() - t0)
-        else:
+        elif not estimate:  # the estimate sweep skips the MSE probe too
             mse = sum(float(torch.mean(torch.square(
                 fwd(cur_p, xp, None).float() - y.float())))
                 for xp, y in zip(xps, y_anchor)) / len(xps)
@@ -547,8 +888,10 @@ def _compress_sweep(params, cfg, calib, ccfg: CompressConfig,
     report["calibration"] = {
         "mode": ccfg.calib_mode,
         "tapped_forwards": sum(u["tapped_forwards"] for u in report["units"]),
-        "replayed_groups": 0,
+        "replayed_groups": sum(u["replayed_groups"]
+                               for u in report["units"]),
         "calib_dp": 1,
+        # adaptive runs overwrite this with the allocation summary
         "rank_mode": {"mode": ccfg.rank_mode},
         # effective MoE routing after the CompressConfig overrides
         "moe_dispatch": (cfg.moe.dispatch if cfg.moe is not None
@@ -567,7 +910,7 @@ def _compress_sweep(params, cfg, calib, ccfg: CompressConfig,
         "dispatches": sum(u["refine_dispatches"] for u in refined),
         "wall": sum(u["refine_wall"] for u in refined),
     }
-    return restack_units(params, cfg, done_units), report
+    return restack_units(params, cfg, done_units), report, est
 
 
 def compress_ratio_report(params, new_params) -> Dict[str, float]:

@@ -11,8 +11,10 @@ ids):
   sown tap feeds its accumulator from the same pass, and the original-stream
   outputs come back as the refinement anchors.  Shifted taps of later groups
   see the unit pre-solve (the documented approximation).
+  ``skip`` leaves hybrid mode's replay taps out of that pass.
 - ``collect_group`` — replays both streams for one tap group, so its
-  shifted taps see every group solved so far (sequential semantics).
+  shifted taps see every group solved so far (sequential semantics, and
+  hybrid mode's replays).
 
 The port collects in a Python loop over microbatches, the JAX package's
 loop path (:328).  Its ``lax.scan`` sweep (:360) is a JAX dispatch device
@@ -149,11 +151,19 @@ class CalibrationEngine:
     def collect_fused(self, fwd_taps: Callable, orig_p, cur_p,
                       xs: Sequence, xps: Sequence,
                       aux_o: Optional[Sequence],
-                      aux_c: Optional[Sequence]) -> List:
+                      aux_c: Optional[Sequence], *,
+                      skip: Optional[Set[str]] = None) -> List:
         """Every sown tap feeds its accumulator from the same pass.  Returns
-        the original-stream unit outputs (the refinement anchors)."""
+        the original-stream unit outputs (the refinement anchors).
+
+        ``skip`` excludes taps from the joint collection (hybrid mode:
+        replay groups must not mix pre-solve statistics into the
+        accumulators they later fill sequentially)."""
+        only = None
+        if skip:
+            only = {t for t in self._spec if t not in skip}
         return self._collect(fwd_taps, orig_p, cur_p, xs, xps, aux_o, aux_c,
-                             keep_orig_outputs=True)
+                             only=only, keep_orig_outputs=True)
 
     def collect_group(self, tap: str, fwd_taps: Callable, orig_p, cur_p,
                       xs: Sequence, xps: Sequence,

@@ -50,9 +50,14 @@ waits for the card).
     python -m repro_torch.launch.serve --arch gemma3-1b --smoke --ratio 0.6 \\
         [--engine] [--device cpu]     # also qwen3-0.6b, granite-3-8b,
                                       # phi3-medium-14b
+    python -m repro_torch.launch.serve --arch llama-7b --smoke --ratio 0.6 \\
+        --calib-mode hybrid --rank-mode adaptive --replay-taps auto \\
+        --checkpoint /tmp/ckpt [--engine] [--device cpu]
 
-``Server.from_checkpoint`` is not ported yet (it needs the checkpoint
-manager of a later slice).
+``Server.from_checkpoint`` and ``ContinuousBatchingServer.from_checkpoint``
+serve a format-3 checkpoint (``repro_torch.checkpoint``, or the JAX
+package's) from the arch config and the directory alone: the param tree is
+rebuilt from the manifest on the server's device.
 """
 
 from __future__ import annotations
@@ -66,6 +71,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import pipeline as P
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as S
@@ -91,6 +97,11 @@ def _to_device(params, dev):
     return tree_map(lambda t: t.to(dev), params)
 
 
+def _restore(directory: str, step, device):
+    mgr = CheckpointManager(directory, async_save=False)
+    return mgr.restore_tree(step, device=device)
+
+
 class Server:
     """Fixed-batch serving frontend (one prefill + lock-step decode)."""
 
@@ -103,6 +114,19 @@ class Server:
         self.batch = batch
         self._serve = S.make_serve_step(cfg)
         self._prefill = S.make_prefill_step(cfg)
+
+    @classmethod
+    def from_checkpoint(cls, cfg, directory: str, *, step: int = None,
+                        max_len: int = 256, batch: int = 4, device=None):
+        """Serve the params of a checkpoint directory (the latest step
+        unless ``step``), rebuilt from its manifest alone
+        (``restore_tree``) on ``device`` (None: the card).  The manifest's
+        ``meta`` lands on ``server.checkpoint_meta``."""
+        _, params, meta = _restore(directory, step, device)
+        server = cls(cfg, params, max_len=max_len, batch=batch,
+                     device=device)
+        server.checkpoint_meta = meta
+        return server
 
     def generate(self, prompts, *, steps: int = 32) -> torch.Tensor:
         """prompts: (b, prompt_len) integers, b <= batch -> (b, steps)
@@ -184,6 +208,19 @@ class ContinuousBatchingServer:
         # rid -> the prefill path that served it ("whole_exact" |
         # "whole_padded" | "chunked"); reset per run()
         self.prefill_routes: Dict[int, str] = {}
+
+    @classmethod
+    def from_checkpoint(cls, cfg, directory: str, *, step: int = None,
+                        max_len: int = 256, slots: int = 4,
+                        prefill_chunk: int = 0, cache_layout: str = "auto",
+                        device=None):
+        """Engine twin of :meth:`Server.from_checkpoint`."""
+        _, params, meta = _restore(directory, step, device)
+        server = cls(cfg, params, max_len=max_len, slots=slots,
+                     prefill_chunk=prefill_chunk, cache_layout=cache_layout,
+                     device=device)
+        server.checkpoint_meta = meta
+        return server
 
     def _tokens(self, host: np.ndarray) -> torch.Tensor:
         return torch.tensor(host, device=self.device)
@@ -312,6 +349,20 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--ratio", type=float, default=1.0,
                     help="<1: AA-SVD-compress before serving")
+    ap.add_argument("--calib-mode", default="sequential",
+                    choices=["sequential", "fused", "hybrid", "auto"],
+                    help="collection policy; auto picks hybrid for MoE "
+                         "archs and fused otherwise")
+    ap.add_argument("--rank-mode", default="uniform",
+                    choices=["uniform", "adaptive"],
+                    help="rank budget policy: uniform, or adaptive (global "
+                         "water-filling over whitened-spectrum losses)")
+    ap.add_argument("--replay-taps", default=None, choices=["auto"],
+                    help="'auto' (hybrid mode): replay the groups whose "
+                         "measured shift drift passes the threshold")
+    ap.add_argument("--checkpoint", default=None, metavar="DIR",
+                    help="save the compressed params to DIR and serve "
+                         "them back through from_checkpoint")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--steps", type=int, default=32)
@@ -326,29 +377,55 @@ def main(argv=None):
            else configs.get_config(args.arch))
     if args.smoke:
         cfg = cfg.replace(dtype="float32")
+    mode = args.calib_mode
+    if mode == "auto":
+        mode = "hybrid" if cfg.moe is not None and cfg.moe.num_experts \
+            else "fused"
+    if args.replay_taps == "auto" and mode != "hybrid":
+        # drift-driven replay needs hybrid collection: promote
+        print(f"[serve] --replay-taps auto: calib mode {mode!r} -> 'hybrid'")
+        mode = "hybrid"
     rng = np.random.default_rng(0)
     params = M.init_params(cfg, 0, device=dev)
     if args.ratio < 1.0:
         calib = {"tokens": rng.integers(0, cfg.vocab_size, (8, 64))}
         params, report = P.compress_model(
             params, cfg, calib,
-            P.CompressConfig(ratio=args.ratio, refine_epochs=4), device=dev)
+            P.CompressConfig(ratio=args.ratio, refine_epochs=4,
+                             calib_mode=mode, rank_mode=args.rank_mode,
+                             replay_taps=args.replay_taps or ()),
+            device=dev)
+        alloc = report["calibration"]["rank_mode"]
         print(f"[serve] compressed to ratio {args.ratio}; "
-              f"{len(report['units'])} blocks")
+              f"{len(report['units'])} blocks; calib {mode}, "
+              f"{report['calibration']['tapped_forwards']} tapped forwards, "
+              f"{report['calibration']['replayed_groups']} replayed groups; "
+              f"ranks {alloc['mode']}"
+              + (f" {alloc['min_rank']}-{alloc['max_rank']}, achieved "
+                 f"ratio {alloc['achieved_ratio']:.4f}"
+                 if alloc["mode"] == "adaptive" else ""))
     max_len = args.prompt_len + _prefill_extra_len(cfg) + args.steps + 8
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            dtype=np.int32)
+    if args.checkpoint is not None:
+        CheckpointManager(args.checkpoint, async_save=False).save(
+            0, params, meta={"arch": args.arch, "ratio": args.ratio})
+        print(f"[serve] saved to {args.checkpoint}; serving it back")
     t0 = time.time()
     if args.engine:
-        server = ContinuousBatchingServer(cfg, params, max_len=max_len,
-                                          slots=args.batch, device=dev)
+        kw = dict(max_len=max_len, slots=args.batch, device=dev)
+        server = (ContinuousBatchingServer.from_checkpoint(
+            cfg, args.checkpoint, **kw) if args.checkpoint is not None
+            else ContinuousBatchingServer(cfg, params, **kw))
         results = server.run([Request(rid=i, prompt=prompts[i],
                                       steps=args.steps)
                               for i in range(args.batch)])
         toks = np.stack([results[i]["tokens"] for i in range(args.batch)])
     else:
-        server = Server(cfg, params, max_len=max_len, batch=args.batch,
-                        device=dev)
+        kw = dict(max_len=max_len, batch=args.batch, device=dev)
+        server = (Server.from_checkpoint(cfg, args.checkpoint, **kw)
+                  if args.checkpoint is not None
+                  else Server(cfg, params, **kw))
         toks = server.generate(prompts, steps=args.steps).cpu().numpy()
     dt = time.time() - t0
     print(f"[serve] generated {toks.shape} in {dt:.2f}s "

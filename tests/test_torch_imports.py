@@ -74,12 +74,55 @@ def test_compress_without_device_needs_cuda():
 
 
 def test_unported_modes_raise():
+    # hybrid calibration and adaptive ranks are ported: only calib_mesh
+    # (data-parallel collection) still raises
     import repro_torch
     from repro_torch import configs
     cfg = configs.get_smoke_config("llama-7b").replace(dtype="float32")
+    with pytest.raises(NotImplementedError, match="calib_mesh"):
+        repro_torch.compress_model({}, cfg, {"tokens": [[0, 1]]},
+                                   repro_torch.CompressConfig(
+                                       calib_mesh="auto"),
+                                   device="cpu")
     for kw in ({"calib_mode": "hybrid"}, {"rank_mode": "adaptive"},
-               {"calib_mesh": "auto"}):
-        with pytest.raises(NotImplementedError):
+               {"calib_mode": "hybrid", "replay_taps": "auto"}):
+        # accepted: the empty param tree fails later, never as unported
+        with pytest.raises(Exception) as err:
             repro_torch.compress_model({}, cfg, {"tokens": [[0, 1]]},
                                        repro_torch.CompressConfig(**kw),
                                        device="cpu")
+        assert not isinstance(err.value, NotImplementedError), kw
+
+
+def test_adaptive_compress_save_restore_leave_jax_unloaded(tmp_path):
+    script = (
+        "import sys, numpy as np, torch\n"
+        "import repro_torch\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.checkpoint import CheckpointManager\n"
+        "from repro_torch.models import model as M\n"
+        "cfg = configs.get_smoke_config('llama-7b').replace("
+        "dtype='float32', num_layers=2)\n"
+        "p = M.init_params(cfg, 0, device='cpu')\n"
+        "toks = np.random.default_rng(0).integers(0, 256, (4, 16))\n"
+        "c, r = repro_torch.compress_model(p, cfg, {'tokens': toks}, "
+        "repro_torch.CompressConfig(ratio=0.6, microbatch=2, "
+        "refine_epochs=1, calib_mode='hybrid', replay_taps='auto', "
+        "rank_mode='adaptive'), device='cpu')\n"
+        "assert r['calibration']['rank_mode']['mode'] == 'adaptive'\n"
+        "c['half'] = torch.ones(3, dtype=torch.bfloat16)\n"
+        f"mgr = CheckpointManager({str(tmp_path)!r})\n"
+        "mgr.save(0, c, reslice_banks=True)\n"
+        "mgr.wait()\n"
+        "_, back, _ = mgr.restore_tree(0, device='cpu')\n"
+        "assert torch.equal(back['half'], c['half'])\n"
+        "assert torch.equal(back['stages'][0][0]['attn']['wq']['u'], "
+        "c['stages'][0][0]['attn']['wq']['u'])\n"
+        "print(*(m in sys.modules for m in ('jax', 'repro', "
+        "'ml_dtypes')))\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    out = subprocess.run([sys.executable, "-c", script], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "False", "False"]

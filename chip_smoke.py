@@ -7,6 +7,8 @@
     python3 chip_smoke.py --only grouped   # phases 1-2 and grouped_matmul
     python3 chip_smoke.py --only attention # phases 1-2 and flash_attention
     python3 chip_smoke.py --only decode    # phases 1-2 and flash_decode
+    python3 chip_smoke.py --only kimi      # phases 1-2, phase 4's kimi-k2
+                                           # smoke runs and phase 12
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -73,6 +75,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
              work of the bf16 body); each slot of the llama case computed
              alone (one slot, its cache cut to its own length) bit for bit
              equal to the same slot inside the batch, fp32 and bf16.
+             kimi-k2's shapes (phase 12): ``flash_decode`` at head dim 112
+             (64 query heads on 8 KV heads, rank 480: the wgmma body in
+             bf16, the FMA body in fp32, each slot alone bit for bit; an
+             odd rank through the FMA body in both dtypes),
+             ``flash_attention`` at head dim 112 zero-padded to 128
+             (a compression microbatch's prefill and dense-cache decode,
+             with the bound at the true and at the padded dim),
+             ``lowrank_matmul`` at its six factorized shapes and each T,
+             ``cov_accum`` at n 7168 and 18432, ``cov_accum_banked`` at
+             its two capacity bank taps (E 32, C 1280, n 7168 and 2048).
              ``--only lowrank`` / ``--only cov`` / ``--only grouped`` /
              ``--only attention`` / ``--only decode`` run phases 1-2 and
              that kernel's rows alone.
@@ -101,7 +113,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
              equal the in-memory ``Server``'s); deepseek smoke drop-free
              with adaptive ranks (routed ids exact, ``rank_per_expert``
              tuples equal).  Each adaptive run prints the allocator's
-             smallest relative lambda gap.
+             smallest relative lambda gap.  Then kimi-k2 smoke (GQA over a
+             MoE, one shared expert) under its capacity dispatch and under
+             drop-free, card against CPU on 16 x 32 tokens: routed ids,
+             ranks and drop rates equal, maps 1e-3 (the capacity banks on
+             their shifted stream), served on both with equal tokens.
 5. main    — Algorithm 2 on llama-7b at its published widths, depth cut to
              2 layers, random weights from a seeded ``torch.Generator``:
              calibration 8 × 1024 tokens, ratio 0.6, fused calibration, one
@@ -190,6 +206,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
              and the static replay list: the MoE unit replays its two bank
              taps, the forward law holds, ``cov_accum_banked`` > 0, eval
              CE beside phase 8's.
+12. kimi   — kimi-k2 at its published widths (d_model 7168, 64 query
+             heads on 8 KV heads of head dim 112, dense FFN 18432, expert
+             d_ff 2048, top-8, one shared expert, vocab 163840, capacity
+             factor 1.25), depth cut 61 -> 2 (one ``attn_dense_first``,
+             one ``attn_moe``) and routed experts 384 -> 32: phase 5's
+             recipe (ranks, drop rate, eval CE, peak memory), then served
+             at phase 6's shapes: ``Server`` over the dense cache
+             (``flash_attention`` padded to 128: wgmma prefill, split
+             decode), the engine over the latent cache (``flash_decode``
+             at head dim 112, every launch in the wgmma body) and over the
+             dense one; cache bytes a token a layer; one teacher-forced
+             sequence decoded over both caches (fp32 1e-4; bf16 printed);
+             ``decode_step`` under ``set_sync_debug_mode("error")``; one
+             profiled engine run.
 
 It prints a ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Long output goes to
@@ -222,11 +252,12 @@ SIZES = {
     # cov_accum (T, n): llama-7b's taps (d_model, d_ff) at T 4096; MLA's
     # kv_lora tap of phase 7 (n 512: T split across blocks); one expert
     # segment of phase 7 (~384 routed rows at n 2048); then ragged ones (n
-    # not a multiple of the tile, T not of the token step, n not of 8).
-    # bf16 acc= is timed at all but the ragged ones
+    # not a multiple of the tile, T not of the token step, n not of 8);
+    # kimi-k2's d_model tap and its dense FFN's down tap (n 18432) as phase
+    # 12 collects them.  bf16 acc= is timed at all but the ragged ones
     "cov": ((4096, 4096), (4096, 11008), (4096, 512), (384, 2048),
-            (4096, 80), (77, 203)),
-    "cov_timed": 4,
+            (4096, 7168), (4096, 18432), (4096, 80), (77, 203)),
+    "cov_timed": 6,
     # two calls at this (T, n) must give the same bits (T split)
     "cov_repeat": (4096, 512),
     # cov_accum_banked (E, C, n): phase 8's two capacity bank taps at
@@ -240,6 +271,12 @@ SIZES = {
     # two calls bitwise equal, and each bank's bits independent of the
     # other banks' inputs, at these (E, C, n) in fp32 and bf16
     "cov_banked_repeat": ((64, 480, 1408), (3, 130, 100), (3, 600, 100)),
+    # kimi-k2's two capacity bank taps in phase 12 (32 experts, C 1280 at
+    # microbatch 4 x 1024 tokens, top-8, factor 1.25; d_model 7168 and
+    # expert d_ff 2048): bf16, written (no acc=: three E x n x n fp32
+    # outputs are 19.7 GB at n 7168, and the check holds two sets), then
+    # timed adding into acc=
+    "cov_banked_kimi": ((32, 1280, 7168), (32, 1280, 2048)),
     "lowrank_nkm": ((4096, 1232, 4096), (4096, 1792, 11008),
                     (11008, 1792, 4096), (64, 19, 160)),
     # lowrank_matmul rows per llama shape: T 4096 (compression, eval, whole
@@ -254,6 +291,13 @@ SIZES = {
                         (2048, 616, 2048), (2048, 1040, 10944),
                         (10944, 1040, 2048), (2048, 712, 2816),
                         (2816, 712, 2048)),
+    # kimi-k2's factorized linears as phase 12 compresses them (ratio 0.6,
+    # rank multiple 8): wq / wo, wk / wv (kv 8 x 112 = 896 wide), the dense
+    # FFN's gate / up and down (d_ff 18432), the experts' and the shared
+    # expert's gate / up and down (d_ff 2048)
+    "lowrank_nkm_kimi": ((7168, 2152, 7168), (7168, 480, 896),
+                         (7168, 3096, 18432), (18432, 3096, 7168),
+                         (7168, 960, 2048), (2048, 960, 7168)),
     "lowrank_ragged_T": (1, 3, 77, 129),
     "lowrank_forced_T": (1, 3, 8, 16, 32, 64),
     "layers": 2,
@@ -281,6 +325,11 @@ SIZES = {
         ("gemma_global", 4, 4, 1, 1024, 1024, 256, True, 0, 0.0, 0),
         ("gemma_server", 8, 4, 1, 512, 512, 256, True, 512, 0.0, 0),
         ("gemma_decode", 8, 4, 1, 1, 2048, 256, True, 0, 0.0, (100, 2047)),
+        # kimi-k2's head dim 112 (64 query heads on 8 KV heads), zero-padded
+        # to the compiled 128: a compression microbatch's prefill (phase 12)
+        # and decode over its dense cache of 8 slots (the split body)
+        ("kimi_prefill", 4, 64, 8, 1024, 1024, 112, True, 0, 0.0, 0),
+        ("kimi_decode", 8, 64, 8, 1, 2048, 112, True, 0, 0.0, (100, 2047)),
         ("ragged", 2, 4, 2, 77, 77, 16, True, 16, 30.0, 0)),
     # flash_attention at ragged shapes through its new bodies: the split
     # body (Lq 1 outside batch_invariant; "decode" above is the other split
@@ -350,8 +399,15 @@ SIZES = {
         ("ragged", 3, 4, 2, 16, 19, 24, 77, (1, 77)),
         ("ragged_d64_g4", 5, 8, 2, 64, 200, 77, 700, (1, 700)),
         ("ragged_d8_g4", 3, 8, 2, 8, 24, 20, 300, (1, 300)),
-        ("ragged_d20", 3, 4, 2, 20, 32, 19, 90, (1, 90))),
-    "flash_decode_timed": ("llama", "granite"),
+        ("ragged_d20", 3, 4, 2, 20, 32, 19, 90, (1, 90)),
+        # kimi-k2 at ratio 0.6: 64 query heads on 8 KV heads of head dim 112,
+        # wk / wv at rank 480 (the wgmma body in bf16), then D 112 at an odd
+        # rank (the FMA body in both dtypes) with a slot of length 1
+        ("kimi", 8, 64, 8, 112, 480, 480, 2048, (256, 2048)),
+        ("ragged_d112", 3, 16, 2, 112, 19, 24, 300, (1, 300))),
+    "flash_decode_timed": ("llama", "granite", "kimi"),
+    # each slot alone against the batch, bit for bit
+    "flash_decode_alone": ("llama", "kimi"),
     # serving: Server (batch, prompt, steps, max_len) on the dense model;
     # the engine (slots, max_len, chunk, requests, prompt lo/hi, steps) on
     # the compressed one; the teacher-forced checks (prompt, steps, max_len)
@@ -377,6 +433,12 @@ SIZES = {
     # the 512-slot rings
     "gemma_layers": 8,
     "gemma_check": (32, 608, 1024),
+    # phase 12: kimi-k2 at its published widths, depth cut 61 -> 2 (one
+    # attn_dense_first, one attn_moe) and routed experts 384 -> 32: the MoE
+    # unit's covariance triples alone take 32 x 12 B x (7168² + 2048²) =
+    # 21.3 GB, 42.6 GB at 64 experts
+    "kimi_layers": 2,
+    "kimi_experts": 32,
 }
 
 
@@ -756,9 +818,10 @@ def check_cov_banked(torch, ops, ref, e, c, n, dtype, with_acc, timed, dev):
     row = {"shape": [e, c, n], "dtype": str(dtype).replace("torch.", ""),
            "acc": with_acc, "rel_fro_err": err, "max_abs_err": mae}
     if timed:
+        # timed adding into acc= (in place: no E x n x n outputs a call)
+        row["timed_acc"] = True
         accs = tuple(torch.zeros(e, n, n, device=dev) for _ in range(3))
-        run = lambda: ops.cov_accum_banked(  # noqa: E731
-            x, xp, acc=accs if with_acc else None)
+        run = lambda: ops.cov_accum_banked(x, xp, acc=accs)  # noqa: E731
         row["ms"] = time_ms(run)
         row["device_ms"] = device_ms(run)
         row["plain_ms"] = time_ms(lambda: ref.cov_accum_banked_ref(x, xp))
@@ -767,8 +830,7 @@ def check_cov_banked(torch, ops, ref, e, c, n, dtype, with_acc, timed, dev):
         row["library"] = "torch.baddbmm x3 on fp32 upcasts (TF32 off)"
         eb = x.element_size()
         flops = e * (2 * c * n * n + 2 * c * n * (n + 1))
-        nbytes = (2 * e * c * n * eb
-                  + 3 * e * n * n * 4 * (2 if with_acc else 1))
+        nbytes = 2 * e * c * n * eb + 3 * e * n * n * 4 * 2
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes,
                                                  row["dtype"])
         # the drop-free dispatch's route to the same triples: one cov_accum
@@ -850,6 +912,18 @@ def phase_cov_banked(torch, ops, ref, dev="cuda", sizes=SIZES):
             row = check_cov_banked_repeat(torch, ops, *shape, dtype, dev)
             rows.append(row)
             log("cov_accum_banked repeat", json.dumps(row))
+    # kimi-k2's bank taps: bf16 written, timed into acc= (one set of
+    # accumulators at a time: 19.7 GB at n 7168)
+    for e, c, n in sizes.get("cov_banked_kimi", ()):
+        row = check_cov_banked(torch, ops, ref, e, c, n, torch.bfloat16,
+                               False, True, dev)
+        p = cov.plan(c, n, torch.bfloat16, banks=e)
+        row.update(tiles=p.tiles, items=p.items, splits=p.splits,
+                   case="kimi")
+        rows.append(row)
+        log("cov_accum_banked kimi", json.dumps(row))
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -913,7 +987,8 @@ def phase_lowrank(torch, ops, ref, dev="cuda", sizes=SIZES):
                 for epilogue in (False, True):
                     add(t_rows, n, k, m, dtype, epilogue,
                         dtype == torch.bfloat16 and not epilogue)
-    for n, k, m in sizes["lowrank_nkm_moe"]:
+    for n, k, m in (sizes["lowrank_nkm_moe"]
+                    + sizes.get("lowrank_nkm_kimi", ())):
         for t_rows in sizes["lowrank_T"]:
             for dtype in dtypes:
                 for epilogue in (False, True):
@@ -1098,6 +1173,13 @@ def check_flash_attention(torch, np, ops, ref, case, dtype, timed, dev):
         nbytes = (2 * b * lq * h * d + 2 * keys * kv * d) * eb
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes,
                                                  row["dtype"])
+        # a head dim the kernel zero-pads (kimi-k2's 112 to 128): the same
+        # bound at the padded dim, the work the padded call does
+        dp = ops._padded_head_dim(d)
+        if dp != d:
+            row["padded_d"] = dp
+            row["bound_padded_ms"], row["bound_padded_by"] = bound(
+                flops * dp // d, nbytes * dp // d, row["dtype"])
     return row
 
 
@@ -1267,10 +1349,12 @@ def phase_decode_kernels(torch, np, ops, ref, dev="cuda", sizes=SIZES):
                                      dev)
             rows.append(row)
             log("flash_decode", json.dumps(row))
-    for dtype in (torch.float32, torch.bfloat16):
-        checks.append(check_flash_decode_alone(
-            torch, np, ops, sizes["flash_decode"][0], dtype, dev))
-        log("flash_decode alone", json.dumps(checks[-1]))
+    for name in sizes.get("flash_decode_alone", ("llama",)):
+        case = next(c for c in sizes["flash_decode"] if c[0] == name)
+        for dtype in (torch.float32, torch.bfloat16):
+            checks.append(check_flash_decode_alone(torch, np, ops, case,
+                                                   dtype, dev))
+            log("flash_decode alone", json.dumps(checks[-1]))
     return rows, checks
 
 
@@ -1623,7 +1707,8 @@ def phase_smoke_serve(torch, np, cfg, comp, dev):
                                           pos)[0])
         logits[name] = torch.stack(rows).cpu()
     err = rel_fro(logits["card"], logits["cpu"])
-    tag = (f"smoke moe serve ({cfg.moe.dispatch})" if cfg.moe is not None
+    tag = (f"smoke moe serve {cfg.name} ({cfg.moe.dispatch})"
+           if cfg.moe is not None
            else "smoke serve" if cfg.name == "llama-7b-smoke"
            else f"smoke serve {cfg.name}")
     log(f"{tag}: tokens card {json.dumps(toks['card'])} cpu "
@@ -1781,6 +1866,133 @@ def phase_smoke_moe_capacity(torch, np, dev="cuda"):
     """``phase_smoke_moe`` under the config's own capacity dispatch (factor
     1.25): the expert banks' covariances go through cov_accum_banked."""
     return phase_smoke_moe(torch, np, dev, dispatch="capacity")
+
+
+def _shifted_error(torch, got, want, xpxp):
+    """Relative gap of two (n, m) maps as they act on the shifted stream
+    whose X′ᵀX′ is ``xpxp``: ||X′(got − want)||_F / ||X′ want||_F, from
+    the eigendecomposition of X′ᵀX′ (its null eigenvalues come out of the
+    fp32 sums at ±1e-7·λmax: clipped to 0)."""
+    lam, q = torch.linalg.eigh(xpxp.double())
+    half = q * lam.clamp(min=0.0).sqrt()
+    dw = got.double() - want.double()
+    return float((half.T @ dw).norm() / (half.T @ want.double()).norm())
+
+
+def phase_smoke_kimi(torch, np, dev="cuda", dispatch="capacity"):
+    """kimi-k2 smoke (fp32, 2 layers: one ``attn_dense_first``, one
+    ``attn_moe`` with 8 experts top-2 and one shared expert; 8 query heads
+    on 2 KV heads of dim 8) compressed with ``dispatch`` ("capacity": the
+    config's own, or "dropfree") on the card and on the CPU from the same
+    params and 16 x 32 uniform tokens (ratio 0.6, fused, microbatch 8),
+    each with one refine epoch and without: routed ids of the original
+    stream, ranks and the report's drop rates exactly equal; the refined
+    models' CE within 1e-3, the CPU's served on both with equal tokens
+    (``phase_smoke_serve``); the closed-form solves' composed maps within
+    1e-3, plainly except the expert banks', compared on the shifted stream
+    the solve saw: an expert's X′ᵀX′ holds only its routed rows (under
+    capacity only those its C slots kept) and can be ill conditioned or
+    singular, and its weak directions are fp32 rounding on either device
+    (without refinement, one drop-free expert of condition 9.8e4 moved
+    1.1e-3 plainly, 1.8e-4 on its shifted stream, between 1 and 8 CPU
+    threads; ``tests/test_torch_kimi.py``).  The refined maps'
+    gap is printed, not held: one Adam step moves an expert's coordinates
+    by about lr whatever the sign of a gradient that rounding decides, and
+    the CPU alone, at 1 thread against 8, puts the capacity banks 3.4e-3
+    apart on the shifted stream (2.5e-4 without refinement)."""
+    from repro_torch import configs
+    from repro_torch.core import pipeline as P
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+
+    cfg = configs.get_smoke_config("kimi-k2-1t-a32b").replace(
+        dtype="float32")
+    if dispatch == "dropfree":
+        cfg = _dropfree(cfg)
+    require(cfg.moe.dispatch == dispatch, f"smoke kimi: dispatch "
+            f"{cfg.moe.dispatch!r}, not {dispatch!r}")
+    params = M.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(5)
+    calib = {"tokens": rng.integers(0, cfg.vocab_size, (16, 32))}
+    t = rng.integers(0, cfg.vocab_size, (8, 65))
+    batch = {"tokens": torch.from_numpy(t[:, :-1]),
+             "labels": torch.from_numpy(t[:, 1:])}
+
+    def recipe(refine):
+        return P.CompressConfig(ratio=0.6, rank_multiple=1, microbatch=8,
+                                calib_mode="fused", refine_epochs=1,
+                                refine=refine, debug_covs=True,
+                                moe_dispatch=("dropfree" if dispatch
+                                              == "dropfree" else "inherit"))
+
+    out, dropped, ids = {}, {}, {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        store = {}
+        pd = tree_map(lambda x, d=d: x.to(d), params)
+        with torch.no_grad(), L.sowing(store):
+            M.forward_hidden(pd, cfg, {"tokens": torch.from_numpy(
+                calib["tokens"]).to(d)})
+            ids[name] = _routed_ids(torch, L, store, pd, cfg)
+        if "ffn/experts_dropped" in store:
+            dropped[name] = store["ffn/experts_dropped"].tolist()
+        for refine in (True, False):
+            comp, rep = P.compress_model(params, cfg, calib, recipe(refine),
+                                         device=d)
+            with torch.no_grad():
+                loss = float(M.loss_fn(comp, cfg, {
+                    k: v.to(d) for k, v in batch.items()})[1]["ce"])
+            out[name, refine] = (comp, rep, loss)
+    flips = int((ids["card"] != ids["cpu"]).sum())
+    ranks = {key: [[lin["rank"] for lin in u["linears"]]
+                   for u in out[key][1]["units"]] for key in out}
+
+    def map_gap(refine):
+        worst, worst_at = 0.0, None
+        for si, unit in enumerate(out["cpu", refine][1]["units"]):
+            specs = {sp.path: sp for sp in P.linear_specs(unit["kind"], cfg)}
+            maps = [_composed_maps(torch, out[run, refine][0]["stages"][si][0])
+                    for run in ("card", "cpu")]
+            for path, want in maps[1].items():
+                got = maps[0][path].reshape(-1, *want.shape[-2:])
+                want = want.reshape(-1, *want.shape[-2:])
+                xpxp = unit["covs"][specs[path].tap]["xpxp"].cpu()
+                for i in range(want.shape[0]):
+                    err = (_shifted_error(torch, got[i], want[i], xpxp[i])
+                           if specs[path].bank else rel_fro(got[i], want[i]))
+                    if err > worst:
+                        worst, worst_at = err, f"stage {si} {path} [{i}]"
+        return worst, worst_at
+
+    solved, solved_at = map_gap(False)
+    refined, refined_at = map_gap(True)
+    lc, lp = out["card", True][2], out["cpu", True][2]
+    rates = {key: out[key][1]["calibration"]["moe_drop_rate"] for key in out}
+    tag = f"smoke kimi ({dispatch})"
+    log(f"{tag}: routed ids {tuple(ids['cpu'].shape)} flips (card vs cpu) "
+        f"{flips}; ranks {ranks['card', True]}; composed-map rel err of the "
+        f"solves {solved:.3e} at {solved_at}, of the refined models "
+        f"{refined:.3e} at {refined_at} (not held); CE card {lc:.6f} cpu "
+        f"{lp:.6f}; drop rates {rates['card', True]}; [dropped, total] of "
+        f"the whole calibration set {dropped}")
+    require(flips == 0, f"{tag}: {flips} routed expert ids differ "
+            "between the card and the CPU")
+    require(len({json.dumps(r) for r in ranks.values()}) == 1,
+            f"{tag}: ranks differ {ranks}")
+    require(len({json.dumps(r, sort_keys=True) for r in rates.values()})
+            == 1, f"{tag}: drop rates differ: {rates}")
+    require(len(set(map(tuple, dropped.values()))) <= 1,
+            f"{tag}: dropped choices differ: {dropped}")
+    require(solved <= 1e-3, f"{tag} composed maps of the solves differ by "
+            f"{solved:.3e} ({solved_at})")
+    require(abs(lc / lp - 1) <= 1e-3, f"{tag} loss {lc} vs {lp}")
+    served = phase_smoke_serve(torch, np, cfg, out["cpu", True][0], dev)
+    return {"dispatch": dispatch, "serve": served,
+            "ranks": ranks["card", True], "routed_ids": int(ids["cpu"].numel()),
+            "id_flips": flips, "drop_rates": rates["card", True],
+            "dropped_total": dropped.get("card"), "map_rel_err": solved,
+            "map_worst_at": solved_at, "refined_map_rel_err": refined,
+            "refined_map_worst_at": refined_at, "ce_cuda": lc, "ce_cpu": lp}
 
 
 # ---------------------------------------------------------------------------
@@ -3530,14 +3742,322 @@ def phase_policies_moe(torch, ops, dev="cuda", sizes=SIZES, cfg=None,
             "ce": ce, "uniform_ce": uniform}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: kimi-k2 at its published widths (GQA attention over a MoE)
+
+
+def phase_kimi(torch, np, ops, dev="cuda", sizes=SIZES, cfg=None):
+    """kimi-k2 at published widths (d_model 7168, 64 query heads on 8 KV
+    heads of head dim 112, dense FFN 18432, expert d_ff 2048, top-8, one
+    shared expert, vocab 163840, its own capacity dispatch at factor 1.25),
+    depth cut 61 -> ``kimi_layers`` (one ``attn_dense_first``, then
+    ``attn_moe``) and routed experts 384 -> ``kimi_experts``, random weights:
+    phase 5's recipe, then the compressed model served at phase 6's shapes:
+    (a) ``Server`` over the dense cache (``flash_attention`` zero-padded to
+    head dim 128: wgmma prefill, split decode), (b) the engine over the
+    latent cache (``flash_decode`` at head dim 112, every launch in the
+    wgmma body), (b') the engine over the dense cache, (c) one
+    teacher-forced sequence decoded over both caches, (d) the decode
+    step's host syncs, (e) a profiled engine run.  Counts zeroed before
+    each run and read after."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch import configs
+    from repro_torch.launch import serve as TS
+    from repro_torch.models import blocks as B
+    from repro_torch.models import model as M
+
+    on_card = torch.device(dev).type == "cuda"
+    if cfg is None:
+        cfg = configs.get_config("kimi-k2-1t-a32b")
+    full = (cfg.num_layers, cfg.moe.num_experts)
+    layers, experts = sizes["kimi_layers"], sizes["kimi_experts"]
+    cfg = cfg.replace(num_layers=layers, moe=dataclasses.replace(
+        cfg.moe, num_experts=experts))
+    tag = "kimi"
+    program = [(st.kinds, st.n) for st in B.stage_program(cfg)]
+    log(f"{tag}: kimi-k2 widths d_model {cfg.d_model} heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} head_dim {cfg.head_dim} dense "
+        f"d_ff {cfg.moe.dense_d_ff} expert d_ff {cfg.moe.d_ff} top-"
+        f"{cfg.moe.top_k} shared {cfg.moe.num_shared_experts} vocab "
+        f"{cfg.vocab_size} rope theta {cfg.rope_theta}, dispatch "
+        f"{cfg.moe.dispatch} (capacity factor {cfg.moe.capacity_factor}), "
+        f"dtype {cfg.dtype} params {cfg.param_dtype}; num_layers cut "
+        f"{full[0]} -> {layers}, routed experts {full[1]} -> {experts} for "
+        f"one card's memory; stages {program}")
+    kinds = [k for kk, _ in program for k in kk]
+    require(kinds == ["attn_dense_first", "attn_moe"],
+            f"{tag}: sub-block kinds {kinds}")
+    dpad = ops._padded_head_dim(cfg.head_dim)
+    out = {"layers": layers, "experts": experts, "padded_head_dim": dpad,
+           "program": [[list(k), n] for k, n in program]}
+
+    # compression (phase 5's recipe, the config's own capacity dispatch)
+    params = M.init_params(cfg, 0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    calib = {"tokens": torch.randint(0, cfg.vocab_size, sizes["calib"],
+                                     generator=gen, device=dev)}
+    evals = []
+    n_eval, b_eval, l_eval = sizes["evals"]
+    for _ in range(n_eval):
+        t = torch.randint(0, cfg.vocab_size, (b_eval, l_eval + 1),
+                          generator=gen, device=dev)
+        evals.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    ccfg = repro_torch.CompressConfig(ratio=0.6, calib_mode="fused",
+                                      refine_epochs=1,
+                                      microbatch=sizes["microbatch"])
+
+    def eval_ce(p):
+        with torch.no_grad():
+            return [float(M.loss_fn(p, cfg, b)[1]["ce"]) for b in evals]
+
+    _sync(torch, dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    stages = {}
+    t0 = time.perf_counter()
+    comp, report = repro_torch.compress_model(params, cfg, calib, ccfg,
+                                              device=dev, stage_times=stages)
+    t_compress = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dense = eval_ce(params)
+    compressed = eval_ce(comp)
+    stages["eval"] = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    bodies = dict(ops.FLASH_BODIES)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    ratio = repro_torch.compress_ratio_report(params, comp)
+    del params
+    ranks = {}
+    for u in report["units"]:
+        ranks.update({lin["path"]: lin["rank"] for lin in u["linears"]})
+    rates = report["calibration"]["moe_drop_rate"]
+    out["compress"] = {
+        "stages": stages, "wall_s": t_compress, "peak_bytes": peak,
+        "launches": launches, "lowrank_rows": lowrank_rows(ops),
+        "flash_bodies": bodies, "ratio": ratio, "ranks": ranks,
+        "drop_rates": rates, "dense": dense, "compressed": compressed,
+        "units": [[u["name"], u["pre_refine_mse"], u["post_refine_mse"]]
+                  for u in report["units"]]}
+    log(f"{tag}: compress", json.dumps(out["compress"]))
+    log(f"{tag}: compress wall {t_compress:.3f} s, peak device memory "
+        f"{peak / 2**30:.3f} GiB; eval CE dense {dense} compressed "
+        f"{compressed}")
+    vals = dense + compressed + [v for u in report["units"]
+                                 for v in (u["pre_refine_mse"],
+                                           u["post_refine_mse"])]
+    require(all(math.isfinite(v) for v in vals), f"{tag}: non-finite {vals}")
+    require(rates and all(0.0 <= r < 1.0 for r in rates.values()),
+            f"{tag}: drop rates {rates} outside [0, 1)")
+    for name in ("cov_accum", "cov_accum_banked", "lowrank_matmul",
+                 "flash_attention"):
+        require(launches[name] > 0,
+                f"{tag}: kernel {name} never launched on compression")
+    require(launches["grouped_matmul"] == 0, f"{tag}: grouped_matmul "
+            f"launched {launches['grouped_matmul']} times under capacity")
+    require(not on_card or bodies.get("wgmma", 0) > 0,
+            f"{tag}: flash_attention's wgmma body never taken: {bodies}")
+    want_ranks = {"attn.wq": 2152, "attn.wk": 480, "attn.wv": 480,
+                  "attn.wo": 2152, "ffn.gate": 3096, "ffn.down": 3096,
+                  "ffn.experts.gate": 960, "ffn.experts.down": 960,
+                  "ffn.shared.gate": 960, "ffn.shared.down": 960}
+    if cfg.d_model == 7168:     # the published widths (ratio 0.6, lanes 8)
+        require(all(ranks.get(k) == v for k, v in want_ranks.items()),
+                f"{tag}: ranks {ranks} differ from {want_ranks}")
+    if on_card:
+        torch.cuda.empty_cache()
+
+    def gates(run, launches, bodies, decode_bodies, latent):
+        require(launches["lowrank_matmul"] > 0,
+                f"{tag} {run}: lowrank_matmul never launched")
+        require(launches["flash_attention"] > 0,
+                f"{tag} {run}: flash_attention never launched")
+        require(launches["grouped_matmul"] == 0,
+                f"{tag} {run}: grouped_matmul launched under capacity")
+        if latent:
+            require(launches["flash_decode"] > 0,
+                    f"{tag} {run}: flash_decode never launched")
+            require(not on_card or (decode_bodies.get("wgmma", 0)
+                                    == launches["flash_decode"]),
+                    f"{tag} {run}: flash_decode outside its wgmma body: "
+                    f"{decode_bodies}")
+        else:
+            require(launches["flash_decode"] == 0,
+                    f"{tag} {run}: flash_decode launched over a dense cache")
+            require(not on_card or bodies.get("split", 0) > 0,
+                    f"{tag} {run}: no decode in the split body: {bodies}")
+
+    # (a) fixed batch over the dense cache
+    rng = np.random.default_rng(29)
+    b, plen, steps, max_len = sizes["serve_dense"]
+    prompts = rng.integers(0, cfg.vocab_size, (b, plen), dtype=np.int32)
+    srv = TS.Server(cfg, comp, max_len=max_len, batch=b, device=dev)
+    _sync(torch, dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    first = srv.generate(prompts, steps=1).cpu()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    toks = srv.generate(prompts, steps=steps).cpu()
+    t_all = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    bodies = dict(ops.FLASH_BODIES)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    gates("Server", launches, bodies, dict(ops.DECODE_BODIES), False)
+    require(tuple(toks.shape) == (b, steps) and torch.equal(toks[:, :1],
+                                                            first)
+            and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+            f"{tag}: Server tokens malformed: {tuple(toks.shape)}")
+    decode_s = t_all - t_prefill
+    out["server"] = {
+        "launches": launches, "lowrank_rows": lowrank_rows(ops),
+        "flash_bodies": bodies, "ttft_s": t_prefill,
+        "prefill_tokens_per_s": b * plen / t_prefill,
+        "decode_tokens_per_s": b * (steps - 1) / decode_s,
+        "decode_step_ms": decode_s / (steps - 1) * 1e3,
+        "generate_s": t_all, "peak_bytes": peak,
+        "tokens_head": toks[:, :8].tolist()}
+    log(f"{tag} (a) Server dense cache:", json.dumps(out["server"]))
+    del srv
+
+    # (b) continuous batching over the latent cache, (b') over the dense one
+    slots, max_len, chunk, n_req, (lo, hi), steps = sizes["serve_engine"]
+    lens = rng.integers(lo, hi + 1, n_req)
+    reqs = [TS.Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, (n,),
+                                                  dtype=np.int32),
+                       steps=steps) for i, n in enumerate(lens)]
+    results = {}
+    for key, layout in (("engine", "auto"), ("engine_dense", "dense")):
+        eng = TS.ContinuousBatchingServer(cfg, comp, max_len=max_len,
+                                          slots=slots, prefill_chunk=chunk,
+                                          cache_layout=layout, device=dev)
+        _sync(torch, dev)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = eng.run(reqs)
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        bodies = dict(ops.FLASH_BODIES)
+        decode_bodies = dict(ops.DECODE_BODIES)
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        latent = layout == "auto"
+        gates(key, launches, bodies, decode_bodies, latent)
+        require(sorted(res) == list(range(n_req)) and all(
+            len(r["tokens"]) == steps
+            and ((r["tokens"] >= 0) & (r["tokens"] < cfg.vocab_size)).all()
+            for r in res.values()), f"{tag} {key}: results malformed")
+        require(set(eng.prefill_routes.values()) == {"chunked"},
+                f"{tag} {key}: prefill routes {eng.prefill_routes}")
+        ttft = [res[i]["first_token"] - res[i]["arrival"]
+                for i in range(n_req)]
+        prefill_s = [res[i]["first_token"] - res[i]["admitted"]
+                     for i in range(n_req)]
+        times = eng.decode_step_times
+        cache = _cache_bytes(M, cfg, slots, max_len, eng._cache_params)
+        out[key] = {
+            "launches": launches, "lowrank_rows": lowrank_rows(ops),
+            "flash_bodies": bodies, "decode_bodies": decode_bodies,
+            "wall_s": wall, "requests": n_req, "prompt_lens": lens.tolist(),
+            "ttft_s_median": statistics.median(ttft), "ttft_s_max": max(ttft),
+            "prefill_tokens_per_s": float(sum(lens)) / sum(prefill_s),
+            "decode_steps": len(times),
+            "decode_step_ms_median": statistics.median(times) * 1e3,
+            "decode_tokens_per_s": n_req * (steps - 1) / sum(times),
+            "cache_bytes": cache,
+            "cache_bytes_per_token_layer": cache / (slots * max_len * layers),
+            "peak_bytes": peak}
+        results[key] = res
+        if latent:
+            eng_latent = eng
+        label = "(b) engine latent" if latent else "(b') engine dense"
+        log(f"{tag} {label} cache:", json.dumps(out[key]))
+    same = sum(int((results["engine_dense"][i]["tokens"]
+                    == results["engine"][i]["tokens"]).sum())
+               for i in range(n_req))
+    out["engine_dense"]["tokens_equal_to_latent"] = same / (n_req * steps)
+    eb = 2 if cfg.dtype == "bfloat16" else 4
+    per_tok = {key: out[key]["cache_bytes_per_token_layer"]
+               for key in ("engine", "engine_dense")}
+    out["cache"] = {
+        "latent_bytes_per_token_layer": per_tok["engine"],
+        "dense_bytes_per_token_layer": per_tok["engine_dense"],
+        "latent_share": per_tok["engine"] / per_tok["engine_dense"],
+        "ranks_k_v": [ranks["attn.wk"], ranks["attn.wv"]]}
+    log(f"{tag}: cache bytes a token a layer", json.dumps(out["cache"]))
+    require(per_tok["engine_dense"] == 2 * cfg.num_kv_heads * cfg.head_dim
+            * eb, f"{tag}: dense cache {per_tok['engine_dense']} B a token "
+            "a layer")
+    require(per_tok["engine"] == (ranks["attn.wk"] + ranks["attn.wv"]) * eb,
+            f"{tag}: latent cache {per_tok['engine']} B a token a layer")
+
+    # (c) one teacher-forced sequence decoded over the latent and the dense
+    # cache, with bf16 and with fp32 activations
+    plen, n_dec, max_len = sizes["serve_check"]
+    p = eng_latent.params
+    seq = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, plen + n_dec),
+                                        dtype=np.int32)).to(dev)
+    logits = {}
+    with torch.inference_mode():
+        for act in ("bfloat16", "float32"):
+            c = cfg.replace(dtype=act)
+            for layout in ("latent", "dense"):
+                cache = M.init_cache(c, 1, max_len, params=p if layout ==
+                                     "latent" else None, device=dev)
+                rows = [M.prefill(p, c, {"tokens": seq[:, :plen]}, cache)[0]]
+                for i in range(plen, plen + n_dec):
+                    pos = torch.tensor([i], dtype=torch.int32, device=dev)
+                    rows.append(M.decode_step(p, c, cache, seq[:, i:i + 1],
+                                              pos)[0])
+                logits[f"{layout}_{act}"] = torch.cat(rows)
+                del cache
+    checks = {f"latent_vs_dense_decode_{act}": rel_fro(
+        logits[f"latent_{act}"][1:], logits[f"dense_{act}"][1:])
+        for act in ("bfloat16", "float32")}
+    checks["bf16_vs_fp32_decode"] = {
+        layout: rel_fro(logits[f"{layout}_bfloat16"][1:],
+                        logits[f"{layout}_float32"][1:])
+        for layout in ("latent", "dense")}
+    del logits
+    out["checks"] = checks
+    log(f"{tag} (c) checks (rel Frobenius):", json.dumps(checks))
+    # fp32 activations: one function through flash_decode (keys up-projected
+    # on chip) and through flash_attention over stored keys, sums in another
+    # order: 1e-4, as phase 6.  bf16 is printed, not gated: the dense cache
+    # stores bf16 keys and the latent one fp32-exact ones, so the router's
+    # inputs differ by bf16 rounding and a top-8 choice may flip, an O(1)
+    # move of one token's MoE output
+    key = "latent_vs_dense_decode_float32"
+    require(math.isfinite(checks[key]) and checks[key] <= 1e-4,
+            f"{tag}: {key} {checks[key]:.3e} > 1e-4")
+
+    if on_card:
+        out["host_syncs"] = decode_syncs(torch, M, cfg, eng_latent)
+        log(f"{tag} (d) host syncs (torch.cuda.set_sync_debug_mode):",
+            json.dumps(out["host_syncs"]))
+        require(out["host_syncs"]["decode_step_raised"] is None,
+                f"{tag}: the decode step synchronized the host: "
+                f"{out['host_syncs']['decode_step_raised']}")
+        out["profile"] = profile_engine(torch, np, TS, cfg, comp, "auto",
+                                        sizes)
+        log(f"{tag} (e) device time by kernel:", json.dumps(out["profile"]))
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("lowrank", "cov", "grouped",
-                                       "attention", "decode"),
+                                       "attention", "decode", "kimi"),
                     help="phases 1-2 and lowrank_matmul's (cov_accum's, "
                     "grouped_matmul's, flash_attention's, flash_decode's) "
-                    "rows of phase 3")
+                    "rows of phase 3; kimi: phases 1-2, phase 4's kimi-k2 "
+                    "smoke runs and phase 12")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3614,6 +4134,15 @@ def main(argv=None) -> int:
             fd_rows, fd_checks = phase_decode_kernels(torch, np, ops, ref)
             rows = {"flash_decode": fd_rows,
                     "flash_decode_checks": fd_checks}
+        elif args.only == "kimi":
+            t0 = time.perf_counter()
+            rows = {"kimi": phase_kimi(torch, np, ops)}
+            log(f"phase 12: {time.perf_counter() - t0:.3f} s")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            rows["smoke_kimi"] = {d: phase_smoke_kimi(torch, np, dispatch=d)
+                                  for d in ("capacity", "dropfree")}
+            log(f"phase 4 (kimi): {time.perf_counter() - t0:.3f} s")
         else:
             gm_rows, gm_back = phase_grouped_kernels(torch, np, ops, ref)
             rows = {"grouped_matmul": gm_rows,
@@ -3643,6 +4172,8 @@ def main(argv=None) -> int:
                       for arch in SIZES["smoke_archs"]}
     smoke["adaptive"] = phase_smoke_adaptive(torch, np)
     smoke["moe_adaptive"] = phase_smoke_moe_adaptive(torch, np)
+    smoke["kimi"] = {d: phase_smoke_kimi(torch, np, dispatch=d)
+                     for d in ("capacity", "dropfree")}
     log(f"phase 4: {time.perf_counter() - t0:.3f} s")
     # 5. main path: compression
     t0 = time.perf_counter()
@@ -3699,6 +4230,15 @@ def main(argv=None) -> int:
                     "serve_ckpt_server": policies["server"],
                     "serve_ckpt_engine": policies["engine"],
                     "compress_moe_hybrid": policies_moe}
+    torch.cuda.empty_cache()
+    # 12. kimi-k2 at published widths: compression and serving
+    t0 = time.perf_counter()
+    kimi = phase_kimi(torch, np, ops)
+    log(f"phase 12: {time.perf_counter() - t0:.3f} s")
+    kimi_paths = {"compress_kimi": kimi["compress"],
+                  "serve_kimi_server": kimi["server"],
+                  "serve_kimi_engine": kimi["engine"],
+                  "serve_kimi_engine_dense": kimi["engine_dense"]}
 
     def timing(row):
         return {"max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -3724,7 +4264,9 @@ def main(argv=None) -> int:
                    **{path: run["launches"][name]
                       for path, run in gemma_paths.items()},
                    **{path: run["launches"][name]
-                      for path, run in policy_paths.items()}}
+                      for path, run in policy_paths.items()},
+                   **{path: run["launches"][name]
+                      for path, run in kimi_paths.items()}}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": by_path[path],
                 "launches_by_path": by_path, **timing(head)}
@@ -3756,6 +4298,14 @@ def main(argv=None) -> int:
     cb["per_bank_cov_accum_ms"] = timed_banked[0]["per_bank_cov_accum_ms"]
     cb["experts_down_in"] = {**timing(timed_banked[1]), "per_bank_cov_accum_ms":
                              timed_banked[1]["per_bank_cov_accum_ms"]}
+    # kimi-k2's bank taps (phase 12: E 32, C 1280, n 7168 and 2048)
+    cb["kimi"] = [{**timing(r), "per_bank_cov_accum_ms":
+                   r["per_bank_cov_accum_ms"]} for r in timed_banked
+                  if r.get("case") == "kimi"]
+    # cov_accum at kimi-k2's taps (n 7168 and the dense FFN's 18432)
+    cv = next(k for k in kernels if k["name"] == "cov_accum")
+    cv["kimi"] = [timing(r) for r in cov_rows if "ms" in r
+                  and r["shape"][1] in (7168, 18432)]
     # lowrank_matmul's other bodies, where the engine runs them: decode's
     # T 8 (small_t) and the prefill chunk's T 256 (wgmma, split), and its
     # launches on each path by row count
@@ -3776,7 +4326,13 @@ def main(argv=None) -> int:
         **{path: run["lowrank_rows"] for path, run in moe_paths.items()},
         **{path: run["lowrank_rows"] for path, run in gemma_paths.items()},
         **{path: run["lowrank_rows"] for path, run in policy_paths.items()
-           if "lowrank_rows" in run}}
+           if "lowrank_rows" in run},
+        **{path: run["lowrank_rows"] for path, run in kimi_paths.items()}}
+    # kimi-k2's eight factorized shapes at each T (phase 12)
+    kimi_shapes = [list(s) for s in SIZES["lowrank_nkm_kimi"]]
+    low["kimi"] = [{**timing(r), "body": r.get("body")} for r in low_rows
+                   if "ms" in r and not r.get("forced")
+                   and list(r["shape"][1:]) in kimi_shapes]
     # grouped_matmul at decode's 48 rows (the dense bank and the factorized
     # x @ V), at an engine chunk's 1536 (x @ V), and one bf16 backward (dx
     # and dW) at the x @ V shape
@@ -3804,9 +4360,12 @@ def main(argv=None) -> int:
                       ("gemma_local_d256", "gemma_local"),
                       ("gemma_global_d256", "gemma_global"),
                       ("gemma_server_d256", "gemma_server"),
-                      ("gemma_decode_split_d256", "gemma_decode")):
-        fa[key] = timing(next(r for r in fa_rows
-                              if r["case"] == case and "ms" in r))
+                      ("gemma_decode_split_d256", "gemma_decode"),
+                      ("kimi_prefill_d112", "kimi_prefill"),
+                      ("kimi_decode_split_d112", "kimi_decode")):
+        row = next(r for r in fa_rows if r["case"] == case and "ms" in r)
+        fa[key] = {**timing(row), **{k: row[k] for k in (
+            "padded_d", "bound_padded_ms", "bound_padded_by") if k in row}}
     # flash_decode: its kernels by body, the fp32 row (phase 6 (c)'s fp32
     # route and phase 4's smoke serving take the FMA body), and the
     # engine's launches by keys body
@@ -3822,9 +4381,15 @@ def main(argv=None) -> int:
     fdk["granite_gqa"] = timing(next(r for r in fd_rows if "ms" in r
                                      and r["case"] == "granite"
                                      and r["dtype"] == "bfloat16"))
+    # kimi-k2's head dim 112 (64 query heads on 8 KV heads, rank 480):
+    # the wgmma body in bf16, the FMA body in fp32
+    for key, dt in (("kimi_d112", "bfloat16"), ("kimi_d112_fp32", "float32")):
+        fdk[key] = timing(next(r for r in fd_rows if "ms" in r
+                               and r["case"] == "kimi" and r["dtype"] == dt))
     fdk["launches_by_body"] = {
         "serve_engine": serve_run["engine"]["decode_bodies"],
-        "serve_ckpt_engine": policies["engine"]["decode_bodies"]}
+        "serve_ckpt_engine": policies["engine"]["decode_bodies"],
+        "serve_kimi_engine": kimi["engine"]["decode_bodies"]}
     fa["launches_by_body"] = {
         "compress": main_run["flash_bodies"],
         "serve_server": serve_run["server"]["flash_bodies"],
@@ -3833,7 +4398,8 @@ def main(argv=None) -> int:
         "compress_moe": moe_run["flash_bodies"],
         "compress_moe_capacity": moe_cap_run["flash_bodies"],
         **{path: run["flash_bodies"] for path, run in moe_paths.items()},
-        **{path: run["flash_bodies"] for path, run in gemma_paths.items()}}
+        **{path: run["flash_bodies"] for path, run in gemma_paths.items()},
+        **{path: run["flash_bodies"] for path, run in kimi_paths.items()}}
     with open(OUT / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "cov_accum": cov_rows,
                    "cov_accum_banked": banked_rows,
@@ -3845,7 +4411,7 @@ def main(argv=None) -> int:
                    "main": main_run, "serve": serve_run, "moe": moe_run,
                    "moe_capacity": moe_cap_run, "serve_moe": serve_moe,
                    "gemma": gemma, "policies": policies,
-                   "policies_moe": policies_moe},
+                   "policies_moe": policies_moe, "kimi": kimi},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,10 @@
 deepseek-v2-lite-16b (MLA attention, MoE under either dispatch), the other
 dense-attention archs qwen3-0.6b (qk_norm, tied embeddings), granite-3-8b
 and phi3-medium-14b (GQA), and gemma3-1b (5 sliding-window local layers to
-1 global, ring caches, a second RoPE theta).  The other registered archs of
-the JAX package come with later slices.
+1 global, ring caches, a second RoPE theta) and kimi-k2-1t-a32b (GQA
+attention over a MoE under either dispatch, one shared expert, head dim
+112).  The other registered archs of the JAX package come with later
+slices.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ _REGISTRY: Dict[str, str] = {
     "granite-3-8b": "granite_3_8b",
     "phi3-medium-14b": "phi3_medium_14b",
     "gemma3-1b": "gemma3_1b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t",
 }
 
 

@@ -2,10 +2,10 @@
 
 Counterpart of ``src/repro/core/pipeline.py`` with ``calib_mesh=None``, on
 dense GQA models (llama, qwen3, granite, phi3-medium; gemma3's
-sliding-window local and global layers) and on deepseek's MLA + MoE
-(capacity or drop-free dispatch).  The model is unrolled into units (one
-transformer block each; stacked stages are sliced and restacked
-afterwards).  Per unit:
+sliding-window local and global layers), on deepseek's MLA + MoE and on
+kimi-k2's GQA + MoE (capacity or drop-free dispatch).  The model is
+unrolled into units (one transformer block each; stacked stages are sliced
+and restacked afterwards).  Per unit:
 
   1. calibration statistics via the streaming engine (``core.streaming``):
      every tap group (q/k/v share a tap, gate/up share) owns a covariance
@@ -551,7 +551,7 @@ def _check_supported(cfg, ccfg: CompressConfig) -> None:
             "collection comes with the torch.distributed slice)")
     if (cfg.family, cfg.attention) not in (("dense", "full"),
                                            ("dense", "sliding_mix"),
-                                           ("moe", "mla")):
+                                           ("moe", "mla"), ("moe", "full")):
         raise NotImplementedError(
             f"family {cfg.family!r} / attention {cfg.attention!r} is not "
             "ported to repro_torch yet (comes with that architecture's slice)")

@@ -29,15 +29,19 @@
 //   fdec_split_u (wgmma body only)  U_k fp32 -> two bf16 terms U_hi + U_lo (scratch,
 //     2 x r_k·KV·D bf16, ~40 MB of traffic): TMA cannot convert, and the two terms
 //     keep the keys at fp32 quality (l_k is exact in bf16: the cache holds bf16)
-//   fdec_keys_wgmma<D> (bf16, D 64 / 128, r_k a multiple of 8): one block a work item.
+//   fdec_keys_wgmma<D> (bf16, D 64 / 112 / 128, r_k a multiple of 8): one block a work item.
 //     A producer thread keeps a ring of stages filled by TMA, each the span's l_k tile
 //     (256 keys x 64 ranks, K-major, read in place through a 3D map on (B, L, r_k)
 //     whose zero fill ends the cache) and U_hi, U_lo [64 ranks, kvh·D .. + D] (MN-major,
 //     the transpose bit); two consumer warpgroups of 128 keys each issue
 //     K += l_k·U_hi + l_k·U_lo on wgmma into fp32 registers (two m64nD tiles each),
-//     one stage in flight while the next is issued.  RoPE in registers: an m64nD
-//     accumulator holds columns j and j + D/2 of a key row in one thread.  Scores
-//     q·k / √D by quad shuffles, q from shared memory.
+//     one stage in flight while the next is issued.  D 112 (kimi-k2) stages U as two
+//     64-column boxes, like D 128: the second box's last 16 columns (the next head's,
+//     or TMA's zero fill past the last) ride through m64n128 products whose columns
+//     112..127 are never read, so RoPE pairs and scores see the true 112 columns (an
+//     N-112 MN-major operand is not a whole number of 128-byte swizzle atoms).  RoPE
+//     in registers: an m64nD accumulator holds columns j and j + D/2 of a key row in
+//     one thread.  Scores q·k / √D by quad shuffles, q from shared memory.
 //   fdec_keys_fma<T, D> (fp32 at every D; bf16 at D 8 / 16 / 20 / 32 or other ranks): the same
 //     work item on the FMA units, 64-key tiles up-projected in 32-rank chunks through
 //     shared memory, U_k fp32 as stored.
@@ -65,8 +69,8 @@
 // what kernels/flash_decode.py::plan never makes): q (B, H, D), lk (B, L, r_k), lv
 // (B, L, r_v) and out (B, H, D) of one dtype (fp32 or bf16), 16-byte aligned; uk
 // (r_k, KV·D), uv (r_v, KV·D), cos, sin (L, D/2) fp32; lengths (B,) int32 (clamped to
-// [0, L]; a slot of length 0 gets zeros); all contiguous; D one of 8, 16, 20, 32, 64, 128
-// (8 and 20: granite's and phi3-medium's smoke configs);
+// [0, L]; a slot of length 0 gets zeros); all contiguous; D one of 8, 16, 20, 32, 64,
+// 112, 128 (8 and 20: granite's and phi3-medium's smoke configs; 112 kimi-k2's);
 // scratch fp32 as kernels/flash_decode.py::Plan.offsets lays it out.  Returns the
 // first non-zero cudaError of the call.
 
@@ -184,7 +188,7 @@ __global__ void __launch_bounds__(256) fdec_split_u(const float4* __restrict__ u
 }
 
 // ---------------------------------------------------------------------------
-// keys, wgmma body (bf16, D 64 / 128)
+// keys, wgmma body (bf16, D 64 / 112 / 128)
 
 namespace kw {
 
@@ -195,12 +199,13 @@ constexpr int CONSUMER_REGS = 232;  // 128·40 + 256·232 <= 65536
 
 template <int D>
 struct Cfg {
-  static constexpr int DC = D / 64;                // 64-column boxes of a U row
+  static constexpr int DC = (D + 63) / 64;         // 64-column boxes of a U row
+  static constexpr int NC = 64 * DC;               // accumulator columns (D 112: 128)
   static constexpr int LK_BYTES = SPAN * 128;      // 256 keys x 64 ranks
   static constexpr int U_BOX = RC * 128;           // 64 ranks x 64 columns
   static constexpr int U_BYTES = 2 * DC * U_BOX;   // the hi and lo terms
   static constexpr int STAGE = LK_BYTES + U_BYTES;
-  static constexpr int STAGES = D == 128 ? 3 : 4;
+  static constexpr int STAGES = DC == 2 ? 3 : 4;
   static constexpr int RING = STAGES * STAGE;
   // the 128-byte swizzle repeats every 1024 bytes: the ring starts 1024-aligned
   static int smem(int g) { return 1024 + RING + 4 * g * (D + SPAN) + 16 * STAGES; }
@@ -210,10 +215,10 @@ __device__ __forceinline__ void consumer_sync() {  // both consumer warpgroups
   asm volatile("bar.sync 1, 256;" ::: "memory");
 }
 
-// K (64 keys x D) += l_k (64 x 16 ranks, K-major) U (16 x D, MN-major)
-template <int D>
-__device__ __forceinline__ void up(float (&acc)[D / 2], uint64_t da, uint64_t db) {
-  if constexpr (D == 128) {
+// K (64 keys x NC) += l_k (64 x 16 ranks, K-major) U (16 x NC, MN-major)
+template <int NC>
+__device__ __forceinline__ void up(float (&acc)[NC / 2], uint64_t da, uint64_t db) {
+  if constexpr (NC == 128) {
     wgmma_m64n128k16<0, 1>(acc, da, db, 1);
   } else {
     wgmma_m64n64k16<0, 1>(acc, da, db, 1);
@@ -288,11 +293,11 @@ fdec_keys_wgmma(const __grid_constant__ CUtensorMap tlk, const __grid_constant__
   const int r_in = (lane / 32) * 16 + (lane % 32) / 4;  // accumulator row (h = 0); h = 1 at +8
   const int cq = (lane % 4) * 2;                        // accumulator column pair
 
-  float acc[2][D / 2];
+  float acc[2][C::NC / 2];
 #pragma unroll
   for (int t = 0; t < 2; ++t) {
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[t][i] = 0.f;
+    for (int i = 0; i < C::NC / 2; ++i) acc[t][i] = 0.f;
   }
   for (int c = 0; c < chunks; ++c) {
     const int s = c % C::STAGES;
@@ -311,7 +316,7 @@ fdec_keys_wgmma(const __grid_constant__ CUtensorMap tlk, const __grid_constant__
         for (int j = 0; j < 4; ++j) {
           // A: a k16 step is 32 bytes along each swizzled row; B: 16 rank rows
           // (2048 bytes) further, its 64-column boxes U_BOX apart
-          up<D>(acc[t], smem_desc(lk_t + j * 32, 16, 1024),
+          up<C::NC>(acc[t], smem_desc(lk_t + j * 32, 16, 1024),
                 smem_desc(u_t + j * 2048, C::U_BOX, 1024));
         }
       }
@@ -328,7 +333,8 @@ fdec_keys_wgmma(const __grid_constant__ CUtensorMap tlk, const __grid_constant__
   fence_acc(acc[1]);
 
   // RoPE in registers: acc[t][4j + 2h + e] is key row r_in + 8h of tile t, column
-  // 8j + cq + e; column c pairs with c + D/2, register group j with j + D/16
+  // 8j + cq + e; column c pairs with c + D/2, register group j with j + D/16 (D a
+  // multiple of 16; the groups of columns D .. NC - 1 are never read)
   if (a.rope) {
     constexpr int HALF = D / 2;
 #pragma unroll
@@ -405,9 +411,10 @@ int smem(int g) {
 // Up-projection micro-tile: each thread owns KPT keys x CPT columns of the
 // (BK x D) key tile, so one shared load of l_k feeds CPT FMAs and one of U_k KPT.
 // Below D 32 four threads span a row (CPT 2, 4, 5 at D 8, 16, 20).
+// D 112: 7 columns a thread, 16 threads across D and 16 across the keys.
 template <int D>
 struct Tile {
-  static constexpr int CPT = D >= 32 ? 8 : D / 4;  // columns per thread
+  static constexpr int CPT = D == 112 ? 7 : D >= 32 ? 8 : D / 4;  // columns per thread
   static constexpr int TX = D / CPT;           // threads across D
   static constexpr int TY = THREADS / TX;      // threads across keys
   static constexpr int KPT = BK / TY;          // keys per thread
@@ -669,9 +676,13 @@ constexpr int THREADS = 256;
 constexpr int RPT = 8;     // rows a pass
 constexpr int UNROLL = 8;  // U_v rows a thread loads at once
 
+// Columns a block: all of D below 32, else 32, or 16 where 32 does not divide D (112).
+template <int D>
+constexpr int OUT_COLS = D < 32 ? D : D % 32 == 0 ? 32 : 16;
+
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) fdec_out(Args a) {
-  constexpr int CB = D < 32 ? D : 32;  // columns a block
+  constexpr int CB = OUT_COLS<D>;    // columns a block
   constexpr int TC = CB / 4;           // threads across them, 4 columns each
   constexpr int NS = THREADS / TC;     // rank splits (threads past NS·TC idle: D 20)
   __shared__ __align__(16) float red[NS * RPT * CB];
@@ -764,7 +775,7 @@ int launch_tail(const Args& a, cudaStream_t s) {
   kval::fdec_merge<<<mgrid, kval::MERGE_THREADS, 0, s>>>(a);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  constexpr int CB = D < 32 ? D : 32;
+  constexpr int CB = ko::OUT_COLS<D>;
   ko::fdec_out<T, D><<<dim3(D / CB, a.kv), ko::THREADS, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -815,6 +826,7 @@ int launch_body(const Args& a, int d, int body, int blocks, cudaStream_t s) {
   if (body == WGMMA) {
     if constexpr (sizeof(T) == 2) {
       if (d == 64) return launch_wgmma<64>(a, blocks, s);
+      if (d == 112) return launch_wgmma<112>(a, blocks, s);
       if (d == 128) return launch_wgmma<128>(a, blocks, s);
     }
     return static_cast<int>(cudaErrorInvalidValue);
@@ -825,19 +837,24 @@ int launch_body(const Args& a, int d, int body, int blocks, cudaStream_t s) {
     case 20: return launch_fma<T, 20>(a, blocks, s);
     case 32: return launch_fma<T, 32>(a, blocks, s);
     case 64: return launch_fma<T, 64>(a, blocks, s);
+    case 112: return launch_fma<T, 112>(a, blocks, s);
     case 128: return launch_fma<T, 128>(a, blocks, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 int smem_bytes(int body, int g, int d) {
-  if (body == WGMMA) return d == 64 ? kw::Cfg<64>::smem(g) : kw::Cfg<128>::smem(g);
+  if (body == WGMMA) {
+    return d == 64 ? kw::Cfg<64>::smem(g) : d == 112 ? kw::Cfg<112>::smem(g)
+                                                     : kw::Cfg<128>::smem(g);
+  }
   switch (d) {
     case 8: return kf::smem<8>(g);
     case 16: return kf::smem<16>(g);
     case 20: return kf::smem<20>(g);
     case 32: return kf::smem<32>(g);
     case 64: return kf::smem<64>(g);
+    case 112: return kf::smem<112>(g);
     default: return kf::smem<128>(g);
   }
 }
@@ -846,8 +863,8 @@ int smem_bytes(int body, int g, int d) {
 
 // One call under a launch plan (kernels/flash_decode.py::plan).  dtype: 0 = fp32, 1 =
 // bf16 (q, lk, lv and out share it; uk, uv, cos, sin fp32).  body: 0 = fma (any dtype,
-// D 8 / 16 / 20 / 32 / 64 / 128), 1 = wgmma (bf16, D 64 / 128, r_k a multiple of 8).  span is
-// 256 and spans = ⌈l / span⌉.  The scratch holds, each region rounded up to 64
+// D 8 / 16 / 20 / 32 / 64 / 112 / 128), 1 = wgmma (bf16, D 64 / 112 / 128, r_k a
+// multiple of 8).  span is 256 and spans = ⌈l / span⌉.  The scratch holds, each region rounded up to 64
 // floats: (wgmma) the two bf16 terms of U_k in r_k·KV·D floats, then m and l
 // (b·h·spans each), p (b·h·spans·span), pv (b·h·spans·rv) and ctx (b·h·rv);
 // scratch_floats is its size.
@@ -858,13 +875,13 @@ extern "C" int flash_decode_launch(const void* q, const void* lk, const void* lv
                                    int rk, int rv, int rope, int dtype, int body, int span,
                                    int spans, void* stream) {
   if (b <= 0 || l <= 0 || kv <= 0 || h <= 0 || h % kv != 0 || rk <= 0 || rv <= 0 ||
-      (d != 8 && d != 16 && d != 20 && d != 32 && d != 64 && d != 128) ||
+      (d != 8 && d != 16 && d != 20 && d != 32 && d != 64 && d != 112 && d != 128) ||
       (dtype != 0 && dtype != 1) ||
       (body != FMA && body != WGMMA) || span != SPAN || spans != (l + SPAN - 1) / SPAN ||
       (rope && (cos == nullptr || sin == nullptr)) || scratch == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (body == WGMMA && (dtype != 1 || (d != 64 && d != 128) || rk % 8 != 0)) {
+  if (body == WGMMA && (dtype != 1 || (d != 64 && d != 112 && d != 128) || rk % 8 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int g = h / kv;

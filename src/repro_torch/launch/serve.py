@@ -8,10 +8,11 @@ there (no copy when they already live there).
 
 ``Server`` — fixed batch: one prefill of every prompt, then lock-step
 decode.  Its cache is built WITHOUT params.  For the dense archs' ``"attn"``
-blocks (llama, qwen3, granite, phi3-medium) and gemma3's ``"attn_global"``
-ones it is dense: prefill through ``gqa_prefill`` and decode through
-``gqa_decode``, both on the ``flash_attention`` kernel (decode with Lq = 1
-at one position).  gemma3's ``"attn_local"`` blocks keep a ring of
+blocks (llama, qwen3, granite, phi3-medium), gemma3's ``"attn_global"``
+ones and kimi-k2's ``"attn_dense_first"`` / ``"attn_moe"`` ones it is
+dense: prefill through ``gqa_prefill`` and decode through ``gqa_decode``,
+both on the ``flash_attention`` kernel (decode with Lq = 1 at one
+position).  gemma3's ``"attn_local"`` blocks keep a ring of
 ``sliding_window`` slots: windowed prefill on ``flash_attention``, then
 ``ring_decode`` (fp32 einsums).  For deepseek's MLA blocks it is the compressed {"c",
 "kr"} cache: whole prefill through ``mla_prefill`` (``flash_attention`` at
@@ -19,14 +20,16 @@ head dim 192) and decode through ``mla_decode`` (absorbed fp32 einsums).
 
 ``ContinuousBatchingServer`` — the engine.  The cache is allocated once for
 ``slots`` sequences of ``max_len`` positions with the params, so a
-compressed llama (granite, phi3-medium: every arch without qk_norm) gets
-the latent {"lk", "lv"} layout: prefill through
+compressed llama (granite, phi3-medium, kimi-k2: every GQA arch without
+qk_norm) gets the latent {"lk", "lv"} layout: prefill through
 ``gqa_prefill_latent`` (``flash_attention`` over the up-projected cache) and
 decode through ``gqa_decode_latent`` (the ``flash_decode`` kernel);
 ``cache_layout="dense"`` forces dense k/v everywhere.  gemma3 keeps its
 rings and dense global caches (qk_norm), and every request takes
 exact-length whole prefill (``"whole_exact"``): a ring can neither resume
-mid-sequence nor take right-padding.  MLA blocks keep
+mid-sequence nor take right-padding.  kimi-k2's head dim 112 reaches
+``flash_decode`` as it is (RoPE pairs the true dims) and ``flash_attention``
+zero-padded to 128.  MLA blocks keep
 {"c", "kr"} under either layout: chunked prefill through
 ``mla_prefill_cached`` and decode through ``mla_decode`` (absorbed), whole
 prefill through ``mla_prefill``.  Under deepseek's capacity MoE dispatch
@@ -49,7 +52,7 @@ waits for the card).
         [--engine] [--device cpu]
     python -m repro_torch.launch.serve --arch gemma3-1b --smoke --ratio 0.6 \\
         [--engine] [--device cpu]     # also qwen3-0.6b, granite-3-8b,
-                                      # phi3-medium-14b
+                                      # phi3-medium-14b, kimi-k2-1t-a32b
     python -m repro_torch.launch.serve --arch llama-7b --smoke --ratio 0.6 \\
         --calib-mode hybrid --rank-mode adaptive --replay-taps auto \\
         --checkpoint /tmp/ckpt [--engine] [--device cpu]

@@ -5,10 +5,12 @@ Counterpart of ``src/repro/models/blocks.py`` (``stage_program`` :43,
 ``apply_sub_block`` :150, ``latent_layout`` :190, ``init_sub_cache`` :207,
 ``_write_ring`` :244, ``prefill_sub_block`` :256, ``decode_sub_block``
 :334) for the dense family's ``"attn"`` kind, gemma3's sliding-window
-``"attn_local"`` / ``"attn_global"`` kinds, and deepseek's
+``"attn_local"`` / ``"attn_global"`` kinds, deepseek's
 ``"mla_dense_first"`` / ``"mla_moe"`` kinds (MLA attention; a dense FFN or
-a MoE under either dispatch).  Every kind has its cache paths: ``"attn"``
-and ``"attn_global"`` a dense {"k", "v"} or latent {"lk", "lv"} cache,
+a MoE under either dispatch) and kimi-k2's ``"attn_dense_first"`` /
+``"attn_moe"`` kinds (GQA attention; the same two FFN tails).  Every kind
+has its cache paths: ``"attn"``, ``"attn_global"`` and the GQA MoE kinds a
+dense {"k", "v"} or latent {"lk", "lv"} cache,
 ``"attn_local"`` a ring of ``sliding_window`` dense slots, the MLA kinds
 their own compressed {"c", "kr"} cache (expanded whole prefill, absorbed
 chunked prefill and decode).  A stage with ``scan=True`` and ``n > 1``
@@ -41,8 +43,8 @@ def _not_ported(what: str, slice_name: str):
         f"{slice_name} slice)")
 
 
-FORWARD_KINDS = ("attn", "attn_local", "attn_global", "mla_dense_first",
-                 "mla_moe")
+FORWARD_KINDS = ("attn", "attn_local", "attn_global", "attn_dense_first",
+                 "attn_moe", "mla_dense_first", "mla_moe")
 
 
 def stage_program(cfg) -> List[Stage]:
@@ -61,14 +63,15 @@ def stage_program(cfg) -> List[Stage]:
     if cfg.family == "encdec":
         raise _not_ported("encoder-decoder models", "multimodal")
     if cfg.moe is not None and cfg.moe.num_experts:
-        if cfg.attention != "mla":
-            raise _not_ported("MoE blocks with GQA attention (attn_moe)",
-                              "kimi-k2")
+        # deepseek (MLA) and kimi-k2 (GQA): the leading dense-FFN blocks,
+        # then the MoE ones
+        attn = "mla" if cfg.attention == "mla" else "attn"
         stages = []
         if cfg.moe.first_k_dense:
-            stages.append(Stage(("mla_dense_first",), cfg.moe.first_k_dense,
+            stages.append(Stage((f"{attn}_dense_first",),
+                                cfg.moe.first_k_dense,
                                 scan=cfg.moe.first_k_dense > 1))
-        stages.append(Stage(("mla_moe",),
+        stages.append(Stage((f"{attn}_moe",),
                             cfg.num_layers - cfg.moe.first_k_dense))
         return stages
     if cfg.attention == "mla":
@@ -91,10 +94,11 @@ def init_sub_block(kind: str, gen: torch.Generator, cfg, *, lead=(),
         "attn": (A.mla_init(gen, cfg, **kw) if kind.startswith("mla")
                  else A.gqa_init(gen, cfg, **kw)),
     }
-    if kind == "mla_moe":
+    if kind.endswith("_moe"):
         p["ffn"] = M.moe_init(gen, cfg, **kw)
     else:
-        d_ff = cfg.moe.dense_d_ff if kind == "mla_dense_first" else cfg.d_ff
+        d_ff = (cfg.moe.dense_d_ff if kind.endswith("_dense_first")
+                else cfg.d_ff)
         p["ffn"] = M.ffn_init(gen, cfg.d_model, d_ff, cfg.act_fn,
                               cfg.num_layers, **kw)
     return p
@@ -135,7 +139,7 @@ def apply_sub_block(kind: str, p, x, cfg, ctx):
     x = x + attn_out
     h2 = L.apply_norm(p["ln2"], x, eps=cfg.norm_eps)
     with L.scope("ffn"):
-        if kind == "mla_moe":
+        if kind.endswith("_moe"):
             y, aux = M.moe_apply(p["ffn"], h2, cfg)
             return x + y, aux
         return x + M.ffn_apply(p["ffn"], h2, cfg.act_fn), zero
@@ -165,9 +169,9 @@ def init_sub_cache(kind: str, cfg, batch: int, max_len: int, dtype,
     """Zero cache for one sub-block: MLA's compressed {"c", "kr"}
     (kv_lora_rank + qk_rope_head_dim floats per token); ``"attn_local"``'s
     ring of min(sliding_window, max_len) dense slots; for ``"attn"`` and
-    ``"attn_global"`` the latent {"lk", "lv"} layout (rank-r floats per
-    token) when ``params`` has factorized kv projections, else dense
-    {"k", "v"}."""
+    ``"attn_global"`` and the GQA MoE kinds the latent {"lk", "lv"} layout
+    (rank-r floats per token) when ``params`` has factorized kv
+    projections, else dense {"k", "v"}."""
     kw = dict(dtype=dtype, device=device)
     kv, hd = cfg.num_kv_heads, cfg.head_dim
     if kind == "attn_local":
@@ -240,7 +244,7 @@ def prefill_sub_block(kind: str, p, x, cache, cfg, ctx):
         cache["v"] = write(cache["v"], v, start)
     x = x + attn_out
     h2 = L.apply_norm(p["ln2"], x, eps=cfg.norm_eps)
-    if kind == "mla_moe":
+    if kind.endswith("_moe"):
         y, aux = M.moe_apply(p["ffn"], h2, cfg)
         return x + y, cache, aux
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -271,6 +275,6 @@ def decode_sub_block(kind: str, p, x, cache, cfg, ctx):
             p["attn"], h, cache["k"], cache["v"], pos, cfg, cos, sin)
     x = x + attn_out
     h2 = L.apply_norm(p["ln2"], x, eps=cfg.norm_eps)
-    if kind == "mla_moe":
+    if kind.endswith("_moe"):
         return x + M.moe_apply(p["ffn"], h2, cfg)[0], cache
     return x + M.ffn_apply(p["ffn"], h2, cfg.act_fn), cache

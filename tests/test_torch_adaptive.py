@@ -25,6 +25,7 @@ sweeps against the JAX package's.
 
 from __future__ import annotations
 
+import torch_thread_cap  # noqa: F401  (thread caps under pytest-xdist)
 import dataclasses
 import math
 

@@ -8,6 +8,7 @@ each against its plain version there.
 
 from __future__ import annotations
 
+import torch_thread_cap  # noqa: F401  (thread caps under pytest-xdist)
 import math
 
 import jax.numpy as jnp

@@ -7,6 +7,7 @@ order, and a relative-only check is flaky on near-zero entries.
 
 from __future__ import annotations
 
+import torch_thread_cap  # noqa: F401  (thread caps under pytest-xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -21,6 +21,7 @@ the drop-free dispatch.
 
 from __future__ import annotations
 
+import torch_thread_cap  # noqa: F401  (thread caps under pytest-xdist)
 import dataclasses
 
 import jax

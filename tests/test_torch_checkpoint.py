@@ -23,6 +23,7 @@ a checkpoint.
 
 from __future__ import annotations
 
+import torch_thread_cap  # noqa: F401  (thread caps under pytest-xdist)
 import os
 
 import jax

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import torch_thread_cap  # noqa: F401  (thread caps under pytest-xdist)
 import dataclasses
 
 import pytest

@@ -11,6 +11,7 @@ the plain version there at the main path's shapes.
 
 from __future__ import annotations
 
+import torch_thread_cap  # noqa: F401  (thread caps under pytest-xdist)
 import dataclasses
 
 import jax.numpy as jnp

@@ -12,6 +12,7 @@ the plain version there at the main paths' shapes.
 
 from __future__ import annotations
 
+import torch_thread_cap  # noqa: F401  (thread caps under pytest-xdist)
 import dataclasses
 import math
 
@@ -41,6 +42,11 @@ CASES = [
     ("fma_bf16_d8_g4", 2, 8, 2, 8, 24, 20, 300, [1, 257], BF16),
     ("fma_fp32_d20_g2", 2, 4, 2, 20, 32, 19, 90, [90, 1], F32),
     ("fma_bf16_d20_g2", 3, 4, 2, 20, 32, 24, 260, [260, 40, 256], BF16),
+    # kimi-k2's head dim 112 (RoPE pairs 56 dims; U staged as 64 + 48
+    # columns by the wgmma body) with its 8 query heads a KV head
+    ("wgmma_d112_g8", 2, 16, 2, 112, 24, 16, 300, [300, 41], BF16),
+    ("fma_fp32_d112_g8", 2, 16, 2, 112, 20, 16, 260, [260, 1], F32),
+    ("fma_bf16_d112_odd_rank", 2, 8, 1, 112, 19, 16, 100, [100, 3], BF16),
 ]
 IDS = [c[0] for c in CASES]
 
@@ -87,6 +93,12 @@ def test_plan_bodies():
         for dtype in (F32, BF16):
             p = fd.plan(4, 64, h, kv, d, 32, 32, dtype)
             assert p.body == "fma" and p.smem <= fd.MAX_SMEM
+    # kimi-k2's head dim 112: wgmma for bf16 at ranks a multiple of 8
+    # (its serving case: 64 query heads on 8 KV heads, r_k 480), else FMA
+    kimi = fd.plan(8, 2048, 64, 8, 112, 480, 480, BF16)
+    assert kimi.body == "wgmma" and kimi.smem <= fd.MAX_SMEM
+    assert fd.plan(8, 2048, 64, 8, 112, 480, 480, F32).body == "fma"
+    assert fd.plan(3, 77, 16, 2, 112, 19, 24, BF16).body == "fma"
     with pytest.raises(ValueError, match="head dim"):
         fd.plan(1, 64, 4, 4, 96, 16, 16, BF16)
     with pytest.raises(TypeError):
@@ -165,13 +177,13 @@ def test_scratch_layout(case):
 def _launcher_accepts(p: fd.Plan, scratch_floats=None) -> bool:
     """csrc/flash_decode.cu's flash_decode_launch checks, mirrored."""
     if (min(p.b, p.l, p.kv, p.h, p.rk, p.rv) <= 0 or p.h % p.kv
-            or p.d not in (8, 16, 20, 32, 64, 128)
+            or p.d not in (8, 16, 20, 32, 64, 112, 128)
             or p.dtype not in (F32, BF16)
             or p.body not in ("fma", "wgmma") or p.span != 256
             or p.spans != -(-p.l // 256)):
         return False
     wgmma = p.body == "wgmma"
-    if wgmma and (p.dtype != BF16 or p.d not in (64, 128) or p.rk % 8):
+    if wgmma and (p.dtype != BF16 or p.d not in (64, 112, 128) or p.rk % 8):
         return False
     g = p.h // p.kv
     if (fd.smem_bytes(p.body, g, p.d) > 232448
@@ -198,6 +210,8 @@ PLANS = [_plan(c) for c in CASES] + [
     fd.plan(1, 1, 1, 1, 32, 1, 1, F32),
     fd.plan(8, 64, 8, 2, 8, 56, 56, F32),
     fd.plan(8, 64, 4, 2, 20, 48, 48, BF16),
+    fd.plan(8, 2048, 64, 8, 112, 480, 480, BF16),
+    fd.plan(8, 2048, 64, 8, 112, 480, 480, F32),
 ]
 
 
@@ -292,7 +306,8 @@ def _pallas(args, rope):
 
 @pytest.mark.parametrize("rope", [True, False])
 @pytest.mark.parametrize("name", ["fma_fp32_d16", "fma_fp32_g2_d128",
-                                  "fma_fp32_d8_g4", "fma_fp32_d20_g2"])
+                                  "fma_fp32_d8_g4", "fma_fp32_d20_g2",
+                                  "fma_fp32_d112_g8"])
 def test_emulate_matches_pallas(name, rope):
     # the FMA body's plan against the JAX kernel in interpret mode, all
     # fp32, U in the stored layout on both sides: rtol 1e-5, atol 1e-6
@@ -303,7 +318,8 @@ def test_emulate_matches_pallas(name, rope):
                                atol=1e-6)
 
 
-@pytest.mark.parametrize("name", ["wgmma_d128", "wgmma_g4_d64"])
+@pytest.mark.parametrize("name", ["wgmma_d128", "wgmma_g4_d64",
+                                  "wgmma_d112_g8"])
 def test_wgmma_emulation_matches_pallas(name):
     # the wgmma body's plan (U_k as two bf16 terms) against the JAX kernel
     # on the same bf16 values taken to fp32: the output rounds to bf16
@@ -340,6 +356,33 @@ def test_slot_alone_equals_slot_in_batch(case):
                          lv[bi:bi + 1, :n].contiguous(), uk, uv,
                          lengths[bi:bi + 1], cos[:n], sin[:n])
         assert torch.equal(got[0], whole[bi]), (bi, n)
+
+
+@pytest.mark.parametrize("g", [1, 8, 16])
+def test_smem_counts_every_box_of_a_u_row(g):
+    # a wgmma stage holds the span's l_k tile (256 keys x 64 ranks) and
+    # ⌈D/64⌉ 64-column boxes of each U term: D 112 stages two boxes, as D
+    # 128 does, so its shared memory is D 128's less the 16 query and
+    # score columns it does not hold (4·g·16 bytes); counting D // 64 = 1
+    # box would undercount it by 3 x 16 KB
+    stage = 256 * 128 + 2 * 2 * 64 * 128
+    want = 1024 + 3 * stage + 4 * g * (112 + 256) + 16 * 3
+    assert fd.smem_bytes("wgmma", g, 112) == want
+    assert fd.smem_bytes("wgmma", g, 128) - want == 4 * g * 16
+    # the FMA body at D 112: a 32-rank chunk of U_k, the rank-major l_k
+    # chunk, q, the 64-key tile and the span's scores, in floats
+    assert fd.smem_bytes("fma", g, 112) == 4 * (
+        32 * 112 + 32 * 65 + g * 112 + 64 * 113 + g * 256)
+
+
+def test_kimi_decode_fits_one_block():
+    # kimi-k2's 8 query heads a KV head at D 112 fit one block in either
+    # body; the plan refuses a group no block holds
+    for dtype in (BF16, F32):
+        p = fd.plan(8, 2048, 64, 8, 112, 480, 480, dtype)
+        assert p.group == 8 and p.smem <= fd.MAX_SMEM
+    with pytest.raises(ValueError, match="shared memory"):
+        fd.plan(1, 64, 64, 1, 112, 480, 480, BF16)
 
 
 def test_bound_flops():

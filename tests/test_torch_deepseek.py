@@ -33,6 +33,7 @@ in both modes.
 
 from __future__ import annotations
 
+import torch_thread_cap  # noqa: F401  (thread caps under pytest-xdist)
 import dataclasses
 
 import jax

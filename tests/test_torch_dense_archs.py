@@ -13,6 +13,7 @@ Explicit on jax 0.9, which its sharding constraints reject).
 
 from __future__ import annotations
 
+import torch_thread_cap  # noqa: F401  (thread caps under pytest-xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

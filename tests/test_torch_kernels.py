@@ -7,6 +7,7 @@ each against its plain version there.
 
 from __future__ import annotations
 
+import torch_thread_cap  # noqa: F401  (thread caps under pytest-xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

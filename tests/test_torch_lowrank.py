@@ -6,6 +6,7 @@ SVD gauges differ between backends, the maps do not.
 
 from __future__ import annotations
 
+import torch_thread_cap  # noqa: F401  (thread caps under pytest-xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

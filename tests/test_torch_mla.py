@@ -11,6 +11,7 @@ the card; ``chip_smoke.py`` holds it against its plain version there.
 
 from __future__ import annotations
 
+import torch_thread_cap  # noqa: F401  (thread caps under pytest-xdist)
 import dataclasses
 import math
 

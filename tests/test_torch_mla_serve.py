@@ -17,6 +17,7 @@ the same chunking; chunked against whole prefill runs under drop-free.
 
 from __future__ import annotations
 
+import torch_thread_cap  # noqa: F401  (thread caps under pytest-xdist)
 import dataclasses
 import functools
 

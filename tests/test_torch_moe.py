@@ -9,6 +9,7 @@ same arrays.  The CUDA ``grouped_matmul`` kernel runs only on the card;
 
 from __future__ import annotations
 
+import torch_thread_cap  # noqa: F401  (thread caps under pytest-xdist)
 import dataclasses
 
 import jax

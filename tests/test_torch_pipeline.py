@@ -39,6 +39,7 @@ Two calibration sets:
 
 from __future__ import annotations
 
+import torch_thread_cap  # noqa: F401  (thread caps under pytest-xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

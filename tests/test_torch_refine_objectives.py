@@ -14,6 +14,7 @@ fused calibration, ratio 0.6, ``rank_multiple=1``, microbatch 2):
 
 from __future__ import annotations
 
+import torch_thread_cap  # noqa: F401  (thread caps under pytest-xdist)
 import math
 
 import jax

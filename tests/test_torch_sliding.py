@@ -22,6 +22,7 @@ reject).  Prompts run past the window so that every ring wraps.
 
 from __future__ import annotations
 
+import torch_thread_cap  # noqa: F401  (thread caps under pytest-xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,9 @@
     python3 chip_smoke.py --only decode    # phases 1-2 and flash_decode
     python3 chip_smoke.py --only kimi      # phases 1-2, phase 4's kimi-k2
                                            # smoke runs and phase 12
+    python3 chip_smoke.py --only ssm       # phases 1-2, phase 4's
+                                           # falcon-mamba and zamba2 smoke
+                                           # runs and phase 13
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -85,6 +88,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
              ``lowrank_matmul`` at its six factorized shapes and each T,
              ``cov_accum`` at n 7168 and 18432, ``cov_accum_banked`` at
              its two capacity bank taps (E 32, C 1280, n 7168 and 2048).
+             Phase 13's shapes: ``flash_decode`` at zamba2's shared block
+             (head dim 112, one query head a KV head: 32 on 32, rank 1080;
+             bf16 wgmma and fp32 FMA bodies timed, each slot alone bit for
+             bit; g 1 at D 112 with an odd rank and with rank 24),
+             ``flash_attention`` at D 112 MHA padded to 128 (prefill B 4,
+             L 1024; the split body at B 8, Lk 2048), ``lowrank_matmul`` at
+             zamba2's and falcon-mamba's nine factorized shapes (T 4096;
+             T 256 and 8 too where the widths are ragged: in_proj 14576
+             wide, x_proj 288, dt_proj from 256), ``cov_accum`` at n 256,
+             8192 and 14336, and a strided tap (the first 256 columns of a
+             288-wide buffer, as Mamba1's dt_proj tap is) bit for bit the
+             contiguous call.
              ``--only lowrank`` / ``--only cov`` / ``--only grouped`` /
              ``--only attention`` / ``--only decode`` run phases 1-2 and
              that kernel's rows alone.
@@ -118,6 +133,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
              drop-free, card against CPU on 16 x 32 tokens: routed ids,
              ranks and drop rates equal, maps 1e-3 (the capacity banks on
              their shifted stream), served on both with equal tokens.
+             Then falcon-mamba and zamba2 smoke on 32 x 32 tokens, card
+             against CPU: ranks, unit names and zamba2's reused shared
+             site equal, maps 1e-3 (the shared block's included), loss
+             1e-3; served on both (every request exact-length whole
+             prefill; zamba2's engine over the latent and the dense
+             cache) with equal tokens.
 5. main    — Algorithm 2 on llama-7b at its published widths, depth cut to
              2 layers, random weights from a seeded ``torch.Generator``:
              calibration 8 × 1024 tokens, ratio 0.6, fused calibration, one
@@ -220,6 +241,29 @@ Phases, each fatal on failure (non-zero exit, no result line):
              sequence decoded over both caches (fp32 1e-4; bf16 printed);
              ``decode_step`` under ``set_sync_debug_mode("error")``; one
              profiled engine run.
+13. ssm    — (a) zamba2-7b at its published widths (d_model 3584, Mamba2
+             d_inner 7168 in 112 SSD heads of 64, state 64; one
+             weight-shared attention + SwiGLU block every 6 layers: 32
+             heads on 32 KV heads of head dim 112, d_ff 14336; vocab
+             32000), depth cut 81 -> 13 (two stacked groups of 6
+             ``mamba2`` + ``shared_attn``, then a one-layer ``mamba2``
+             remainder): phase 5's recipe (the shared block compressed at
+             its first site, reused at its second: zero forwards tapped),
+             ranks, eval CE, peak memory, then served at phase 6's shapes:
+             ``Server`` (dense cache: ``flash_attention`` padded to 128,
+             split decode), the engine over the latent cache
+             (``flash_decode`` at D 112, g 1, every launch in the wgmma
+             body) and over the dense one, every request ``whole_exact``;
+             cache bytes from the shapes (a shared site's latent 4320 B a
+             token against 14336 dense; a mamba2 layer's state 1,835,008 B
+             fp32 ``h`` + 43,776 B bf16 ``conv`` a slot), one
+             teacher-forced sequence over both caches (fp32 1e-4),
+             ``decode_step`` under ``set_sync_debug_mode("error")``, a
+             profiled engine run.  (b) falcon-mamba-7b (Mamba1, d_inner
+             8192, state 16, dt_rank 256, vocab 65024), depth cut 64 -> 2:
+             the same recipe, then ``Server`` (no attention kernel may
+             launch), its state bytes (524,288 + 49,152 a layer a slot)
+             and a profiled ``generate``.
 
 It prints a ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Long output goes to
@@ -255,9 +299,16 @@ SIZES = {
     # not a multiple of the tile, T not of the token step, n not of 8);
     # kimi-k2's d_model tap and its dense FFN's down tap (n 18432) as phase
     # 12 collects them.  bf16 acc= is timed at all but the ragged ones
+    # phase 13's SSM taps: falcon-mamba's dt_proj_in (n 256) and x_proj_in /
+    # out_proj_in (d_inner 8192), zamba2's shared FFN down tap (n 14336)
     "cov": ((4096, 4096), (4096, 11008), (4096, 512), (384, 2048),
-            (4096, 7168), (4096, 18432), (4096, 80), (77, 203)),
-    "cov_timed": 6,
+            (4096, 7168), (4096, 18432), (4096, 256), (4096, 8192),
+            (4096, 14336), (4096, 80), (77, 203)),
+    "cov_timed": 9,
+    # a strided tap (T, n of a (T, width) buffer): falcon-mamba's dt_proj_in
+    # is the first dt_rank 256 columns of x_proj's 288-wide output; the
+    # wrapper copies it to contiguous rows, bit for bit the same triple
+    "cov_strided": (4096, 288, 256),
     # two calls at this (T, n) must give the same bits (T split)
     "cov_repeat": (4096, 512),
     # cov_accum_banked (E, C, n): phase 8's two capacity bank taps at
@@ -298,6 +349,22 @@ SIZES = {
     "lowrank_nkm_kimi": ((7168, 2152, 7168), (7168, 480, 896),
                          (7168, 3096, 18432), (18432, 3096, 7168),
                          (7168, 960, 2048), (2048, 960, 7168)),
+    # phase 13's factorized linears (ratio 0.6, rank multiple 8), with the
+    # row counts each is checked at: zamba2's in_proj (out width 2·7168 +
+    # 2·64 + 112 heads = 14576) and out_proj, its shared block's wq / wk /
+    # wv / wo, gate / up and down; falcon-mamba's in_proj, x_proj (out 256 +
+    # 2·16 = 288), dt_proj (in 256) and out_proj.  T 4096 (compression),
+    # and 256 (an engine chunk) and 8 (decode of 8 slots) for the four
+    # whose widths are ragged
+    "lowrank_nkm_ssm": (((3584, 1728, 14576), (4096, 256, 8)),
+                        ((7168, 1440, 3584), (4096, 256, 8)),
+                        ((3584, 1080, 3584), (4096,)),
+                        ((3584, 1720, 14336), (4096,)),
+                        ((14336, 1720, 3584), (4096,)),
+                        ((4096, 1968, 16384), (4096,)),
+                        ((8192, 168, 288), (4096, 256, 8)),
+                        ((256, 152, 8192), (4096, 256, 8)),
+                        ((8192, 1640, 4096), (4096,))),
     "lowrank_ragged_T": (1, 3, 77, 129),
     "lowrank_forced_T": (1, 3, 8, 16, 32, 64),
     "layers": 2,
@@ -330,6 +397,12 @@ SIZES = {
         # and decode over its dense cache of 8 slots (the split body)
         ("kimi_prefill", 4, 64, 8, 1024, 1024, 112, True, 0, 0.0, 0),
         ("kimi_decode", 8, 64, 8, 1, 2048, 112, True, 0, 0.0, (100, 2047)),
+        # zamba2's shared block (phase 13): head dim 112 MHA (32 heads, KV
+        # 32) zero-padded to 128, a compression microbatch's prefill and
+        # decode over its dense cache of 8 slots (the split body)
+        ("zamba2_prefill", 4, 32, 32, 1024, 1024, 112, True, 0, 0.0, 0),
+        ("zamba2_decode", 8, 32, 32, 1, 2048, 112, True, 0, 0.0,
+         (100, 2047)),
         ("ragged", 2, 4, 2, 77, 77, 16, True, 16, 30.0, 0)),
     # flash_attention at ragged shapes through its new bodies: the split
     # body (Lq 1 outside batch_invariant; "decode" above is the other split
@@ -404,10 +477,17 @@ SIZES = {
         # wk / wv at rank 480 (the wgmma body in bf16), then D 112 at an odd
         # rank (the FMA body in both dtypes) with a slot of length 1
         ("kimi", 8, 64, 8, 112, 480, 480, 2048, (256, 2048)),
-        ("ragged_d112", 3, 16, 2, 112, 19, 24, 300, (1, 300))),
-    "flash_decode_timed": ("llama", "granite", "kimi"),
+        ("ragged_d112", 3, 16, 2, 112, 19, 24, 300, (1, 300)),
+        # zamba2's shared block at ratio 0.6: MHA, one query head a KV head
+        # (32 on 32) of head dim 112, wk / wv at rank 1080 (the wgmma body
+        # in bf16, the FMA body in fp32); then g 1 at D 112 with an odd
+        # rank and a slot of length 1
+        ("zamba2", 8, 32, 32, 112, 1080, 1080, 2048, (256, 2048)),
+        ("ragged_d112_g1", 3, 4, 4, 112, 21, 16, 300, (1, 300)),
+        ("ragged_d112_g1_rank8", 3, 4, 4, 112, 24, 40, 300, (1, 300))),
+    "flash_decode_timed": ("llama", "granite", "kimi", "zamba2"),
     # each slot alone against the batch, bit for bit
-    "flash_decode_alone": ("llama", "kimi"),
+    "flash_decode_alone": ("llama", "kimi", "zamba2"),
     # serving: Server (batch, prompt, steps, max_len) on the dense model;
     # the engine (slots, max_len, chunk, requests, prompt lo/hi, steps) on
     # the compressed one; the teacher-forced checks (prompt, steps, max_len)
@@ -439,6 +519,19 @@ SIZES = {
     # 21.3 GB, 42.6 GB at 64 experts
     "kimi_layers": 2,
     "kimi_experts": 32,
+    # phase 13: zamba2-7b at its published widths, depth cut 81 -> 13 (two
+    # stacked groups of 6 mamba2 + the shared block, then a one-layer
+    # mamba2 remainder stage), and falcon-mamba-7b, depth cut 64 -> 2 (one
+    # stacked stage)
+    "zamba2_layers": 13,
+    "falcon_layers": 2,
+    # phase 4: the SSM / hybrid smoke configs compressed and served card
+    # against CPU, on 32 x 32 tokens: zamba2 smoke's out_proj tap (n 128)
+    # sits 7 units deep, and at 16 x 32 its map moved 2.25e-3 card against
+    # CPU (6.2e-4 between 1 and 8 CPU threads alone; 1.2e-4 at 32 x 32),
+    # the loss equal to 3e-7
+    "smoke_ssm_archs": ("falcon-mamba-7b", "zamba2-7b"),
+    "smoke_calib_ssm": (32, 32),
 }
 
 
@@ -748,10 +841,29 @@ def check_cov_repeat(torch, ops, t_rows, n, dtype, dev):
     return row
 
 
+def check_cov_strided(torch, ops, t_rows, width, n, dtype, dev):
+    """cov_accum on the first n columns of a (T, width) buffer (a strided
+    view, as Mamba1's dt_proj tap is) gives the bits of the same call on
+    those columns copied to contiguous rows."""
+    gen = torch.Generator(device=dev).manual_seed(width + n)
+    buf = torch.randn(t_rows, width, generator=gen, device=dev).to(dtype)
+    bufp = (buf.float() + 0.1 * torch.randn(t_rows, width, generator=gen,
+                                            device=dev)).to(dtype)
+    x, xp = buf[:, :n], bufp[:, :n]
+    got = ops.cov_accum(x, xp)
+    want = ops.cov_accum(x.contiguous(), xp.contiguous())
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    require(same, f"cov_accum strided ({t_rows}, {n} of {width}) {dtype}: "
+            "differs from the contiguous call")
+    return {"shape": [t_rows, n], "width": width,
+            "dtype": str(dtype).replace("torch.", ""),
+            "strided_bitwise_equal": same}
+
+
 def phase_cov(torch, ops, ref, dev="cuda", sizes=SIZES):
     """cov_accum at each (T, n) of ``cov`` (fp32 and bf16, written and
     added into acc=; timed in bf16 with acc= at the first ``cov_timed``),
-    then the repeat check in both dtypes."""
+    then the repeat check and the strided-tap check in both dtypes."""
     from repro_torch.kernels import cov_accum as cov
     rows = []
     for i, (t_rows, n) in enumerate(sizes["cov"]):
@@ -769,6 +881,12 @@ def phase_cov(torch, ops, ref, dev="cuda", sizes=SIZES):
         row = check_cov_repeat(torch, ops, *sizes["cov_repeat"], dtype, dev)
         rows.append(row)
         log("cov_accum repeat", json.dumps(row))
+    if "cov_strided" in sizes:
+        for dtype in (torch.float32, torch.bfloat16):
+            row = check_cov_strided(torch, ops, *sizes["cov_strided"], dtype,
+                                    dev)
+            rows.append(row)
+            log("cov_accum strided", json.dumps(row))
     return rows
 
 
@@ -987,9 +1105,11 @@ def phase_lowrank(torch, ops, ref, dev="cuda", sizes=SIZES):
                 for epilogue in (False, True):
                     add(t_rows, n, k, m, dtype, epilogue,
                         dtype == torch.bfloat16 and not epilogue)
-    for n, k, m in (sizes["lowrank_nkm_moe"]
-                    + sizes.get("lowrank_nkm_kimi", ())):
-        for t_rows in sizes["lowrank_T"]:
+    per_shape = [((n, k, m), sizes["lowrank_T"]) for n, k, m in (
+        sizes["lowrank_nkm_moe"] + sizes.get("lowrank_nkm_kimi", ()))]
+    for (n, k, m), t_list in per_shape + list(sizes.get("lowrank_nkm_ssm",
+                                                        ())):
+        for t_rows in t_list:
             for dtype in dtypes:
                 for epilogue in (False, True):
                     add(t_rows, n, k, m, dtype, epilogue,
@@ -1608,10 +1728,11 @@ def _factor_pairs(tree, path=""):
 
 
 def phase_smoke(torch, np, dev="cuda", arch="llama-7b", calib_shape=(8, 32)):
-    """A dense-attention arch's smoke config compressed on the card and on
-    the CPU from the same params and ``calib_shape`` uniform tokens (ranks
-    equal, every composed map and the loss held to stated tolerances),
-    then served on both (``phase_smoke_serve``)."""
+    """A dense-attention or SSM / hybrid arch's smoke config compressed on
+    the card and on the CPU from the same params and ``calib_shape``
+    uniform tokens (ranks, unit names and ``reused`` entries equal, every
+    composed map, a weight-shared block's included, and the loss held to
+    stated tolerances), then served on both (``phase_smoke_serve``)."""
     from repro_torch import configs
     from repro_torch.core import pipeline as P
     from repro_torch.models import model as M
@@ -1634,12 +1755,18 @@ def phase_smoke(torch, np, dev="cuda", arch="llama-7b", calib_shape=(8, 32)):
             loss = float(M.loss_fn(comp, cfg, {k: v.to(d)
                                                for k, v in batch.items()})[0])
         out[name] = (comp, rep, loss)
-    ranks = {run: [[lin["rank"] for lin in u["linears"]]
+    ranks = {run: [[lin["rank"] for lin in u.get("linears", [])]
                    for u in out[run][1]["units"]] for run in ("card", "cpu")}
     require(ranks["card"] == ranks["cpu"], f"smoke {arch}: ranks differ "
             f"card {ranks['card']} cpu {ranks['cpu']}")
+    units = {run: [(u["name"], u.get("reused", False), u["tapped_forwards"])
+                   for u in out[run][1]["units"]] for run in ("card", "cpu")}
+    require(units["card"] == units["cpu"], f"smoke {arch}: units differ "
+            f"card {units['card']} cpu {units['cpu']}")
     worst, where = 0.0, None
-    pairs = [_factor_pairs(out[run][0]["stages"]) for run in ("card", "cpu")]
+    pairs = [_factor_pairs({"stages": out[run][0]["stages"],
+                            "shared": out[run][0].get("shared")})
+             for run in ("card", "cpu")]
     require(len(pairs[0]) == len(pairs[1]) > 0,
             f"smoke {arch}: factorized linears {len(pairs[0])} / "
             f"{len(pairs[1])}")
@@ -1654,14 +1781,22 @@ def phase_smoke(torch, np, dev="cuda", arch="llama-7b", calib_shape=(8, 32)):
                 worst, where = err, f"{path} [{layer}]"
     lc, lp = out["card"][2], out["cpu"][2]
     tag = "smoke" if arch == "llama-7b" else f"smoke {arch}"
+    reused = [u for u in out["card"][1]["units"] if u.get("reused")]
     log(f"{tag}: composed-map rel err (card vs cpu) {worst:.3e} at {where} "
         f"({calib_shape[0]} x {calib_shape[1]} tokens); loss card {lc:.6f} "
-        f"cpu {lp:.6f}; ranks {ranks['card'][0]}")
+        f"cpu {lp:.6f}; ranks {ranks['card'][0]}; units "
+        f"{[n for n, _, _ in units['card']]}; reused {json.dumps(reused)}")
     require(worst <= 1e-3, f"{tag} composed maps differ by {worst:.3e}")
     require(abs(lc / lp - 1) <= 1e-3, f"{tag} loss {lc} vs {lp}")
+    if cfg.family == "hybrid":
+        require(len(reused) == 1 and reused[0]["tapped_forwards"] == 0
+                and "dec.shared.shared_attn" in [n for n, _, _
+                                                 in units["card"]],
+                f"{tag}: the shared block's units {units['card']}")
     served = phase_smoke_serve(torch, np, cfg, out["cpu"][0], dev)
     return {"map_rel_err": worst, "loss_cuda": lc, "loss_cpu": lp,
-            "ranks": ranks["card"][0], "serve": served}
+            "ranks": ranks["card"][0], "units": units["card"],
+            "reused": reused, "serve": served}
 
 
 def phase_smoke_serve(torch, np, cfg, comp, dev):
@@ -1673,7 +1808,9 @@ def phase_smoke_serve(torch, np, cfg, comp, dev):
     chunk 8 and chunk 0; gemma3's ring caches take exact-length whole
     prefill either way) and ``Server`` (3 prompts on 4 slots); tokens
     equal, teacher-forced logits held to a stated tolerance.  Prompts of
-    13-24 tokens run past gemma3's smoke window of 8, so its rings wrap."""
+    13-24 tokens run past gemma3's smoke window of 8, so its rings wrap.
+    The SSM / hybrid archs take exact-length whole prefill; zamba2's engine
+    also runs over the dense cache (its shared sites' {"k", "v"})."""
     from repro_torch.launch import serve as TS
     from repro_torch.models import model as M
 
@@ -1683,13 +1820,17 @@ def phase_smoke_serve(torch, np, cfg, comp, dev):
     toks, logits = {}, {}
     for name, d in (("card", dev), ("cpu", "cpu")):
         runs = {}
-        for chunk in (8, 0):
+        engines = [(f"engine_chunk{chunk}", chunk, "auto")
+                   for chunk in (8, 0)]
+        if cfg.family == "hybrid":
+            engines.append(("engine_dense", 0, "dense"))
+        for key, chunk, layout in engines:
             eng = TS.ContinuousBatchingServer(cfg, comp, max_len=48, slots=2,
-                                              prefill_chunk=chunk, device=d)
+                                              prefill_chunk=chunk,
+                                              cache_layout=layout, device=d)
             res = eng.run([TS.Request(rid=i, prompt=prompts[i, :n], steps=8)
                            for i, n in enumerate(lens)])
-            runs[f"engine_chunk{chunk}"] = [res[i]["tokens"].tolist()
-                                            for i in range(3)]
+            runs[key] = [res[i]["tokens"].tolist() for i in range(3)]
         fixed = TS.Server(cfg, comp, max_len=48, batch=4, device=d)
         runs["server"] = fixed.generate(prompts, steps=8).cpu().tolist()
         toks[name] = runs
@@ -2448,28 +2589,34 @@ def moe_forward_syncs(torch, cfg, comp, batch):
     return {"mode": "error", "raised": err, "shape": list(x.shape)}
 
 
-def eval_busy_share(torch, M, cfg, params, batch):
-    """The device's busy share of one eval forward: device time of its
-    kernels under ``torch.profiler`` (device activity only) over the wall
-    time of the same forward without the profiler."""
+def busy_share(torch, fn, top=10):
+    """Wall ms of ``fn()`` (after one warm-up) and the device's busy share
+    of it: the device time of its kernels under ``torch.profiler`` (device
+    activity only) over the wall time of a run without the profiler."""
     from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = device_times(prof)
+    busy = sum(kernels.values())
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "busy_share": busy / wall, "top_kernels_ms": top_kernels(
+                kernels, top)}
 
+
+def eval_busy_share(torch, M, cfg, params, batch):
+    """The device's busy share of one eval forward."""
     def run():
         with torch.no_grad():
             M.loss_fn(params, cfg, batch)
-        torch.cuda.synchronize()
 
-    run()
-    t0 = time.perf_counter()
-    run()
-    wall = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-    kernels = device_times(prof)
-    busy = sum(kernels.values())
-    top = top_kernels(kernels, 8)
-    return {"wall_ms": wall, "device_busy_ms": busy,
-            "busy_share": busy / wall, "top_kernels_ms": top}
+    return busy_share(torch, run, top=8)
 
 
 def phase_moe(torch, ops, dev="cuda", sizes=SIZES, cfg=None,
@@ -4049,15 +4196,399 @@ def phase_kimi(torch, np, ops, dev="cuda", sizes=SIZES, cfg=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the SSM family at published widths (zamba2-7b, falcon-mamba-7b)
+
+
+def ssm_cache_bytes(M, B, cfg, slots, max_len, params):
+    """Bytes of the engine's cache by kind: a mamba layer's state per slot
+    ({"h", "conv"} each), an attention site's bytes a token, from the
+    cache's own shapes (allocated on the ``meta`` device)."""
+    cache = M.init_cache(cfg, slots, max_len, params=params, device="meta")
+    out = {}
+    for st, per_kind in zip(B.stage_program(cfg), cache):
+        sites = st.n if (st.scan and st.n > 1) else 1
+        for kind, c in zip(st.kinds, per_kind):
+            if kind in B.SSM_KINDS:
+                out[kind] = {key: t.numel() * t.element_size()
+                             // (sites * slots) for key, t in c.items()}
+            else:
+                out[kind] = {"layout": "latent" if "lk" in c else "dense",
+                             "per_token": sum(
+                                 t.numel() * t.element_size()
+                                 for t in c.values())
+                             // (sites * slots * max_len)}
+    out["total"] = _cache_bytes(M, cfg, slots, max_len, params)
+    return out
+
+
+def phase_ssm(torch, np, ops, dev="cuda", sizes=SIZES, arch="zamba2-7b",
+              cfg=None):
+    """Phase 13.  (a) zamba2-7b at published widths (d_model 3584, Mamba2
+    d_inner 7168 in 112 SSD heads of 64, state 64; the shared block's 32
+    heads on 32 KV heads of head dim 112, d_ff 14336, vocab 32000), depth
+    cut 81 -> ``zamba2_layers`` (two stacked groups of 6 ``mamba2`` + the
+    shared block, then a one-layer ``mamba2`` remainder), random weights:
+    phase 5's recipe (the shared block compressed at its first site and
+    reused at its second), then served at phase 6's shapes: ``Server``
+    over the dense cache, the engine over the latent cache
+    (``flash_decode`` at head dim 112, one query head a KV head) and over
+    the dense one (every request ``whole_exact``), cache bytes, one
+    teacher-forced sequence decoded over both caches, the decode step's
+    host syncs and a profiled engine run.  (b) falcon-mamba-7b (Mamba1,
+    d_inner 8192, state 16, dt_rank 256, vocab 65024), depth cut 64 ->
+    ``falcon_layers``: the same recipe, then ``Server``.  Counts zeroed
+    before each run and read after."""
+    import repro_torch
+    from repro_torch import configs
+    from repro_torch.launch import serve as TS
+    from repro_torch.models import blocks as B
+    from repro_torch.models import model as M
+
+    on_card = torch.device(dev).type == "cuda"
+    hybrid = arch == "zamba2-7b"
+    if cfg is None:
+        cfg = configs.get_config(arch)
+    full = cfg.num_layers
+    layers = sizes["zamba2_layers" if hybrid else "falcon_layers"]
+    cfg = cfg.replace(num_layers=layers)
+    tag = "zamba2" if hybrid else "falcon"
+    s = cfg.ssm
+    program = [(st.kinds, st.n) for st in B.stage_program(cfg)]
+    log(f"{tag}: {arch} widths d_model {cfg.d_model} d_inner "
+        f"{s.expand * cfg.d_model} state {s.state_dim} conv {s.conv_width} "
+        f"chunk {s.chunk} " + (f"SSD heads {s.expand * cfg.d_model // s.head_dim} "
+                               f"of {s.head_dim}; shared block heads "
+                               f"{cfg.num_heads}/{cfg.num_kv_heads} head_dim "
+                               f"{cfg.head_dim} d_ff {cfg.d_ff} every "
+                               f"{cfg.hybrid_attn_every}" if hybrid else
+                               f"dt_rank {s.dt_rank}")
+        + f"; vocab {cfg.vocab_size}, dtype {cfg.dtype} params "
+        f"{cfg.param_dtype}; num_layers cut {full} -> {layers}; stages "
+        f"{program}")
+    if hybrid:
+        every = cfg.hybrid_attn_every
+        groups, rem = divmod(layers, every)
+        want_prog = [(("mamba2",) * every + ("shared_attn",), groups)] + (
+            [(("mamba2",), rem)] if rem else [])
+    else:
+        want_prog = [(("mamba1",), layers)]
+    require(program == want_prog, f"{tag}: stage program {program}")
+    out = {"layers": layers, "program": [[list(k), n] for k, n in program]}
+
+    params = M.init_params(cfg, 0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    calib = {"tokens": torch.randint(0, cfg.vocab_size, sizes["calib"],
+                                     generator=gen, device=dev)}
+    evals = []
+    n_eval, b_eval, l_eval = sizes["evals"]
+    for _ in range(n_eval):
+        t = torch.randint(0, cfg.vocab_size, (b_eval, l_eval + 1),
+                          generator=gen, device=dev)
+        evals.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    ccfg = repro_torch.CompressConfig(ratio=0.6, calib_mode="fused",
+                                      refine_epochs=1,
+                                      microbatch=sizes["microbatch"])
+
+    def eval_ce(p):
+        with torch.no_grad():
+            return [float(M.loss_fn(p, cfg, b)[1]["ce"]) for b in evals]
+
+    _sync(torch, dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    stages = {}
+    t0 = time.perf_counter()
+    comp, report = repro_torch.compress_model(params, cfg, calib, ccfg,
+                                              device=dev, stage_times=stages)
+    t_compress = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    bodies = dict(ops.FLASH_BODIES)
+    rows = lowrank_rows(ops)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    t0 = time.perf_counter()
+    dense = eval_ce(params)
+    compressed = eval_ce(comp)
+    stages["eval"] = time.perf_counter() - t0
+    ratio = repro_torch.compress_ratio_report(params, comp)
+    eval_busy = (eval_busy_share(torch, M, cfg, comp, evals[0]) if on_card
+                 else None)
+    del params
+    ranks = {}
+    for u in report["units"]:
+        ranks.update({lin["path"]: lin["rank"]
+                      for lin in u.get("linears", [])})
+    reused = [u for u in report["units"] if u.get("reused")]
+    out["compress"] = {
+        "stages": stages, "wall_s": t_compress, "peak_bytes": peak,
+        "launches": launches, "lowrank_rows": rows, "flash_bodies": bodies,
+        "ratio": ratio, "ranks": ranks, "dense": dense,
+        "compressed": compressed, "reused": reused,
+        "tapped_forwards": report["calibration"]["tapped_forwards"],
+        "eval_busy": eval_busy,
+        "units": [[u["name"], u.get("pre_refine_mse"),
+                   u.get("post_refine_mse")] for u in report["units"]]}
+    log(f"{tag}: compress", json.dumps(out["compress"]))
+    log(f"{tag}: compress wall {t_compress:.3f} s (solve "
+        f"{stages.get('solve', 0.0):.3f} s), peak device memory "
+        f"{peak / 2**30:.3f} GiB; eval CE dense {dense} compressed "
+        f"{compressed}; reused unit {json.dumps(reused)}")
+    vals = dense + compressed + [v for u in report["units"]
+                                 for v in (u.get("pre_refine_mse", 0.0),
+                                           u.get("post_refine_mse", 0.0))]
+    require(all(math.isfinite(v) for v in vals), f"{tag}: non-finite {vals}")
+    need = ("cov_accum", "lowrank_matmul") + (("flash_attention",)
+                                              if hybrid else ())
+    for name in need:
+        require(launches[name] > 0,
+                f"{tag}: kernel {name} never launched on compression")
+    for name in ("grouped_matmul", "cov_accum_banked", "flash_decode") + (
+            () if hybrid else ("flash_attention",)):
+        require(launches[name] == 0, f"{tag}: {name} launched "
+                f"{launches[name]} times on compression")
+    if hybrid:
+        require(not on_card or bodies.get("wgmma", 0) > 0,
+                f"{tag}: flash_attention's wgmma body never taken: {bodies}")
+        n_sites = layers // cfg.hybrid_attn_every
+        names = [u["name"] for u in report["units"]]
+        require(names.count("dec.shared.shared_attn") == 1
+                and len(reused) == n_sites - 1
+                and all(u["tapped_forwards"] == 0
+                        and u["replayed_groups"] == 0 for u in reused),
+                f"{tag}: shared-block units {names}, reused {reused}")
+        want_ranks = {"mixer.in_proj": 1728, "mixer.out_proj": 1440,
+                      "attn.wq": 1080, "attn.wk": 1080, "attn.wv": 1080,
+                      "attn.wo": 1080, "ffn.gate": 1720, "ffn.up": 1720,
+                      "ffn.down": 1720}
+        published = cfg.d_model == 3584
+    else:
+        want_ranks = {"mixer.in_proj": 1968, "mixer.x_proj": 168,
+                      "mixer.dt_proj": 152, "mixer.out_proj": 1640}
+        published = cfg.d_model == 4096
+    if published:     # the published widths (ratio 0.6, lanes 8)
+        require(ranks == want_ranks,
+                f"{tag}: ranks {ranks} differ from {want_ranks}")
+    if on_card:
+        torch.cuda.empty_cache()
+
+    def gates(run, launches, bodies, decode_bodies, latent):
+        require(launches["lowrank_matmul"] > 0,
+                f"{tag} {run}: lowrank_matmul never launched")
+        require(launches["grouped_matmul"] == 0,
+                f"{tag} {run}: grouped_matmul launched")
+        if not hybrid:
+            require(launches["flash_attention"] == 0
+                    and launches["flash_decode"] == 0,
+                    f"{tag} {run}: attention kernels launched on an "
+                    f"attention-free model: {launches}")
+            return
+        require(launches["flash_attention"] > 0,
+                f"{tag} {run}: flash_attention never launched")
+        if latent:
+            require(launches["flash_decode"] > 0,
+                    f"{tag} {run}: flash_decode never launched")
+            require(not on_card or (decode_bodies.get("wgmma", 0)
+                                    == launches["flash_decode"]),
+                    f"{tag} {run}: flash_decode outside its wgmma body: "
+                    f"{decode_bodies}")
+        else:
+            require(launches["flash_decode"] == 0,
+                    f"{tag} {run}: flash_decode launched over a dense cache")
+            require(not on_card or bodies.get("split", 0) > 0,
+                    f"{tag} {run}: no decode in the split body: {bodies}")
+
+    # (a) fixed batch (its cache built without params: dense)
+    rng = np.random.default_rng(31)
+    b, plen, steps, max_len = sizes["serve_dense"]
+    prompts = rng.integers(0, cfg.vocab_size, (b, plen), dtype=np.int32)
+    srv = TS.Server(cfg, comp, max_len=max_len, batch=b, device=dev)
+    _sync(torch, dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    first = srv.generate(prompts, steps=1).cpu()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    toks = srv.generate(prompts, steps=steps).cpu()
+    t_all = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    bodies = dict(ops.FLASH_BODIES)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    gates("Server", launches, bodies, dict(ops.DECODE_BODIES), False)
+    require(tuple(toks.shape) == (b, steps) and torch.equal(toks[:, :1],
+                                                            first)
+            and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+            f"{tag}: Server tokens malformed: {tuple(toks.shape)}")
+    decode_s = t_all - t_prefill
+    out["server"] = {
+        "launches": launches, "lowrank_rows": lowrank_rows(ops),
+        "flash_bodies": bodies, "ttft_s": t_prefill,
+        "prefill_tokens_per_s": b * plen / t_prefill,
+        "decode_tokens_per_s": b * (steps - 1) / decode_s,
+        "decode_step_ms": decode_s / (steps - 1) * 1e3,
+        "generate_s": t_all, "peak_bytes": peak,
+        "tokens_head": toks[:, :8].tolist()}
+    if on_card:
+        out["server"]["profile"] = busy_share(
+            torch, lambda: srv.generate(prompts[:, :128], steps=16))
+    log(f"{tag} (a) Server:", json.dumps(out["server"]))
+    cache = ssm_cache_bytes(M, B, cfg, b, max_len, None)
+    kind = "mamba2" if hybrid else "mamba1"
+    di, eb = s.expand * cfg.d_model, 2 if cfg.dtype == "bfloat16" else 4
+    if hybrid:
+        want_state = {"h": di // s.head_dim * s.head_dim * s.state_dim * 4,
+                      "conv": (s.conv_width - 1) * (di + 2 * s.state_dim)
+                      * eb}
+    else:
+        want_state = {"h": di * s.state_dim * 4,
+                      "conv": (s.conv_width - 1) * di * eb}
+    require(cache[kind] == want_state, f"{tag}: {kind} state bytes a slot "
+            f"{cache[kind]}, want {want_state}")
+    out["cache"] = {"server": cache}
+    del srv
+    if not hybrid:
+        log(f"{tag}: cache bytes", json.dumps(out["cache"]))
+        return out
+
+    # (b) continuous batching over the latent cache, (b') over the dense one
+    slots, max_len, chunk, n_req, (lo, hi), steps = sizes["serve_engine"]
+    lens = rng.integers(lo, hi + 1, n_req)
+    reqs = [TS.Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, (n,),
+                                                  dtype=np.int32),
+                       steps=steps) for i, n in enumerate(lens)]
+    results = {}
+    for key, layout in (("engine", "auto"), ("engine_dense", "dense")):
+        eng = TS.ContinuousBatchingServer(cfg, comp, max_len=max_len,
+                                          slots=slots, prefill_chunk=chunk,
+                                          cache_layout=layout, device=dev)
+        _sync(torch, dev)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = eng.run(reqs)
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        bodies = dict(ops.FLASH_BODIES)
+        decode_bodies = dict(ops.DECODE_BODIES)
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        latent = layout == "auto"
+        gates(key, launches, bodies, decode_bodies, latent)
+        require(sorted(res) == list(range(n_req)) and all(
+            len(r["tokens"]) == steps
+            and ((r["tokens"] >= 0) & (r["tokens"] < cfg.vocab_size)).all()
+            for r in res.values()), f"{tag} {key}: results malformed")
+        require(set(eng.prefill_routes.values()) == {"whole_exact"},
+                f"{tag} {key}: prefill routes {eng.prefill_routes}")
+        ttft = [res[i]["first_token"] - res[i]["arrival"]
+                for i in range(n_req)]
+        prefill_s = [res[i]["first_token"] - res[i]["admitted"]
+                     for i in range(n_req)]
+        times = eng.decode_step_times
+        out[key] = {
+            "launches": launches, "lowrank_rows": lowrank_rows(ops),
+            "flash_bodies": bodies, "decode_bodies": decode_bodies,
+            "wall_s": wall, "requests": n_req, "prompt_lens": lens.tolist(),
+            "ttft_s_median": statistics.median(ttft), "ttft_s_max": max(ttft),
+            "prefill_tokens_per_s": float(sum(lens)) / sum(prefill_s),
+            "decode_steps": len(times),
+            "decode_step_ms_median": statistics.median(times) * 1e3,
+            "decode_tokens_per_s": n_req * (steps - 1) / sum(times),
+            "cache": ssm_cache_bytes(M, B, cfg, slots, max_len,
+                                     eng._cache_params),
+            "peak_bytes": peak}
+        results[key] = res
+        if latent:
+            eng_latent = eng
+        label = "(b) engine latent" if latent else "(b') engine dense"
+        log(f"{tag} {label} cache:", json.dumps(out[key]))
+    same = sum(int((results["engine_dense"][i]["tokens"]
+                    == results["engine"][i]["tokens"]).sum())
+               for i in range(n_req))
+    out["engine_dense"]["tokens_equal_to_latent"] = same / (n_req * steps)
+    site = {key: out[key]["cache"]["shared_attn"] for key in
+            ("engine", "engine_dense")}
+    out["cache"].update({
+        "shared_site_latent": site["engine"],
+        "shared_site_dense": site["engine_dense"],
+        "latent_share": (site["engine"]["per_token"]
+                         / site["engine_dense"]["per_token"]),
+        "mamba2_state_per_slot": out["engine"]["cache"]["mamba2"],
+        "ranks_k_v": [ranks["attn.wk"], ranks["attn.wv"]]})
+    log(f"{tag}: cache bytes", json.dumps(out["cache"]))
+    require(site["engine"]["layout"] == "latent"
+            and site["engine"]["per_token"]
+            == (ranks["attn.wk"] + ranks["attn.wv"]) * eb,
+            f"{tag}: latent shared site {site['engine']}")
+    require(site["engine_dense"]["layout"] == "dense"
+            and site["engine_dense"]["per_token"]
+            == 2 * cfg.num_kv_heads * cfg.head_dim * eb,
+            f"{tag}: dense shared site {site['engine_dense']}")
+
+    # (c) one teacher-forced sequence decoded over the latent and the dense
+    # cache, with bf16 and with fp32 activations
+    plen, n_dec, max_len = sizes["serve_check"]
+    p = eng_latent.params
+    seq = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, plen + n_dec),
+                                        dtype=np.int32)).to(dev)
+    logits = {}
+    with torch.inference_mode():
+        for act in ("bfloat16", "float32"):
+            c = cfg.replace(dtype=act)
+            for layout in ("latent", "dense"):
+                cache_ = M.init_cache(c, 1, max_len, params=p if layout ==
+                                      "latent" else None, device=dev)
+                rows_ = [M.prefill(p, c, {"tokens": seq[:, :plen]},
+                                   cache_)[0]]
+                for i in range(plen, plen + n_dec):
+                    pos = torch.tensor([i], dtype=torch.int32, device=dev)
+                    rows_.append(M.decode_step(p, c, cache_,
+                                               seq[:, i:i + 1], pos)[0])
+                logits[f"{layout}_{act}"] = torch.cat(rows_)
+                del cache_
+    checks = {f"latent_vs_dense_decode_{act}": rel_fro(
+        logits[f"latent_{act}"][1:], logits[f"dense_{act}"][1:])
+        for act in ("bfloat16", "float32")}
+    checks["bf16_vs_fp32_decode"] = {
+        layout: rel_fro(logits[f"{layout}_bfloat16"][1:],
+                        logits[f"{layout}_float32"][1:])
+        for layout in ("latent", "dense")}
+    del logits
+    out["checks"] = checks
+    log(f"{tag} (c) checks (rel Frobenius):", json.dumps(checks))
+    # fp32 activations: one function through flash_decode (keys up-projected
+    # on chip) and through flash_attention over stored keys, sums in another
+    # order: 1e-4, as phases 6 and 12.  bf16 is printed: the dense cache
+    # stores bf16 keys, the latent one rank-r bf16 latents
+    key = "latent_vs_dense_decode_float32"
+    require(math.isfinite(checks[key]) and checks[key] <= 1e-4,
+            f"{tag}: {key} {checks[key]:.3e} > 1e-4")
+
+    if on_card:
+        out["host_syncs"] = decode_syncs(torch, M, cfg, eng_latent)
+        log(f"{tag} (d) host syncs (torch.cuda.set_sync_debug_mode):",
+            json.dumps(out["host_syncs"]))
+        require(out["host_syncs"]["decode_step_raised"] is None,
+                f"{tag}: the decode step synchronized the host: "
+                f"{out['host_syncs']['decode_step_raised']}")
+        out["profile"] = profile_engine(torch, np, TS, cfg, comp, "auto",
+                                        sizes)
+        log(f"{tag} (e) device time by kernel:", json.dumps(out["profile"]))
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("lowrank", "cov", "grouped",
-                                       "attention", "decode", "kimi"),
+                                       "attention", "decode", "kimi", "ssm"),
                     help="phases 1-2 and lowrank_matmul's (cov_accum's, "
                     "grouped_matmul's, flash_attention's, flash_decode's) "
                     "rows of phase 3; kimi: phases 1-2, phase 4's kimi-k2 "
-                    "smoke runs and phase 12")
+                    "smoke runs and phase 12; ssm: phases 1-2, phase 4's "
+                    "falcon-mamba and zamba2 smoke runs and phase 13")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -4143,6 +4674,18 @@ def main(argv=None) -> int:
             rows["smoke_kimi"] = {d: phase_smoke_kimi(torch, np, dispatch=d)
                                   for d in ("capacity", "dropfree")}
             log(f"phase 4 (kimi): {time.perf_counter() - t0:.3f} s")
+        elif args.only == "ssm":
+            t0 = time.perf_counter()
+            rows = {"smoke_ssm": {arch: phase_smoke(
+                torch, np, arch=arch, calib_shape=SIZES["smoke_calib_ssm"])
+                for arch in SIZES["smoke_ssm_archs"]}}
+            log(f"phase 4 (ssm): {time.perf_counter() - t0:.3f} s")
+            for key, arch in (("zamba2", "zamba2-7b"),
+                              ("falcon", "falcon-mamba-7b")):
+                torch.cuda.empty_cache()
+                t0 = time.perf_counter()
+                rows[key] = phase_ssm(torch, np, ops, arch=arch)
+                log(f"phase 13 ({key}): {time.perf_counter() - t0:.3f} s")
         else:
             gm_rows, gm_back = phase_grouped_kernels(torch, np, ops, ref)
             rows = {"grouped_matmul": gm_rows,
@@ -4174,6 +4717,9 @@ def main(argv=None) -> int:
     smoke["moe_adaptive"] = phase_smoke_moe_adaptive(torch, np)
     smoke["kimi"] = {d: phase_smoke_kimi(torch, np, dispatch=d)
                      for d in ("capacity", "dropfree")}
+    smoke["ssm"] = {arch: phase_smoke(torch, np, arch=arch,
+                                      calib_shape=SIZES["smoke_calib_ssm"])
+                    for arch in SIZES["smoke_ssm_archs"]}
     log(f"phase 4: {time.perf_counter() - t0:.3f} s")
     # 5. main path: compression
     t0 = time.perf_counter()
@@ -4239,6 +4785,23 @@ def main(argv=None) -> int:
                   "serve_kimi_server": kimi["server"],
                   "serve_kimi_engine": kimi["engine"],
                   "serve_kimi_engine_dense": kimi["engine_dense"]}
+    torch.cuda.empty_cache()
+    # 13. the SSM family at published widths: zamba2-7b (Mamba2 + the
+    # weight-shared attention block), then falcon-mamba-7b (Mamba1)
+    t0 = time.perf_counter()
+    zamba2 = phase_ssm(torch, np, ops, arch="zamba2-7b")
+    log(f"phase 13 (a): {time.perf_counter() - t0:.3f} s")
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    falcon = phase_ssm(torch, np, ops, arch="falcon-mamba-7b")
+    log(f"phase 13 (b): {time.perf_counter() - t1:.3f} s")
+    log(f"phase 13: {time.perf_counter() - t0:.3f} s")
+    ssm_paths = {"compress_zamba2": zamba2["compress"],
+                 "serve_zamba2_server": zamba2["server"],
+                 "serve_zamba2_engine": zamba2["engine"],
+                 "serve_zamba2_engine_dense": zamba2["engine_dense"],
+                 "compress_falcon": falcon["compress"],
+                 "serve_falcon_server": falcon["server"]}
 
     def timing(row):
         return {"max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -4266,7 +4829,9 @@ def main(argv=None) -> int:
                    **{path: run["launches"][name]
                       for path, run in policy_paths.items()},
                    **{path: run["launches"][name]
-                      for path, run in kimi_paths.items()}}
+                      for path, run in kimi_paths.items()},
+                   **{path: run["launches"][name]
+                      for path, run in ssm_paths.items()}}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": by_path[path],
                 "launches_by_path": by_path, **timing(head)}
@@ -4306,6 +4871,10 @@ def main(argv=None) -> int:
     cv = next(k for k in kernels if k["name"] == "cov_accum")
     cv["kimi"] = [timing(r) for r in cov_rows if "ms" in r
                   and r["shape"][1] in (7168, 18432)]
+    # cov_accum at phase 13's taps (n 256, d_inner 8192, the shared FFN's
+    # down tap 14336)
+    cv["ssm"] = [timing(r) for r in cov_rows if "ms" in r
+                 and r["shape"][1] in (256, 8192, 14336)]
     # lowrank_matmul's other bodies, where the engine runs them: decode's
     # T 8 (small_t) and the prefill chunk's T 256 (wgmma, split), and its
     # launches on each path by row count
@@ -4327,12 +4896,18 @@ def main(argv=None) -> int:
         **{path: run["lowrank_rows"] for path, run in gemma_paths.items()},
         **{path: run["lowrank_rows"] for path, run in policy_paths.items()
            if "lowrank_rows" in run},
-        **{path: run["lowrank_rows"] for path, run in kimi_paths.items()}}
+        **{path: run["lowrank_rows"] for path, run in kimi_paths.items()},
+        **{path: run["lowrank_rows"] for path, run in ssm_paths.items()}}
     # kimi-k2's eight factorized shapes at each T (phase 12)
     kimi_shapes = [list(s) for s in SIZES["lowrank_nkm_kimi"]]
     low["kimi"] = [{**timing(r), "body": r.get("body")} for r in low_rows
                    if "ms" in r and not r.get("forced")
                    and list(r["shape"][1:]) in kimi_shapes]
+    # phase 13's nine factorized shapes (zamba2, falcon-mamba) at each T
+    ssm_shapes = [list(nkm) for nkm, _ in SIZES["lowrank_nkm_ssm"]]
+    low["ssm"] = [{**timing(r), "body": r.get("body")} for r in low_rows
+                  if "ms" in r and not r.get("forced")
+                  and list(r["shape"][1:]) in ssm_shapes]
     # grouped_matmul at decode's 48 rows (the dense bank and the factorized
     # x @ V), at an engine chunk's 1536 (x @ V), and one bf16 backward (dx
     # and dW) at the x @ V shape
@@ -4362,7 +4937,9 @@ def main(argv=None) -> int:
                       ("gemma_server_d256", "gemma_server"),
                       ("gemma_decode_split_d256", "gemma_decode"),
                       ("kimi_prefill_d112", "kimi_prefill"),
-                      ("kimi_decode_split_d112", "kimi_decode")):
+                      ("kimi_decode_split_d112", "kimi_decode"),
+                      ("zamba2_prefill_d112", "zamba2_prefill"),
+                      ("zamba2_decode_split_d112", "zamba2_decode")):
         row = next(r for r in fa_rows if r["case"] == case and "ms" in r)
         fa[key] = {**timing(row), **{k: row[k] for k in (
             "padded_d", "bound_padded_ms", "bound_padded_by") if k in row}}
@@ -4386,10 +4963,18 @@ def main(argv=None) -> int:
     for key, dt in (("kimi_d112", "bfloat16"), ("kimi_d112_fp32", "float32")):
         fdk[key] = timing(next(r for r in fd_rows if "ms" in r
                                and r["case"] == "kimi" and r["dtype"] == dt))
+    # zamba2's shared block: head dim 112, one query head a KV head (32 on
+    # 32), rank 1080
+    for key, dt in (("zamba2_d112_g1", "bfloat16"),
+                    ("zamba2_d112_g1_fp32", "float32")):
+        fdk[key] = timing(next(r for r in fd_rows if "ms" in r
+                               and r["case"] == "zamba2"
+                               and r["dtype"] == dt))
     fdk["launches_by_body"] = {
         "serve_engine": serve_run["engine"]["decode_bodies"],
         "serve_ckpt_engine": policies["engine"]["decode_bodies"],
-        "serve_kimi_engine": kimi["engine"]["decode_bodies"]}
+        "serve_kimi_engine": kimi["engine"]["decode_bodies"],
+        "serve_zamba2_engine": zamba2["engine"]["decode_bodies"]}
     fa["launches_by_body"] = {
         "compress": main_run["flash_bodies"],
         "serve_server": serve_run["server"]["flash_bodies"],
@@ -4399,7 +4984,8 @@ def main(argv=None) -> int:
         "compress_moe_capacity": moe_cap_run["flash_bodies"],
         **{path: run["flash_bodies"] for path, run in moe_paths.items()},
         **{path: run["flash_bodies"] for path, run in gemma_paths.items()},
-        **{path: run["flash_bodies"] for path, run in kimi_paths.items()}}
+        **{path: run["flash_bodies"] for path, run in kimi_paths.items()},
+        **{path: run["flash_bodies"] for path, run in ssm_paths.items()}}
     with open(OUT / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "cov_accum": cov_rows,
                    "cov_accum_banked": banked_rows,
@@ -4411,7 +4997,8 @@ def main(argv=None) -> int:
                    "main": main_run, "serve": serve_run, "moe": moe_run,
                    "moe_capacity": moe_cap_run, "serve_moe": serve_moe,
                    "gemma": gemma, "policies": policies,
-                   "policies_moe": policies_moe, "kimi": kimi},
+                   "policies_moe": policies_moe, "kimi": kimi,
+                   "zamba2": zamba2, "falcon": falcon},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,11 @@
 deepseek-v2-lite-16b (MLA attention, MoE under either dispatch), the other
 dense-attention archs qwen3-0.6b (qk_norm, tied embeddings), granite-3-8b
 and phi3-medium-14b (GQA), and gemma3-1b (5 sliding-window local layers to
-1 global, ring caches, a second RoPE theta) and kimi-k2-1t-a32b (GQA
+1 global, ring caches, a second RoPE theta), kimi-k2-1t-a32b (GQA
 attention over a MoE under either dispatch, one shared expert, head dim
-112).  The other registered archs of the JAX package come with later
-slices.
+112), falcon-mamba-7b (Mamba1, attention-free) and zamba2-7b (a Mamba2
+backbone with one weight-shared attention block).  The multimodal archs of
+the JAX package come with a later slice.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ _REGISTRY: Dict[str, str] = {
     "phi3-medium-14b": "phi3_medium_14b",
     "gemma3-1b": "gemma3_1b",
     "kimi-k2-1t-a32b": "kimi_k2_1t",
+    "falcon-mamba-7b": "falcon_mamba_7b",
+    "zamba2-7b": "zamba2_7b",
 }
 
 

@@ -6,7 +6,8 @@ swaps every compressible linear {"w"} for zero-filled {"v", "u"} factors at
 the rank the compression ratio implies: the buffers a compressed checkpoint
 is loaded into, and (on the ``"meta"`` device) the compressed model's
 shapes without allocating them.  The real factors come from
-``core.pipeline.compress_model``.
+``core.pipeline.compress_model``.  A weight-shared block (zamba2's) is
+factorized once, in ``params["shared"]``.
 """
 
 from __future__ import annotations
@@ -47,12 +48,20 @@ def factorize_params(params, cfg, *, ratio: Optional[float] = None,
         return params
     dev = resolve_device(device)
     params = tree_map(lambda x: x, params)  # fresh containers
+
+    def factorize(kind, p):
+        for spec in linear_specs(kind, cfg):
+            leaf = get_path(p, spec.path)
+            if "w" in leaf:
+                set_path(p, spec.path, _factorize_leaf(leaf, ratio, remap,
+                                                       rank_multiple, dev))
+
     for st, sp in zip(B.stage_program(cfg), params["stages"]):
         for ki, kind in enumerate(st.kinds):
-            for spec in linear_specs(kind, cfg):
-                leaf = get_path(sp[ki], spec.path)
-                if "w" in leaf:
-                    set_path(sp[ki], spec.path,
-                             _factorize_leaf(leaf, ratio, remap,
-                                             rank_multiple, dev))
+            # a weight-shared kind's stage slots are None: its params live
+            # in params["shared"]
+            if kind not in B.SHARED_KINDS:
+                factorize(kind, sp[ki])
+    for kind, p in params.get("shared", {}).items():
+        factorize(kind, p)
     return params

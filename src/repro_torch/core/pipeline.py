@@ -2,10 +2,15 @@
 
 Counterpart of ``src/repro/core/pipeline.py`` with ``calib_mesh=None``, on
 dense GQA models (llama, qwen3, granite, phi3-medium; gemma3's
-sliding-window local and global layers), on deepseek's MLA + MoE and on
-kimi-k2's GQA + MoE (capacity or drop-free dispatch).  The model is
-unrolled into units (one transformer block each; stacked stages are sliced
-and restacked afterwards).  Per unit:
+sliding-window local and global layers), on deepseek's MLA + MoE, on
+kimi-k2's GQA + MoE (capacity or drop-free dispatch), on falcon-mamba's
+Mamba1 blocks and on zamba2's Mamba2 backbone with its weight-shared
+attention block.  The model is unrolled into units (one block each;
+stacked stages are sliced and restacked afterwards).  A weight-shared
+block is one unit at its first site (``<section>.shared.<kind>``),
+compressed there; at every later site it is only propagated, both streams
+through its original and compressed params, and reported ``reused``.  Per
+unit:
 
   1. calibration statistics via the streaming engine (``core.streaming``):
      every tap group (q/k/v share a tap, gate/up share) owns a covariance
@@ -146,6 +151,14 @@ def linear_specs(kind: str, cfg) -> List[LinearSpec]:
             f"linear specs of kind {kind!r} are not ported to repro_torch "
             "yet (come with the slice of that architecture)")
     S_ = LinearSpec
+    if kind == "mamba1":
+        return [S_("mixer.in_proj", "mixer/in_proj_in"),
+                S_("mixer.x_proj", "mixer/x_proj_in"),
+                S_("mixer.dt_proj", "mixer/dt_proj_in"),
+                S_("mixer.out_proj", "mixer/out_proj_in")]
+    if kind == "mamba2":
+        return [S_("mixer.in_proj", "mixer/in_proj_in"),
+                S_("mixer.out_proj", "mixer/out_proj_in")]
     if kind.startswith("mla"):
         specs = [S_("attn.wq", "attn/qkv_in"),
                  S_("attn.wkv_a", "attn/qkv_in"),
@@ -228,7 +241,8 @@ class Unit:
     name: str
     kind: str
     where: Tuple            # ("dec", stage_idx, iter_idx, kind_idx)
-    params: Any
+    params: Any             # None at a weight-shared block's later sites
+    shared: bool = False
 
 
 def _clone(tree):
@@ -238,13 +252,30 @@ def _clone(tree):
 
 def unit_iterator(params, cfg):
     """Yield the model's compression units in solve order; a stacked stage's
-    iteration ``it`` is sliced out (views, never written) when reached."""
+    iteration ``it`` is sliced out (views, never written) when reached.  A
+    weight-shared kind yields ``dec.shared.<kind>`` with the shared params
+    at its first site and ``dec.<idx>.<kind>(shared-site)`` with
+    ``params=None`` at every later one."""
     idx = 0
+    seen_shared: Set[str] = set()
     for si, (st, sp) in enumerate(zip(B.stage_program(cfg),
                                       params["stages"])):
         iters = st.n if (st.scan and st.n > 1) else 1
         for it in range(iters):
             for ki, kind in enumerate(st.kinds):
+                if kind in B.SHARED_KINDS:
+                    if kind not in seen_shared:
+                        seen_shared.add(kind)
+                        yield Unit(name=f"dec.shared.{kind}", kind=kind,
+                                   where=("dec", si, it, ki),
+                                   params=_clone(params["shared"][kind]),
+                                   shared=True)
+                    else:
+                        yield Unit(name=f"dec.{idx}.{kind}(shared-site)",
+                                   kind=kind, where=("dec", si, it, ki),
+                                   params=None, shared=True)
+                    idx += 1
+                    continue
                 p = sp[ki]
                 if iters > 1:
                     p = tree_map(lambda a: a[it], p)
@@ -256,12 +287,17 @@ def unit_iterator(params, cfg):
 
 
 def restack_units(params, cfg, units: List[Unit]):
-    """Write compressed unit params back (restacking stacked stages)."""
+    """Write compressed unit params back (restacking stacked stages); a
+    weight-shared kind keeps ``None`` in its stage slots and its compressed
+    params go to ``params["shared"]``."""
     new_params = dict(params)
     out = []
     for si, st in enumerate(B.stage_program(cfg)):
         per_kind = []
-        for ki in range(len(st.kinds)):
+        for ki, kind in enumerate(st.kinds):
+            if kind in B.SHARED_KINDS:
+                per_kind.append(None)
+                continue
             mine = sorted((u for u in units
                            if u.where[1] == si and u.where[3] == ki),
                           key=lambda u: u.where[2])
@@ -273,6 +309,10 @@ def restack_units(params, cfg, units: List[Unit]):
                 per_kind.append(mine[0].params)
         out.append(per_kind)
     new_params["stages"] = out
+    shared = {u.kind: u.params for u in units
+              if u.shared and u.params is not None}
+    if shared:
+        new_params["shared"] = shared
     return new_params
 
 
@@ -551,7 +591,9 @@ def _check_supported(cfg, ccfg: CompressConfig) -> None:
             "collection comes with the torch.distributed slice)")
     if (cfg.family, cfg.attention) not in (("dense", "full"),
                                            ("dense", "sliding_mix"),
-                                           ("moe", "mla"), ("moe", "full")):
+                                           ("moe", "mla"), ("moe", "full"),
+                                           ("ssm", "none"),
+                                           ("hybrid", "full")):
         raise NotImplementedError(
             f"family {cfg.family!r} / attention {cfg.attention!r} is not "
             "ported to repro_torch yet (comes with that architecture's slice)")
@@ -706,10 +748,29 @@ def _compress_sweep(params, cfg, calib, ccfg: CompressConfig,
         xs = _embed_stream(params, cfg, calib, mb)      # original stream
         xps = [x.clone() for x in xs]                    # shifted stream
     done_units: List[Unit] = []
+    # weight-shared kind -> its original and compressed params, from the
+    # first site
+    shared_done: Dict[str, Dict[str, Any]] = {}
 
     for unit in unit_iterator(params, cfg):
         done_units.append(unit)
         seq_len = xs[0].shape[1]
+        if unit.shared and unit.params is None:
+            # a later site of a weight-shared block: only propagate both
+            # streams.  The entry carries a compressed unit's accounting
+            # keys (zero forwards tapped), so the totals need no special
+            # case
+            fwd = make_unit_apply(unit.kind, cfg, seq_len, want_taps=False)
+            with clock("propagate"):
+                for i in range(len(xs)):
+                    xs[i] = fwd(shared_done[unit.kind]["orig"], xs[i], None)
+                    xps[i] = fwd(shared_done[unit.kind]["comp"], xps[i],
+                                 None)
+            report["units"].append({"name": unit.name, "kind": unit.kind,
+                                    "calib_mode": ccfg.calib_mode,
+                                    "reused": True, "tapped_forwards": 0,
+                                    "replayed_groups": 0})
+            continue
         orig_p = _clone(unit.params)
         cur_p = unit.params
         fwd_taps = make_unit_apply(unit.kind, cfg, seq_len, want_taps=True)
@@ -878,6 +939,8 @@ def _compress_sweep(params, cfg, calib, ccfg: CompressConfig,
                 xs[i] = y_anchor[i].to(xs[i].dtype)
                 xps[i] = fwd(cur_p, xps[i], None)
         unit.params = cur_p
+        if unit.shared:
+            shared_done[unit.kind] = {"orig": orig_p, "comp": cur_p}
         report["units"].append(unit_report)
         msg = f"[compress] {unit.name}"
         if "post_refine_mse" in unit_report:

@@ -151,10 +151,12 @@ def cov_accum(x, xp, *, acc=None):
     is not 16-byte aligned, the kernel writes a fresh triple and it is
     added in).  On the card xx and xpxp come out exactly symmetric (given
     a symmetric ``acc``) and two calls on the same inputs give the same
-    bits (``kernels.cov_accum``)."""
+    bits (``kernels.cov_accum``).  A strided view (Mamba1's ``dt_proj``
+    tap is the first ``dt_rank`` columns of ``x_proj``'s output) is copied
+    to contiguous rows first."""
     n = x.shape[-1]
-    x = x.reshape(-1, n)
-    xp = xp.reshape(-1, n)
+    x = x.reshape(-1, n).contiguous()
+    xp = xp.reshape(-1, n).contiguous()
     if x.shape != xp.shape:
         raise ValueError(f"cov_accum: shapes {tuple(x.shape)} and "
                          f"{tuple(xp.shape)} differ")

@@ -29,7 +29,11 @@ rings and dense global caches (qk_norm), and every request takes
 exact-length whole prefill (``"whole_exact"``): a ring can neither resume
 mid-sequence nor take right-padding.  kimi-k2's head dim 112 reaches
 ``flash_decode`` as it is (RoPE pairs the true dims) and ``flash_attention``
-zero-padded to 128.  MLA blocks keep
+zero-padded to 128.  falcon-mamba's Mamba1 and zamba2's Mamba2 layers keep
+their recurrent {"h", "conv"} state a slot, so every request of those
+archs takes ``"whole_exact"`` prefill too; zamba2's shared attention sites
+(head dim 112, 32 heads on 32 KV heads) each keep their own latent or
+dense cache.  MLA blocks keep
 {"c", "kr"} under either layout: chunked prefill through
 ``mla_prefill_cached`` and decode through ``mla_decode`` (absorbed), whole
 prefill through ``mla_prefill``.  Under deepseek's capacity MoE dispatch
@@ -52,7 +56,8 @@ waits for the card).
         [--engine] [--device cpu]
     python -m repro_torch.launch.serve --arch gemma3-1b --smoke --ratio 0.6 \\
         [--engine] [--device cpu]     # also qwen3-0.6b, granite-3-8b,
-                                      # phi3-medium-14b, kimi-k2-1t-a32b
+                                      # phi3-medium-14b, kimi-k2-1t-a32b,
+                                      # falcon-mamba-7b, zamba2-7b
     python -m repro_torch.launch.serve --arch llama-7b --smoke --ratio 0.6 \\
         --calib-mode hybrid --rank-mode adaptive --replay-taps auto \\
         --checkpoint /tmp/ckpt [--engine] [--device cpu]

@@ -8,14 +8,20 @@ Counterpart of ``src/repro/models/blocks.py`` (``stage_program`` :43,
 ``"attn_local"`` / ``"attn_global"`` kinds, deepseek's
 ``"mla_dense_first"`` / ``"mla_moe"`` kinds (MLA attention; a dense FFN or
 a MoE under either dispatch) and kimi-k2's ``"attn_dense_first"`` /
-``"attn_moe"`` kinds (GQA attention; the same two FFN tails).  Every kind
-has its cache paths: ``"attn"``, ``"attn_global"`` and the GQA MoE kinds a
-dense {"k", "v"} or latent {"lk", "lv"} cache,
-``"attn_local"`` a ring of ``sliding_window`` dense slots, the MLA kinds
-their own compressed {"c", "kr"} cache (expanded whole prefill, absorbed
-chunked prefill and decode).  A stage with ``scan=True`` and ``n > 1``
-stacks its sub-block params (and caches) on a leading axis, as the JAX
-package does; the port walks that axis in a Python loop.
+``"attn_moe"`` kinds (GQA attention; the same two FFN tails), and the SSM
+family: falcon-mamba's ``"mamba1"`` and zamba2's ``"mamba2"`` backbone
+with its weight-shared ``"shared_attn"`` block (attention + SwiGLU, the
+``"attn"`` arithmetic).  Every kind has its cache paths: ``"attn"``,
+``"attn_global"``, ``"shared_attn"`` and the GQA MoE kinds a dense {"k",
+"v"} or latent {"lk", "lv"} cache, ``"attn_local"`` a ring of
+``sliding_window`` dense slots, the MLA kinds their own compressed {"c",
+"kr"} cache (expanded whole prefill, absorbed chunked prefill and decode),
+the mamba kinds their recurrent state {"h", "conv"} (whole prefill only).
+A stage with ``scan=True`` and ``n > 1`` stacks its sub-block params (and
+caches) on a leading axis, as the JAX package does; the port walks that
+axis in a Python loop.  Weight-shared kinds (``SHARED_KINDS``) read their
+params from the model's ``shared`` slot; their caches stay per invocation
+site, stacked along the stage axis.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
+from repro_torch.models import ssm as S
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,12 +51,25 @@ def _not_ported(what: str, slice_name: str):
 
 
 FORWARD_KINDS = ("attn", "attn_local", "attn_global", "attn_dense_first",
-                 "attn_moe", "mla_dense_first", "mla_moe")
+                 "attn_moe", "mla_dense_first", "mla_moe", "mamba1",
+                 "mamba2", "shared_attn")
+SHARED_KINDS = ("shared_attn",)
+SSM_KINDS = ("mamba1", "mamba2")
 
 
 def stage_program(cfg) -> List[Stage]:
-    if cfg.family in ("hybrid", "ssm"):
-        raise _not_ported(f"family {cfg.family!r}", "SSM / hybrid")
+    if cfg.family == "hybrid":
+        # zamba2: ``every`` mamba2 layers, then the shared block, scanned
+        # over the groups; the remainder layers are mamba2
+        every = cfg.hybrid_attn_every
+        groups, rem = divmod(cfg.num_layers, every)
+        stages = [Stage(("mamba2",) * every + ("shared_attn",), groups)]
+        if rem:
+            stages.append(Stage(("mamba2",), rem))
+        return stages
+    if cfg.family == "ssm":
+        kind = "mamba1" if cfg.ssm.version == 1 else "mamba2"
+        return [Stage((kind,), cfg.num_layers)]
     if cfg.attention == "sliding_mix":
         # gemma3: (global_every - 1) local layers, then a global one, scanned
         # over the groups; the remainder layers are local
@@ -88,6 +108,10 @@ def init_sub_block(kind: str, gen: torch.Generator, cfg, *, lead=(),
                    device="cpu"):
     _check_kind(kind)
     kw = dict(lead=lead, device=device)
+    if kind in SSM_KINDS:
+        init = S.mamba1_init if kind == "mamba1" else S.mamba2_init
+        return {"ln": L.norm_init(cfg.d_model, cfg.norm, **kw),
+                "mixer": init(gen, cfg, **kw)}
     p = {
         "ln1": L.norm_init(cfg.d_model, cfg.norm, **kw),
         "ln2": L.norm_init(cfg.d_model, cfg.norm, **kw),
@@ -128,6 +152,12 @@ def apply_sub_block(kind: str, p, x, cfg, ctx):
     """x: (B, L, d) -> (x, aux_loss)."""
     _check_kind(kind)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind in SSM_KINDS:
+        fwd = S.mamba1_forward if kind == "mamba1" else S.mamba2_forward
+        with L.scope("mixer"):
+            out = fwd(p["mixer"], L.apply_norm(p["ln"], x, eps=cfg.norm_eps),
+                      cfg)
+        return x + out, zero
     cos, sin = _tables(kind, ctx)
     h = L.apply_norm(p["ln1"], x, eps=cfg.norm_eps)
     with L.scope("attn"):
@@ -154,11 +184,11 @@ def latent_layout(kind: str, params, cfg) -> Optional[Tuple[int, int]]:
     kv latent instead of dense k/v: bias-free factorized wk AND wv, no
     qk-norm (applied after the up-projection, so it cannot be absorbed) and
     no logit softcap (the decode kernel has none), and an absolute-position
-    cache: MLA kinds keep their own compressed cache and ``"attn_local"`` its
-    ring, so both give ``None``."""
+    cache: MLA kinds keep their own compressed cache, ``"attn_local"`` its
+    ring and the mamba kinds their state, so all give ``None``."""
     _check_kind(kind)
     if (params is None or kind.startswith("mla") or kind == "attn_local"
-            or cfg.qk_norm or cfg.attn_logit_softcap):
+            or kind in SSM_KINDS or cfg.qk_norm or cfg.attn_logit_softcap):
         return None
     return A.latent_ranks(params.get("attn")) if isinstance(params, dict) \
         else None
@@ -169,11 +199,16 @@ def init_sub_cache(kind: str, cfg, batch: int, max_len: int, dtype,
     """Zero cache for one sub-block: MLA's compressed {"c", "kr"}
     (kv_lora_rank + qk_rope_head_dim floats per token); ``"attn_local"``'s
     ring of min(sliding_window, max_len) dense slots; for ``"attn"`` and
-    ``"attn_global"`` and the GQA MoE kinds the latent {"lk", "lv"} layout
-    (rank-r floats per token) when ``params`` has factorized kv
-    projections, else dense {"k", "v"}."""
+    ``"attn_global"``, ``"shared_attn"`` and the GQA MoE kinds the latent
+    {"lk", "lv"} layout (rank-r floats per token) when ``params`` has
+    factorized kv projections, else dense {"k", "v"}; the mamba kinds their
+    state: ``h`` fp32, ``conv`` in ``dtype``."""
     kw = dict(dtype=dtype, device=device)
     kv, hd = cfg.num_kv_heads, cfg.head_dim
+    if kind in SSM_KINDS:
+        init = (S.mamba1_init_state if kind == "mamba1"
+                else S.mamba2_init_state)
+        return init(None, cfg, batch, dtype, device=device)
     if kind == "attn_local":
         w = min(cfg.sliding_window, max_len)
         return {"k": torch.zeros((batch, w, kv, hd), **kw),
@@ -205,14 +240,33 @@ def _write_ring(cache, new, start: int):
     return cache
 
 
+def _copy_state(cache, state) -> None:
+    """Write a mamba block's new {"h", "conv"} into its cache buffers (the
+    caller's views of a stacked cache included), in place."""
+    for key in ("h", "conv"):
+        cache[key].copy_(state[key])
+
+
 def prefill_sub_block(kind: str, p, x, cache, cfg, ctx):
     """Forward over the prompt, filling the cache (in place) from
     ``ctx["pos"]``.  ``ctx["chunked"]`` attends against the WHOLE cache with
     absolute-position masking, so a prompt can be prefilled chunk by chunk
     (not into a ring cache, as in the JAX package).  Returns (x, cache,
     aux).  MLA's chunked path (absorbed) and whole path (expanded) are
-    different arithmetic, equal to a tolerance."""
+    different arithmetic, equal to a tolerance.  The mamba kinds run the
+    whole prompt from a zero state and copy the final state into the cache
+    (chunked prefill raises: a state cannot resume mid-sequence here, as in
+    the JAX package)."""
     _check_kind(kind)
+    if kind in SSM_KINDS:
+        if ctx.get("chunked"):
+            raise ValueError("chunked prefill unsupported for SSM blocks")
+        fwd = S.mamba1_forward if kind == "mamba1" else S.mamba2_forward
+        y, state = fwd(p["mixer"], L.apply_norm(p["ln"], x, eps=cfg.norm_eps),
+                       cfg, return_state=True)
+        _copy_state(cache, state)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x + y, cache, zero
     start = ctx.get("pos", 0)
     cos, sin = _tables(kind, ctx)
     h = L.apply_norm(p["ln1"], x, eps=cfg.norm_eps)
@@ -253,8 +307,15 @@ def prefill_sub_block(kind: str, p, x, cache, cfg, ctx):
 
 def decode_sub_block(kind: str, p, x, cache, cfg, ctx):
     """x: (B, 1, d) -> (x, cache), the cache updated in place at
-    ``ctx["pos"]`` (an int or a per-slot (B,) tensor)."""
+    ``ctx["pos"]`` (an int or a per-slot (B,) tensor); the mamba kinds
+    advance their state by one token, in place."""
     _check_kind(kind)
+    if kind in SSM_KINDS:
+        dec = S.mamba1_decode if kind == "mamba1" else S.mamba2_decode
+        y, state = dec(p["mixer"], L.apply_norm(p["ln"], x, eps=cfg.norm_eps),
+                       cache, cfg)
+        _copy_state(cache, state)
+        return x + y, cache
     pos = ctx["pos"]
     cos, sin = _tables(kind, ctx)
     h = L.apply_norm(p["ln1"], x, eps=cfg.norm_eps)

@@ -8,7 +8,10 @@ Counterpart of ``src/repro/models/model.py`` (``init_params`` :35,
 ``tokens`` (B, L) and ``labels`` (B, L) integer tensors.
 
 Caches keep the JAX package's tree — per stage, per kind, a leading layer
-axis on scanned stages — so the two compare leaf for leaf.  ``prefill`` and
+axis on scanned stages — so the two compare leaf for leaf.  A weight-shared
+kind (zamba2's ``"shared_attn"``) holds ``None`` in its stage slot and
+reads ``params["shared"][kind]`` at every site; each site keeps its own
+cache.  ``prefill`` and
 ``decode_step`` write into the given cache buffers IN PLACE and return the
 same tree; the JAX package returns a new tree and its serving loop donates
 the old one.
@@ -58,11 +61,20 @@ def init_params(cfg, seed: int = 0, *, device=None) -> PyTree:
         params["lm_head"] = L.linear_init(gen, cfg.d_model, cfg.vocab_size,
                                           dtype=dtype, device=dev)
     stages = []
-    for st in B.stage_program(cfg):
+    program = B.stage_program(cfg)
+    for st in program:
         lead = (st.n,) if (st.scan and st.n > 1) else ()
-        stages.append([B.init_sub_block(kind, gen, cfg, lead=lead, device=dev)
+        stages.append([None if kind in B.SHARED_KINDS
+                       else B.init_sub_block(kind, gen, cfg, lead=lead,
+                                             device=dev)
                        for kind in st.kinds])
     params["stages"] = stages
+    shared = sorted({k for st in program for k in st.kinds
+                     if k in B.SHARED_KINDS})
+    if shared:
+        params["shared"] = {kind: B.init_sub_block(kind, gen, cfg,
+                                                   device=dev)
+                            for kind in shared}
     return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t,
                     params)
 
@@ -95,13 +107,21 @@ def make_ctx(cfg, positions) -> Dict[str, Any]:
 # forward
 
 
-def _run_stage_forward(stage: B.Stage, stage_params, x, cfg, ctx):
+def _site_params(kind: str, p, shared, it: Optional[int]):
+    """A sub-block's params at one site: the shared slot for a
+    weight-shared kind, else its own (iteration ``it`` of a stacked
+    stage)."""
+    if kind in B.SHARED_KINDS:
+        return shared[kind]
+    return p if it is None else tree_map(lambda a: a[it], p)
+
+
+def _run_stage_forward(stage: B.Stage, stage_params, shared, x, cfg, ctx):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     iters = stage.n if (stage.scan and stage.n > 1) else 1
     for it in range(iters):
         for kind, p in zip(stage.kinds, stage_params):
-            if iters > 1:
-                p = tree_map(lambda a: a[it], p)
+            p = _site_params(kind, p, shared, it if iters > 1 else None)
             x, a = B.apply_sub_block(kind, p, x, cfg, ctx)
             aux = aux + a
     return x, aux
@@ -117,7 +137,8 @@ def forward_hidden(params, cfg, batch):
     ctx = make_ctx(cfg, torch.arange(x.shape[1], device=x.device))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for st, sp in zip(B.stage_program(cfg), params["stages"]):
-        x, a = _run_stage_forward(st, sp, x, cfg, ctx)
+        x, a = _run_stage_forward(st, sp, params.get("shared", {}), x, cfg,
+                                  ctx)
         aux = aux + a
     return L.apply_norm(params["final_norm"], x, eps=cfg.norm_eps), aux
 
@@ -154,7 +175,9 @@ def init_cache(cfg, batch: int, max_len: int, *,
     kernel up-projects; without ``params`` the layout is dense.  MLA
     sub-blocks always get their compressed {"c", "kr"} cache, gemma3's
     ``"attn_local"`` ones a dense ring of min(sliding_window, max_len)
-    slots."""
+    slots, the mamba kinds their {"h", "conv"} state.  A weight-shared
+    kind's layout follows ``params["shared"]``; each of its sites gets its
+    own buffers."""
     if device is None and params is not None:
         device = params["embed"]["table"].device
     dev = resolve_device(device)
@@ -163,7 +186,10 @@ def init_cache(cfg, batch: int, max_len: int, *,
     for si, st in enumerate(B.stage_program(cfg)):
         per_kind = []
         for ki, kind in enumerate(st.kinds):
-            p = None if params is None else params["stages"][si][ki]
+            p = None
+            if params is not None:
+                p = (params.get("shared", {}).get(kind)
+                     if kind in B.SHARED_KINDS else params["stages"][si][ki])
             c = B.init_sub_cache(kind, cfg, batch, max_len, dtype, params=p,
                                  device=dev)
             if st.scan and st.n > 1:
@@ -181,7 +207,9 @@ def _batch_axis(stage: B.Stage) -> int:
 
 
 def cache_slot_take(cfg, cache, slot: int) -> PyTree:
-    """Copy ONE scheduler slot's cache out as a batch=1 cache tree."""
+    """Copy ONE scheduler slot's cache out as a batch=1 cache tree.  Every
+    leaf is cut on its batch axis alone, so the state leaves of the mamba
+    kinds (no sequence axis) are taken like the rest."""
     return [[tree_map(lambda x, a=_batch_axis(st): x.narrow(a, slot, 1)
                       .clone(), c) for c in per_kind]
             for st, per_kind in zip(B.stage_program(cfg), cache)]
@@ -202,8 +230,8 @@ def cache_slot_put(cfg, cache, slot_cache, slot: int) -> PyTree:
 # prefill / decode
 
 
-def _run_stage_cached(stage: B.Stage, stage_params, x, stage_cache, cfg,
-                      ctx, fn):
+def _run_stage_cached(stage: B.Stage, stage_params, shared, x, stage_cache,
+                      cfg, ctx, fn):
     """Run one stage over its cache; returns x.  ``fn`` is
     ``B.prefill_sub_block`` (returns x, cache, aux) or
     ``B.decode_sub_block`` (x, cache); both write into the cache buffers
@@ -213,8 +241,8 @@ def _run_stage_cached(stage: B.Stage, stage_params, x, stage_cache, cfg,
     stacked = stage.scan and stage.n > 1
     for it in range(stage.n if stacked else 1):
         for kind, p, c in zip(stage.kinds, stage_params, stage_cache):
+            p = _site_params(kind, p, shared, it if stacked else None)
             if stacked:
-                p = tree_map(lambda a: a[it], p)
                 c = tree_map(lambda a: a[it], c)
             x = fn(kind, p, x, c, cfg, ctx)[0]
     return x
@@ -247,7 +275,8 @@ def _prefill(params, cfg, batch, cache, pos, chunked, last_idx):
     if chunked:
         ctx["chunked"] = True
     for st, sp, sc in zip(B.stage_program(cfg), params["stages"], cache):
-        x = _run_stage_cached(st, sp, x, sc, cfg, ctx, B.prefill_sub_block)
+        x = _run_stage_cached(st, sp, params.get("shared", {}), x, sc, cfg,
+                              ctx, B.prefill_sub_block)
     hidden = L.apply_norm(params["final_norm"], x, eps=cfg.norm_eps)
     row = l - 1 if last_idx is None else last_idx
     logits = logits_from_hidden(params, cfg, hidden[:, row:row + 1])[:, 0]
@@ -266,6 +295,7 @@ def decode_step(params, cfg, cache, tokens, pos):
     ctx = make_ctx(cfg, positions)
     ctx["pos"] = pos
     for st, sp, sc in zip(B.stage_program(cfg), params["stages"], cache):
-        x = _run_stage_cached(st, sp, x, sc, cfg, ctx, B.decode_sub_block)
+        x = _run_stage_cached(st, sp, params.get("shared", {}), x, sc, cfg,
+                              ctx, B.decode_sub_block)
     hidden = L.apply_norm(params["final_norm"], x, eps=cfg.norm_eps)
     return logits_from_hidden(params, cfg, hidden)[:, 0], cache

@@ -300,11 +300,15 @@ SIZES = {
     # kimi-k2's d_model tap and its dense FFN's down tap (n 18432) as phase
     # 12 collects them.  bf16 acc= is timed at all but the ragged ones
     # phase 13's SSM taps: falcon-mamba's dt_proj_in (n 256) and x_proj_in /
-    # out_proj_in (d_inner 8192), zamba2's shared FFN down tap (n 14336)
+    # out_proj_in (d_inner 8192), zamba2's shared FFN down tap (n 14336);
+    # phase 14's: whisper's encoder taps and xattn/kv_in (T 4 x 1500 frames
+    # at d_model 512, and its FFN down tap at d_ff 2048), phi-3-vision's
+    # d_model tap (4 x (256 + 768) rows at 3072; its d_ff 8192 is above)
     "cov": ((4096, 4096), (4096, 11008), (4096, 512), (384, 2048),
             (4096, 7168), (4096, 18432), (4096, 256), (4096, 8192),
-            (4096, 14336), (4096, 80), (77, 203)),
-    "cov_timed": 9,
+            (4096, 14336), (6000, 512), (6000, 2048), (4096, 3072),
+            (4096, 80), (77, 203)),
+    "cov_timed": 12,
     # a strided tap (T, n of a (T, width) buffer): falcon-mamba's dt_proj_in
     # is the first dt_rank 256 columns of x_proj's 288-wide output; the
     # wrapper copies it to contiguous rows, bit for bit the same triple
@@ -403,6 +407,19 @@ SIZES = {
         ("zamba2_prefill", 4, 32, 32, 1024, 1024, 112, True, 0, 0.0, 0),
         ("zamba2_decode", 8, 32, 32, 1, 2048, 112, True, 0, 0.0,
          (100, 2047)),
+        # whisper-base (phase 14): head dim 64, 8 heads, non-causal over
+        # the 1500 frames: the encoder's self-attention of a compression
+        # microbatch (1500 x 1500), the decoder's cross-attention of 448
+        # tokens, and its decode (Lq 1 against 1500 frames: the split body)
+        ("whisper_encoder", 4, 8, 8, 1500, 1500, 64, False, 0, 0.0, 0),
+        ("whisper_cross", 4, 8, 8, 448, 1500, 64, False, 0, 0.0, 0),
+        ("whisper_cross_decode", 8, 8, 8, 1, 1500, 64, False, 0, 0.0, 0),
+        # phi-3-vision-4.2b (phase 14): head dim 96 zero-padded to 128, a
+        # compression microbatch's prefill (256 patches + 768 tokens) and
+        # decode over its dense cache of 8 slots (the split body)
+        ("vision_prefill", 4, 32, 32, 1024, 1024, 96, True, 0, 0.0, 0),
+        ("vision_decode", 8, 32, 32, 1, 2048, 96, True, 0, 0.0,
+         (100, 2047)),
         ("ragged", 2, 4, 2, 77, 77, 16, True, 16, 30.0, 0)),
     # flash_attention at ragged shapes through its new bodies: the split
     # body (Lq 1 outside batch_invariant; "decode" above is the other split
@@ -484,10 +501,21 @@ SIZES = {
         # rank and a slot of length 1
         ("zamba2", 8, 32, 32, 112, 1080, 1080, 2048, (256, 2048)),
         ("ragged_d112_g1", 3, 4, 4, 112, 21, 16, 300, (1, 300)),
-        ("ragged_d112_g1_rank8", 3, 4, 4, 112, 24, 40, 300, (1, 300))),
-    "flash_decode_timed": ("llama", "granite", "kimi", "zamba2"),
+        ("ragged_d112_g1_rank8", 3, 4, 4, 112, 24, 40, 300, (1, 300)),
+        # whisper-base's decoder at ratio 0.6: 8 heads on 8 KV heads of head
+        # dim 64 without RoPE (rope=False: the 10th field), wk / wv at rank
+        # 160, 8 slots over its 448 positions; phi-3-vision-4.2b at ratio
+        # 0.6: 32 on 32 heads of head dim 96 (RoPE pairs 48 dims), rank 928
+        # (the wgmma body in bf16, the FMA body in fp32); then D 96 at an
+        # odd rank, and D 64 without RoPE at a ragged shape
+        ("whisper", 8, 8, 8, 64, 160, 160, 448, (64, 448), False),
+        ("vision", 8, 32, 32, 96, 928, 928, 2048, (256, 2048)),
+        ("ragged_d96", 3, 4, 4, 96, 19, 24, 300, (1, 300)),
+        ("ragged_d64_norope", 3, 4, 2, 64, 24, 16, 300, (1, 300), False)),
+    "flash_decode_timed": ("llama", "granite", "kimi", "zamba2", "whisper",
+                           "vision"),
     # each slot alone against the batch, bit for bit
-    "flash_decode_alone": ("llama", "kimi", "zamba2"),
+    "flash_decode_alone": ("llama", "kimi", "zamba2", "vision"),
     # serving: Server (batch, prompt, steps, max_len) on the dense model;
     # the engine (slots, max_len, chunk, requests, prompt lo/hi, steps) on
     # the compressed one; the teacher-forced checks (prompt, steps, max_len)
@@ -531,6 +559,27 @@ SIZES = {
     # CPU (6.2e-4 between 1 and 8 CPU threads alone; 1.2e-4 at 32 x 32),
     # the loss equal to 3e-7
     "smoke_ssm_archs": ("falcon-mamba-7b", "zamba2-7b"),
+    # phase 4's multimodal archs (frames / patches 0.02·N(0, 1)) on the
+    # standard 16 x 32 tokens; ROADMAP 3j's check (--only multimodal): the
+    # old sizes of the two checks that moved to larger sets
+    "smoke_mm_archs": ("whisper-base", "phi-3-vision-4.2b"),
+    "refine_off_3j": (("gemma3-1b", (8, 32)), ("zamba2-7b", (16, 32))),
+    # phase 14: whisper-base at full depth (its decoder's 448 positions:
+    # calibration 8 x 448 tokens with 8 x 1500 frames; eval 2 x 4 x 448;
+    # Server (batch, prompt, steps, max_len); engine (slots, max_len,
+    # requests, prompt lo/hi, steps); the teacher-forced check (prompt,
+    # steps, max_len)), then phi-3-vision-4.2b at depth 32 -> 2 (256 patches
+    # before every prompt: calibration 8 x (256 + 768), Server 8 x (256 +
+    # 512))
+    "whisper_shapes": {"calib": (8, 448), "evals": (2, 4, 448),
+                       "serve_dense": (8, 64, 32, 448),
+                       "serve_engine": (8, 448, 12, (64, 320), 64),
+                       "serve_check": (128, 16, 448)},
+    "vision_shapes": {"calib": (8, 768), "evals": (2, 4, 768),
+                      "serve_dense": (8, 512, 32, 1024),
+                      "serve_engine": (8, 2048, 12, (128, 1024), 64),
+                      "serve_check": (512, 16, 1024)},
+    "vision_layers": 2,
     "smoke_calib_ssm": (32, 32),
 }
 
@@ -1268,6 +1317,11 @@ def check_flash_attention(torch, np, ops, ref, case, dtype, timed, dev):
         gqa = {} if kv == h else {"enable_gqa": True}
         masked = None if softcap else (
             lambda: sdpa(qt, kt, vt, attn_mask=mask, **gqa))
+        if not causal and not window and not softcap:
+            # nothing is masked (whisper's encoder and cross-attention):
+            # SDPA without a mask
+            def masked():
+                return sdpa(qt, kt, vt, **gqa)
         row["library_ms"] = None if masked is None else time_ms(masked)
         row["library_device_ms"] = (None if masked is None
                                     else device_ms(masked))
@@ -1373,7 +1427,7 @@ def _decode_inputs(torch, np, case, dtype, dev):
     """(q, lk, lv, uk, uv, lengths, cos, sin) and the lengths of a
     ``flash_decode`` case."""
     from repro_torch.models import layers as L
-    name, b, h, kv, d, rk, rv, l, spread = case
+    name, b, h, kv, d, rk, rv, l, spread = case[:9]
     gen = torch.Generator(device=dev).manual_seed(rk + rv + l)
     q = torch.randn(b, h, d, generator=gen, device=dev).to(dtype)
     lk = torch.randn(b, l, rk, generator=gen, device=dev).to(dtype)
@@ -1386,12 +1440,18 @@ def _decode_inputs(torch, np, case, dtype, dev):
     return (q, lk, lv, uk, uv, lengths, cos, sin), lens
 
 
+def _rope(case):
+    """A flash_decode case's rope flag (its 10th field; default True)."""
+    return case[9] if len(case) > 9 else True
+
+
 def check_flash_decode(torch, np, ops, ref, case, dtype, timed, dev):
     from repro_torch.kernels import flash_decode as fd
-    name, b, h, kv, d, rk, rv, l, spread = case
+    name, b, h, kv, d, rk, rv, l, spread = case[:9]
+    rope = _rope(case)
     args, lens = _decode_inputs(torch, np, case, dtype, dev)
-    want = ref.flash_decode_ref(*args)
-    got = ops.flash_decode(*args)
+    want = ref.flash_decode_ref(*args, rope=rope)
+    got = ops.flash_decode(*args, rope=rope)
     err = rel_fro(got, want)
     mae = float((got.float() - want.float()).abs().max())
     # all arithmetic fp32 in both, summed in another order: 1e-5 relative
@@ -1402,13 +1462,17 @@ def check_flash_decode(torch, np, ops, ref, case, dtype, timed, dev):
     p = fd.plan(b, l, h, kv, d, rk, rv, dtype)
     row = {"case": name, "shape": [b, h, kv, d, rk, rv, l],
            "dtype": str(dtype).replace("torch.", ""), "lengths": lens,
-           "body": p.body, "work_items": len(p.items(lens)),
+           "rope": rope, "body": p.body, "work_items": len(p.items(lens)),
            "rel_fro_err": err, "max_abs_err": mae}
     if timed:
-        row["ms"] = time_ms(lambda: ops.flash_decode(*args))
-        row["device_ms"] = device_ms(lambda: ops.flash_decode(*args))
-        row["kernels_device_ms"] = kernel_ms(lambda: ops.flash_decode(*args))
-        row["plain_ms"] = time_ms(lambda: ref.flash_decode_ref(*args))
+        def call():
+            return ops.flash_decode(*args, rope=rope)
+
+        row["ms"] = time_ms(call)
+        row["device_ms"] = device_ms(call)
+        row["kernels_device_ms"] = kernel_ms(call)
+        row["plain_ms"] = time_ms(lambda: ref.flash_decode_ref(
+            *args, rope=rope))
         # no single PyTorch call computes attention with in-kernel key
         # up-projection and latent-space values
         row["library_ms"] = None
@@ -1441,13 +1505,14 @@ def check_flash_decode_alone(torch, np, ops, case, dtype, dev):
     L or the other slots."""
     args, lens = _decode_inputs(torch, np, case, dtype, dev)
     q, lk, lv, uk, uv, lengths, cos, sin = args
-    whole = ops.flash_decode(*args)
+    rope = _rope(case)
+    whole = ops.flash_decode(*args, rope=rope)
     same = []
     for bi, n in enumerate(lens):
         alone = ops.flash_decode(
             q[bi:bi + 1].contiguous(), lk[bi:bi + 1, :n].contiguous(),
             lv[bi:bi + 1, :n].contiguous(), uk, uv, lengths[bi:bi + 1],
-            cos[:n].contiguous(), sin[:n].contiguous())
+            cos[:n].contiguous(), sin[:n].contiguous(), rope=rope)
         same.append(bool(torch.equal(alone[0], whole[bi])))
     row = {"case": case[0], "dtype": str(dtype).replace("torch.", ""),
            "lengths": lens, "alone_bitwise_equal": same}
@@ -2476,17 +2541,21 @@ def top_kernels(kernels, n):
     return top
 
 
-def profile_engine(torch, np, TS, cfg, comp, layout, sizes):
+def profile_engine(torch, np, TS, cfg, comp, layout, sizes, *, extras=None,
+                   max_len=None):
     """Device time by kernel of a short engine run (8 slots, 256-token
     prompts, 16 steps) under ``torch.profiler`` (device activity only), and
     the device's busy share of the same run's wall time without the
-    profiler."""
+    profiler.  ``extras(i)``: request i's frontend inputs (the multimodal
+    archs); ``max_len`` overrides the engine's."""
     from torch.profiler import ProfilerActivity, profile
 
-    slots, max_len, chunk = sizes["serve_engine"][:3]
+    slots, max_len_, chunk = sizes["serve_engine"][:3]
+    max_len = max_len or max_len_
     rng = np.random.default_rng(11)
     reqs = [TS.Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, (256,),
-                                                  dtype=np.int32), steps=16)
+                                                  dtype=np.int32), steps=16,
+                       extras=None if extras is None else extras(i))
             for i in range(slots)]
     eng = TS.ContinuousBatchingServer(cfg, comp, max_len=max_len,
                                       slots=slots, prefill_chunk=chunk,
@@ -4579,16 +4648,643 @@ def phase_ssm(torch, np, ops, dev="cuda", sizes=SIZES, arch="zamba2-7b",
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 4 and 14: the multimodal archs (whisper-base, phi-3-vision-4.2b)
+
+
+def frontend_inputs(torch, cfg, n, gen, dev):
+    """The stub frontends' inputs of ``n`` sequences, 0.02·N(0, 1) as the
+    JAX package's data makes them: ``patches`` (n, P, d) for a vision
+    model, ``frames`` (n, Le, d) for whisper, nothing else."""
+    if cfg.frontend == "vision":
+        return {"patches": 0.02 * torch.randn(
+            (n, cfg.num_patches, cfg.d_model), generator=gen, device=dev)}
+    if cfg.frontend == "audio":
+        return {"frames": 0.02 * torch.randn(
+            (n, cfg.encoder_seq_len, cfg.d_model), generator=gen,
+            device=dev)}
+    return {}
+
+
+def lm_labels(torch, cfg, t):
+    """(tokens, labels) of a (B, L + 1) draw; a vision model's labels span
+    its patches too, zeros there, as the JAX package's data makes them."""
+    tokens, labels = t[:, :-1], t[:, 1:]
+    if cfg.frontend == "vision":
+        labels = torch.cat([labels.new_zeros((t.shape[0], cfg.num_patches)),
+                            labels], dim=1)
+    return tokens, labels
+
+
+def unit_map_gaps(torch, P, cfg, comp_a, comp_b, report):
+    """[(unit, path, plain rel err, rel err on the shifted stream, condition
+    number of X′ᵀX′)] of every compressed linear of two compressions of
+    one model, in solve order (``report`` from a ``debug_covs`` run: the
+    X′ᵀX′ the solve saw).  The shifted-stream error is ||X′ΔW|| /
+    ||X′W||."""
+    covs = {u["name"]: u.get("covs", {}) for u in report["units"]}
+    out = []
+    for ua, ub in zip(P.unit_iterator(comp_a, cfg),
+                      P.unit_iterator(comp_b, cfg)):
+        if ua.params is None:
+            continue
+        for spec in P.linear_specs(ua.kind, cfg):
+            la = P.get_path(ua.params, spec.path)
+            lb = P.get_path(ub.params, spec.path)
+            ga = (la["v"].cpu().double() @ la["u"].cpu().double())
+            gb = (lb["v"].cpu().double() @ lb["u"].cpu().double())
+            xpxp = covs[ua.name][spec.tap]["xpxp"].cpu().double()
+            lam = torch.linalg.eigvalsh(xpxp)
+            cond = float(lam[-1] / lam[0].clamp(min=1e-300))
+            out.append((ua.name, spec.path, rel_fro(ga, gb),
+                        _shifted_error(torch, ga, gb, xpxp), cond))
+    return out
+
+
+def _worst(gaps, col):
+    row = max(gaps, key=lambda g: g[col])
+    return row[col], f"{row[0]} {row[1]}"
+
+
+def phase_refine_off(torch, np, dev="cuda", arch="gemma3-1b",
+                     calib_shape=(8, 32)):
+    """ROADMAP 3j's check: ``arch``'s smoke config compressed card against
+    CPU at ``calib_shape`` tokens with one refine epoch and without, the
+    composed maps of both compared plainly and on the shifted stream, with
+    each map's X′ᵀX′ condition number: whether the closed-form solves
+    agree to 1e-3 where the refined models did not.  Printed, not held."""
+    from repro_torch import configs
+    from repro_torch.core import pipeline as P
+    from repro_torch.models import model as M
+
+    cfg = configs.get_smoke_config(arch).replace(dtype="float32")
+    params = M.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(0)
+    calib = {"tokens": rng.integers(0, cfg.vocab_size, calib_shape)}
+    out = {}
+    for refine in (False, True):
+        runs = {}
+        for name, d in (("card", dev), ("cpu", "cpu")):
+            runs[name] = P.compress_model(params, cfg, calib, P.CompressConfig(
+                ratio=0.6, rank_multiple=1, microbatch=2, calib_mode="fused",
+                refine_epochs=1, refine=refine, debug_covs=True), device=d)
+        gaps = unit_map_gaps(torch, P, cfg, runs["card"][0], runs["cpu"][0],
+                             runs["cpu"][1])
+        by_unit = {}
+        for unit, path, plain, shifted, cond in gaps:
+            u = by_unit.setdefault(unit, {"plain": 0.0, "shifted": 0.0,
+                                          "cond_max": 0.0})
+            u["plain"] = max(u["plain"], plain)
+            u["shifted"] = max(u["shifted"], shifted)
+            u["cond_max"] = max(u["cond_max"], cond)
+        key = "refined" if refine else "solves"
+        out[key] = {"plain": _worst(gaps, 2), "shifted": _worst(gaps, 3),
+                    "by_unit": by_unit,
+                    "first_unit_past_1e-3": next(
+                        (g[0] for g in gaps if g[2] > 1e-3), None)}
+    log(f"3j {arch} ({calib_shape[0]} x {calib_shape[1]} tokens):",
+        json.dumps(out))
+    return out
+
+
+def phase_smoke_multimodal_serve(torch, np, cfg, comp, dev):
+    """A compressed multimodal smoke model (fp32) served on the card
+    (kernels) and on the CPU (plain versions) from the same params, prompts
+    and frontend inputs: the engine over the latent and the dense cache (3
+    requests on 2 slots, every one ``whole_extras``) and ``Server`` (3
+    prompts on 4 slots); tokens equal, teacher-forced logits (prefill, then
+    8 decode steps at per-slot positions over the latent cache) within
+    1e-4."""
+    from repro_torch.launch import serve as TS
+    from repro_torch.models import model as M
+
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, cfg.vocab_size, (3, 24), dtype=np.int32)
+    extras = frontend_inputs(torch, cfg, 3,
+                             torch.Generator().manual_seed(2), "cpu")
+    extra = TS._prefill_extra_len(cfg)
+    lens = (5, 21, 13)
+    max_len = 48 + extra
+    toks, logits = {}, {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        runs = {}
+        for layout in ("auto", "dense"):
+            eng = TS.ContinuousBatchingServer(cfg, comp, max_len=max_len,
+                                              slots=2, prefill_chunk=8,
+                                              cache_layout=layout, device=d)
+            res = eng.run([TS.Request(
+                rid=i, prompt=prompts[i, :n], steps=8,
+                extras={k: v[i:i + 1] for k, v in extras.items()})
+                for i, n in enumerate(lens)])
+            require(set(eng.prefill_routes.values()) == {"whole_extras"},
+                    f"smoke serve {cfg.name}: routes {eng.prefill_routes}")
+            runs[f"engine_{layout}"] = [res[i]["tokens"].tolist()
+                                        for i in range(3)]
+        fixed = TS.Server(cfg, comp, max_len=max_len, batch=4, device=d)
+        runs["server"] = fixed.generate(prompts, steps=8,
+                                        extras=extras).cpu().tolist()
+        toks[name] = runs
+        p = fixed.params
+        cache = M.init_cache(cfg, 3, max_len, params=p, device=d)
+        seq = torch.from_numpy(prompts).to(d)
+        ex = {k: v.to(d) for k, v in extras.items()}
+        with torch.inference_mode():
+            rows = [M.prefill(p, cfg, {"tokens": seq[:, :16], **ex},
+                              cache)[0]]
+            for i in range(16, 24):
+                pos = torch.tensor([i, i - 5, i - 11], dtype=torch.int32,
+                                   device=d) + extra
+                rows.append(M.decode_step(p, cfg, cache, seq[:, i:i + 1],
+                                          pos)[0])
+        logits[name] = torch.stack(rows).cpu()
+    err = rel_fro(logits["card"], logits["cpu"])
+    tag = f"smoke serve {cfg.name}"
+    log(f"{tag}: tokens card {json.dumps(toks['card'])} cpu "
+        f"{json.dumps(toks['cpu'])}; teacher-forced logits rel err (card vs "
+        f"cpu) {err:.3e}")
+    require(toks["card"] == toks["cpu"], f"{tag}: tokens differ between the "
+            "card and the CPU")
+    require(err <= 1e-4, f"{tag}: logits differ by {err:.3e}")
+    return {"tokens": toks["card"], "logits_rel_err": err}
+
+
+def phase_smoke_multimodal(torch, np, dev="cuda", arch="whisper-base",
+                           calib_shape=(16, 32), conditioned=True):
+    """whisper-base's or phi-3-vision's smoke config (fp32) compressed on
+    the card and on the CPU from the same params, ``calib_shape`` uniform
+    tokens and frontend inputs (patches at 0.02·N(0, 1), the embeddings'
+    scale), with one refine epoch and without: unit names (``enc.*`` then
+    ``dec.*``) and ranks equal; the composed maps of the closed-form solves
+    within 1e-3 on the shifted stream the solve saw (||X′ΔW|| / ||X′W||:
+    a LayerNorm's output has zero feature mean, so the ones vector is in
+    every whisper tap's null space and its map along it is fp32 rounding
+    on either device; the plain gap and each map's condition number
+    printed), the refined maps' gaps printed; the refined models' CE
+    within 1e-3; then served on both (``phase_smoke_multimodal_serve``).
+    Whisper's stream is made well conditioned as its CPU tests make it
+    (``tests/test_torch_whisper.py``; ROADMAP hazard 3k): frames N(0, 1)
+    and the embedding table scaled by 50, else the sinusoid positions every
+    sequence shares dwarf the 0.02-scale embeddings and frames, and the
+    taps' condition numbers reach 1e7-1e10 (the maps of unit 0, on equal
+    inputs, 1.2e-3 apart on the card's and the CPU's stream).
+    ``conditioned=False`` is that diagnostic: the 0.02 scales, the maps and
+    CE printed, not held, nothing served."""
+    from repro_torch import configs
+    from repro_torch.core import pipeline as P
+    from repro_torch.models import model as M
+
+    cfg = configs.get_smoke_config(arch).replace(dtype="float32")
+    params = M.init_params(cfg, 0, device="cpu")
+    scale = 0.02
+    if conditioned and cfg.family == "encdec":
+        params["embed"]["table"] = params["embed"]["table"] * 50.0
+        scale = 1.0
+    rng = np.random.default_rng(0)
+    gen = torch.Generator().manual_seed(3)
+    calib = {"tokens": rng.integers(0, cfg.vocab_size, calib_shape),
+             **{k: v * (scale / 0.02) for k, v in frontend_inputs(
+                 torch, cfg, calib_shape[0], gen, "cpu").items()}}
+    t = torch.randint(0, cfg.vocab_size, (8, 33), generator=gen)
+    tokens, labels = lm_labels(torch, cfg, t)
+    batch = {"tokens": tokens, "labels": labels,
+             **{k: v * (scale / 0.02) for k, v in
+                frontend_inputs(torch, cfg, 8, gen, "cpu").items()}}
+    out = {}
+    for refine in (True, False):
+        for name, d in (("card", dev), ("cpu", "cpu")):
+            comp, rep = P.compress_model(params, cfg, calib, P.CompressConfig(
+                ratio=0.6, rank_multiple=1, microbatch=2, calib_mode="fused",
+                refine_epochs=1, refine=refine, debug_covs=True), device=d)
+            with torch.no_grad():
+                ce = float(M.loss_fn(comp, cfg, {
+                    k: v.to(d) for k, v in batch.items()})[1]["ce"])
+            out[name, refine] = (comp, rep, ce)
+    units = {key: [u["name"] for u in out[key][1]["units"]] for key in out}
+    ranks = {key: [[lin["rank"] for lin in u["linears"]]
+                   for u in out[key][1]["units"]] for key in out}
+    held = conditioned or cfg.family != "encdec"
+    tag = f"smoke {arch}" + ("" if held else
+                             f" (frames and embeddings at {scale}, printed)")
+    require(len({json.dumps(u) for u in units.values()}) == 1,
+            f"{tag}: units differ {units}")
+    require(len({json.dumps(r) for r in ranks.values()}) == 1,
+            f"{tag}: ranks differ {ranks}")
+    if cfg.family == "encdec":
+        names = units["cpu", True]
+        n_enc = cfg.num_encoder_layers
+        require(names == [f"enc.{i}.enc_attn" for i in range(n_enc)]
+                + [f"dec.{i}.dec_attn" for i in range(cfg.num_layers)],
+                f"{tag}: unit order {names}")
+    gaps = {refine: unit_map_gaps(torch, P, cfg, out["card", refine][0],
+                                  out["cpu", refine][0],
+                                  out["cpu", refine][1])
+            for refine in (False, True)}
+    solved = _worst(gaps[False], 3)
+    lc, lp = out["card", True][2], out["cpu", True][2]
+    res = {"units": units["cpu", True], "ranks": ranks["cpu", True],
+           "solves_shifted": solved, "solves_plain": _worst(gaps[False], 2),
+           "refined_shifted": _worst(gaps[True], 3),
+           "refined_plain": _worst(gaps[True], 2),
+           "cond_max": max(g[4] for g in gaps[False]),
+           "ce_cuda": lc, "ce_cpu": lp,
+           "maps": [list(g) for g in gaps[False]]}
+    log(f"{tag} ({calib_shape[0]} x {calib_shape[1]} tokens):",
+        json.dumps({k: v for k, v in res.items() if k != "maps"}))
+    log(f"{tag} solves (unit, path, plain, shifted, cond):",
+        json.dumps(res["maps"]))
+    if not held:
+        return res
+    require(solved[0] <= 1e-3, f"{tag}: composed maps of the solves differ "
+            f"by {solved[0]:.3e} on the shifted stream ({solved[1]})")
+    require(abs(lc / lp - 1) <= 1e-3, f"{tag} CE {lc} vs {lp}")
+    res["serve"] = phase_smoke_multimodal_serve(torch, np, cfg,
+                                                out["cpu", True][0], dev)
+    return res
+
+
+def multimodal_cache_bytes(M, B, cfg, slots, max_len, params):
+    """Bytes of the engine's decode cache by part, from its own shapes
+    (allocated on the ``meta`` device): the self-attention cache a token a
+    layer (latent or dense), whisper's cross-attention {"xk", "xv"} a slot
+    a layer, and the total."""
+    cache = M.init_cache(cfg, slots, max_len, params=params, device="meta")
+    layers = sum(st.n for st in B.stage_program(cfg))
+    by = {"self": 0, "cross": 0}
+    layout = None
+    for per_kind in cache:
+        for c in per_kind:
+            layout = "latent" if "lk" in c else "dense"
+            for key, t in c.items():
+                part = "cross" if key in ("xk", "xv") else "self"
+                by[part] += t.numel() * t.element_size()
+    out = {"layout": layout,
+           "self_per_token_layer": by["self"] // (slots * max_len * layers),
+           "total": by["self"] + by["cross"]}
+    if by["cross"]:
+        out["cross_per_slot_layer"] = by["cross"] // (slots * layers)
+    return out
+
+
+def phase_multimodal(torch, np, ops, dev="cuda", sizes=SIZES,
+                     arch="whisper-base", cfg=None):
+    """Phase 14.  (a) whisper-base at its published widths and full depth
+    (6 encoder + 6 decoder layers over 1500 frames; d_model 512, 8 heads of
+    64, d_ff 2048, vocab 51865; gelu, LayerNorm, tied embeddings), random
+    weights: calibration 8 x 448 decoder tokens with 8 x 1500 frames,
+    microbatch 4, ratio 0.6, fused, one refine epoch; eval CE; ``Server``
+    (dense cache: causal decode in the split body, cross-attention over
+    1500 frames non-causal); the engine over the latent cache
+    (``flash_decode`` at D 64 with ``rope=False``, every launch in the
+    wgmma body) and over the dense one, every request ``whole_extras``.
+    (b) phi-3-vision-4.2b at its published widths (d_model 3072, 32 heads
+    of 96, d_ff 8192, vocab 32064, 256 patches), depth cut 32 ->
+    ``vision_layers``: calibration 8 x (256 patches + 768 tokens), then
+    ``Server`` 8 x (256 + 512) and the engine over the latent cache
+    (``flash_decode`` at D 96, every launch in the wgmma body) and the
+    dense one.  Both: stage seconds, peak memory, TTFT, decode-step ms,
+    cache bytes, launches by kernel and body, one teacher-forced sequence
+    over both caches (fp32 1e-4), ``decode_step`` under
+    ``set_sync_debug_mode("error")``, a profiled engine run."""
+    import repro_torch
+    from repro_torch import configs
+    from repro_torch.launch import serve as TS
+    from repro_torch.models import blocks as B
+    from repro_torch.models import model as M
+
+    on_card = torch.device(dev).type == "cuda"
+    whisper = arch == "whisper-base"
+    tag = "whisper" if whisper else "vision"
+    sz = sizes[f"{tag}_shapes"]
+    if cfg is None:
+        cfg = configs.get_config(arch)
+    full = cfg.num_layers
+    if not whisper:
+        cfg = cfg.replace(num_layers=sizes["vision_layers"])
+    program = [(st.kinds, st.n) for st in B.stage_program(cfg)]
+    enc = [(st.kinds, st.n) for st in B.encoder_stages(cfg)]
+    log(f"{tag}: {arch} widths d_model {cfg.d_model} heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} head_dim {cfg.head_dim} d_ff "
+        f"{cfg.d_ff} vocab {cfg.vocab_size} act {cfg.act_fn} norm "
+        f"{cfg.norm} frontend {cfg.frontend} encoder_seq_len "
+        f"{cfg.encoder_seq_len} num_patches {cfg.num_patches}; dtype "
+        f"{cfg.dtype} params {cfg.param_dtype}; num_layers {full} -> "
+        f"{cfg.num_layers}; encoder {enc}; decoder {program}")
+    want = ([(("dec_attn",), cfg.num_layers)] if whisper
+            else [(("attn",), cfg.num_layers)])
+    require(program == want and (not whisper or enc == [
+        (("enc_attn",), cfg.num_encoder_layers)]),
+        f"{tag}: stage programs {enc} {program}")
+    out = {"layers": cfg.num_layers, "encoder_layers": cfg.num_encoder_layers,
+           "program": [[list(k), n] for k, n in enc + program]}
+
+    params = M.init_params(cfg, 0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n_cal, l_cal = sz["calib"]
+    calib = {"tokens": torch.randint(0, cfg.vocab_size, (n_cal, l_cal),
+                                     generator=gen, device=dev),
+             **frontend_inputs(torch, cfg, n_cal, gen, dev)}
+    evals = []
+    n_eval, b_eval, l_eval = sz["evals"]
+    for _ in range(n_eval):
+        t = torch.randint(0, cfg.vocab_size, (b_eval, l_eval + 1),
+                          generator=gen, device=dev)
+        tokens, labels = lm_labels(torch, cfg, t)
+        evals.append({"tokens": tokens, "labels": labels,
+                      **frontend_inputs(torch, cfg, b_eval, gen, dev)})
+    ccfg = repro_torch.CompressConfig(ratio=0.6, calib_mode="fused",
+                                      refine_epochs=1,
+                                      microbatch=sizes["microbatch"])
+
+    def eval_ce(p):
+        with torch.no_grad():
+            return [float(M.loss_fn(p, cfg, b)[1]["ce"]) for b in evals]
+
+    _sync(torch, dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    stages = {}
+    t0 = time.perf_counter()
+    comp, report = repro_torch.compress_model(params, cfg, calib, ccfg,
+                                              device=dev, stage_times=stages)
+    t_compress = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    bodies = dict(ops.FLASH_BODIES)
+    rows = lowrank_rows(ops)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    t0 = time.perf_counter()
+    dense = eval_ce(params)
+    compressed = eval_ce(comp)
+    stages["eval"] = time.perf_counter() - t0
+    ratio = repro_torch.compress_ratio_report(params, comp)
+    eval_busy = (eval_busy_share(torch, M, cfg, comp, evals[0]) if on_card
+                 else None)
+    del params
+    ranks = {}
+    for u in report["units"]:
+        ranks.update({f"{u['name'].split('.')[0]}.{lin['path']}": lin["rank"]
+                      for lin in u.get("linears", [])})
+    names = [u["name"] for u in report["units"]]
+    out["compress"] = {
+        "stages": stages, "wall_s": t_compress, "peak_bytes": peak,
+        "launches": launches, "lowrank_rows": rows, "flash_bodies": bodies,
+        "ratio": ratio, "ranks": ranks, "dense": dense,
+        "compressed": compressed, "units": names,
+        "tapped_forwards": report["calibration"]["tapped_forwards"],
+        "eval_busy": eval_busy,
+        "unit_mse": [[u["name"], u.get("pre_refine_mse"),
+                      u.get("post_refine_mse")] for u in report["units"]]}
+    log(f"{tag}: compress", json.dumps(out["compress"]))
+    log(f"{tag}: compress wall {t_compress:.3f} s (solve "
+        f"{stages.get('solve', 0.0):.3f} s), peak device memory "
+        f"{peak / 2**30:.3f} GiB; eval CE dense {dense} compressed "
+        f"{compressed}")
+    vals = dense + compressed + [v for u in report["units"]
+                                 for v in (u.get("pre_refine_mse", 0.0),
+                                           u.get("post_refine_mse", 0.0))]
+    require(all(math.isfinite(v) for v in vals), f"{tag}: non-finite {vals}")
+    for name in ("cov_accum", "lowrank_matmul", "flash_attention"):
+        require(launches[name] > 0,
+                f"{tag}: kernel {name} never launched on compression")
+    for name in ("grouped_matmul", "cov_accum_banked", "flash_decode"):
+        require(launches[name] == 0, f"{tag}: {name} launched "
+                f"{launches[name]} times on compression")
+    require(not on_card or bodies.get("wgmma", 0) > 0,
+            f"{tag}: flash_attention's wgmma body never taken: {bodies}")
+    if whisper:
+        want_names = ([f"enc.{i}.enc_attn"
+                       for i in range(cfg.num_encoder_layers)]
+                      + [f"dec.{i}.dec_attn" for i in range(cfg.num_layers)])
+        want_ranks = {"enc.attn.wq": 160, "enc.attn.wo": 160,
+                      "enc.ffn.up": 248, "enc.ffn.down": 248,
+                      "dec.attn.wk": 160, "dec.xattn.wk": 160,
+                      "dec.xattn.wo": 160, "dec.ffn.down": 248}
+    else:
+        want_names = [f"dec.{i}.attn" for i in range(cfg.num_layers)]
+        want_ranks = {"dec.attn.wq": 928, "dec.attn.wk": 928,
+                      "dec.attn.wo": 928, "dec.ffn.gate": 1344,
+                      "dec.ffn.down": 1344}
+    require(names == want_names, f"{tag}: units {names}")
+    if cfg.d_model in (512, 3072):     # the published widths
+        require(all(ranks.get(k) == v for k, v in want_ranks.items()),
+                f"{tag}: ranks {ranks}, want {want_ranks}")
+    if on_card:
+        torch.cuda.empty_cache()
+
+    def extras_of(n, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return frontend_inputs(torch, cfg, n, g, dev)
+
+    def gates(run, launches, bodies, decode_bodies, latent):
+        require(launches["lowrank_matmul"] > 0,
+                f"{tag} {run}: lowrank_matmul never launched")
+        require(launches["flash_attention"] > 0,
+                f"{tag} {run}: flash_attention never launched")
+        require(launches["grouped_matmul"] == 0,
+                f"{tag} {run}: grouped_matmul launched")
+        if latent:
+            require(launches["flash_decode"] > 0,
+                    f"{tag} {run}: flash_decode never launched")
+            require(not on_card or (decode_bodies.get("wgmma", 0)
+                                    == launches["flash_decode"]),
+                    f"{tag} {run}: flash_decode outside its wgmma body: "
+                    f"{decode_bodies}")
+        else:
+            require(launches["flash_decode"] == 0,
+                    f"{tag} {run}: flash_decode launched over a dense cache")
+        # a dense cache's decode, and whisper's cross-attention at decode
+        # under either layout, take the split body (one-row queries)
+        require(not on_card or (latent and not whisper)
+                or bodies.get("split", 0) > 0,
+                f"{tag} {run}: no decode in the split body: {bodies}")
+
+    # (a) fixed batch (its cache built without params: dense)
+    rng = np.random.default_rng(41)
+    b, plen, steps, max_len = sz["serve_dense"]
+    prompts = rng.integers(0, cfg.vocab_size, (b, plen), dtype=np.int32)
+    extras = extras_of(b, 5)
+    srv = TS.Server(cfg, comp, max_len=max_len, batch=b, device=dev)
+    _sync(torch, dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    first = srv.generate(prompts, steps=1, extras=extras).cpu()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    toks = srv.generate(prompts, steps=steps, extras=extras).cpu()
+    t_all = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    bodies = dict(ops.FLASH_BODIES)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    gates("Server", launches, bodies, dict(ops.DECODE_BODIES), False)
+    require(tuple(toks.shape) == (b, steps) and torch.equal(toks[:, :1],
+                                                            first)
+            and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+            f"{tag}: Server tokens malformed: {tuple(toks.shape)}")
+    decode_s = t_all - t_prefill
+    out["server"] = {
+        "launches": launches, "lowrank_rows": lowrank_rows(ops),
+        "flash_bodies": bodies, "ttft_s": t_prefill,
+        "prefill_tokens_per_s": b * plen / t_prefill,
+        "decode_tokens_per_s": b * (steps - 1) / decode_s,
+        "decode_step_ms": decode_s / (steps - 1) * 1e3,
+        "generate_s": t_all, "peak_bytes": peak,
+        "cache": multimodal_cache_bytes(M, B, cfg, b, max_len, None),
+        "tokens_head": toks[:, :8].tolist()}
+    log(f"{tag} (a) Server:", json.dumps(out["server"]))
+    del srv
+
+    # (b) continuous batching over the latent cache, (b') over the dense one
+    slots, max_len, n_req, (lo, hi), steps = sz["serve_engine"]
+    lens = rng.integers(lo, hi + 1, n_req)
+    req_extras = extras_of(n_req, 6)
+    reqs = [TS.Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, (n,),
+                                                  dtype=np.int32),
+                       steps=steps,
+                       extras={k: v[i:i + 1] for k, v in req_extras.items()})
+            for i, n in enumerate(lens)]
+    results = {}
+    for key, layout in (("engine", "auto"), ("engine_dense", "dense")):
+        eng = TS.ContinuousBatchingServer(cfg, comp, max_len=max_len,
+                                          slots=slots, prefill_chunk=256,
+                                          cache_layout=layout, device=dev)
+        _sync(torch, dev)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = eng.run(reqs)
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        bodies = dict(ops.FLASH_BODIES)
+        decode_bodies = dict(ops.DECODE_BODIES)
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        latent = layout == "auto"
+        gates(key, launches, bodies, decode_bodies, latent)
+        require(sorted(res) == list(range(n_req)) and all(
+            len(r["tokens"]) == steps
+            and ((r["tokens"] >= 0) & (r["tokens"] < cfg.vocab_size)).all()
+            for r in res.values()), f"{tag} {key}: results malformed")
+        require(set(eng.prefill_routes.values()) == {"whole_extras"},
+                f"{tag} {key}: prefill routes {eng.prefill_routes}")
+        ttft = [res[i]["first_token"] - res[i]["arrival"]
+                for i in range(n_req)]
+        prefill_s = [res[i]["first_token"] - res[i]["admitted"]
+                     for i in range(n_req)]
+        times = eng.decode_step_times
+        out[key] = {
+            "launches": launches, "lowrank_rows": lowrank_rows(ops),
+            "flash_bodies": bodies, "decode_bodies": decode_bodies,
+            "wall_s": wall, "requests": n_req, "prompt_lens": lens.tolist(),
+            "ttft_s_median": statistics.median(ttft), "ttft_s_max": max(ttft),
+            "prefill_tokens_per_s": float(sum(lens)) / sum(prefill_s),
+            "decode_steps": len(times),
+            "decode_step_ms_median": statistics.median(times) * 1e3,
+            "decode_tokens_per_s": n_req * (steps - 1) / sum(times),
+            "cache": multimodal_cache_bytes(M, B, cfg, slots, max_len,
+                                            eng._cache_params),
+            "peak_bytes": peak}
+        results[key] = res
+        if latent:
+            eng_latent = eng
+        label = "(b) engine latent" if latent else "(b') engine dense"
+        log(f"{tag} {label}:", json.dumps(out[key]))
+    same = sum(int((results["engine_dense"][i]["tokens"]
+                    == results["engine"][i]["tokens"]).sum())
+               for i in range(n_req))
+    out["engine_dense"]["tokens_equal_to_latent"] = same / (n_req * steps)
+    eb = 2 if cfg.dtype == "bfloat16" else 4
+    lat, den = out["engine"]["cache"], out["engine_dense"]["cache"]
+    out["cache"] = {"latent": lat, "dense": den,
+                    "latent_share": (lat["self_per_token_layer"]
+                                     / den["self_per_token_layer"]),
+                    "ranks_k_v": [ranks["dec.attn.wk"],
+                                  ranks["dec.attn.wv"]]}
+    log(f"{tag}: cache bytes", json.dumps(out["cache"]))
+    require(lat["layout"] == "latent" and lat["self_per_token_layer"]
+            == (ranks["dec.attn.wk"] + ranks["dec.attn.wv"]) * eb,
+            f"{tag}: latent cache {lat}")
+    require(den["layout"] == "dense" and den["self_per_token_layer"]
+            == 2 * cfg.num_kv_heads * cfg.head_dim * eb,
+            f"{tag}: dense cache {den}")
+    if whisper:
+        want_x = 2 * cfg.encoder_seq_len * cfg.num_kv_heads * cfg.head_dim * eb
+        require(lat["cross_per_slot_layer"] == den["cross_per_slot_layer"]
+                == want_x, f"{tag}: cross-attention cache a slot a layer "
+                f"{lat.get('cross_per_slot_layer')}, want {want_x}")
+
+    # (c) one teacher-forced sequence decoded over the latent and the dense
+    # cache, with bf16 and with fp32 activations
+    plen, n_dec, max_len = sz["serve_check"]
+    p = eng_latent.params
+    seq = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, plen + n_dec),
+                                        dtype=np.int32)).to(dev)
+    ex = extras_of(1, 7)
+    extra = TS._prefill_extra_len(cfg)
+    logits = {}
+    with torch.inference_mode():
+        for act in ("bfloat16", "float32"):
+            c = cfg.replace(dtype=act)
+            for layout in ("latent", "dense"):
+                cache_ = M.init_cache(c, 1, max_len, params=p if layout ==
+                                      "latent" else None, device=dev)
+                rows_ = [M.prefill(p, c, {"tokens": seq[:, :plen], **ex},
+                                   cache_)[0]]
+                for i in range(plen, plen + n_dec):
+                    pos = torch.tensor([i + extra], dtype=torch.int32,
+                                       device=dev)
+                    rows_.append(M.decode_step(p, c, cache_,
+                                               seq[:, i:i + 1], pos)[0])
+                logits[f"{layout}_{act}"] = torch.cat(rows_)
+                del cache_
+    checks = {f"latent_vs_dense_decode_{act}": rel_fro(
+        logits[f"latent_{act}"][1:], logits[f"dense_{act}"][1:])
+        for act in ("bfloat16", "float32")}
+    checks["bf16_vs_fp32_decode"] = {
+        layout: rel_fro(logits[f"{layout}_bfloat16"][1:],
+                        logits[f"{layout}_float32"][1:])
+        for layout in ("latent", "dense")}
+    del logits
+    out["checks"] = checks
+    log(f"{tag} (c) checks (rel Frobenius):", json.dumps(checks))
+    # fp32 activations: one function through flash_decode (keys up-projected
+    # on chip) and through flash_attention over stored keys, sums in another
+    # order: 1e-4, as phases 6, 12 and 13
+    key = "latent_vs_dense_decode_float32"
+    require(math.isfinite(checks[key]) and checks[key] <= 1e-4,
+            f"{tag}: {key} {checks[key]:.3e} > 1e-4")
+
+    if on_card:
+        out["host_syncs"] = decode_syncs(torch, M, cfg, eng_latent)
+        log(f"{tag} (d) host syncs (torch.cuda.set_sync_debug_mode):",
+            json.dumps(out["host_syncs"]))
+        require(out["host_syncs"]["decode_step_raised"] is None,
+                f"{tag}: the decode step synchronized the host: "
+                f"{out['host_syncs']['decode_step_raised']}")
+        prof_extras = extras_of(sizes["serve_engine"][0], 8)
+        out["profile"] = profile_engine(
+            torch, np, TS, cfg, comp, "auto", sizes,
+            extras=lambda i: {k: v[i:i + 1] for k, v in prof_extras.items()},
+            max_len=sz["serve_engine"][1])
+        log(f"{tag} (e) device time by kernel:", json.dumps(out["profile"]))
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("lowrank", "cov", "grouped",
-                                       "attention", "decode", "kimi", "ssm"),
+                                       "attention", "decode", "kimi", "ssm",
+                                       "multimodal"),
                     help="phases 1-2 and lowrank_matmul's (cov_accum's, "
                     "grouped_matmul's, flash_attention's, flash_decode's) "
                     "rows of phase 3; kimi: phases 1-2, phase 4's kimi-k2 "
                     "smoke runs and phase 12; ssm: phases 1-2, phase 4's "
-                    "falcon-mamba and zamba2 smoke runs and phase 13")
+                    "falcon-mamba and zamba2 smoke runs and phase 13; "
+                    "multimodal: phases 1-2, phase 3's whisper and "
+                    "phi-3-vision rows, ROADMAP 3j's refine-off check, phase "
+                    "4's whisper and phi-3-vision smoke runs and phase 14")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -4674,6 +5370,48 @@ def main(argv=None) -> int:
             rows["smoke_kimi"] = {d: phase_smoke_kimi(torch, np, dispatch=d)
                                   for d in ("capacity", "dropfree")}
             log(f"phase 4 (kimi): {time.perf_counter() - t0:.3f} s")
+        elif args.only == "multimodal":
+            t0 = time.perf_counter()
+            mm = dict(SIZES)
+            mm["flash_attention"] = tuple(
+                c for c in SIZES["flash_attention"]
+                if c[0].startswith(("whisper", "vision")))
+            mm["flash_attention_ragged"] = ()
+            mm["flash_attention_rows_cases"] = ()
+            mm["flash_decode"] = tuple(
+                c for c in SIZES["flash_decode"]
+                if c[0] in ("whisper", "vision", "ragged_d96",
+                            "ragged_d64_norope"))
+            mm["flash_decode_alone"] = ("vision",)
+            fa_rows, fd_rows, fa_checks, fd_checks = (
+                phase_attention_kernels(torch, np, ops, ref, sizes=mm))
+            rows = {"flash_attention": fa_rows,
+                    "flash_attention_checks": fa_checks,
+                    "flash_decode": fd_rows,
+                    "flash_decode_checks": fd_checks}
+            log(f"phase 3 (multimodal): {time.perf_counter() - t0:.3f} s")
+            t0 = time.perf_counter()
+            rows["refine_off_3j"] = {
+                arch: phase_refine_off(torch, np, arch=arch,
+                                       calib_shape=shape)
+                for arch, shape in SIZES["refine_off_3j"]}
+            log(f"3j: {time.perf_counter() - t0:.3f} s")
+            t0 = time.perf_counter()
+            # whisper at the JAX data's 0.02 scales (hazard 3k), printed
+            rows["smoke_whisper_unconditioned"] = phase_smoke_multimodal(
+                torch, np, arch="whisper-base",
+                calib_shape=SIZES["smoke_calib"], conditioned=False)
+            rows["smoke_mm"] = {
+                arch: phase_smoke_multimodal(
+                    torch, np, arch=arch, calib_shape=SIZES["smoke_calib"])
+                for arch in SIZES["smoke_mm_archs"]}
+            log(f"phase 4 (multimodal): {time.perf_counter() - t0:.3f} s")
+            for key, arch in (("whisper", "whisper-base"),
+                              ("vision", "phi-3-vision-4.2b")):
+                torch.cuda.empty_cache()
+                t0 = time.perf_counter()
+                rows[key] = phase_multimodal(torch, np, ops, arch=arch)
+                log(f"phase 14 ({key}): {time.perf_counter() - t0:.3f} s")
         elif args.only == "ssm":
             t0 = time.perf_counter()
             rows = {"smoke_ssm": {arch: phase_smoke(
@@ -4720,6 +5458,10 @@ def main(argv=None) -> int:
     smoke["ssm"] = {arch: phase_smoke(torch, np, arch=arch,
                                       calib_shape=SIZES["smoke_calib_ssm"])
                     for arch in SIZES["smoke_ssm_archs"]}
+    smoke["multimodal"] = {
+        arch: phase_smoke_multimodal(torch, np, arch=arch,
+                                     calib_shape=SIZES["smoke_calib"])
+        for arch in SIZES["smoke_mm_archs"]}
     log(f"phase 4: {time.perf_counter() - t0:.3f} s")
     # 5. main path: compression
     t0 = time.perf_counter()
@@ -4802,6 +5544,22 @@ def main(argv=None) -> int:
                  "serve_zamba2_engine_dense": zamba2["engine_dense"],
                  "compress_falcon": falcon["compress"],
                  "serve_falcon_server": falcon["server"]}
+    torch.cuda.empty_cache()
+    # 14. the multimodal archs at published widths: whisper-base at full
+    # depth, then phi-3-vision-4.2b at a cut depth
+    t0 = time.perf_counter()
+    whisper = phase_multimodal(torch, np, ops, arch="whisper-base")
+    log(f"phase 14 (a): {time.perf_counter() - t0:.3f} s")
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    vision = phase_multimodal(torch, np, ops, arch="phi-3-vision-4.2b")
+    log(f"phase 14 (b): {time.perf_counter() - t1:.3f} s")
+    log(f"phase 14: {time.perf_counter() - t0:.3f} s")
+    mm_paths = {}
+    for tag, run in (("whisper", whisper), ("vision", vision)):
+        mm_paths[f"compress_{tag}"] = run["compress"]
+        for key in ("server", "engine", "engine_dense"):
+            mm_paths[f"serve_{tag}_{key}"] = run[key]
 
     def timing(row):
         return {"max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -4831,7 +5589,9 @@ def main(argv=None) -> int:
                    **{path: run["launches"][name]
                       for path, run in kimi_paths.items()},
                    **{path: run["launches"][name]
-                      for path, run in ssm_paths.items()}}
+                      for path, run in ssm_paths.items()},
+                   **{path: run["launches"][name]
+                      for path, run in mm_paths.items()}}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": by_path[path],
                 "launches_by_path": by_path, **timing(head)}
@@ -4875,6 +5635,10 @@ def main(argv=None) -> int:
     # down tap 14336)
     cv["ssm"] = [timing(r) for r in cov_rows if "ms" in r
                  and r["shape"][1] in (256, 8192, 14336)]
+    # cov_accum at phase 14's taps (whisper's T 6000 rows at n 512 and
+    # 2048, phi-3-vision's d_model 3072)
+    cv["multimodal"] = [timing(r) for r in cov_rows if "ms" in r
+                        and (r["shape"][0] == 6000 or r["shape"][1] == 3072)]
     # lowrank_matmul's other bodies, where the engine runs them: decode's
     # T 8 (small_t) and the prefill chunk's T 256 (wgmma, split), and its
     # launches on each path by row count
@@ -4897,7 +5661,8 @@ def main(argv=None) -> int:
         **{path: run["lowrank_rows"] for path, run in policy_paths.items()
            if "lowrank_rows" in run},
         **{path: run["lowrank_rows"] for path, run in kimi_paths.items()},
-        **{path: run["lowrank_rows"] for path, run in ssm_paths.items()}}
+        **{path: run["lowrank_rows"] for path, run in ssm_paths.items()},
+        **{path: run["lowrank_rows"] for path, run in mm_paths.items()}}
     # kimi-k2's eight factorized shapes at each T (phase 12)
     kimi_shapes = [list(s) for s in SIZES["lowrank_nkm_kimi"]]
     low["kimi"] = [{**timing(r), "body": r.get("body")} for r in low_rows
@@ -4939,7 +5704,12 @@ def main(argv=None) -> int:
                       ("kimi_prefill_d112", "kimi_prefill"),
                       ("kimi_decode_split_d112", "kimi_decode"),
                       ("zamba2_prefill_d112", "zamba2_prefill"),
-                      ("zamba2_decode_split_d112", "zamba2_decode")):
+                      ("zamba2_decode_split_d112", "zamba2_decode"),
+                      ("whisper_encoder_noncausal", "whisper_encoder"),
+                      ("whisper_cross_noncausal", "whisper_cross"),
+                      ("whisper_cross_decode_split", "whisper_cross_decode"),
+                      ("vision_prefill_d96", "vision_prefill"),
+                      ("vision_decode_split_d96", "vision_decode")):
         row = next(r for r in fa_rows if r["case"] == case and "ms" in r)
         fa[key] = {**timing(row), **{k: row[k] for k in (
             "padded_d", "bound_padded_ms", "bound_padded_by") if k in row}}
@@ -4970,11 +5740,21 @@ def main(argv=None) -> int:
         fdk[key] = timing(next(r for r in fd_rows if "ms" in r
                                and r["case"] == "zamba2"
                                and r["dtype"] == dt))
+    # whisper's decoder (D 64 without RoPE, rank 160) and phi-3-vision (D
+    # 96, rank 928): the wgmma body in bf16, the FMA body in fp32
+    for key, case, dt in (("whisper_d64_norope", "whisper", "bfloat16"),
+                          ("whisper_d64_norope_fp32", "whisper", "float32"),
+                          ("vision_d96", "vision", "bfloat16"),
+                          ("vision_d96_fp32", "vision", "float32")):
+        fdk[key] = timing(next(r for r in fd_rows if "ms" in r
+                               and r["case"] == case and r["dtype"] == dt))
     fdk["launches_by_body"] = {
         "serve_engine": serve_run["engine"]["decode_bodies"],
         "serve_ckpt_engine": policies["engine"]["decode_bodies"],
         "serve_kimi_engine": kimi["engine"]["decode_bodies"],
-        "serve_zamba2_engine": zamba2["engine"]["decode_bodies"]}
+        "serve_zamba2_engine": zamba2["engine"]["decode_bodies"],
+        "serve_whisper_engine": whisper["engine"]["decode_bodies"],
+        "serve_vision_engine": vision["engine"]["decode_bodies"]}
     fa["launches_by_body"] = {
         "compress": main_run["flash_bodies"],
         "serve_server": serve_run["server"]["flash_bodies"],
@@ -4985,7 +5765,8 @@ def main(argv=None) -> int:
         **{path: run["flash_bodies"] for path, run in moe_paths.items()},
         **{path: run["flash_bodies"] for path, run in gemma_paths.items()},
         **{path: run["flash_bodies"] for path, run in kimi_paths.items()},
-        **{path: run["flash_bodies"] for path, run in ssm_paths.items()}}
+        **{path: run["flash_bodies"] for path, run in ssm_paths.items()},
+        **{path: run["flash_bodies"] for path, run in mm_paths.items()}}
     with open(OUT / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "cov_accum": cov_rows,
                    "cov_accum_banked": banked_rows,
@@ -4998,9 +5779,12 @@ def main(argv=None) -> int:
                    "moe_capacity": moe_cap_run, "serve_moe": serve_moe,
                    "gemma": gemma, "policies": policies,
                    "policies_moe": policies_moe, "kimi": kimi,
-                   "zamba2": zamba2, "falcon": falcon},
+                   "zamba2": zamba2, "falcon": falcon, "whisper": whisper,
+                   "vision": vision},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
+    # the card's line again, inside the tail a caller may keep of the output
+    print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

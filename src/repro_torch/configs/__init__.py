@@ -7,9 +7,11 @@ dense-attention archs qwen3-0.6b (qk_norm, tied embeddings), granite-3-8b
 and phi3-medium-14b (GQA), and gemma3-1b (5 sliding-window local layers to
 1 global, ring caches, a second RoPE theta), kimi-k2-1t-a32b (GQA
 attention over a MoE under either dispatch, one shared expert, head dim
-112), falcon-mamba-7b (Mamba1, attention-free) and zamba2-7b (a Mamba2
-backbone with one weight-shared attention block).  The multimodal archs of
-the JAX package come with a later slice.
+112), falcon-mamba-7b (Mamba1, attention-free), zamba2-7b (a Mamba2
+backbone with one weight-shared attention block), and the multimodal archs:
+whisper-base (an encoder over audio frames, a decoder with
+cross-attention) and phi-3-vision-4.2b (patch embeddings spliced before
+the tokens).  Every arch of the JAX package is ported.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ _REGISTRY: Dict[str, str] = {
     "kimi-k2-1t-a32b": "kimi_k2_1t",
     "falcon-mamba-7b": "falcon_mamba_7b",
     "zamba2-7b": "zamba2_7b",
+    "whisper-base": "whisper_base",
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
 }
 
 

@@ -7,7 +7,8 @@ the rank the compression ratio implies: the buffers a compressed checkpoint
 is loaded into, and (on the ``"meta"`` device) the compressed model's
 shapes without allocating them.  The real factors come from
 ``core.pipeline.compress_model``.  A weight-shared block (zamba2's) is
-factorized once, in ``params["shared"]``.
+factorized once, in ``params["shared"]``; an encoder's stages (whisper's)
+are factorized as the decoder's are.
 """
 
 from __future__ import annotations
@@ -56,12 +57,17 @@ def factorize_params(params, cfg, *, ratio: Optional[float] = None,
                 set_path(p, spec.path, _factorize_leaf(leaf, ratio, remap,
                                                        rank_multiple, dev))
 
-    for st, sp in zip(B.stage_program(cfg), params["stages"]):
-        for ki, kind in enumerate(st.kinds):
-            # a weight-shared kind's stage slots are None: its params live
-            # in params["shared"]
-            if kind not in B.SHARED_KINDS:
-                factorize(kind, sp[ki])
+    def do_stages(stages, stage_params):
+        for st, sp in zip(stages, stage_params):
+            for ki, kind in enumerate(st.kinds):
+                # a weight-shared kind's stage slots are None: its params
+                # live in params["shared"]
+                if kind not in B.SHARED_KINDS:
+                    factorize(kind, sp[ki])
+
+    do_stages(B.stage_program(cfg), params["stages"])
+    if "encoder" in params:
+        do_stages(B.encoder_stages(cfg), params["encoder"]["stages"])
     for kind, p in params.get("shared", {}).items():
         factorize(kind, p)
     return params

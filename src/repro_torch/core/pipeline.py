@@ -4,9 +4,18 @@ Counterpart of ``src/repro/core/pipeline.py`` with ``calib_mesh=None``, on
 dense GQA models (llama, qwen3, granite, phi3-medium; gemma3's
 sliding-window local and global layers), on deepseek's MLA + MoE, on
 kimi-k2's GQA + MoE (capacity or drop-free dispatch), on falcon-mamba's
-Mamba1 blocks and on zamba2's Mamba2 backbone with its weight-shared
-attention block.  The model is unrolled into units (one block each;
-stacked stages are sliced and restacked afterwards).  A weight-shared
+Mamba1 blocks, on zamba2's Mamba2 backbone with its weight-shared
+attention block, and on the multimodal archs: phi-3-vision (calibration
+``patches`` spliced before the tokens) and whisper (an encoder over
+calibration ``frames``, then decoder units whose cross-attention reads the
+encoder's output).  The model is unrolled into units (one block each;
+stacked stages are sliced and restacked afterwards), the encoder's
+(``enc.*``) before the decoder's (``dec.*``).  Whisper's encoder units
+propagate two encoder streams, original and shifted, from the frames;
+when the first decoder unit arrives both are normed by the encoder's final
+norm once, and each decoder unit's original stream attends to the
+original encoder output and its shifted stream to the shifted one (the
+unit apply's ``aux``).  A weight-shared
 block is one unit at its first site (``<section>.shared.<kind>``),
 compressed there; at every later site it is only propagated, both streams
 through its original and compressed params, and reported ``reused``.  Per
@@ -170,6 +179,11 @@ def linear_specs(kind: str, cfg) -> List[LinearSpec]:
                  S_("attn.wk", "attn/qkv_in"),
                  S_("attn.wv", "attn/qkv_in"),
                  S_("attn.wo", "attn/o_in")]
+    if kind == "dec_attn":
+        specs += [S_("xattn.wq", "xattn/q_in"),
+                  S_("xattn.wk", "xattn/kv_in"),
+                  S_("xattn.wv", "xattn/kv_in"),
+                  S_("xattn.wo", "xattn/o_in")]
     if kind.endswith("_moe"):
         specs += [S_("ffn.experts.gate", "ffn/experts_in", True, True),
                   S_("ffn.experts.up", "ffn/experts_in", True, True),
@@ -240,7 +254,7 @@ def set_path(tree, path: str, value):
 class Unit:
     name: str
     kind: str
-    where: Tuple            # ("dec", stage_idx, iter_idx, kind_idx)
+    where: Tuple            # ("enc"|"dec", stage_idx, iter_idx, kind_idx)
     params: Any             # None at a weight-shared block's later sites
     shared: bool = False
 
@@ -251,64 +265,84 @@ def _clone(tree):
 
 
 def unit_iterator(params, cfg):
-    """Yield the model's compression units in solve order; a stacked stage's
-    iteration ``it`` is sliced out (views, never written) when reached.  A
-    weight-shared kind yields ``dec.shared.<kind>`` with the shared params
-    at its first site and ``dec.<idx>.<kind>(shared-site)`` with
-    ``params=None`` at every later one."""
-    idx = 0
+    """Yield the model's compression units in solve order: the encoder's
+    (``enc.<idx>.<kind>``, whisper) first, then the decoder's; a stacked
+    stage's iteration ``it`` is sliced out (views, never written) when
+    reached.  A weight-shared kind yields ``dec.shared.<kind>`` with the
+    shared params at its first site and ``dec.<idx>.<kind>(shared-site)``
+    with ``params=None`` at every later one."""
     seen_shared: Set[str] = set()
-    for si, (st, sp) in enumerate(zip(B.stage_program(cfg),
-                                      params["stages"])):
-        iters = st.n if (st.scan and st.n > 1) else 1
-        for it in range(iters):
-            for ki, kind in enumerate(st.kinds):
-                if kind in B.SHARED_KINDS:
-                    if kind not in seen_shared:
-                        seen_shared.add(kind)
-                        yield Unit(name=f"dec.shared.{kind}", kind=kind,
-                                   where=("dec", si, it, ki),
-                                   params=_clone(params["shared"][kind]),
-                                   shared=True)
+
+    def walk(section: str, stages, stage_params):
+        idx = 0
+        for si, (st, sp) in enumerate(zip(stages, stage_params)):
+            iters = st.n if (st.scan and st.n > 1) else 1
+            for it in range(iters):
+                for ki, kind in enumerate(st.kinds):
+                    where = (section, si, it, ki)
+                    if kind in B.SHARED_KINDS:
+                        if kind not in seen_shared:
+                            seen_shared.add(kind)
+                            yield Unit(name=f"{section}.shared.{kind}",
+                                       kind=kind, where=where,
+                                       params=_clone(
+                                           params["shared"][kind]),
+                                       shared=True)
+                        else:
+                            yield Unit(
+                                name=f"{section}.{idx}.{kind}(shared-site)",
+                                kind=kind, where=where, params=None,
+                                shared=True)
+                        idx += 1
+                        continue
+                    p = sp[ki]
+                    if iters > 1:
+                        p = tree_map(lambda a, it=it: a[it], p)
                     else:
-                        yield Unit(name=f"dec.{idx}.{kind}(shared-site)",
-                                   kind=kind, where=("dec", si, it, ki),
-                                   params=None, shared=True)
+                        p = _clone(p)
+                    yield Unit(name=f"{section}.{idx}.{kind}", kind=kind,
+                               where=where, params=p)
                     idx += 1
-                    continue
-                p = sp[ki]
-                if iters > 1:
-                    p = tree_map(lambda a: a[it], p)
-                else:
-                    p = _clone(p)
-                yield Unit(name=f"dec.{idx}.{kind}", kind=kind,
-                           where=("dec", si, it, ki), params=p)
-                idx += 1
+
+    if "encoder" in params:
+        yield from walk("enc", B.encoder_stages(cfg),
+                        params["encoder"]["stages"])
+    yield from walk("dec", B.stage_program(cfg), params["stages"])
 
 
 def restack_units(params, cfg, units: List[Unit]):
-    """Write compressed unit params back (restacking stacked stages); a
-    weight-shared kind keeps ``None`` in its stage slots and its compressed
-    params go to ``params["shared"]``."""
+    """Write compressed unit params back (restacking stacked stages), the
+    encoder's into ``params["encoder"]["stages"]``; a weight-shared kind
+    keeps ``None`` in its stage slots and its compressed params go to
+    ``params["shared"]``."""
     new_params = dict(params)
-    out = []
-    for si, st in enumerate(B.stage_program(cfg)):
-        per_kind = []
-        for ki, kind in enumerate(st.kinds):
-            if kind in B.SHARED_KINDS:
-                per_kind.append(None)
-                continue
-            mine = sorted((u for u in units
-                           if u.where[1] == si and u.where[3] == ki),
-                          key=lambda u: u.where[2])
-            if st.scan and st.n > 1:
-                per_kind.append(tree_map(lambda *xs: torch.stack(xs),
-                                         mine[0].params,
-                                         *[u.params for u in mine[1:]]))
-            else:
-                per_kind.append(mine[0].params)
-        out.append(per_kind)
-    new_params["stages"] = out
+
+    def rebuild(section: str, stages):
+        out = []
+        for si, st in enumerate(stages):
+            per_kind = []
+            for ki, kind in enumerate(st.kinds):
+                if kind in B.SHARED_KINDS:
+                    per_kind.append(None)
+                    continue
+                mine = sorted((u for u in units
+                               if u.where[:2] == (section, si)
+                               and u.where[3] == ki),
+                              key=lambda u: u.where[2])
+                if st.scan and st.n > 1:
+                    per_kind.append(tree_map(lambda *xs: torch.stack(xs),
+                                             mine[0].params,
+                                             *[u.params for u in mine[1:]]))
+                else:
+                    per_kind.append(mine[0].params)
+            out.append(per_kind)
+        return out
+
+    if "encoder" in params:
+        new_params["encoder"] = dict(params["encoder"])
+        new_params["encoder"]["stages"] = rebuild("enc",
+                                                  B.encoder_stages(cfg))
+    new_params["stages"] = rebuild("dec", B.stage_program(cfg))
     shared = {u.kind: u.params for u in units
               if u.shared and u.params is not None}
     if shared:
@@ -321,10 +355,14 @@ def restack_units(params, cfg, units: List[Unit]):
 
 
 def make_unit_apply(kind: str, cfg, seq_len: int, want_taps: bool):
-    """fn(p, x, aux) -> y, or (y, {tap: activation}) with ``want_taps``."""
+    """fn(p, x, aux) -> y, or (y, {tap: activation}) with ``want_taps``.
+    ``aux`` is the encoder's output a whisper decoder unit attends to (the
+    stream's own: original or shifted), else None."""
 
     def fn(p, x, aux):
         ctx = M.make_ctx(cfg, torch.arange(seq_len, device=x.device))
+        if aux is not None:
+            ctx["enc_out"] = aux
         if want_taps:
             store: Dict[str, torch.Tensor] = {}
             with L.sowing(store):
@@ -593,7 +631,9 @@ def _check_supported(cfg, ccfg: CompressConfig) -> None:
                                            ("dense", "sliding_mix"),
                                            ("moe", "mla"), ("moe", "full"),
                                            ("ssm", "none"),
-                                           ("hybrid", "full")):
+                                           ("hybrid", "full"),
+                                           ("encdec", "full"),
+                                           ("vlm", "full")):
         raise NotImplementedError(
             f"family {cfg.family!r} / attention {cfg.attention!r} is not "
             "ported to repro_torch yet (comes with that architecture's slice)")
@@ -616,7 +656,8 @@ def _effective_cfg(cfg, ccfg: CompressConfig):
     return cfg
 
 
-def _drop_rate(cfg, fwd_taps, orig_p, x0, clock: "_StageClock") -> float:
+def _drop_rate(cfg, fwd_taps, orig_p, x0, aux0,
+               clock: "_StageClock") -> float:
     """Share of routed choices the unit drops on the first calibration
     microbatch: one tapped forward of the original stream, which the engine
     does not count (the JAX package's probe, :954-968).  The drop-free
@@ -624,17 +665,36 @@ def _drop_rate(cfg, fwd_taps, orig_p, x0, clock: "_StageClock") -> float:
     if cfg.moe.dispatch == "dropfree":
         return 0.0
     with clock("collect"):
-        _, probe = fwd_taps(orig_p, x0, None)
+        _, probe = fwd_taps(orig_p, x0, aux0)
         dropped, total = probe["ffn/experts_dropped"].tolist()
     return dropped / max(total, 1.0)
 
 
 def _embed_stream(params, cfg, calib: Dict[str, torch.Tensor], mb: int):
-    """Initial hidden stream batches: a list of (mb, L, d)."""
+    """Initial hidden stream batches: a list of (mb, L, d) (a vision
+    model's patches spliced before the tokens; whisper's tokens with their
+    sinusoid positions)."""
     n = calib["tokens"].shape[0]
-    return [M._embed_inputs(params, cfg,
+    xs = []
+    for i in range(0, n, mb):
+        x = M._embed_inputs(params, cfg,
                             {k: v[i: i + mb] for k, v in calib.items()})
-            for i in range(0, n, mb)]
+        if cfg.family == "encdec":
+            x = M._with_positions(cfg, x, torch.arange(x.shape[1],
+                                                       device=x.device))
+        xs.append(x)
+    return xs
+
+
+def _encoder_stream(cfg, calib: Dict[str, torch.Tensor], mb: int):
+    """Whisper's encoder input batches: the calibration frames with their
+    sinusoid positions, a list of (mb, Le, d) in the activation dtype."""
+    dtype = M.torch_dtype(cfg.dtype)
+    frames = calib["frames"]
+    le = frames.shape[1]
+    positions = torch.arange(le, device=frames.device)
+    return [M._with_positions(cfg, frames[i: i + mb].to(dtype), positions)
+            for i in range(0, calib["tokens"].shape[0], mb)]
 
 
 STAGES = ("embed", "collect", "solve", "refine", "propagate")
@@ -744,9 +804,16 @@ def _compress_sweep(params, cfg, calib, ccfg: CompressConfig,
     auto_replay = (ccfg.calib_mode == "hybrid"
                    and isinstance(ccfg.replay_taps, str))
     mb = ccfg.microbatch
+    encdec = cfg.family == "encdec"
     with clock("embed"):
-        xs = _embed_stream(params, cfg, calib, mb)      # original stream
-        xps = [x.clone() for x in xs]                    # shifted stream
+        dec_o = _embed_stream(params, cfg, calib, mb)   # original stream
+        dec_c = [x.clone() for x in dec_o]               # shifted stream
+        # whisper: the encoder's streams run first; their normed outputs
+        # feed the decoder units' cross-attention
+        enc_o = _encoder_stream(cfg, calib, mb) if encdec else None
+        enc_c = [x.clone() for x in enc_o] if encdec else None
+    streams = {"enc": (enc_o, enc_c), "dec": (dec_o, dec_c)}
+    enc_normed = False
     done_units: List[Unit] = []
     # weight-shared kind -> its original and compressed params, from the
     # first site
@@ -754,6 +821,26 @@ def _compress_sweep(params, cfg, calib, ccfg: CompressConfig,
 
     for unit in unit_iterator(params, cfg):
         done_units.append(unit)
+        section = unit.where[0]
+        if section == "dec" and encdec and not enc_normed:
+            # the decoder's cross-attention reads the NORMED encoder output
+            norm = params["encoder"]["final_norm"]
+            with clock("propagate"):
+                for i in range(len(enc_o)):
+                    enc_o[i] = L.apply_norm(norm, enc_o[i], eps=cfg.norm_eps)
+                    enc_c[i] = L.apply_norm(norm, enc_c[i], eps=cfg.norm_eps)
+            enc_normed = True
+        xs, xps = streams[section]
+        # the encoder output each stream's decoder units attend to
+        aux_o, aux_c = ((enc_o, enc_c) if section == "dec" and encdec
+                        else (None, None))
+
+        def ao(i):
+            return None if aux_o is None else aux_o[i]
+
+        def ac(i):
+            return None if aux_c is None else aux_c[i]
+
         seq_len = xs[0].shape[1]
         if unit.shared and unit.params is None:
             # a later site of a weight-shared block: only propagate both
@@ -763,9 +850,9 @@ def _compress_sweep(params, cfg, calib, ccfg: CompressConfig,
             fwd = make_unit_apply(unit.kind, cfg, seq_len, want_taps=False)
             with clock("propagate"):
                 for i in range(len(xs)):
-                    xs[i] = fwd(shared_done[unit.kind]["orig"], xs[i], None)
+                    xs[i] = fwd(shared_done[unit.kind]["orig"], xs[i], ao(i))
                     xps[i] = fwd(shared_done[unit.kind]["comp"], xps[i],
-                                 None)
+                                 ac(i))
             report["units"].append({"name": unit.name, "kind": unit.kind,
                                     "calib_mode": ccfg.calib_mode,
                                     "reused": True, "tapped_forwards": 0,
@@ -779,7 +866,7 @@ def _compress_sweep(params, cfg, calib, ccfg: CompressConfig,
                        "calib_mode": ccfg.calib_mode, "linears": []}
         if unit.kind.endswith("_moe") and covs_table is None:
             unit_report["moe_drop_rate"] = _drop_rate(
-                cfg, fwd_taps, orig_p, xs[0], clock)
+                cfg, fwd_taps, orig_p, xs[0], ao(0), clock)
 
         # ---- stage 1: streaming covariance accumulation + closed-form solve
         t_s1 = time.perf_counter()
@@ -792,7 +879,7 @@ def _compress_sweep(params, cfg, calib, ccfg: CompressConfig,
         if ccfg.objective != "agnostic" and covs_table is None:
             with clock("collect"):
                 engine = S.CalibrationEngine.for_unit(
-                    groups, fwd_taps, orig_p, xs[0], None,
+                    groups, fwd_taps, orig_p, xs[0], ao(0),
                     num_experts=(cfg.moe.num_experts
                                  if unit.kind.endswith("_moe") else 0))
                 if ccfg.calib_mode in ("fused", "hybrid"):
@@ -800,7 +887,7 @@ def _compress_sweep(params, cfg, calib, ccfg: CompressConfig,
                     # replay_taps="auto" the skip set is empty: the drift
                     # measured below decides)
                     anchors = engine.collect_fused(fwd_taps, orig_p, cur_p,
-                                                   xs, xps, None, None,
+                                                   xs, xps, aux_o, aux_c,
                                                    skip=replays)
         replayed: List[str] = []
         drifts: Dict[str, float] = {}
@@ -820,7 +907,7 @@ def _compress_sweep(params, cfg, calib, ccfg: CompressConfig,
                 # taps see every group solved so far
                 with clock("collect"):
                     engine.collect_group(tap, fwd_taps, orig_p, cur_p,
-                                         xs, xps, None, None)
+                                         xs, xps, aux_o, aux_c)
                 if tap in replays:
                     replayed.append(tap)
             if engine is not None:
@@ -911,12 +998,13 @@ def _compress_sweep(params, cfg, calib, ccfg: CompressConfig,
             y_anchor = list(anchors)
         else:
             with clock("propagate"):
-                y_anchor = [fwd(orig_p, x, None) for x in xs]
+                y_anchor = [fwd(orig_p, x, ao(i)) for i, x in enumerate(xs)]
         if ccfg.refine and not estimate:
             t0 = time.perf_counter()
             with clock("refine"):
                 cur_p, hist = RF.refine_unit(
-                    fwd, cur_p, [(xp, None) for xp in xps], y_anchor,
+                    fwd, cur_p, [(xp, ac(i)) for i, xp in enumerate(xps)],
+                    y_anchor,
                     epochs=ccfg.refine_epochs, lr=ccfg.refine_lr,
                     warmup_frac=ccfg.refine_warmup_frac,
                     weight_decay=ccfg.refine_weight_decay,
@@ -929,15 +1017,15 @@ def _compress_sweep(params, cfg, calib, ccfg: CompressConfig,
                                refine_wall=time.perf_counter() - t0)
         elif not estimate:  # the estimate sweep skips the MSE probe too
             mse = sum(float(torch.mean(torch.square(
-                fwd(cur_p, xp, None).float() - y.float())))
-                for xp, y in zip(xps, y_anchor)) / len(xps)
+                fwd(cur_p, xp, ac(i)).float() - y.float())))
+                for i, (xp, y) in enumerate(zip(xps, y_anchor))) / len(xps)
             unit_report["pre_refine_mse"] = mse
 
         # ---- propagate streams ------------------------------------------------
         with clock("propagate"):
             for i in range(len(xs)):
                 xs[i] = y_anchor[i].to(xs[i].dtype)
-                xps[i] = fwd(cur_p, xps[i], None)
+                xps[i] = fwd(cur_p, xps[i], ac(i))
         unit.params = cur_p
         if unit.shared:
             shared_done[unit.kind] = {"orig": orig_p, "comp": cur_p}

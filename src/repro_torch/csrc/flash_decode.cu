@@ -29,17 +29,18 @@
 //   fdec_split_u (wgmma body only)  U_k fp32 -> two bf16 terms U_hi + U_lo (scratch,
 //     2 x r_k·KV·D bf16, ~40 MB of traffic): TMA cannot convert, and the two terms
 //     keep the keys at fp32 quality (l_k is exact in bf16: the cache holds bf16)
-//   fdec_keys_wgmma<D> (bf16, D 64 / 112 / 128, r_k a multiple of 8): one block a work item.
+//   fdec_keys_wgmma<D> (bf16, D 64 / 96 / 112 / 128, r_k a multiple of 8): one block a work item.
 //     A producer thread keeps a ring of stages filled by TMA, each the span's l_k tile
 //     (256 keys x 64 ranks, K-major, read in place through a 3D map on (B, L, r_k)
 //     whose zero fill ends the cache) and U_hi, U_lo [64 ranks, kvh·D .. + D] (MN-major,
 //     the transpose bit); two consumer warpgroups of 128 keys each issue
 //     K += l_k·U_hi + l_k·U_lo on wgmma into fp32 registers (two m64nD tiles each),
-//     one stage in flight while the next is issued.  D 112 (kimi-k2) stages U as two
-//     64-column boxes, like D 128: the second box's last 16 columns (the next head's,
-//     or TMA's zero fill past the last) ride through m64n128 products whose columns
-//     112..127 are never read, so RoPE pairs and scores see the true 112 columns (an
-//     N-112 MN-major operand is not a whole number of 128-byte swizzle atoms).  RoPE
+//     one stage in flight while the next is issued.  D 112 (kimi-k2) and D 96
+//     (phi-3-vision) stage U as two 64-column boxes, like D 128: the second box's last
+//     16 / 32 columns (the next head's, or TMA's zero fill past the last) ride through
+//     m64n128 products whose columns D..127 are never read, so RoPE pairs and scores
+//     see the true D columns (an N-112 or N-96 MN-major operand is not a whole number
+//     of 128-byte swizzle atoms).  RoPE
 //     in registers: an m64nD accumulator holds columns j and j + D/2 of a key row in
 //     one thread.  Scores q·k / √D by quad shuffles, q from shared memory.
 //   fdec_keys_fma<T, D> (fp32 at every D; bf16 at D 8 / 16 / 20 / 32 or other ranks): the same
@@ -70,7 +71,8 @@
 // (B, L, r_v) and out (B, H, D) of one dtype (fp32 or bf16), 16-byte aligned; uk
 // (r_k, KV·D), uv (r_v, KV·D), cos, sin (L, D/2) fp32; lengths (B,) int32 (clamped to
 // [0, L]; a slot of length 0 gets zeros); all contiguous; D one of 8, 16, 20, 32, 64,
-// 112, 128 (8 and 20: granite's and phi3-medium's smoke configs; 112 kimi-k2's);
+// 96, 112, 128 (8 and 20: granite's and phi3-medium's smoke configs; 96
+// phi-3-vision's; 112 kimi-k2's); cos and sin may be null when rope is 0;
 // scratch fp32 as kernels/flash_decode.py::Plan.offsets lays it out.  Returns the
 // first non-zero cudaError of the call.
 
@@ -188,7 +190,7 @@ __global__ void __launch_bounds__(256) fdec_split_u(const float4* __restrict__ u
 }
 
 // ---------------------------------------------------------------------------
-// keys, wgmma body (bf16, D 64 / 112 / 128)
+// keys, wgmma body (bf16, D 64 / 96 / 112 / 128)
 
 namespace kw {
 
@@ -200,7 +202,7 @@ constexpr int CONSUMER_REGS = 232;  // 128·40 + 256·232 <= 65536
 template <int D>
 struct Cfg {
   static constexpr int DC = (D + 63) / 64;         // 64-column boxes of a U row
-  static constexpr int NC = 64 * DC;               // accumulator columns (D 112: 128)
+  static constexpr int NC = 64 * DC;               // accumulator columns (D 96, 112: 128)
   static constexpr int LK_BYTES = SPAN * 128;      // 256 keys x 64 ranks
   static constexpr int U_BOX = RC * 128;           // 64 ranks x 64 columns
   static constexpr int U_BYTES = 2 * DC * U_BOX;   // the hi and lo terms
@@ -412,9 +414,10 @@ int smem(int g) {
 // (BK x D) key tile, so one shared load of l_k feeds CPT FMAs and one of U_k KPT.
 // Below D 32 four threads span a row (CPT 2, 4, 5 at D 8, 16, 20).
 // D 112: 7 columns a thread, 16 threads across D and 16 across the keys.
+// D 96: 12 columns a thread, 8 threads across D and 32 across the keys.
 template <int D>
 struct Tile {
-  static constexpr int CPT = D == 112 ? 7 : D >= 32 ? 8 : D / 4;  // columns per thread
+  static constexpr int CPT = D == 112 ? 7 : D == 96 ? 12 : D >= 32 ? 8 : D / 4;  // columns
   static constexpr int TX = D / CPT;           // threads across D
   static constexpr int TY = THREADS / TX;      // threads across keys
   static constexpr int KPT = BK / TY;          // keys per thread
@@ -826,6 +829,7 @@ int launch_body(const Args& a, int d, int body, int blocks, cudaStream_t s) {
   if (body == WGMMA) {
     if constexpr (sizeof(T) == 2) {
       if (d == 64) return launch_wgmma<64>(a, blocks, s);
+      if (d == 96) return launch_wgmma<96>(a, blocks, s);
       if (d == 112) return launch_wgmma<112>(a, blocks, s);
       if (d == 128) return launch_wgmma<128>(a, blocks, s);
     }
@@ -837,6 +841,7 @@ int launch_body(const Args& a, int d, int body, int blocks, cudaStream_t s) {
     case 20: return launch_fma<T, 20>(a, blocks, s);
     case 32: return launch_fma<T, 32>(a, blocks, s);
     case 64: return launch_fma<T, 64>(a, blocks, s);
+    case 96: return launch_fma<T, 96>(a, blocks, s);
     case 112: return launch_fma<T, 112>(a, blocks, s);
     case 128: return launch_fma<T, 128>(a, blocks, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -845,8 +850,10 @@ int launch_body(const Args& a, int d, int body, int blocks, cudaStream_t s) {
 
 int smem_bytes(int body, int g, int d) {
   if (body == WGMMA) {
-    return d == 64 ? kw::Cfg<64>::smem(g) : d == 112 ? kw::Cfg<112>::smem(g)
-                                                     : kw::Cfg<128>::smem(g);
+    return d == 64    ? kw::Cfg<64>::smem(g)
+           : d == 96  ? kw::Cfg<96>::smem(g)
+           : d == 112 ? kw::Cfg<112>::smem(g)
+                      : kw::Cfg<128>::smem(g);
   }
   switch (d) {
     case 8: return kf::smem<8>(g);
@@ -854,6 +861,7 @@ int smem_bytes(int body, int g, int d) {
     case 20: return kf::smem<20>(g);
     case 32: return kf::smem<32>(g);
     case 64: return kf::smem<64>(g);
+    case 96: return kf::smem<96>(g);
     case 112: return kf::smem<112>(g);
     default: return kf::smem<128>(g);
   }
@@ -863,7 +871,7 @@ int smem_bytes(int body, int g, int d) {
 
 // One call under a launch plan (kernels/flash_decode.py::plan).  dtype: 0 = fp32, 1 =
 // bf16 (q, lk, lv and out share it; uk, uv, cos, sin fp32).  body: 0 = fma (any dtype,
-// D 8 / 16 / 20 / 32 / 64 / 112 / 128), 1 = wgmma (bf16, D 64 / 112 / 128, r_k a
+// D 8 / 16 / 20 / 32 / 64 / 96 / 112 / 128), 1 = wgmma (bf16, D 64 / 96 / 112 / 128, r_k a
 // multiple of 8).  span is 256 and spans = ⌈l / span⌉.  The scratch holds, each region rounded up to 64
 // floats: (wgmma) the two bf16 terms of U_k in r_k·KV·D floats, then m and l
 // (b·h·spans each), p (b·h·spans·span), pv (b·h·spans·rv) and ctx (b·h·rv);
@@ -875,13 +883,15 @@ extern "C" int flash_decode_launch(const void* q, const void* lk, const void* lv
                                    int rk, int rv, int rope, int dtype, int body, int span,
                                    int spans, void* stream) {
   if (b <= 0 || l <= 0 || kv <= 0 || h <= 0 || h % kv != 0 || rk <= 0 || rv <= 0 ||
-      (d != 8 && d != 16 && d != 20 && d != 32 && d != 64 && d != 112 && d != 128) ||
+      (d != 8 && d != 16 && d != 20 && d != 32 && d != 64 && d != 96 && d != 112 &&
+       d != 128) ||
       (dtype != 0 && dtype != 1) ||
       (body != FMA && body != WGMMA) || span != SPAN || spans != (l + SPAN - 1) / SPAN ||
       (rope && (cos == nullptr || sin == nullptr)) || scratch == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (body == WGMMA && (dtype != 1 || (d != 64 && d != 112 && d != 128) || rk % 8 != 0)) {
+  if (body == WGMMA &&
+      (dtype != 1 || (d != 64 && d != 96 && d != 112 && d != 128) || rk % 8 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int g = h / kv;

@@ -18,11 +18,12 @@ The plan cuts every call into key spans of ``SPAN`` keys from absolute key
 items at or past their slot's length exit at once (the lengths stay on the
 device).  A slot's bits then depend on its own inputs alone.  A call is:
 
-* ``body`` "wgmma" (bf16, D 64 / 112 / 128, r_k a multiple of
+* ``body`` "wgmma" (bf16, D 64 / 96 / 112 / 128, r_k a multiple of
   ``RANK_MULTIPLE``: TMA's 16-byte row stride): U_k split into two bf16
   terms (hi + lo, ``split_factor``), then the keys on wgmma, K = l_k U_hi +
-  l_k U_lo (D 112, kimi-k2's: U staged as two 64-column boxes and
-  multiplied as D 128's, the 16 extra columns never read); "fma" (fp32;
+  l_k U_lo (D 112, kimi-k2's, and D 96, phi-3-vision's: U staged as two
+  64-column boxes and multiplied as D 128's, the 16 / 32 extra columns
+  never read); "fma" (fp32;
   bf16 at D 8 / 16 / 20 / 32 or other ranks): the keys on the FMA units
   from fp32 U_k.  Both write a span's fp32 (m, l, p[SPAN]) per query head;
 * the values launch: each live span's latent partial Σ p l_v, one block a
@@ -53,16 +54,17 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BODIES = ("fma", "wgmma")       # index = the launcher's body code
 
 # head dims the kernel is compiled for (8 and 20: granite's and phi3-medium's
-# smoke configs, 112 kimi-k2's; RoPE pairs the true dims, so none is padded)
-HEAD_DIMS = (8, 16, 20, 32, 64, 112, 128)
-WGMMA_HEAD_DIMS = (64, 112, 128)
+# smoke configs, 96 phi-3-vision's, 112 kimi-k2's; RoPE pairs the true dims,
+# so none is padded)
+HEAD_DIMS = (8, 16, 20, 32, 64, 96, 112, 128)
+WGMMA_HEAD_DIMS = (64, 96, 112, 128)
 SPAN = 256                      # keys a work item, from absolute key 0
 RANK_MULTIPLE = 8               # the wgmma body's r_k: 16-byte bf16 rows
 MAX_SMEM = 232448               # bytes of shared memory one block may use
 ALIGN_FLOATS = 64               # scratch regions start 256 bytes apart
 # wgmma body: ranks a ring stage, stages by D
 WG_RANKS = 64
-WG_STAGES = {64: 4, 112: 3, 128: 3}
+WG_STAGES = {64: 4, 96: 3, 112: 3, 128: 3}
 # fma body: keys a tile, ranks a shared-memory chunk
 FMA_KEYS = 64
 FMA_RANKS = 32
@@ -72,7 +74,7 @@ def smem_bytes(body: str, g: int, d: int) -> int:
     """Shared memory of one keys block with ``g`` query heads a KV head
     (mirrors ``kw::Cfg::smem`` / ``kf::smem`` in the .cu).  A stage of the
     wgmma body holds the span's l_k tile and ⌈D/64⌉ 64-column boxes of each
-    U term (D 112: two, the second's last 16 columns unused)."""
+    U term (D 96 and 112: two, the second's last 32 / 16 columns unused)."""
     if body == "wgmma":
         stage = SPAN * 128 + 2 * (-(-d // 64)) * WG_RANKS * 128
         stages = WG_STAGES[d]

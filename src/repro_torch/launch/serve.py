@@ -33,7 +33,16 @@ zero-padded to 128.  falcon-mamba's Mamba1 and zamba2's Mamba2 layers keep
 their recurrent {"h", "conv"} state a slot, so every request of those
 archs takes ``"whole_exact"`` prefill too; zamba2's shared attention sites
 (head dim 112, 32 heads on 32 KV heads) each keep their own latent or
-dense cache.  MLA blocks keep
+dense cache.  The multimodal archs take their modality inputs as
+``extras``: phi-3-vision's ``patches`` (P, d) a request are spliced before
+its tokens, so its prefill writes P + the prompt's positions and decode
+starts past them (head dim 96: ``flash_decode``'s D-96 bodies over the
+latent cache); whisper's ``frames`` (1500, d) a request run through the
+encoder once at prefill and fill only the cross-attention cache {"xk",
+"xv"} (dense, carried by ``cache_slot_take`` / ``cache_slot_put`` with the
+rest of a slot's cache), its decoder's self-attention cache holding the
+prompt alone.  A request with extras is prefilled whole at its bucketed
+width (``"whole_extras"``), as in the JAX package.  MLA blocks keep
 {"c", "kr"} under either layout: chunked prefill through
 ``mla_prefill_cached`` and decode through ``mla_decode`` (absorbed), whole
 prefill through ``mla_prefill``.  Under deepseek's capacity MoE dispatch
@@ -58,6 +67,8 @@ waits for the card).
         [--engine] [--device cpu]     # also qwen3-0.6b, granite-3-8b,
                                       # phi3-medium-14b, kimi-k2-1t-a32b,
                                       # falcon-mamba-7b, zamba2-7b
+    python -m repro_torch.launch.serve --arch whisper-base --smoke \\
+        --ratio 0.6 [--engine] [--device cpu]   # also phi-3-vision-4.2b
     python -m repro_torch.launch.serve --arch llama-7b --smoke --ratio 0.6 \\
         --calib-mode hybrid --rank-mode adaptive --replay-taps auto \\
         --checkpoint /tmp/ckpt [--engine] [--device cpu]
@@ -136,9 +147,12 @@ class Server:
         server.checkpoint_meta = meta
         return server
 
-    def generate(self, prompts, *, steps: int = 32) -> torch.Tensor:
+    def generate(self, prompts, *, steps: int = 32,
+                 extras: Optional[dict] = None) -> torch.Tensor:
         """prompts: (b, prompt_len) integers, b <= batch -> (b, steps)
-        int32 on the server's device."""
+        int32 on the server's device.  ``extras``: modality inputs with a
+        leading b axis (``patches`` (b, P, d) or ``frames`` (b, Le, d)),
+        zero-padded to the batch as the prompts are."""
         prompts = torch.as_tensor(prompts)
         b, plen = prompts.shape
         if b > self.batch:
@@ -155,10 +169,13 @@ class Server:
                 "fewer steps")
         prompts = _pad_batch(prompts.to(self.device, torch.int32),
                              self.batch)
+        extras = {k: _pad_batch(torch.as_tensor(v).to(self.device),
+                                self.batch)
+                  for k, v in (extras or {}).items()}
         cache = M.init_cache(self.cfg, self.batch, self.max_len,
                              device=self.device)
-        next_tok, cache = self._prefill(self.params, {"tokens": prompts},
-                                        cache)
+        next_tok, cache = self._prefill(self.params,
+                                        {"tokens": prompts, **extras}, cache)
         tok = next_tok[:, None]
         out = [tok]
         pos = prefill_len
@@ -172,12 +189,14 @@ class Server:
 @dataclasses.dataclass
 class Request:
     """One serving request for :class:`ContinuousBatchingServer`;
-    ``arrival`` is the offset (seconds from ``run`` start) at which the
-    scheduler sees it."""
+    ``extras`` its modality inputs with a leading axis of 1 (``patches`` or
+    ``frames``); ``arrival`` is the offset (seconds from ``run`` start) at
+    which the scheduler sees it."""
 
     rid: int
     prompt: np.ndarray               # (prompt_len,) integers
     steps: int
+    extras: Optional[dict] = None    # modality inputs, leading axis 1
     arrival: float = 0.0
 
 
@@ -214,7 +233,7 @@ class ContinuousBatchingServer:
         self._cache_params = None if cache_layout == "dense" else self.params
         self.decode_step_times: List[float] = []
         # rid -> the prefill path that served it ("whole_exact" |
-        # "whole_padded" | "chunked"); reset per run()
+        # "whole_extras" | "whole_padded" | "chunked"); reset per run()
         self.prefill_routes: Dict[int, str] = {}
 
     @classmethod
@@ -247,12 +266,15 @@ class ContinuousBatchingServer:
                 f"request {req.rid}: prefill length ({total}) + steps "
                 f"({req.steps}) exceeds max_len ({self.max_len})")
         slot_cache = M.cache_slot_take(cfg, cache, slot)
+        extras = {k: torch.as_tensor(v).to(self.device)
+                  for k, v in (req.extras or {}).items()}
         chunk = self.prefill_chunk
         self.prefill_routes[req.rid] = (
             "whole_exact" if self._exact
+            else "whole_extras" if extras
             else "whole_padded" if chunk <= 0
             else "chunked")
-        if self._exact or chunk <= 0:
+        if self._exact or extras or chunk <= 0:
             if self._exact:
                 toks = prompt[None]              # exact length, no padding
                 last_idx = total - 1
@@ -262,8 +284,8 @@ class ContinuousBatchingServer:
                 toks[0, :plen] = prompt
                 last_idx = extra + plen - 1
             tok, slot_cache = self._pre_whole(
-                self.params, {"tokens": self._tokens(toks)}, slot_cache, 0,
-                last_idx)
+                self.params, {"tokens": self._tokens(toks), **extras},
+                slot_cache, 0, last_idx)
         else:
             padded = -(-plen // chunk) * chunk
             buf = np.zeros((padded,), np.int32)
@@ -394,9 +416,22 @@ def main(argv=None):
         print(f"[serve] --replay-taps auto: calib mode {mode!r} -> 'hybrid'")
         mode = "hybrid"
     rng = np.random.default_rng(0)
+    # the stub frontends' inputs, from a seeded generator on the host
+    gen = torch.Generator().manual_seed(0)
+
+    def frontend(n):
+        if cfg.frontend == "vision":
+            return {"patches": 0.02 * torch.randn(
+                (n, cfg.num_patches, cfg.d_model), generator=gen)}
+        if cfg.frontend == "audio":
+            return {"frames": 0.02 * torch.randn(
+                (n, cfg.encoder_seq_len, cfg.d_model), generator=gen)}
+        return {}
+
     params = M.init_params(cfg, 0, device=dev)
     if args.ratio < 1.0:
-        calib = {"tokens": rng.integers(0, cfg.vocab_size, (8, 64))}
+        calib = {"tokens": rng.integers(0, cfg.vocab_size, (8, 64)),
+                 **frontend(8)}
         params, report = P.compress_model(
             params, cfg, calib,
             P.CompressConfig(ratio=args.ratio, refine_epochs=4,
@@ -415,6 +450,7 @@ def main(argv=None):
     max_len = args.prompt_len + _prefill_extra_len(cfg) + args.steps + 8
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            dtype=np.int32)
+    extras = frontend(args.batch)
     if args.checkpoint is not None:
         CheckpointManager(args.checkpoint, async_save=False).save(
             0, params, meta={"arch": args.arch, "ratio": args.ratio})
@@ -425,16 +461,18 @@ def main(argv=None):
         server = (ContinuousBatchingServer.from_checkpoint(
             cfg, args.checkpoint, **kw) if args.checkpoint is not None
             else ContinuousBatchingServer(cfg, params, **kw))
-        results = server.run([Request(rid=i, prompt=prompts[i],
-                                      steps=args.steps)
-                              for i in range(args.batch)])
+        results = server.run([Request(
+            rid=i, prompt=prompts[i], steps=args.steps,
+            extras={k: v[i:i + 1] for k, v in extras.items()} or None)
+            for i in range(args.batch)])
         toks = np.stack([results[i]["tokens"] for i in range(args.batch)])
     else:
         kw = dict(max_len=max_len, batch=args.batch, device=dev)
         server = (Server.from_checkpoint(cfg, args.checkpoint, **kw)
                   if args.checkpoint is not None
                   else Server(cfg, params, **kw))
-        toks = server.generate(prompts, steps=args.steps).cpu().numpy()
+        toks = server.generate(prompts, steps=args.steps,
+                               extras=extras).cpu().numpy()
     dt = time.time() - t0
     print(f"[serve] generated {toks.shape} in {dt:.2f}s "
           f"({args.batch * args.steps / dt:.1f} tok/s) on {dev}")

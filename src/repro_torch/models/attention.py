@@ -7,14 +7,17 @@ decode paths ``_cache_write`` :161, ``gqa_decode`` :174,
 sequence-parallel mesh branch), and the factorized latent-cache paths
 ``latent_ranks`` :528, ``_latent_kv`` :546, ``gqa_prefill_latent`` :554 and
 ``gqa_decode_latent`` :583, the sliding-window ring cache's
-``ring_decode`` :311, and MLA: the expanded prefill path ``mla_init``
+``ring_decode`` :311, whisper's cross-attention ``cross_attention_kv`` /
+``cross_attention`` :354-371, and MLA: the expanded prefill path ``mla_init``
 / ``_mla_q`` / ``_mla_ckv`` / ``mla_prefill`` / ``_pad_last`` :378-449 and
 the compressed-cache paths over {"c", "kr"} ``_mla_absorbed_attend`` :451,
 ``mla_decode`` :481 and ``mla_prefill_cached`` :499.
 
 Every attention product goes through the hand-written kernels on the card:
 ``flash_attention`` (prefill, MLA prefill at head dim 192, chunked and
-latent prefill, dense-cache decode, and the forwards of compression) and ``flash_decode`` (decode
+latent prefill, dense-cache decode, the forwards of compression, and
+non-causal: whisper's encoder and its decoder's cross-attention, prefill
+and decode) and ``flash_decode`` (decode
 against the latent {"lk", "lv"} cache).  On the CPU their plain versions
 run (``kernels.ref``).  ``ring_decode`` and MLA's absorbed path are plain
 fp32 torch ops, as the JAX package leaves them to XLA.
@@ -199,6 +202,34 @@ def ring_decode(p, x, cache_k, cache_v, pos, cfg, cos, sin, *,
     o = torch.einsum("bkgqw,bwkd->bqkgd", pattn, cache_v.float())
     o = o.reshape(b, 1, h * hd).to(x.dtype)
     return L.linear(p["wo"], o), cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (whisper's decoder): keys and values of the encoder's
+# output, made once a prompt
+
+
+def cross_attention_kv(p, enc_out, cfg):
+    """(k, v) (B, Le, KV, D) of the encoder's output; tap ``kv_in``."""
+    b, le, _ = enc_out.shape
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    L.sow("kv_in", enc_out)
+    k = L.linear(p["wk"], enc_out).reshape(b, le, kv, hd)
+    v = L.linear(p["wv"], enc_out).reshape(b, le, kv, hd)
+    return k, v
+
+
+def cross_attention(p, x, k, v, cfg, *, chunk: int = 512):
+    """x (B, L, d) attends to every encoder frame: ``flash_attention`` with
+    no causal mask (Lq 1 at decode); taps ``q_in`` and ``o_in``."""
+    b, l, _ = x.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    L.sow("q_in", x)
+    q = L.linear(p["wq"], x).reshape(b, l, h, hd)
+    o = flash_attention(q, k, v, causal=False, chunk=chunk)
+    o = o.reshape(b, l, -1)
+    L.sow("o_in", o)
+    return L.linear(p["wo"], o)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
-"""Block assembly: stage programs and the sub-blocks ported so far.
+"""Block assembly: stage programs and every sub-block kind.
 
 Counterpart of ``src/repro/models/blocks.py`` (``stage_program`` :43,
-``init_sub_block`` :100, ``_tables`` / ``_window`` / ``_theta`` :130-143,
+``encoder_stages`` :75, ``init_sub_block`` :100, ``_tables`` / ``_window`` / ``_theta`` :130-143,
 ``apply_sub_block`` :150, ``latent_layout`` :190, ``init_sub_cache`` :207,
 ``_write_ring`` :244, ``prefill_sub_block`` :256, ``decode_sub_block``
 :334) for the dense family's ``"attn"`` kind, gemma3's sliding-window
@@ -11,9 +11,15 @@ a MoE under either dispatch) and kimi-k2's ``"attn_dense_first"`` /
 ``"attn_moe"`` kinds (GQA attention; the same two FFN tails), and the SSM
 family: falcon-mamba's ``"mamba1"`` and zamba2's ``"mamba2"`` backbone
 with its weight-shared ``"shared_attn"`` block (attention + SwiGLU, the
-``"attn"`` arithmetic).  Every kind has its cache paths: ``"attn"``,
-``"attn_global"``, ``"shared_attn"`` and the GQA MoE kinds a dense {"k",
-"v"} or latent {"lk", "lv"} cache, ``"attn_local"`` a ring of
+``"attn"`` arithmetic), and whisper's encoder-decoder kinds:
+``"enc_attn"`` (non-causal self-attention without RoPE, a gelu MLP; the
+encoder's stages, ``encoder_stages``) and ``"dec_attn"`` (causal
+self-attention without RoPE, then cross-attention over the encoder's
+output, then the MLP).  Every kind has its cache paths: ``"attn"``,
+``"attn_global"``, ``"shared_attn"``, ``"dec_attn"`` and the GQA MoE kinds
+a dense {"k", "v"} or latent {"lk", "lv"} cache (``"dec_attn"`` also the
+dense cross-attention keys and values {"xk", "xv"} of the encoder's
+frames), ``"enc_attn"`` none, ``"attn_local"`` a ring of
 ``sliding_window`` dense slots, the MLA kinds their own compressed {"c",
 "kr"} cache (expanded whole prefill, absorbed chunked prefill and decode),
 the mamba kinds their recurrent state {"h", "conv"} (whole prefill only).
@@ -52,9 +58,10 @@ def _not_ported(what: str, slice_name: str):
 
 FORWARD_KINDS = ("attn", "attn_local", "attn_global", "attn_dense_first",
                  "attn_moe", "mla_dense_first", "mla_moe", "mamba1",
-                 "mamba2", "shared_attn")
+                 "mamba2", "shared_attn", "enc_attn", "dec_attn")
 SHARED_KINDS = ("shared_attn",)
 SSM_KINDS = ("mamba1", "mamba2")
+NO_ROPE_KINDS = ("enc_attn", "dec_attn")   # whisper: sinusoid positions
 
 
 def stage_program(cfg) -> List[Stage]:
@@ -81,7 +88,8 @@ def stage_program(cfg) -> List[Stage]:
             stages.append(Stage(("attn_local",), rem))
         return stages
     if cfg.family == "encdec":
-        raise _not_ported("encoder-decoder models", "multimodal")
+        # whisper's decoder; its encoder is ``encoder_stages``
+        return [Stage(("dec_attn",), cfg.num_layers)]
     if cfg.moe is not None and cfg.moe.num_experts:
         # deepseek (MLA) and kimi-k2 (GQA): the leading dense-FFN blocks,
         # then the MoE ones
@@ -97,6 +105,14 @@ def stage_program(cfg) -> List[Stage]:
     if cfg.attention == "mla":
         raise _not_ported("MLA attention without MoE", "later")
     return [Stage(("attn",), cfg.num_layers)]
+
+
+def encoder_stages(cfg) -> List[Stage]:
+    """The encoder's stages (whisper: ``num_encoder_layers`` stacked
+    ``"enc_attn"`` layers); none for a decoder-only model."""
+    if cfg.num_encoder_layers:
+        return [Stage(("enc_attn",), cfg.num_encoder_layers)]
+    return []
 
 
 def _check_kind(kind: str) -> None:
@@ -125,6 +141,9 @@ def init_sub_block(kind: str, gen: torch.Generator, cfg, *, lead=(),
                 else cfg.d_ff)
         p["ffn"] = M.ffn_init(gen, cfg.d_model, d_ff, cfg.act_fn,
                               cfg.num_layers, **kw)
+    if kind == "dec_attn":
+        p["ln_x"] = L.norm_init(cfg.d_model, cfg.norm, **kw)
+        p["xattn"] = A.gqa_init(gen, cfg, **kw)
     return p
 
 
@@ -165,8 +184,15 @@ def apply_sub_block(kind: str, p, x, cfg, ctx):
             attn_out = A.mla_prefill(p["attn"], h, cfg, cos, sin)
         else:
             attn_out = A.gqa_prefill(p["attn"], h, cfg, cos, sin,
-                                     window=_window(kind, cfg))
+                                     causal=kind != "enc_attn",
+                                     window=_window(kind, cfg),
+                                     rope=kind not in NO_ROPE_KINDS)
     x = x + attn_out
+    if kind == "dec_attn":
+        hx = L.apply_norm(p["ln_x"], x, eps=cfg.norm_eps)
+        with L.scope("xattn"):
+            ek, ev = A.cross_attention_kv(p["xattn"], ctx["enc_out"], cfg)
+            x = x + A.cross_attention(p["xattn"], hx, ek, ev, cfg)
     h2 = L.apply_norm(p["ln2"], x, eps=cfg.norm_eps)
     with L.scope("ffn"):
         if kind.endswith("_moe"):
@@ -185,10 +211,12 @@ def latent_layout(kind: str, params, cfg) -> Optional[Tuple[int, int]]:
     qk-norm (applied after the up-projection, so it cannot be absorbed) and
     no logit softcap (the decode kernel has none), and an absolute-position
     cache: MLA kinds keep their own compressed cache, ``"attn_local"`` its
-    ring and the mamba kinds their state, so all give ``None``."""
+    ring and the mamba kinds their state, and ``"enc_attn"`` keeps no
+    cache, so all give ``None``."""
     _check_kind(kind)
     if (params is None or kind.startswith("mla") or kind == "attn_local"
-            or kind in SSM_KINDS or cfg.qk_norm or cfg.attn_logit_softcap):
+            or kind == "enc_attn" or kind in SSM_KINDS or cfg.qk_norm
+            or cfg.attn_logit_softcap):
         return None
     return A.latent_ranks(params.get("attn")) if isinstance(params, dict) \
         else None
@@ -199,10 +227,13 @@ def init_sub_cache(kind: str, cfg, batch: int, max_len: int, dtype,
     """Zero cache for one sub-block: MLA's compressed {"c", "kr"}
     (kv_lora_rank + qk_rope_head_dim floats per token); ``"attn_local"``'s
     ring of min(sliding_window, max_len) dense slots; for ``"attn"`` and
-    ``"attn_global"``, ``"shared_attn"`` and the GQA MoE kinds the latent
-    {"lk", "lv"} layout (rank-r floats per token) when ``params`` has
-    factorized kv projections, else dense {"k", "v"}; the mamba kinds their
-    state: ``h`` fp32, ``conv`` in ``dtype``."""
+    ``"attn_global"``, ``"shared_attn"``, ``"dec_attn"`` and the GQA MoE
+    kinds the latent {"lk", "lv"} layout (rank-r floats per token) when
+    ``params`` has factorized kv projections, else dense {"k", "v"}
+    (``"dec_attn"`` adds the dense cross-attention {"xk", "xv"} of
+    (B, encoder_seq_len, KV, D) whatever the layout); ``"enc_attn"``
+    nothing; the mamba kinds their state: ``h`` fp32, ``conv`` in
+    ``dtype``."""
     kw = dict(dtype=dtype, device=device)
     kv, hd = cfg.num_kv_heads, cfg.head_dim
     if kind in SSM_KINDS:
@@ -218,12 +249,20 @@ def init_sub_cache(kind: str, cfg, batch: int, max_len: int, dtype,
         return {"c": torch.zeros((batch, max_len, m.kv_lora_rank), **kw),
                 "kr": torch.zeros((batch, max_len, m.qk_rope_head_dim),
                                   **kw)}
+    if kind == "enc_attn":
+        return {}
     ranks = latent_layout(kind, params, cfg)
     if ranks is not None:
-        return {"lk": torch.zeros((batch, max_len, ranks[0]), **kw),
+        base = {"lk": torch.zeros((batch, max_len, ranks[0]), **kw),
                 "lv": torch.zeros((batch, max_len, ranks[1]), **kw)}
-    return {"k": torch.zeros((batch, max_len, kv, hd), **kw),
-            "v": torch.zeros((batch, max_len, kv, hd), **kw)}
+    else:
+        base = {"k": torch.zeros((batch, max_len, kv, hd), **kw),
+                "v": torch.zeros((batch, max_len, kv, hd), **kw)}
+    if kind == "dec_attn":
+        le = cfg.encoder_seq_len
+        base["xk"] = torch.zeros((batch, le, kv, hd), **kw)
+        base["xv"] = torch.zeros((batch, le, kv, hd), **kw)
+    return base
 
 
 def _write_ring(cache, new, start: int):
@@ -268,6 +307,7 @@ def prefill_sub_block(kind: str, p, x, cache, cfg, ctx):
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         return x + y, cache, zero
     start = ctx.get("pos", 0)
+    rope = kind not in NO_ROPE_KINDS
     cos, sin = _tables(kind, ctx)
     h = L.apply_norm(p["ln1"], x, eps=cfg.norm_eps)
     cache = dict(cache)
@@ -283,20 +323,27 @@ def prefill_sub_block(kind: str, p, x, cache, cfg, ctx):
     elif "lk" in cache:
         attn_out, cache["lk"], cache["lv"] = A.gqa_prefill_latent(
             p["attn"], h, cache["lk"], cache["lv"], start, cfg, cos, sin,
-            theta=_theta(kind, cfg))
+            theta=_theta(kind, cfg), rope=rope)
     elif ctx.get("chunked"):
         if kind == "attn_local":
             raise ValueError("chunked prefill unsupported for ring caches")
         attn_out, cache["k"], cache["v"] = A.gqa_prefill_cached(
-            p["attn"], h, cache["k"], cache["v"], start, cfg, cos, sin)
+            p["attn"], h, cache["k"], cache["v"], start, cfg, cos, sin,
+            rope=rope)
     else:
         attn_out, (k, v) = A.gqa_prefill(p["attn"], h, cfg, cos, sin,
                                          window=_window(kind, cfg),
-                                         return_kv=True)
+                                         return_kv=True, rope=rope)
         write = _write_ring if kind == "attn_local" else A._write_at
         cache["k"] = write(cache["k"], k, start)
         cache["v"] = write(cache["v"], v, start)
     x = x + attn_out
+    if kind == "dec_attn":
+        hx = L.apply_norm(p["ln_x"], x, eps=cfg.norm_eps)
+        ek, ev = A.cross_attention_kv(p["xattn"], ctx["enc_out"], cfg)
+        cache["xk"].copy_(ek)
+        cache["xv"].copy_(ev)
+        x = x + A.cross_attention(p["xattn"], hx, ek, ev, cfg)
     h2 = L.apply_norm(p["ln2"], x, eps=cfg.norm_eps)
     if kind.endswith("_moe"):
         y, aux = M.moe_apply(p["ffn"], h2, cfg)
@@ -308,7 +355,8 @@ def prefill_sub_block(kind: str, p, x, cache, cfg, ctx):
 def decode_sub_block(kind: str, p, x, cache, cfg, ctx):
     """x: (B, 1, d) -> (x, cache), the cache updated in place at
     ``ctx["pos"]`` (an int or a per-slot (B,) tensor); the mamba kinds
-    advance their state by one token, in place."""
+    advance their state by one token, in place; ``"dec_attn"`` attends
+    across to its cached {"xk", "xv"}."""
     _check_kind(kind)
     if kind in SSM_KINDS:
         dec = S.mamba1_decode if kind == "mamba1" else S.mamba2_decode
@@ -330,11 +378,16 @@ def decode_sub_block(kind: str, p, x, cache, cfg, ctx):
     elif "lk" in cache:
         attn_out, cache["lk"], cache["lv"] = A.gqa_decode_latent(
             p["attn"], h, cache["lk"], cache["lv"], pos, cfg, cos, sin,
-            theta=_theta(kind, cfg))
+            theta=_theta(kind, cfg), rope=kind not in NO_ROPE_KINDS)
     else:
         attn_out, cache["k"], cache["v"] = A.gqa_decode(
-            p["attn"], h, cache["k"], cache["v"], pos, cfg, cos, sin)
+            p["attn"], h, cache["k"], cache["v"], pos, cfg, cos, sin,
+            rope=kind not in NO_ROPE_KINDS)
     x = x + attn_out
+    if kind == "dec_attn":
+        hx = L.apply_norm(p["ln_x"], x, eps=cfg.norm_eps)
+        x = x + A.cross_attention(p["xattn"], hx, cache["xk"], cache["xv"],
+                                  cfg)
     h2 = L.apply_norm(p["ln2"], x, eps=cfg.norm_eps)
     if kind.endswith("_moe"):
         return x + M.moe_apply(p["ffn"], h2, cfg)[0], cache

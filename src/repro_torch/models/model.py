@@ -1,11 +1,18 @@
 """Top-level model: embed → stage program → final norm → head.
 
 Counterpart of ``src/repro/models/model.py`` (``init_params`` :35,
-``_rope_dim`` :94, ``make_ctx`` :100, ``_embed_inputs`` :150,
-``forward_hidden`` :169, ``loss_fn`` :192, ``logits_from_hidden`` :200, ``init_cache`` :209,
+``_rope_dim`` :94, ``make_ctx`` :100, ``sinusoid_positions`` :110,
+``_embed_inputs`` :150, ``_run_encoder`` :158, ``forward_hidden`` :169,
+``loss_fn`` :192, ``logits_from_hidden`` :200, ``init_cache`` :209,
 ``cache_slot_take`` :236, ``cache_slot_put`` :252, ``_run_stage_cached``
 :269, ``prefill`` :323, ``decode_step`` :358).  Batches are dicts:
-``tokens`` (B, L) and ``labels`` (B, L) integer tensors.
+``tokens`` (B, L) and ``labels`` integer tensors; phi-3-vision adds
+``patches`` (B, P, d), precomputed patch embeddings spliced before the
+tokens (its labels span patches + tokens, (B, P + L), as the JAX package's
+data makes them); whisper adds ``frames`` (B, Le, d), precomputed audio
+frame embeddings that the encoder runs over (its decoder attends to the
+encoder's normed output through cross-attention, and both its streams get
+sinusoid positions).
 
 Caches keep the JAX package's tree — per stage, per kind, a leading layer
 axis on scanned stages — so the two compare leaf for leaf.  A weight-shared
@@ -75,6 +82,14 @@ def init_params(cfg, seed: int = 0, *, device=None) -> PyTree:
         params["shared"] = {kind: B.init_sub_block(kind, gen, cfg,
                                                    device=dev)
                             for kind in shared}
+    enc_stages = B.encoder_stages(cfg)
+    if enc_stages:
+        params["encoder"] = {
+            "stages": [[B.init_sub_block(
+                kind, gen, cfg, lead=(st.n,) if (st.scan and st.n > 1)
+                else (), device=dev) for kind in st.kinds]
+                for st in enc_stages],
+            "final_norm": L.norm_init(cfg.d_model, cfg.norm, device=dev)}
     return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t,
                     params)
 
@@ -103,6 +118,21 @@ def make_ctx(cfg, positions) -> Dict[str, Any]:
     return ctx
 
 
+def sinusoid_positions(positions, d: int):
+    """(len(positions), d) fp32 table [sin(p·f) | cos(p·f)], f_i =
+    10000^(-i / (d/2)): whisper's absolute positions, added to the encoder's
+    frames and the decoder's tokens.  The frequencies are rounded to fp32
+    and the fp32 angles p·f taken through sin / cos in fp64: the JAX
+    package's fp32 table to ~1e-8, where fp32 ``torch.sin`` on the CPU is
+    off by up to 1.5e-4 at whisper's angles (up to 1500 rad)."""
+    half = d // 2
+    freqs = (10000.0 ** (-torch.arange(half, dtype=torch.float64,
+                                       device=positions.device) / half)
+             ).float()
+    ang = (positions.float()[:, None] * freqs).double()
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).float()
+
+
 # ---------------------------------------------------------------------------
 # forward
 
@@ -128,13 +158,44 @@ def _run_stage_forward(stage: B.Stage, stage_params, shared, x, cfg, ctx):
 
 
 def _embed_inputs(params, cfg, batch):
-    return L.embed(params["embed"], batch["tokens"], torch_dtype(cfg.dtype))
+    """Token embeddings, with a vision model's ``patches`` spliced before
+    them (B, P + L, d)."""
+    dtype = torch_dtype(cfg.dtype)
+    x = L.embed(params["embed"], batch["tokens"], dtype)
+    if cfg.frontend == "vision" and "patches" in batch:
+        x = torch.cat([torch.as_tensor(batch["patches"]).to(x.device, dtype),
+                       x], dim=1)
+    return x
+
+
+def _with_positions(cfg, x, positions):
+    """x + its sinusoid positions (B, L, d): whisper's frames and tokens.
+    ``positions`` is (L,), or (B, 1) per slot."""
+    se = sinusoid_positions(positions.reshape(-1), cfg.d_model).to(x.dtype)
+    return x + (se[:, None] if positions.dim() == 2 else se[None])
+
+
+def _run_encoder(params, cfg, frames):
+    """The encoder over ``frames`` (B, Le, d) with sinusoid positions:
+    non-causal self-attention without RoPE, then its final norm."""
+    frames = torch.as_tensor(frames).to(params["embed"]["table"].device)
+    le = frames.shape[1]
+    positions = torch.arange(le, device=frames.device)
+    x = _with_positions(cfg, frames.to(torch_dtype(cfg.dtype)), positions)
+    ctx = make_ctx(cfg, positions)
+    for st, sp in zip(B.encoder_stages(cfg), params["encoder"]["stages"]):
+        x, _ = _run_stage_forward(st, sp, {}, x, cfg, ctx)
+    return L.apply_norm(params["encoder"]["final_norm"], x, eps=cfg.norm_eps)
 
 
 def forward_hidden(params, cfg, batch):
     """Returns (hidden (B, L, d), aux_loss)."""
     x = _embed_inputs(params, cfg, batch)
-    ctx = make_ctx(cfg, torch.arange(x.shape[1], device=x.device))
+    positions = torch.arange(x.shape[1], device=x.device)
+    ctx = make_ctx(cfg, positions)
+    if cfg.family == "encdec":
+        ctx["enc_out"] = _run_encoder(params, cfg, batch["frames"])
+        x = _with_positions(cfg, x, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for st, sp in zip(B.stage_program(cfg), params["stages"]):
         x, a = _run_stage_forward(st, sp, params.get("shared", {}), x, cfg,
@@ -270,10 +331,14 @@ def prefill(params, cfg, batch, cache, *, pos: int = 0,
 def _prefill(params, cfg, batch, cache, pos, chunked, last_idx):
     x = _embed_inputs(params, cfg, batch)
     l = x.shape[1]
-    ctx = make_ctx(cfg, pos + torch.arange(l, device=x.device))
+    positions = pos + torch.arange(l, device=x.device)
+    ctx = make_ctx(cfg, positions)
     ctx["pos"] = pos
     if chunked:
         ctx["chunked"] = True
+    if cfg.family == "encdec":
+        ctx["enc_out"] = _run_encoder(params, cfg, batch["frames"])
+        x = _with_positions(cfg, x, positions)
     for st, sp, sc in zip(B.stage_program(cfg), params["stages"], cache):
         x = _run_stage_cached(st, sp, params.get("shared", {}), x, sc, cfg,
                               ctx, B.prefill_sub_block)
@@ -294,6 +359,8 @@ def decode_step(params, cfg, cache, tokens, pos):
         positions = torch.full((1,), int(pos), device=x.device)
     ctx = make_ctx(cfg, positions)
     ctx["pos"] = pos
+    if cfg.family == "encdec":
+        x = _with_positions(cfg, x, positions)
     for st, sp, sc in zip(B.stage_program(cfg), params["stages"], cache):
         x = _run_stage_cached(st, sp, params.get("shared", {}), x, sc, cfg,
                               ctx, B.decode_sub_block)

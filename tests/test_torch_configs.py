@@ -56,7 +56,24 @@ def test_ssm_hybrid_config_field_equal(arch, getter):
     assert tc.ssm.dt_rank == jc.ssm.dt_rank
 
 
+@pytest.mark.parametrize("getter", ["get_config", "get_smoke_config"])
+@pytest.mark.parametrize("arch", ["whisper-base", "phi-3-vision-4.2b"])
+def test_multimodal_config_field_equal(arch, getter):
+    # the encoder / frontend fields (num_encoder_layers, encoder_seq_len,
+    # frontend, num_patches) included; phi-3-vision's head dim is 96
+    jc = getattr(JC, getter)(arch)
+    tc = getattr(TC, getter)(arch)
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    assert tc.head_dim == jc.head_dim
+
+
+def test_every_arch_of_the_reference_is_registered():
+    assert sorted(TC._REGISTRY) == sorted(JC.ALL_ARCHS)
+    assert TC.get_config("phi-3-vision-4.2b").head_dim == 96
+
+
 def test_unported_arch_raises():
-    # the multimodal archs (whisper-base, phi-3-vision) are not ported yet
+    # every arch of the JAX package is registered: a name outside the
+    # registry raises with the list of ported archs
     with pytest.raises(KeyError, match="not ported"):
-        TC.get_config("whisper-base")
+        TC.get_config("no-such-arch")

@@ -47,6 +47,14 @@ CASES = [
     ("wgmma_d112_g8", 2, 16, 2, 112, 24, 16, 300, [300, 41], BF16),
     ("fma_fp32_d112_g8", 2, 16, 2, 112, 20, 16, 260, [260, 1], F32),
     ("fma_bf16_d112_odd_rank", 2, 8, 1, 112, 19, 16, 100, [100, 3], BF16),
+    # phi-3-vision's head dim 96 (RoPE pairs 48 dims; U staged as 64 + 32
+    # columns by the wgmma body), one query head a KV head as it has
+    ("wgmma_d96_g1", 3, 3, 3, 96, 24, 16, 300, [300, 41, 256], BF16),
+    ("fma_fp32_d96_g1", 2, 2, 2, 96, 20, 16, 260, [260, 1], F32),
+    ("fma_bf16_d96_odd_rank", 2, 4, 2, 96, 19, 16, 100, [100, 3], BF16),
+    # whisper's decoder: head dim 64, one query head a KV head (its calls
+    # take rope=False; every case runs both ways below)
+    ("wgmma_d64_g1", 2, 4, 4, 64, 16, 24, 280, [280, 17], BF16),
 ]
 IDS = [c[0] for c in CASES]
 
@@ -99,8 +107,13 @@ def test_plan_bodies():
     assert kimi.body == "wgmma" and kimi.smem <= fd.MAX_SMEM
     assert fd.plan(8, 2048, 64, 8, 112, 480, 480, F32).body == "fma"
     assert fd.plan(3, 77, 16, 2, 112, 19, 24, BF16).body == "fma"
+    # phi-3-vision's head dim 96: the same rule
+    vision = fd.plan(8, 2048, 32, 32, 96, 928, 928, BF16)
+    assert vision.body == "wgmma" and vision.smem <= fd.MAX_SMEM
+    assert fd.plan(8, 2048, 32, 32, 96, 928, 928, F32).body == "fma"
+    assert fd.plan(3, 77, 4, 4, 96, 19, 24, BF16).body == "fma"
     with pytest.raises(ValueError, match="head dim"):
-        fd.plan(1, 64, 4, 4, 96, 16, 16, BF16)
+        fd.plan(1, 64, 4, 4, 48, 16, 16, BF16)
     with pytest.raises(TypeError):
         fd.plan(1, 64, 4, 4, 64, 16, 16, torch.float16)
     with pytest.raises(ValueError):
@@ -177,13 +190,14 @@ def test_scratch_layout(case):
 def _launcher_accepts(p: fd.Plan, scratch_floats=None) -> bool:
     """csrc/flash_decode.cu's flash_decode_launch checks, mirrored."""
     if (min(p.b, p.l, p.kv, p.h, p.rk, p.rv) <= 0 or p.h % p.kv
-            or p.d not in (8, 16, 20, 32, 64, 112, 128)
+            or p.d not in (8, 16, 20, 32, 64, 96, 112, 128)
             or p.dtype not in (F32, BF16)
             or p.body not in ("fma", "wgmma") or p.span != 256
             or p.spans != -(-p.l // 256)):
         return False
     wgmma = p.body == "wgmma"
-    if wgmma and (p.dtype != BF16 or p.d not in (64, 112, 128) or p.rk % 8):
+    if wgmma and (p.dtype != BF16 or p.d not in (64, 96, 112, 128)
+                  or p.rk % 8):
         return False
     g = p.h // p.kv
     if (fd.smem_bytes(p.body, g, p.d) > 232448
@@ -212,6 +226,9 @@ PLANS = [_plan(c) for c in CASES] + [
     fd.plan(8, 64, 4, 2, 20, 48, 48, BF16),
     fd.plan(8, 2048, 64, 8, 112, 480, 480, BF16),
     fd.plan(8, 2048, 64, 8, 112, 480, 480, F32),
+    fd.plan(8, 2048, 32, 32, 96, 928, 928, BF16),
+    fd.plan(8, 2048, 32, 32, 96, 928, 928, F32),
+    fd.plan(8, 448, 8, 8, 64, 160, 160, BF16),
 ]
 
 
@@ -307,7 +324,7 @@ def _pallas(args, rope):
 @pytest.mark.parametrize("rope", [True, False])
 @pytest.mark.parametrize("name", ["fma_fp32_d16", "fma_fp32_g2_d128",
                                   "fma_fp32_d8_g4", "fma_fp32_d20_g2",
-                                  "fma_fp32_d112_g8"])
+                                  "fma_fp32_d112_g8", "fma_fp32_d96_g1"])
 def test_emulate_matches_pallas(name, rope):
     # the FMA body's plan against the JAX kernel in interpret mode, all
     # fp32, U in the stored layout on both sides: rtol 1e-5, atol 1e-6
@@ -318,17 +335,35 @@ def test_emulate_matches_pallas(name, rope):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("rope", [True, False])
 @pytest.mark.parametrize("name", ["wgmma_d128", "wgmma_g4_d64",
-                                  "wgmma_d112_g8"])
-def test_wgmma_emulation_matches_pallas(name):
+                                  "wgmma_d112_g8", "wgmma_d96_g1",
+                                  "wgmma_d64_g1"])
+def test_wgmma_emulation_matches_pallas(name, rope):
     # the wgmma body's plan (U_k as two bf16 terms) against the JAX kernel
     # on the same bf16 values taken to fp32: the output rounds to bf16
     # (2^-8): 5e-3 relative Frobenius, as on the card
     case = next(c for c in CASES if c[0] == name)
     args = _inputs(case, seed=2)
-    got = fd.emulate(_plan(case), *args)
-    want = torch.from_numpy(_pallas(args, True))
+    got = fd.emulate(_plan(case), *args, rope=rope)
+    want = torch.from_numpy(_pallas(args, rope))
     assert _rel(got, want) <= 5e-3
+
+
+@pytest.mark.parametrize("name,rope", [("fma_fp32_d96_g1", True),
+                                       ("wgmma_d96_g1", True),
+                                       ("wgmma_d64_g1", False)])
+def test_wrapper_matches_pallas_at_the_multimodal_dims(name, rope):
+    # the port's wrapper (its plain version on the CPU) at phi-3-vision's
+    # head dim 96 and at whisper's D 64 without RoPE, against the JAX
+    # package's kernel in interpret mode: fp32 1e-5, bf16 inputs taken to
+    # fp32 on both sides 5e-3 (the output rounds to bf16)
+    case = next(c for c in CASES if c[0] == name)
+    args = _inputs(case, seed=4)
+    got = ops.flash_decode(*args, rope=rope)
+    want = torch.from_numpy(_pallas(args, rope))
+    assert got.dtype == case[9]
+    assert _rel(got, want) <= (1e-5 if case[9] == F32 else 5e-3)
 
 
 def test_split_factor_keeps_fp32_quality():
@@ -373,6 +408,18 @@ def test_smem_counts_every_box_of_a_u_row(g):
     # chunk, q, the 64-key tile and the span's scores, in floats
     assert fd.smem_bytes("fma", g, 112) == 4 * (
         32 * 112 + 32 * 65 + g * 112 + 64 * 113 + g * 256)
+
+
+@pytest.mark.parametrize("g", [1, 4])
+def test_smem_of_head_dim_96(g):
+    # D 96 stages two 64-column boxes of each U term, the second's last 32
+    # columns unused: D 128's stages, less 32 query and score columns
+    stage = 256 * 128 + 2 * 2 * 64 * 128
+    want = 1024 + 3 * stage + 4 * g * (96 + 256) + 16 * 3
+    assert fd.smem_bytes("wgmma", g, 96) == want
+    assert fd.smem_bytes("wgmma", g, 128) - want == 4 * g * 32
+    assert fd.smem_bytes("fma", g, 96) == 4 * (
+        32 * 96 + 32 * 65 + g * 96 + 64 * 97 + g * 256)
 
 
 def test_kimi_decode_fits_one_block():

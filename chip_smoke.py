@@ -44,10 +44,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
              beside ``ms`` and, where the mask is plain causal at offset 0,
              ``scaled_dot_product_attention(is_causal=True)`` as a second
              yardstick (``library_causal_ms``); the prefill case's rows
-             (and gemma3's windowed D-256 rows) bit for bit the same when
+             (and gemma3's windowed D-256 rows, kimi-k2's D-112 and
+             phi-3-vision's D-96 rows) bit for bit the same when
              computed again inside chunks of 256, 8 and 1 rows under
-             ``batch_invariant``, and two split-body
-             calls bit for bit equal.  ``lowrank_matmul`` at T 4096,
+             ``batch_invariant``, two split-body
+             calls bit for bit equal, and one D-112 split decode profiled
+             (``flash_split`` and ``flash_merge`` its only device work:
+             head dims 96 and 112 are read in place, never padded).  ``lowrank_matmul`` at T 4096,
              256 and 8 for each llama shape, ragged T through every body,
              and T 1-64 with each bf16 body forced; beside its ``ms`` (one
              call between CUDA events, as every kernel is timed) it gives
@@ -82,9 +85,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
              (64 query heads on 8 KV heads, rank 480: the wgmma body in
              bf16, the FMA body in fp32, each slot alone bit for bit; an
              odd rank through the FMA body in both dtypes),
-             ``flash_attention`` at head dim 112 zero-padded to 128
-             (a compression microbatch's prefill and dense-cache decode,
-             with the bound at the true and at the padded dim),
+             ``flash_attention`` at head dim 112 read at its true width
+             (a compression microbatch's prefill and dense-cache decode),
              ``lowrank_matmul`` at its six factorized shapes and each T,
              ``cov_accum`` at n 7168 and 18432, ``cov_accum_banked`` at
              its two capacity bank taps (E 32, C 1280, n 7168 and 2048).
@@ -92,8 +94,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
              (head dim 112, one query head a KV head: 32 on 32, rank 1080;
              bf16 wgmma and fp32 FMA bodies timed, each slot alone bit for
              bit; g 1 at D 112 with an odd rank and with rank 24),
-             ``flash_attention`` at D 112 MHA padded to 128 (prefill B 4,
-             L 1024; the split body at B 8, Lk 2048), ``lowrank_matmul`` at
+             ``flash_attention`` at D 112 MHA (prefill B 4, L 1024; the
+             split body at B 8, Lk 2048), ``lowrank_matmul`` at
              zamba2's and falcon-mamba's nine factorized shapes (T 4096;
              T 256 and 8 too where the widths are ragged: in_proj 14576
              wide, x_proj 288, dt_proj from 256), ``cov_accum`` at n 256,
@@ -234,7 +236,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              one ``attn_moe``) and routed experts 384 -> 32: phase 5's
              recipe (ranks, drop rate, eval CE, peak memory), then served
              at phase 6's shapes: ``Server`` over the dense cache
-             (``flash_attention`` padded to 128: wgmma prefill, split
+             (``flash_attention`` at D 112: wgmma prefill, split
              decode), the engine over the latent cache (``flash_decode``
              at head dim 112, every launch in the wgmma body) and over the
              dense one; cache bytes a token a layer; one teacher-forced
@@ -250,7 +252,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              remainder): phase 5's recipe (the shared block compressed at
              its first site, reused at its second: zero forwards tapped),
              ranks, eval CE, peak memory, then served at phase 6's shapes:
-             ``Server`` (dense cache: ``flash_attention`` padded to 128,
+             ``Server`` (dense cache: ``flash_attention`` at D 112,
              split decode), the engine over the latent cache
              (``flash_decode`` at D 112, g 1, every launch in the wgmma
              body) and over the dense one, every request ``whole_exact``;
@@ -396,14 +398,14 @@ SIZES = {
         ("gemma_global", 4, 4, 1, 1024, 1024, 256, True, 0, 0.0, 0),
         ("gemma_server", 8, 4, 1, 512, 512, 256, True, 512, 0.0, 0),
         ("gemma_decode", 8, 4, 1, 1, 2048, 256, True, 0, 0.0, (100, 2047)),
-        # kimi-k2's head dim 112 (64 query heads on 8 KV heads), zero-padded
-        # to the compiled 128: a compression microbatch's prefill (phase 12)
-        # and decode over its dense cache of 8 slots (the split body)
+        # kimi-k2's head dim 112 (64 query heads on 8 KV heads), read at its
+        # true width: a compression microbatch's prefill (phase 12) and
+        # decode over its dense cache of 8 slots (the split body)
         ("kimi_prefill", 4, 64, 8, 1024, 1024, 112, True, 0, 0.0, 0),
         ("kimi_decode", 8, 64, 8, 1, 2048, 112, True, 0, 0.0, (100, 2047)),
         # zamba2's shared block (phase 13): head dim 112 MHA (32 heads, KV
-        # 32) zero-padded to 128, a compression microbatch's prefill and
-        # decode over its dense cache of 8 slots (the split body)
+        # 32), a compression microbatch's prefill and decode over its dense
+        # cache of 8 slots (the split body)
         ("zamba2_prefill", 4, 32, 32, 1024, 1024, 112, True, 0, 0.0, 0),
         ("zamba2_decode", 8, 32, 32, 1, 2048, 112, True, 0, 0.0,
          (100, 2047)),
@@ -414,9 +416,9 @@ SIZES = {
         ("whisper_encoder", 4, 8, 8, 1500, 1500, 64, False, 0, 0.0, 0),
         ("whisper_cross", 4, 8, 8, 448, 1500, 64, False, 0, 0.0, 0),
         ("whisper_cross_decode", 8, 8, 8, 1, 1500, 64, False, 0, 0.0, 0),
-        # phi-3-vision-4.2b (phase 14): head dim 96 zero-padded to 128, a
-        # compression microbatch's prefill (256 patches + 768 tokens) and
-        # decode over its dense cache of 8 slots (the split body)
+        # phi-3-vision-4.2b (phase 14): head dim 96, a compression
+        # microbatch's prefill (256 patches + 768 tokens) and decode over
+        # its dense cache of 8 slots (the split body)
         ("vision_prefill", 4, 32, 32, 1024, 1024, 96, True, 0, 0.0, 0),
         ("vision_decode", 8, 32, 32, 1, 2048, 96, True, 0, 0.0,
          (100, 2047)),
@@ -428,20 +430,31 @@ SIZES = {
     # tile, a query block whose second warpgroup holds no row; and
     # non-causal at head dim 192 with Lq > Lk; at head dim 256 (g 4) a
     # window, per-slot offsets and Lk not a multiple of the key tile through
-    # the wgmma and fp32 tile bodies, and the same through the split body
+    # the wgmma and fp32 tile bodies, and the same through the split body;
+    # head dims 112 (g 4) and 96 likewise, and 96 non-causal with Lq > Lk
     "flash_attention_ragged": (
         ("ragged_decode", 3, 4, 2, 1, 77, 16, True, 16, 30.0, (0, 76)),
         ("ragged_wgmma", 2, 4, 2, 77, 200, 64, True, 48, 30.0, (5, 100)),
         ("noncausal_d192", 1, 2, 1, 130, 70, 192, False, 0, 0.0, 0),
         ("ragged_d256", 3, 4, 1, 70, 333, 256, True, 100, 0.0, (5, 263)),
         ("ragged_decode_d256", 3, 4, 1, 1, 333, 256, True, 100, 0.0,
+         (0, 332)),
+        ("ragged_d112", 3, 8, 2, 70, 333, 112, True, 100, 30.0, (5, 263)),
+        ("ragged_decode_d112", 3, 8, 2, 1, 333, 112, True, 100, 0.0,
+         (0, 332)),
+        ("ragged_d96", 2, 4, 4, 200, 77, 96, False, 0, 0.0, 0),
+        ("ragged_decode_d96", 3, 4, 4, 1, 333, 96, True, 0, 30.0,
          (0, 332))),
     # the row-invariance check: the prefill case's rows (and gemma_local's,
-    # head dim 256 with a window) computed again in chunks of Lq rows
-    # starting at these rows, under batch_invariant
+    # head dim 256 with a window; kimi's, head dim 112 with GQA; vision's,
+    # head dim 96) computed again in chunks of Lq rows starting at these
+    # rows, under batch_invariant
     "flash_attention_rows": ((256, (0, 256, 512, 768)), (8, (0, 100, 1016)),
                              (1, (0, 77, 1023))),
-    "flash_attention_rows_cases": ("prefill", "gemma_local"),
+    "flash_attention_rows_cases": ("prefill", "gemma_local", "kimi_prefill",
+                                   "vision_prefill"),
+    # the profiled split-body call: D 112 over zamba2's dense cache
+    "flash_attention_profiled": "zamba2_decode",
     # grouped_matmul: (name, M, d, f, E) — phase 7's expert GEMMs, M = 4 x
     # 1024 tokens x top-6 routed rows over 64 experts: the dense bank's
     # gate/up and down, the factorized banks' x @ V and t @ U at rank 504;
@@ -1272,12 +1285,37 @@ def _flash_inputs(torch, np, case, dtype, dev):
                                q_offset=q_offset, softcap=softcap)
 
 
+def _launched_plans(fa, fn):
+    """(fn's result, the plans ``fa.launch`` received during it)."""
+    plans, launch = [], fa.launch
+
+    def spy(p, *args, **kw):
+        plans.append(p)
+        return launch(p, *args, **kw)
+
+    fa.launch = spy
+    try:
+        return fn(), plans
+    finally:
+        fa.launch = launch
+
+
 def check_flash_attention(torch, np, ops, ref, case, dtype, timed, dev):
     from repro_torch.kernels import flash_attention as fa
     name, b, h, kv, lq, lk, d, causal, window, softcap, off = case
     q, k, v, offs, kw = _flash_inputs(torch, np, case, dtype, dev)
     want = ref.flash_attention_ref(q, k, v, **kw)
-    got = ops.flash_attention(q, k, v, **kw)
+    got, plans = _launched_plans(fa, lambda: ops.flash_attention(q, k, v,
+                                                                 **kw))
+    # the plan the wrapper launched, at the head dim it passed: the
+    # caller's own where it is compiled (96 and 112 among them)
+    dk = ops._padded_head_dim(d)
+    if dev != "cpu":
+        require(len(plans) == 1 and plans[0].d == dk,
+                f"flash_attention {name}: launched "
+                f"{[(p.body, p.d) for p in plans]}, want one at d {dk}")
+    p = plans[0] if plans else fa.plan(b, lq, lk, h, kv, dk, dtype,
+                                       causal=causal, window=window)
     err = rel_fro(got, want)
     mae = float((got.float() - want.float()).abs().max())
     # fp32: the same fp32 arithmetic in another order (and the card's own
@@ -1287,12 +1325,10 @@ def check_flash_attention(torch, np, ops, ref, case, dtype, timed, dev):
     lim = 1e-5 if dtype == torch.float32 else 1e-2
     require(err <= lim, f"flash_attention {name} {dtype}: rel err "
             f"{err:.3e} > {lim:.0e}")
-    p = fa.plan(b, lq, lk, h, kv, ops._padded_head_dim(d), dtype,
-                causal=causal, window=window)
     row = {"case": name, "shape": [b, h, kv, lq, lk, d],
            "dtype": str(dtype).replace("torch.", ""), "causal": causal,
            "window": window, "softcap": softcap, "q_offset": offs,
-           "body": p.body, "bkey": p.bkey, "spans": p.spans,
+           "body": p.body, "kernel_d": p.d, "bkey": p.bkey, "spans": p.spans,
            "rel_fro_err": err, "max_abs_err": mae}
     if timed:
         row["ms"] = time_ms(lambda: ops.flash_attention(q, k, v, **kw))
@@ -1347,13 +1383,6 @@ def check_flash_attention(torch, np, ops, ref, case, dtype, timed, dev):
         nbytes = (2 * b * lq * h * d + 2 * keys * kv * d) * eb
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes,
                                                  row["dtype"])
-        # a head dim the kernel zero-pads (kimi-k2's 112 to 128): the same
-        # bound at the padded dim, the work the padded call does
-        dp = ops._padded_head_dim(d)
-        if dp != d:
-            row["padded_d"] = dp
-            row["bound_padded_ms"], row["bound_padded_by"] = bound(
-                flops * dp // d, nbytes * dp // d, row["dtype"])
     return row
 
 
@@ -1394,11 +1423,35 @@ def check_flash_split_repeat(torch, np, ops, case, dtype, dev):
             "repeat_bitwise_equal": same}
 
 
+def check_flash_split_kernels(torch, np, ops, case, dev):
+    """The device work of one bf16 split-body call, by ``torch.profiler``:
+    ``flash_split`` and ``flash_merge`` alone, the cache read in place (no
+    pad, copy, slice or memset on the device)."""
+    q, k, v, offs, kw = _flash_inputs(torch, np, case, torch.bfloat16, dev)
+    row = {"case": case[0], "shape": list(case[1:7]), "dtype": "bfloat16"}
+    if dev == "cpu":
+        return {**row, "device_work": None}
+    ops.flash_attention(q, k, v, **kw)  # the plan cached, the build done
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ops.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+    work = device_times(prof)
+    names = sorted(work)
+    require(names and all("flash_split" in n or "flash_merge" in n
+                          for n in names),
+            f"flash_attention {case[0]}: device work {names}, want "
+            "flash_split and flash_merge alone")
+    return {**row, "device_work": {n[:80]: ms for n, ms in work.items()}}
+
+
 def phase_flash_attention(torch, np, ops, ref, dev="cuda", sizes=SIZES):
     """flash_attention's rows (every case in fp32 and bf16, the main paths'
     timed in bf16; then ragged cases through the split and wgmma bodies),
     then its bitwise checks: rows invariant under chunking, and two split
-    calls equal."""
+    calls equal; then one split call's device work, profiled."""
     rows, checks = [], []
     extra = sizes["flash_attention_ragged"]
     for case in sizes["flash_attention"] + extra:
@@ -1420,6 +1473,11 @@ def phase_flash_attention(torch, np, ops, ref, dev="cuda", sizes=SIZES):
             checks.append(check_flash_split_repeat(torch, np, ops, case,
                                                    dtype, dev))
             log("flash_attention repeat", json.dumps(checks[-1]))
+    profiled = [c for c in sizes["flash_attention"]
+                if c[0] == sizes["flash_attention_profiled"]]
+    for case in profiled:
+        checks.append(check_flash_split_kernels(torch, np, ops, case, dev))
+        log("flash_attention device work", json.dumps(checks[-1]))
     return rows, checks
 
 
@@ -4005,8 +4063,11 @@ def phase_kimi(torch, np, ops, dev="cuda", sizes=SIZES, cfg=None):
     kinds = [k for kk, _ in program for k in kk]
     require(kinds == ["attn_dense_first", "attn_moe"],
             f"{tag}: sub-block kinds {kinds}")
-    dpad = ops._padded_head_dim(cfg.head_dim)
-    out = {"layers": layers, "experts": experts, "padded_head_dim": dpad,
+    # head dim 112 has its own bodies: the kernel reads q, k, v unpadded
+    dk = ops._padded_head_dim(cfg.head_dim)
+    require(dk == cfg.head_dim, f"{tag}: head dim {cfg.head_dim} pads to "
+            f"{dk}")
+    out = {"layers": layers, "experts": experts, "kernel_head_dim": dk,
            "program": [[list(k), n] for k, n in program]}
 
     # compression (phase 5's recipe, the config's own capacity dispatch)
@@ -5711,8 +5772,7 @@ def main(argv=None) -> int:
                       ("vision_prefill_d96", "vision_prefill"),
                       ("vision_decode_split_d96", "vision_decode")):
         row = next(r for r in fa_rows if r["case"] == case and "ms" in r)
-        fa[key] = {**timing(row), **{k: row[k] for k in (
-            "padded_d", "bound_padded_ms", "bound_padded_by") if k in row}}
+        fa[key] = {**timing(row), "kernel_d": row["kernel_d"]}
     # flash_decode: its kernels by body, the fp32 row (phase 6 (c)'s fp32
     # route and phase 4's smoke serving take the FMA body), and the
     # engine's launches by keys body

@@ -22,13 +22,16 @@
 // bytes bound it.  The launch plan (kernels/flash_attention.py::plan) picks
 // one of four bodies a call:
 //
-//   wgmma (bf16, D 64 / 128 / 192 / 256; prefill, chunked prefill, latent and
-//     MLA prefill, and any Lq under ops.batch_invariant): one block a (batch·head,
-//     128 query rows), issued longest first (the last query blocks carry the
-//     most causal key tiles).  A producer thread loads Q once and keeps a
-//     2-stage ring of K and V tiles filled by TMA, all three read in place
-//     through 3D tensor maps on (B, L, heads·D), whose zero fill ends each
-//     batch's sequence.  Two consumer warpgroups of 64 query rows each run
+//   wgmma (bf16, D 64 / 96 / 112 / 128 / 192 / 256; prefill, chunked prefill,
+//     latent and MLA prefill, and any Lq under ops.batch_invariant): one block
+//     a (batch·head, 128 query rows), issued longest first (the last query
+//     blocks carry the most causal key tiles).  A producer thread loads Q once
+//     and keeps a 2-stage ring of K and V tiles filled by TMA, all three read
+//     in place through 4D tensor maps on (B, L, heads, D) in 64-column boxes,
+//     whose zero fill ends each head at D and each batch's sequence (D 96 and
+//     112 run the D-128 layout at their true width: the second box of a row
+//     arrives zero-filled past D, Q·Kᵀ takes ⌈D/16⌉ k16 steps).  Two consumer
+//     warpgroups of 64 query rows each run
 //     S = Q·Kᵀ as wgmma with both operands K-major (128 keys a tile at D <=
 //     128, 64 at D 192 / 256 to fit the registers), the softmax in the accumulator
 //     registers (a row is held by 4 lanes, reduced with shuffles), then
@@ -71,10 +74,12 @@
 //
 // Contract (checked by the wrapper, kernels/ops.py::flash_attention; the
 // launcher refuses what kernels/flash_attention.py::plan never makes): q, k,
-// v, o of one dtype, contiguous, 16-byte aligned; D one of 16, 32, 64, 128,
-// 192, 256 (the wrapper zero-pads the head dim and passes the scale of the
-// true one; 192 is MLA prefill's qk_nope 128 + qk_rope 64, with v zero-padded
-// to it; 256 is gemma3's head dim); q_off null (every slot at q_off0) or a (B,) int32 device vector; the
+// v, o of one dtype, contiguous, 16-byte aligned; D one of 16, 32, 64, 96,
+// 112, 128, 192, 256 (the wrapper zero-pads any other head dim and passes the
+// scale of the true one; 96 is phi-3-vision's, 112 kimi-k2's and zamba2's,
+// both read in place; 192 is MLA prefill's qk_nope 128 + qk_rope 64, with v
+// zero-padded to it; 256 is gemma3's head dim); q_off null (every slot at
+// q_off0) or a (B,) int32 device vector; the
 // split body's scratch B·H·spans·(D + 2) floats.  Returns the first non-zero
 // cudaError of the call.
 
@@ -402,8 +407,8 @@ __global__ void __launch_bounds__(THREADS) flash_tile(Args a) {
 }  // namespace ft
 
 // ---------------------------------------------------------------------------
-// wgmma (bf16, D 64 / 128 / 192 / 256): a TMA ring of K and V tiles, wgmma for
-// S and for P·V with P in registers
+// wgmma (bf16, D 64 / 96 / 112 / 128 / 192 / 256): a TMA ring of K and V
+// tiles, wgmma for S and for P·V with P in registers
 
 namespace fw {
 
@@ -412,10 +417,16 @@ constexpr int STAGES = 2;
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;  // 128·40 + 256·232 <= 65536
 
+// D 96 and 112 run the D-128 layout: a row's second 64-column box arrives
+// zero-filled past D (the 4D tensor maps end each head at D), Q·Kᵀ stops
+// at the last k16 step that holds a column below D, and P·V keeps its
+// m64n128 product, whose columns past D are zero and never stored.
 template <int D>
 struct Cfg {
-  static constexpr int DC = D / 64;                 // 64-column (128-byte) chunks of a row
-  static constexpr int BKEY = D <= 128 ? 128 : 64;  // keys a tile
+  static constexpr int DC = (D + 63) / 64;          // 64-column (128-byte) boxes of a row
+  static constexpr int DP = 64 * DC;                // columns of the boxes and of O
+  static constexpr int KSTEPS = (D + 15) / 16;      // k16 steps of Q·Kᵀ
+  static constexpr int BKEY = DP <= 128 ? 128 : 64;  // keys a tile
   // two consumer warpgroups and a producer warpgroup whose registers go to
   // them (setmaxnreg).  At D 256 no producer warpgroup: ptxas gives each
   // thread of a 12-warp block at most 168 registers (3 warps share a
@@ -460,35 +471,37 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // S (64 x BKEY, fp32) = Q (the warpgroup's 64 rows) Kᵀ, both K-major: a k16
 // step is 32 bytes along each swizzled 128-byte row, the next 64 columns of
-// D the next box
+// D the next box; steps wholly past D (zeros in both operands) are skipped
 template <int D>
 __device__ __forceinline__ void qk(float (&s)[Cfg<D>::BKEY / 2], uint32_t sq, uint32_t sk) {
   using C = Cfg<D>;
 #pragma unroll
-  for (int c = 0; c < C::DC; ++c) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint64_t da = smem_desc(sq + c * C::Q_BOX + j * 32, 16, 1024);
-      const uint64_t db = smem_desc(sk + c * C::KV_BOX + j * 32, 16, 1024);
-      if constexpr (C::BKEY == 128) {
-        wgmma_m64n128k16<0, 0>(s, da, db, (c | j) != 0);
-      } else {
-        wgmma_m64n64k16<0, 0>(s, da, db, (c | j) != 0);
-      }
+  for (int kk = 0; kk < C::KSTEPS; ++kk) {
+    const int c = kk / 4;
+    const int j = kk % 4;
+    const uint64_t da = smem_desc(sq + c * C::Q_BOX + j * 32, 16, 1024);
+    const uint64_t db = smem_desc(sk + c * C::KV_BOX + j * 32, 16, 1024);
+    if constexpr (C::BKEY == 128) {
+      wgmma_m64n128k16<0, 0>(s, da, db, kk != 0);
+    } else {
+      wgmma_m64n64k16<0, 0>(s, da, db, kk != 0);
     }
   }
 }
 
-// O (64 x D) += P (64 x 16, registers) V (16 x D): V MN-major, its 64-column
-// chunks (one box each) KV_BOX bytes apart (LBO), 8-key groups 1024 (SBO)
+// O (64 x DP) += P (64 x 16, registers) V (16 x DP): V MN-major, its
+// 64-column chunks (one box each) KV_BOX bytes apart (LBO), 8-key groups 1024
+// (SBO)
 template <int D>
-__device__ __forceinline__ void pv(float (&o)[D / 2], const uint32_t (&a)[4], uint32_t sv) {
+__device__ __forceinline__ void pv(float (&o)[Cfg<D>::DP / 2], const uint32_t (&a)[4],
+                                   uint32_t sv) {
+  constexpr int DP = Cfg<D>::DP;
   const uint64_t db = smem_desc(sv, Cfg<D>::KV_BOX, 1024);
-  if constexpr (D == 64) {
+  if constexpr (DP == 64) {
     wgmma_rs_m64n64k16<1>(o, a, db, 1);
-  } else if constexpr (D == 128) {
+  } else if constexpr (DP == 128) {
     wgmma_rs_m64n128k16<1>(o, a, db, 1);
-  } else if constexpr (D == 192) {
+  } else if constexpr (DP == 192) {
     wgmma_rs_m64n192k16<1>(o, a, db, 1);
   } else {
     wgmma_rs_m64n256k16<1>(o, a, db, 1);
@@ -538,21 +551,22 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
   }
   __syncthreads();
 
-  // Q (once), and key tile t into stage s: one thread issues each
+  // Q (once), and key tile t into stage s: one thread issues each; a box
+  // is (column 64·c of a head, the head, the first row, the batch)
   auto load_q = [&]() {
     mbar_expect_tx(qbar, C::Q_BYTES);
     for (int c = 0; c < C::DC; ++c) {
-      tma_load_3d(sq + c * C::Q_BOX, &tq, qbar, head * D + 64 * c, q0, b);
+      tma_load_4d(sq + c * C::Q_BOX, &tq, qbar, 64 * c, head, q0, b);
     }
   };
   auto load_kv = [&](int t, int s) {
     const uint32_t sk = ring + s * C::STAGE_BYTES;
     mbar_expect_tx(full(s), C::STAGE_BYTES);
     for (int c = 0; c < C::DC; ++c) {
-      tma_load_3d(sk + c * C::KV_BOX, &tk, full(s), kvh * D + 64 * c, t * C::BKEY, b);
+      tma_load_4d(sk + c * C::KV_BOX, &tk, full(s), 64 * c, kvh, t * C::BKEY, b);
     }
     for (int c = 0; c < C::DC; ++c) {
-      tma_load_3d(sk + C::KV_BYTES + c * C::KV_BOX, &tv, full(s), kvh * D + 64 * c,
+      tma_load_4d(sk + C::KV_BYTES + c * C::KV_BOX, &tv, full(s), 64 * c, kvh,
                   t * C::BKEY, b);
     }
   };
@@ -592,9 +606,9 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
   const int q_last = off + q0 + BQ - 1;
   const uint32_t sq_wg = sq + group * 64 * 128;  // this warpgroup's rows in each Q box
 
-  float o[D / 2];
+  float o[C::DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < C::DP / 2; ++i) o[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF};
   float l[2] = {0.f, 0.f};
   mbar_wait(qbar, 0);
@@ -683,7 +697,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
       l[h] = l[h] * corr[h] + sum[h];
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < C::DP / 8; ++j) {
       o[4 * j] *= corr[0];
       o[4 * j + 1] *= corr[0];
       o[4 * j + 2] *= corr[1];
@@ -720,7 +734,8 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
   // o / max(l, 1e-20), rounded once, staged in this warpgroup's own rows of
   // the Q tile (its last Q·Kᵀ has completed; the other warpgroup reads only
   // its own rows) in Q's layout: row r of box c at c·Q_BOX + r·128 bytes, its
-  // 16-byte chunk k at chunk k ^ (r % 8); then stored row-masked
+  // 16-byte chunk k at chunk k ^ (r % 8); then stored row-masked, D columns a
+  // row (the columns past D are never staged nor stored)
   uint8_t* const mine = base_ptr + group * 64 * 128;
   const float lm[2] = {fmaxf(l[0], 1e-20f), fmaxf(l[1], 1e-20f)};
 #pragma unroll
@@ -1006,11 +1021,11 @@ int launch_wgmma(const Args& a, cudaStream_t s) {
     sized = true;
   }
   CUtensorMap tq, tk, tv;
-  int rc = tensor_map_3d(&tq, a.q, a.b, a.lq, a.h * D, fw::BQ);
+  int rc = tensor_map_heads(&tq, a.q, a.b, a.lq, a.h, D, fw::BQ);
   if (rc != 0) return rc;
-  rc = tensor_map_3d(&tk, a.k, a.b, a.lk, a.kv * D, C::BKEY);
+  rc = tensor_map_heads(&tk, a.k, a.b, a.lk, a.kv, D, C::BKEY);
   if (rc != 0) return rc;
-  rc = tensor_map_3d(&tv, a.v, a.b, a.lk, a.kv * D, C::BKEY);
+  rc = tensor_map_heads(&tv, a.v, a.b, a.lk, a.kv, D, C::BKEY);
   if (rc != 0) return rc;
   const int blocks = (a.lq + fw::BQ - 1) / fw::BQ * a.b * a.h;
   fw::flash_wgmma<D><<<blocks, C::THREADS, C::SMEM, s>>>(tq, tk, tv, a);
@@ -1057,6 +1072,8 @@ int launch_dim(const Args& a, int d, int body, int span, int spans, float* part,
     case 16: return launch_body<T, 16>(a, body, span, spans, part, s);
     case 32: return launch_body<T, 32>(a, body, span, spans, part, s);
     case 64: return launch_body<T, 64>(a, body, span, spans, part, s);
+    case 96: return launch_body<T, 96>(a, body, span, spans, part, s);
+    case 112: return launch_body<T, 112>(a, body, span, spans, part, s);
     case 128: return launch_body<T, 128>(a, body, span, spans, part, s);
     case 192: return launch_body<T, 192>(a, body, span, spans, part, s);
     case 256: return launch_body<T, 256>(a, body, span, spans, part, s);
@@ -1074,7 +1091,8 @@ int split_keys(int d) {
 // One call under a launch plan (kernels/flash_attention.py::plan).  dtype: 0 =
 // fp32, 1 = bf16 (q, k, v and o share it).  body: 0 = fma32 (fp32; bq 64, bkey
 // 64, 32 at d 256), 1 = wmma (bf16 at d 16 / 32; bq 64, bkey 64), 2 = wgmma
-// (bf16 at d 64 / 128 / 192 / 256; bq 128, bkey 128 at d <= 128 else 64), 3 =
+// (bf16 at d 64 / 96 / 112 / 128 / 192 / 256; bq 128, bkey 128 at d <= 128
+// else 64), 3 =
 // split (lq 1, at most 16 query heads a KV head; bq 1, bkey the split tile (64
 // keys when a row is at most 256 bytes, else 32), span a multiple of bkey,
 // spans = ⌈lk / span⌉, scratch b·h·spans·(d + 2) floats).  span, spans and scratch are 0 / null for
@@ -1086,7 +1104,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       int bq, int bkey, int span, int spans, void* scratch,
                                       void* stream) {
   if (b <= 0 || lq <= 0 || lk <= 0 || kv <= 0 || h % kv != 0 || (dtype != 0 && dtype != 1) ||
-      (d != 16 && d != 32 && d != 64 && d != 128 && d != 192 && d != 256)) {
+      (d != 16 && d != 32 && d != 64 && d != 96 && d != 112 && d != 128 && d != 192 &&
+       d != 256)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long heads = static_cast<long long>(b) * h;

@@ -1,13 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA / wgmma kernels
 // (cov_accum.cu, flash_attention.cu, flash_decode.cu, grouped_matmul.cu,
 // lowrank_matmul.cu):
-// shared-memory barriers, 2D and 3D TMA loads, wgmma shared-memory
+// shared-memory barriers, 2D, 3D and 4D TMA loads, wgmma shared-memory
 // descriptors, the bf16 products m64n128k16 and m64n64k16 with both operands
 // in shared memory and m64n{64,128,192}k16 with A in registers, register
 // reallocation between warpgroups, and on the host the TMA descriptor
-// encoders and a launcher for programmatic dependent launches.  Everything sits in an
-// anonymous namespace: each kernel source gets its own copy, and the library
-// exports only the C launchers.
+// encoders (2D, 3D, and 4D over attention's (B, L, H, D)) and a launcher
+// for programmatic dependent launches.  Everything sits in an anonymous
+// namespace: each kernel source gets its own copy, and the library exports
+// only the C launchers.
 
 #pragma once
 
@@ -89,6 +90,19 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(inner), "r"(middle),
       "r"(outer)
+      : "memory");
+}
+
+// 4D TMA load of one box at (c0, c1, c2, c3) element coordinates, c0
+// innermost.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 
@@ -422,6 +436,31 @@ int tensor_map_3d(CUtensorMap* map, const void* ptr, int planes, int rows,
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                         const_cast<void*>(ptr), dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Row-major (b, rows, heads, d) bf16 (attention's (B, L, H, D)) cut into (1,
+// box_rows, 1, 64) boxes with the 128-byte swizzle, zeros out of bounds: a
+// box holds 64 columns of one head over box_rows rows, never a column of the
+// next head (past d it is zero-filled) nor a row past its own batch's last.
+// The strides (d·2, heads·d·2, rows·heads·d·2 bytes) must be multiples of
+// 16.  Returns 0 or a cudaError, as tensor_map.
+int tensor_map_heads(CUtensorMap* map, const void* ptr, int b, int rows, int heads,
+                     int d, int box_rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(b)};
+  const cuuint64_t row = static_cast<cuuint64_t>(heads) * d * sizeof(bf16);
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(d) * sizeof(bf16), row,
+                                 row * static_cast<cuuint64_t>(rows)};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                          const_cast<void*>(ptr), dims, strides, box, elem,
                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

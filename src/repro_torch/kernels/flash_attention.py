@@ -13,10 +13,12 @@ Bound on the card: max(4·B·H·Σ live keys·D flops / peak, (q + k + v + o)
 bytes / bandwidth) — operations for prefill, bytes for one-token decode.
 ``plan`` picks one of four bodies and everything it needs:
 
-* ``wgmma`` (bf16 at D 64 / 128 / 192 / 256): one block a (batch·head, 128
-  query rows), issued longest first; a TMA ring of K and V tiles feeds wgmma
-  for S = Q·Kᵀ and for O += P·V with P in registers.  Key tiles are 128 wide
-  at D <= 128, 64 at D 192 and 256.
+* ``wgmma`` (bf16 at D 64 / 96 / 112 / 128 / 192 / 256): one block a
+  (batch·head, 128 query rows), issued longest first; a TMA ring of K and V
+  tiles feeds wgmma for S = Q·Kᵀ and for O += P·V with P in registers.  Key
+  tiles are 128 wide at D <= 128, 64 at D 192 and 256.  D 96 and 112 are
+  read at their true width (4D tensor maps whose second 64-column box is
+  zero-filled past D) and run the D-128 layout.
 * ``split`` (Lq 1 outside ``ops.batch_invariant``, every dtype and D, at most
   ``SPLIT_MAX_GROUP`` query heads a KV head): one block a (slot, KV head,
   key span) over the span's live keys on the FMA units, each writing an fp32
@@ -33,9 +35,10 @@ which is exact: a row's bits do not depend on Lq, on where its block starts
 or on B.  Under ``batch_invariant`` no choice depends on Lq, so chunked
 prefill equals whole prefill bit for bit.
 
-Callers go through ``kernels.ops.flash_attention``, which checks, pads the
-head dim and owns the autograd rule; ``emulate`` repeats a plan's arithmetic
-in plain PyTorch for the CPU tests.
+Callers go through ``kernels.ops.flash_attention``, which checks, pads a
+head dim that has no body of its own and owns the autograd rule;
+``emulate`` repeats a plan's arithmetic in plain PyTorch for the CPU
+tests.
 """
 
 from __future__ import annotations
@@ -54,12 +57,13 @@ BODIES = ("fma32", "wmma", "wgmma", "split")   # index = the launcher's body cod
 SMS = 132                                      # H100 SXM streaming multiprocessors
 NEG_INF = -1e30
 
-# head dims the kernel is compiled for; the wrapper zero-pads up to one
-# (192: MLA prefill, qk_nope 128 + qk_rope 64; 256: gemma3)
-HEAD_DIMS = (16, 32, 64, 128, 192, 256)
+# head dims the kernel is compiled for; the wrapper zero-pads any other up
+# to one (96: phi-3-vision; 112: kimi-k2 and zamba2's shared block; 192: MLA
+# prefill, qk_nope 128 + qk_rope 64; 256: gemma3)
+HEAD_DIMS = (16, 32, 64, 96, 112, 128, 192, 256)
 # wgmma: query rows a block (two consumer warpgroups of 64), keys a tile by D
 WG_BQ = 128
-WG_BKEY = {64: 128, 128: 128, 192: 64, 256: 64}
+WG_BKEY = {64: 128, 96: 128, 112: 128, 128: 128, 192: 64, 256: 64}
 # fma32 / wmma: query rows a block; keys a tile by D (``tile_bkey``)
 TILE_BQ = 64
 # split: query heads a KV head at most (the block's shared arrays), the
@@ -84,7 +88,8 @@ def split_keys(dtype: torch.dtype, d: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """How one call runs.  ``d`` is the padded head dim the kernel sees;
+    """How one call runs.  ``d`` is the head dim the kernel sees (the
+    caller's, or a padded one where the caller's has no body);
     ``bq`` the query rows a block (1 for ``split``), ``bkey`` the keys a
     tile; ``span`` / ``spans`` the split body's key spans (0 otherwise).
     ``offsets`` are the slots' query offsets when the host knows them (the

@@ -386,7 +386,9 @@ def _on_cpu(*tensors) -> bool:
 
 def _padded_head_dim(d: int) -> int:
     """The smallest head dim ``flash_attention`` is compiled for that holds
-    ``d`` (raises past 256: no body takes it)."""
+    ``d``: ``d`` itself where it has a body (96 and 112 among them), else
+    the next one up (the smoke configs' 8, 20, 24, 100; raises past 256: no
+    body takes it)."""
     for dp in _fa.HEAD_DIMS:
         if dp >= d:
             return dp
@@ -396,10 +398,12 @@ def _padded_head_dim(d: int) -> int:
 
 def _flash_attention_kernel(q, k, v, q_offset, causal, window, softcap):
     """Checked launch of the call's plan (``kernels.flash_attention.plan``;
-    ``batch_invariant`` makes it choose by dtype and head dim alone); the
-    head dim is zero-padded to a compiled one (exact: zero dims add nothing
-    to q·k or to the output columns kept) with the scale of the true one.
-    Per-slot offsets stay on the device: the kernel reads them."""
+    ``batch_invariant`` makes it choose by dtype and head dim alone).  A
+    compiled head dim reaches the kernel as the caller's tensors, read in
+    place; any other is zero-padded to the next compiled one (exact: zero
+    dims add nothing to q·k or to the output columns kept) with the scale of
+    the true one.  Per-slot offsets stay on the device: the kernel reads
+    them."""
     _check_cuda("flash_attention", [q, k, v], q.dtype)
     b, lq, h, d = q.shape
     if (k.dim() != 4 or k.shape != v.shape or k.shape[0] != b

@@ -28,8 +28,8 @@ decode through ``gqa_decode_latent`` (the ``flash_decode`` kernel);
 rings and dense global caches (qk_norm), and every request takes
 exact-length whole prefill (``"whole_exact"``): a ring can neither resume
 mid-sequence nor take right-padding.  kimi-k2's head dim 112 reaches
-``flash_decode`` as it is (RoPE pairs the true dims) and ``flash_attention``
-zero-padded to 128.  falcon-mamba's Mamba1 and zamba2's Mamba2 layers keep
+``flash_decode`` and ``flash_attention`` as it is (both have bodies at D
+112 and 96).  falcon-mamba's Mamba1 and zamba2's Mamba2 layers keep
 their recurrent {"h", "conv"} state a slot, so every request of those
 archs takes ``"whole_exact"`` prefill too; zamba2's shared attention sites
 (head dim 112, 32 heads on 32 KV heads) each keep their own latent or

@@ -160,16 +160,20 @@ def test_flash_attention_backward_matches_autograd(per_slot):
     torch.testing.assert_close(qa.grad, p[0].grad, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("d", [8, 16, 24, 100])
+@pytest.mark.parametrize("d", [8, 16, 24, 96, 100, 112])
 def test_head_dim_padding_is_exact(d):
     # the wrapper zero-pads D up to a compiled head dim and passes the scale
     # of the true D: the padded plain version, sliced back, is the same
-    # function (fp32 sums with zero terms added: rtol 1e-6)
+    # function (fp32 sums with zero terms added: rtol 1e-6).  A compiled D
+    # (96: phi-3-vision, 112: kimi-k2 and zamba2) is not padded: the
+    # caller's tensor goes through as it is
     rng = np.random.default_rng(5)
     q, k, v = (_t(_rand(rng, 2, 9, 4, d)), _t(_rand(rng, 2, 9, 2, d)),
                _t(_rand(rng, 2, 9, 2, d)))
     dp = ops._padded_head_dim(d)
-    assert dp >= d and dp in (16, 32, 64, 128)
+    assert dp == {8: 16, 16: 16, 24: 32, 96: 96, 100: 112, 112: 112}[d]
+    if dp == d:
+        assert all(ops.pad_dim(t, 3, dp) is t for t in (q, k, v))
     padded = ref.flash_attention_ref(
         *(ops.pad_dim(t, 3, dp) for t in (q, k, v)),
         scale=1.0 / math.sqrt(d))[..., :d]

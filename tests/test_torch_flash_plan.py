@@ -50,6 +50,16 @@ CASES = [
      False),
     ("d256_decode_f32", 3, 1, 150, 4, 1, 256, F32, True, 64, [0, 70, 149],
      False),
+    # head dims 112 (kimi-k2 with GQA, zamba2) and 96 (phi-3-vision) at
+    # their true width in each body: wgmma (a window, Lk not a multiple of
+    # the 128-key tile), the fp32 tile body, and split in both dtypes
+    ("d112_gqa", 2, 130, 150, 8, 2, 112, BF16, True, 0, [0, 20], False),
+    ("d96_window", 1, 200, 200, 2, 2, 96, BF16, True, 50, 0, False),
+    ("d112_fma32", 2, 70, 140, 4, 2, 112, F32, True, 0, [3, 70], False),
+    ("d96_decode", 3, 1, 300, 4, 4, 96, BF16, True, 0, [0, 150, 299],
+     False),
+    ("d112_decode_f32", 3, 1, 300, 8, 2, 112, F32, True, 64, [10, 150, 299],
+     False),
 ]
 TILE_CASES = [c for c in CASES if not (c[2] == 1 and not c[11])]
 SPLIT_CASES = [c for c in CASES if c[2] == 1 and not c[11]]
@@ -94,6 +104,12 @@ def test_plan_bodies_and_tiles():
     assert fa.plan(4, 1024, 1024, 4, 1, 256, BF16).bkey == 64
     assert fa.plan(4, 1024, 1024, 4, 1, 256, F32).body == "fma32"
     assert fa.plan(4, 1024, 1024, 4, 1, 256, F32).bkey == 32
+    # head dims 112 and 96 have bodies of their own: wgmma with 128-key
+    # tiles in bf16 (kimi-k2's GQA, zamba2, phi-3-vision), fp32's tile body
+    for h, kv, d in ((64, 8, 112), (32, 32, 112), (32, 32, 96)):
+        p = fa.plan(4, 1024, 1024, h, kv, d, BF16)
+        assert (p.body, p.bkey, p.d) == ("wgmma", 128, d)
+        assert fa.plan(4, 1024, 1024, h, kv, d, F32).body == "fma32"
     assert fa.plan(4, 1024, 1024, 4, 1, 128, F32).bkey == 64
     assert fa.plan(1, 8, 2048, 32, 32, 64, BF16).bq == 128
     assert fa.plan(2, 77, 77, 4, 2, 32, BF16).body == "wmma"
@@ -119,7 +135,7 @@ def test_split_spans_fill_the_card(b, kv, lk):
     # reach SPLIT_BLOCKS: want = ⌈SPLIT_BLOCKS / (B·KV)⌉ spans a row, each
     # ⌈Lk / want⌉ keys rounded up to a tile
     for dtype, d in ((BF16, 128), (F32, 128), (BF16, 192), (BF16, 16),
-                     (BF16, 256), (F32, 256)):
+                     (BF16, 256), (F32, 256), (BF16, 112), (F32, 96)):
         p = fa.plan(b, 1, lk, kv, kv, d, dtype)
         want = -(-fa.SPLIT_BLOCKS // (b * kv))
         assert p.bkey == fa.split_keys(dtype, d)
@@ -200,7 +216,7 @@ def _launcher_accepts(p: fa.Plan) -> bool:
     """csrc/flash_attention.cu's flash_attention_launch checks, mirrored."""
     d, h, kv = p.d, p.h, p.kv
     if (min(p.b, p.lq, p.lk, kv) <= 0 or h % kv
-            or d not in (16, 32, 64, 128, 192, 256)):
+            or d not in (16, 32, 64, 96, 112, 128, 192, 256)):
         return False
     heads = p.b * h
     body = fa.BODIES.index(p.body)
@@ -235,6 +251,21 @@ PLANS = [_plan(c) for c in CASES] + [
     fa.plan(8, 512, 512, 4, 1, 256, BF16, window=512),
     fa.plan(8, 1, 2048, 4, 1, 256, BF16),
     fa.plan(4, 1024, 1024, 4, 1, 256, F32, window=512),
+    # kimi-k2 (D 112, 64 query heads on 8 KV heads), zamba2's shared block
+    # (D 112 MHA) and phi-3-vision (D 96 MHA) at their true width: a
+    # compression microbatch's prefill and decode over 8 slots' dense
+    # cache, in bf16 and fp32
+    fa.plan(4, 1024, 1024, 64, 8, 112, BF16),
+    fa.plan(8, 1, 2048, 64, 8, 112, BF16),
+    fa.plan(8, 1, 2048, 64, 8, 112, F32),
+    fa.plan(4, 1024, 1024, 32, 32, 112, BF16),
+    fa.plan(4, 1024, 1024, 32, 32, 112, F32),
+    fa.plan(8, 1, 2048, 32, 32, 112, BF16),
+    fa.plan(8, 1, 2048, 32, 32, 112, F32),
+    fa.plan(4, 1024, 1024, 32, 32, 96, BF16),
+    fa.plan(4, 1024, 1024, 32, 32, 96, F32),
+    fa.plan(8, 1, 2048, 32, 32, 96, BF16),
+    fa.plan(8, 1, 2048, 32, 32, 96, F32),
 ]
 
 
@@ -258,7 +289,7 @@ REFUSED = {
     "fma32_d256_tile": dataclasses.replace(
         fa.plan(1, 300, 300, 4, 1, 256, F32), bkey=64),
     "wmma_d128": dataclasses.replace(_F32, dtype=BF16, body="wmma"),
-    "head_dim": dataclasses.replace(_WG, d=96),
+    "head_dim": dataclasses.replace(_WG, d=80),
     "heads": dataclasses.replace(_WG, kv=3),
     "split_span": dataclasses.replace(_SPLIT, span=_SPLIT.span + 1),
     "split_spans": dataclasses.replace(_SPLIT, spans=_SPLIT.spans + 1),
@@ -295,7 +326,8 @@ def test_emulate_matches_plain(case):
 
 @pytest.mark.parametrize("lq,lk,causal,window,d", [
     (64, 64, True, 0, 16), (64, 64, True, 24, 32), (50, 77, False, 0, 16),
-    (77, 77, True, 0, 64), (1, 77, True, 0, 16)])
+    (77, 77, True, 0, 64), (1, 77, True, 0, 16), (64, 64, True, 16, 96),
+    (50, 77, False, 0, 112), (1, 77, True, 0, 112)])
 def test_emulate_matches_pallas(lq, lk, causal, window, d):
     # the JAX kernel in interpret mode in its (B, H, L, D) layout, fp32, at
     # q_offset 0 and no soft cap (which it lacks): rtol 1e-5, atol 1e-6
@@ -315,7 +347,7 @@ def test_emulate_matches_pallas(lq, lk, causal, window, d):
                                rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("d", [64, 192, 256])
+@pytest.mark.parametrize("d", [64, 112, 192, 256])
 def test_invariant_rows_do_not_depend_on_the_chunk(d):
     # under batch_invariant a row's emulated bits are the same whether it
     # is computed inside Lq 1, 8, 256 or the whole prompt, at any block
@@ -351,8 +383,9 @@ def test_split_emulation_repeats_bitwise(case):
 def test_wrapper_launches_the_plan(monkeypatch):
     # a tensor off the CPU takes the kernel's route (meta: no data): the
     # wrapper hands the launcher the call's plan (batch_invariant chooses
-    # by dtype and head dim alone), the padded head dim and the split
-    # body's scratch, and counts the launch by body
+    # by dtype and head dim alone), the head dim (the caller's where it is
+    # compiled, else padded) and the split body's scratch, and counts the
+    # launch by body
     seen = []
     monkeypatch.setattr(ops, "_check_cuda", lambda *a, **k: None)
     monkeypatch.setattr(ops, "_aligned", lambda a: a)
@@ -360,30 +393,49 @@ def test_wrapper_launches_the_plan(monkeypatch):
                         *, scale, softcap, scratch=None: seen.append(
                             (p, tuple(q.shape), tuple(o.shape), q_off, q_off0,
                              scale, None if scratch is None
-                             else scratch.numel())))
+                             else scratch.numel(), (q, k, v))))
     meta = dict(device="meta")
     ops.reset_launches()
 
     def call(b, lq, lk, h, kv, d, dtype, **kw):
         q = torch.zeros(b, lq, h, d, dtype=dtype, **meta)
         k = torch.zeros(b, lk, kv, d, dtype=dtype, **meta)
-        return ops._flash_attention_kernel(q, k, k, kw.get("q_offset", 0),
-                                           True, 0, 0.0)
+        v = torch.zeros(b, lk, kv, d, dtype=dtype, **meta)
+        out = ops._flash_attention_kernel(q, k, v, kw.get("q_offset", 0),
+                                          True, 0, 0.0)
+        return out, (q, k, v)
 
-    out = call(1, 1024, 1024, 32, 32, 128, BF16)
+    out, _ = call(1, 1024, 1024, 32, 32, 128, BF16)
     assert seen[-1][0] == fa.plan(1, 1024, 1024, 32, 32, 128, BF16)
     assert tuple(out.shape) == (1, 1024, 32, 128) and seen[-1][6] is None
     slots = torch.zeros(8, dtype=torch.int64, **meta)
-    out = call(8, 1, 2048, 32, 32, 128, BF16, q_offset=slots)
+    out, _ = call(8, 1, 2048, 32, 32, 128, BF16, q_offset=slots)
     p = fa.plan(8, 1, 2048, 32, 32, 128, BF16)
     assert seen[-1][0] == p and p.body == "split"
     assert seen[-1][3].dtype == torch.int32 and seen[-1][6] == p.scratch_floats
     with ops.batch_invariant():
         call(8, 1, 2048, 32, 32, 128, BF16, q_offset=slots)
     assert seen[-1][0].body == "wgmma" and seen[-1][0].invariant
-    out = call(2, 9, 9, 4, 2, 100, F32, q_offset=3)
-    assert seen[-1][0] == fa.plan(2, 9, 9, 4, 2, 128, F32)
-    assert seen[-1][1] == (2, 9, 4, 128) and tuple(out.shape) == (2, 9, 4, 100)
+    # head dim 100 has no body: padded to the next compiled one, 112
+    out, _ = call(2, 9, 9, 4, 2, 100, F32, q_offset=3)
+    assert seen[-1][0] == fa.plan(2, 9, 9, 4, 2, 112, F32)
+    assert seen[-1][1] == (2, 9, 4, 112) and tuple(out.shape) == (2, 9, 4, 100)
     assert seen[-1][4] == 3 and seen[-1][5] == pytest.approx(0.1)
-    assert ops.LAUNCHES["flash_attention"] == 4
-    assert dict(ops.FLASH_BODIES) == {"wgmma": 2, "split": 1, "fma32": 1}
+    # kimi-k2's D 112 prefill (64 query heads on 8 KV heads) and
+    # phi-3-vision's D 96 split decode: the launcher gets the caller's own
+    # tensors at their true head dim, no padded copy, and the output is the
+    # kernel's (B, Lq, H, D) as it is
+    out, qkv = call(4, 1024, 1024, 64, 8, 112, BF16)
+    assert seen[-1][0] == fa.plan(4, 1024, 1024, 64, 8, 112, BF16)
+    assert seen[-1][0].d == 112 and seen[-1][0].body == "wgmma"
+    assert all(a is b for a, b in zip(seen[-1][7], qkv))
+    assert tuple(out.shape) == seen[-1][2] == (4, 1024, 64, 112)
+    assert seen[-1][5] == pytest.approx(1 / math.sqrt(112))
+    out, qkv = call(8, 1, 2048, 32, 32, 96, BF16, q_offset=slots)
+    p = fa.plan(8, 1, 2048, 32, 32, 96, BF16)
+    assert seen[-1][0] == p and p.body == "split" and p.d == 96
+    assert all(a is b for a, b in zip(seen[-1][7], qkv))
+    assert seen[-1][6] == p.scratch_floats == 8 * 32 * p.spans * 98
+    assert tuple(out.shape) == (8, 1, 32, 96)
+    assert ops.LAUNCHES["flash_attention"] == 6
+    assert dict(ops.FLASH_BODIES) == {"wgmma": 3, "split": 2, "fma32": 1}

@@ -19,7 +19,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 2. build   — compiles the hand-written kernels (``src/repro_torch/csrc``);
              prints nvcc's version, each kernel's registers and spills
              (``-Xptxas -v``; the wgmma bodies of flash_attention and
-             flash_decode must not spill) and whether every wgmma body's
+             flash_decode and flash_attention's split_mma body must not
+             spill) and whether every wgmma body's
              SASS holds HGMMA
              (``cuobjdump``, where the toolkit has it).
 3. kernels — every kernel against its plain PyTorch version on the card, at
@@ -47,10 +48,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
              (and gemma3's windowed D-256 rows, kimi-k2's D-112 and
              phi-3-vision's D-96 rows) bit for bit the same when
              computed again inside chunks of 256, 8 and 1 rows under
-             ``batch_invariant``, two split-body
-             calls bit for bit equal, and one D-112 split decode profiled
+             ``batch_invariant``, two calls of every one-row case bit for
+             bit equal, and three split decodes profiled: D-112 zamba2's
              (``flash_split`` and ``flash_merge`` its only device work:
-             head dims 96 and 112 are read in place, never padded).  ``lowrank_matmul`` at T 4096,
+             head dims 96 and 112 are read in place, never padded), and
+             gemma3's and kimi-k2's GQA decodes (``flash_split_mma`` and
+             ``flash_merge`` alone); ``split_mma``, the tensor-core GQA
+             decode (bf16, D 64-256, 2 to 16 query heads a KV head), at
+             qwen3-0.6b's decode and ragged cases (g 2 to 16, a window, a
+             soft cap, per-slot offsets, Lk 333, a span with no live key);
+             each row hashes its output (``out_sha256``) and each timed
+             split row gives its launches' device times apart
+             (``kernels_device_ms``).  ``lowrank_matmul`` at T 4096,
              256 and 8 for each llama shape, ragged T through every body,
              and T 1-64 with each bf16 body forced; beside its ``ms`` (one
              call between CUDA events, as every kernel is timed) it gives
@@ -274,6 +283,7 @@ It prints a ``{"kernels": [...]}`` line, then
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import pathlib
@@ -444,7 +454,22 @@ SIZES = {
          (0, 332)),
         ("ragged_d96", 2, 4, 4, 200, 77, 96, False, 0, 0.0, 0),
         ("ragged_decode_d96", 3, 4, 4, 1, 333, 96, True, 0, 30.0,
-         (0, 332))),
+         (0, 332)),
+        # the tensor-core GQA decode (split_mma) beside gemma_decode (g 4,
+        # D 256), kimi_decode (g 8, D 112) and the two ragged GQA decodes
+        # above: qwen3-0.6b's 16 query heads on 8 (g 2, D 128) over 8
+        # slots' dense cache; g 16 at D 64 with a soft cap; D 96 with a
+        # window and a slot whose second span holds no live key; D 192
+        # with a window and a soft cap; D 256 non-causal; Lk 333 is no
+        # multiple of a tile
+        ("qwen3_decode", 8, 16, 8, 1, 2048, 128, True, 0, 0.0, (100, 2047)),
+        ("ragged_mma_g16_d64", 2, 16, 1, 1, 333, 64, True, 0, 30.0,
+         (0, 332)),
+        ("ragged_mma_g4_d96", 3, 8, 2, 1, 333, 96, True, 100, 0.0,
+         (5, 332)),
+        ("ragged_mma_g2_d192", 3, 4, 2, 1, 333, 192, True, 64, 30.0,
+         (10, 332)),
+        ("ragged_mma_g8_d256", 2, 8, 1, 1, 333, 256, False, 0, 0.0, 0)),
     # the row-invariance check: the prefill case's rows (and gemma_local's,
     # head dim 256 with a window; kimi's, head dim 112 with GQA; vision's,
     # head dim 96) computed again in chunks of Lq rows starting at these
@@ -453,8 +478,10 @@ SIZES = {
                              (1, (0, 77, 1023))),
     "flash_attention_rows_cases": ("prefill", "gemma_local", "kimi_prefill",
                                    "vision_prefill"),
-    # the profiled split-body call: D 112 over zamba2's dense cache
-    "flash_attention_profiled": "zamba2_decode",
+    # the profiled split calls: D 112 over zamba2's dense cache (split),
+    # gemma3's and kimi-k2's GQA decodes (split_mma)
+    "flash_attention_profiled": ("zamba2_decode", "gemma_decode",
+                                 "kimi_decode"),
     # grouped_matmul: (name, M, d, f, E) — phase 7's expert GEMMs, M = 4 x
     # 1024 tokens x top-6 routed rows over 64 experts: the dense bank's
     # gate/up and down, the factorized banks' x @ V and t @ U at rank 504;
@@ -1316,6 +1343,10 @@ def check_flash_attention(torch, np, ops, ref, case, dtype, timed, dev):
                 f"{[(p.body, p.d) for p in plans]}, want one at d {dk}")
     p = plans[0] if plans else fa.plan(b, lq, lk, h, kv, dk, dtype,
                                        causal=causal, window=window)
+    # one-token GQA decode in bf16 takes the tensor-core body
+    if lq == 1 and h > kv and dk >= 64 and dtype == torch.bfloat16:
+        require(p.body == "split_mma", f"flash_attention {name}: GQA "
+                f"decode launched {p.body}, want split_mma")
     err = rel_fro(got, want)
     mae = float((got.float() - want.float()).abs().max())
     # fp32: the same fp32 arithmetic in another order (and the card's own
@@ -1329,11 +1360,20 @@ def check_flash_attention(torch, np, ops, ref, case, dtype, timed, dev):
            "dtype": str(dtype).replace("torch.", ""), "causal": causal,
            "window": window, "softcap": softcap, "q_offset": offs,
            "body": p.body, "kernel_d": p.d, "bkey": p.bkey, "spans": p.spans,
-           "rel_fro_err": err, "max_abs_err": mae}
+           "rel_fro_err": err, "max_abs_err": mae,
+           # the output's bits, to hold two builds of the kernel to each
+           # other on the same seeded inputs
+           "out_sha256": hashlib.sha256(
+               got.float().cpu().numpy().tobytes()).hexdigest()[:16]}
     if timed:
         row["ms"] = time_ms(lambda: ops.flash_attention(q, k, v, **kw))
         row["device_ms"] = device_ms(lambda: ops.flash_attention(q, k, v,
                                                                  **kw))
+        if p.spans:
+            # a split call's launches apart: the span body and the merge,
+            # each one's device time by torch.profiler
+            row["kernels_device_ms"] = kernel_ms(
+                lambda: ops.flash_attention(q, k, v, **kw))
         row["plain_ms"] = time_ms(lambda: ref.flash_attention_ref(q, k, v,
                                                                   **kw))
         # yardstick: scaled_dot_product_attention on the same inputs in its
@@ -1424,27 +1464,39 @@ def check_flash_split_repeat(torch, np, ops, case, dtype, dev):
 
 
 def check_flash_split_kernels(torch, np, ops, case, dev):
-    """The device work of one bf16 split-body call, by ``torch.profiler``:
-    ``flash_split`` and ``flash_merge`` alone, the cache read in place (no
-    pad, copy, slice or memset on the device)."""
+    """The device work of a bf16 split call (5 profiled, each kernel's
+    device ms a call), by ``torch.profiler``: the launched body's span
+    kernel (``flash_split<`` for split, ``flash_split_mma<`` for
+    split_mma) and ``flash_merge`` alone, the cache read in place (no pad,
+    copy, slice or memset on the device)."""
+    from repro_torch.kernels import flash_attention as fa
     q, k, v, offs, kw = _flash_inputs(torch, np, case, torch.bfloat16, dev)
     row = {"case": case[0], "shape": list(case[1:7]), "dtype": "bfloat16"}
     if dev == "cpu":
         return {**row, "device_work": None}
-    ops.flash_attention(q, k, v, **kw)  # the plan cached, the build done
+    # the plan cached, the build done
+    _, plans = _launched_plans(fa, lambda: ops.flash_attention(q, k, v,
+                                                               **kw))
     torch.cuda.synchronize()
+    require(len(plans) == 1 and plans[0].spans > 0,
+            f"flash_attention {case[0]}: launched "
+            f"{[p.body for p in plans]}, want one split call")
+    span_kernel = f"{plans[0].body.replace('split', 'flash_split')}<"
     from torch.profiler import ProfilerActivity, profile
+    calls = 5
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        ops.flash_attention(q, k, v, **kw)
+        for _ in range(calls):
+            ops.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
-    work = device_times(prof)
+    work = {n: ms / calls for n, ms in device_times(prof).items()}
     names = sorted(work)
-    require(names and all("flash_split" in n or "flash_merge" in n
-                          for n in names),
+    require(any(span_kernel in n for n in names)
+            and all(span_kernel in n or "flash_merge<" in n for n in names),
             f"flash_attention {case[0]}: device work {names}, want "
-            "flash_split and flash_merge alone")
-    return {**row, "device_work": {n[:80]: ms for n, ms in work.items()}}
+            f"{span_kernel} and flash_merge< alone")
+    return {**row, "body": plans[0].body,
+            "device_work": {n[:80]: ms for n, ms in work.items()}}
 
 
 def phase_flash_attention(torch, np, ops, ref, dev="cuda", sizes=SIZES):
@@ -1474,7 +1526,7 @@ def phase_flash_attention(torch, np, ops, ref, dev="cuda", sizes=SIZES):
                                                    dtype, dev))
             log("flash_attention repeat", json.dumps(checks[-1]))
     profiled = [c for c in sizes["flash_attention"]
-                if c[0] == sizes["flash_attention_profiled"]]
+                if c[0] in sizes["flash_attention_profiled"]]
     for case in profiled:
         checks.append(check_flash_split_kernels(torch, np, ops, case, dev))
         log("flash_attention device work", json.dumps(checks[-1]))
@@ -3340,8 +3392,11 @@ def phase_gemma(torch, np, ops, dev="cuda", sizes=SIZES, cfg=None):
                 "the caches dense)")
         require(not on_card or bodies.get("wgmma", 0) > 0,
                 f"{tag} {run}: no prefill in the wgmma body: {bodies}")
-        require(not on_card or bodies.get("split", 0) > 0,
-                f"{tag} {run}: no decode in the split body: {bodies}")
+        # every decode over a global layer's dense cache (4 query heads on
+        # 1, bf16) takes the tensor-core GQA body
+        require(not on_card or (bodies.get("split_mma", 0) > 0
+                                and bodies.get("split", 0) == 0),
+                f"{tag} {run}: decode outside the split_mma body: {bodies}")
 
     # (a) fixed batch
     rng = np.random.default_rng(23)
@@ -4163,8 +4218,12 @@ def phase_kimi(torch, np, ops, dev="cuda", sizes=SIZES, cfg=None):
         else:
             require(launches["flash_decode"] == 0,
                     f"{tag} {run}: flash_decode launched over a dense cache")
-            require(not on_card or bodies.get("split", 0) > 0,
-                    f"{tag} {run}: no decode in the split body: {bodies}")
+            # every dense-cache decode (64 query heads on 8, bf16) takes
+            # the tensor-core GQA body
+            require(not on_card or (bodies.get("split_mma", 0) > 0
+                                    and bodies.get("split", 0) == 0),
+                    f"{tag} {run}: decode outside the split_mma body: "
+                    f"{bodies}")
 
     # (a) fixed batch over the dense cache
     rng = np.random.default_rng(29)
@@ -5398,6 +5457,12 @@ def main(argv=None) -> int:
         require(wg_usage and not any(u[1] or u[2]
                                      for u in wg_usage.values()),
                 f"the {kernel} wgmma body spills: {wg_usage}")
+    # flash_attention's tensor-core GQA decode keeps O in registers
+    mma_usage = {fn: u for fn, u in usage.items() if "flash_split_mma" in fn}
+    log("build: flash_attention split_mma body (registers, spill stores, "
+        "spill loads):", json.dumps(mma_usage))
+    require(mma_usage and not any(u[1] or u[2] for u in mma_usage.values()),
+            f"the flash_attention split_mma body spills: {mma_usage}")
     from repro_torch.kernels import lowrank_matmul as low
     hgmma = sass_report(build.library_path())
     if hgmma is None:
@@ -5630,7 +5695,7 @@ def main(argv=None) -> int:
                 **{key: row[key] for key in (
                     "device_ms", "library_device_ms", "library_causal_ms",
                     "library_causal_device_ms", "body", "bound_tc_ms",
-                    "bound_tc_by") if key in row}}
+                    "bound_tc_by", "kernels_device_ms") if key in row}}
 
     def entry(name, source, replaces, rows, path):
         # the timed bf16 row (flash_decode also times its fp32 row)

@@ -20,7 +20,7 @@
 // flops a byte in bf16, above the card's ~295: the tensor cores bound it.  A
 // one-token decode reads the whole live cache for 4·D flops a key and head:
 // bytes bound it.  The launch plan (kernels/flash_attention.py::plan) picks
-// one of four bodies a call:
+// one of five bodies a call:
 //
 //   wgmma (bf16, D 64 / 96 / 112 / 128 / 192 / 256; prefill, chunked prefill,
 //     latent and MLA prefill, and any Lq under ops.batch_invariant): one block
@@ -46,16 +46,27 @@
 //     Q's 128-byte swizzle, so neither side conflicts on banks), stored with
 //     16-byte accesses, rows past Lq not stored.  Shared memory at D 256: Q 64
 //     KB and two stages of 64-key K + V tiles, 128 KB.
-//   split (Lq 1 outside batch_invariant, both dtypes, every D: dense-cache
-//     decode): one block a (slot, KV head, key span) takes the G = H / KV
-//     query heads of its group; K and V rows of the span's live keys are read
-//     once, by 16-byte cp.async into a 2-stage ring of shared-memory tiles;
-//     scores and P·V on the FMA units in fp32 (bytes bound the work: about
-//     2·D flops a byte), p rounded to v's dtype before P·V.  Each span writes
-//     its fp32 partial (m, l, acc); a span with no live key writes l = 0.  A
-//     second launch (flash_merge, a programmatic dependent launch) merges a
-//     row's partials in span order, skipping empty ones: no atomics, so two
-//     calls give the same bits.
+//   split (Lq 1 outside batch_invariant where split_mma does not take it:
+//     fp32, D 16 / 32, one query head a KV head; dense-cache decode): one
+//     block a (slot, KV head, key span) takes the G = H / KV query heads of
+//     its group; K and V rows of the span's live keys are read once, by
+//     16-byte cp.async into a 2-stage ring of shared-memory tiles; scores and
+//     P·V on the FMA units in fp32 (bytes bound the work: about 2·D flops a
+//     byte), p rounded to v's dtype before P·V.  Each span writes its fp32
+//     partial (m, l, acc); a span with no live key writes l = 0.  A second
+//     launch (flash_merge, a programmatic dependent launch, one block a row
+//     and 64 columns) reads a row's span m and l once, weighs each live span
+//     once and adds the partials in span order, skipping empty ones: no
+//     atomics, so two calls give the same bits.
+//   split_mma (the same calls in bf16 at D 64 / 96 / 112 / 128 / 192 / 256
+//     with 2 to 16 query heads a KV head: GQA decode): split's blocks and
+//     partials, the group's heads zero-padded to one m16 tile on the tensor
+//     cores.  The FMA body spends two shared-memory loads a multiply-add in
+//     P·V and one in the scores, which binds it at G > 1; here S = Q·Kᵀ and
+//     O += P·V run as mma.sync m16n8k16 (ldmatrix, V transposed), O in
+//     registers, K and V through a 3-stage ring of 64-key tiles (32 at D >
+//     128), so each K and V row is read once for all G heads.  Its spans
+//     hold at least 4 tiles and aim at one wave of resident blocks.
 //   fma32 (fp32, Lq > 1 or batch_invariant) and wmma (bf16 at D 16 / 32):
 //     the first version: one block of 4 warps a (batch·head, 64 query rows),
 //     64-key tiles (32 at D 256, whose fp32 tiles would need 272 KB at 64)
@@ -959,40 +970,387 @@ flash_split(Args a, int span, int spans, float* __restrict__ part) {
   }
 }
 
-// One block a (b, head): the row's partials merged in span order, empty ones
-// (l = 0) skipped; o = Σ acc·e^(m - M) / max(Σ l·e^(m - M), 1e-20).
+constexpr int MERGE_COLS = 64;  // columns of a row a merge block takes (one a thread)
+
+// Shared memory of a merge block: l and the weight of every span, two warps'
+// maxima.
+inline size_t merge_smem(int spans) { return sizeof(float) * (2 * spans + 2); }
+
+// Block (x, y): row x = b·H + head, columns [y·64, +64).  The row's m and l of
+// every span are read once into shared memory and each live span's weight
+// w = e^(m - M) computed once (M: the largest m of a live span); then each
+// thread sums its column over the live spans in span order, empty ones (l = 0,
+// their acc never written) skipped: o = Σ acc·w / max(Σ l·w, 1e-20).  The same
+// expf values are added in the same order as when every column recomputed
+// them, so the bits do not depend on how the columns are spread over blocks.
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_merge(Args a, int spans, const float* part) {
+__global__ void __launch_bounds__(MERGE_COLS) flash_merge(Args a, int spans, const float* part) {
+  extern __shared__ float merge_sm[];
+  float* const sl = merge_sm;       // [spans] l
+  float* const sw = sl + spans;     // [spans] m, then the weight
+  float* const sx = sw + spans;     // [2] the warps' maxima
   asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int tid = threadIdx.x;
   const size_t np = static_cast<size_t>(a.b) * a.h * spans;
   const size_t r0 = static_cast<size_t>(blockIdx.x) * spans;
   const float* pm = part + r0;
   const float* pl = part + np + r0;
   const float* pacc = part + 2 * np + r0 * D;
   float mx = NEG_INF;
-  for (int s = 0; s < spans; ++s) {
-    if (pl[s] > 0.f) mx = fmaxf(mx, pm[s]);
+  for (int s = tid; s < spans; s += MERGE_COLS) {
+    const float l = pl[s];
+    const float m = pm[s];
+    sl[s] = l;
+    sw[s] = m;
+    if (l > 0.f) mx = fmaxf(mx, m);
   }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  if (tid % 32 == 0) sx[tid / 32] = mx;
+  __syncthreads();
+  mx = fmaxf(sx[0], sx[1]);
+  for (int s = tid; s < spans; s += MERGE_COLS) {
+    if (sl[s] > 0.f) sw[s] = expf(sw[s] - mx);
+  }
+  __syncthreads();
   float l = 0.f;
   for (int s = 0; s < spans; ++s) {
-    if (pl[s] > 0.f) l += pl[s] * expf(pm[s] - mx);
+    if (sl[s] > 0.f) l += sl[s] * sw[s];
   }
-  T* out = static_cast<T*>(a.o) + static_cast<size_t>(blockIdx.x) * D;
-  for (int d = threadIdx.x; d < D; d += THREADS) {
-    float x = 0.f;
-    for (int s = 0; s < spans; ++s) {
-      if (pl[s] > 0.f) x += pacc[static_cast<size_t>(s) * D + d] * expf(pm[s] - mx);
-    }
-    out[d] = from_f<T>(x / fmaxf(l, 1e-20f));
+  const int d = blockIdx.y * MERGE_COLS + tid;
+  if (d >= D) return;
+  float x = 0.f;
+#pragma unroll 8
+  for (int s = 0; s < spans; ++s) {
+    if (sl[s] > 0.f) x += pacc[static_cast<size_t>(s) * D + d] * sw[s];
   }
+  static_cast<T*>(a.o)[static_cast<size_t>(blockIdx.x) * D + d] = from_f<T>(x / fmaxf(l, 1e-20f));
+}
+
+// The merge of a split launch's partials, programmatically after it.
+template <typename T, int D>
+int launch_merge(const Args& a, int spans, const float* part, cudaStream_t s) {
+  return launch(flash_merge<T, D>, dim3(a.b * a.h, (D + MERGE_COLS - 1) / MERGE_COLS),
+                dim3(MERGE_COLS), static_cast<int>(merge_smem(spans)), s, true, a, spans, part);
 }
 
 }  // namespace fs
 
 // ---------------------------------------------------------------------------
+// split_mma: the split body's blocks for a group of 2..16 query heads a KV
+// head, bf16, on the tensor cores
+
+namespace fm {
+
+constexpr int THREADS = 128;  // 4 warps
+constexpr int WARPS = THREADS / 32;
+constexpr int STAGES = 3;     // the ring of K and V tiles
+constexpr int ROWS = 16;      // the group's query heads, zero-padded to one m16 tile
+
+template <int D>
+struct Cfg {
+  static constexpr int BK = D <= 128 ? 64 : 32;  // keys a tile
+  static constexpr int PITCH = D + 8;             // staged row: +16 bytes, so the 8 rows
+                                                  // of an ldmatrix fall on distinct banks
+  static constexpr int TILE = BK * PITCH;         // elements of a K or V tile
+  static constexpr int SP = BK + 4;               // score row (floats)
+  static constexpr int CPR = D / 8;               // 16-byte chunks a row
+  static constexpr int KS = D / 16;               // k16 steps of Q·Kᵀ
+  static constexpr int KW = BK / WARPS;           // a warp's keys of a tile's scores
+  static constexpr int NT = D / 8;                // n8 column tiles of O
+  static constexpr int NTW = (NT + WARPS - 1) / WARPS;  // a warp's column tiles, at most
+  static constexpr int SMEM =
+      static_cast<int>(sizeof(bf16) * (2 * STAGES * TILE + ROWS * PITCH) +
+                       sizeof(float) * ROWS * SP);
+  static_assert(D % 16 == 0 && KW % 8 == 0, "tile shape");
+};
+
+__device__ __forceinline__ void ldsm_x4(const void* p, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(const void* p, uint32_t (&r)[2]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(const void* p, uint32_t (&r)[2]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+// d (16 x 8, fp32) += a (16 x 16, bf16, row-major) · b (16 x 8, bf16)
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 16 bytes from src, or zeros where !full (src must still be a valid address)
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Block (sp, b·KV + kvh): the G = H / KV query heads of KV head kvh of slot b
+// over key span sp, the partials written as flash_split writes them (the
+// merge reads either body's).  Q's G rows are staged once, zero-padded to 16;
+// K and V tiles of the span's live keys stream through a 3-stage cp.async
+// ring (rows past the span's end zero-filled).  A tile: warp w computes the
+// scores of keys [w·KW, +KW) for the 16 rows (mma.sync m16n8k16, Q by
+// ldmatrix, K by ldmatrix as the col-major operand), scales, caps and masks
+// them into shared memory; then every warp reads the whole tile's scores in
+// the A-fragment order, takes each row's tile maximum across its quad, and
+// forms p = e^(s - m) (the sum l of the unrounded p, p rounded to bf16 as the
+// A operand) — every warp computes the same (m, l) in the same order — and
+// adds P·V into its own n8 column tiles of O (V through ldmatrix.trans), which
+// stay in registers.  Two barriers a tile: the tile has landed (and the stage
+// read two tiles ago is free), and the scores are written.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_split_mma(Args a, int span, int spans, float* __restrict__ part) {
+  using C = Cfg<D>;
+  constexpr int BK = C::BK;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* const sK = reinterpret_cast<bf16*>(smem);            // [STAGES][TILE]
+  bf16* const sV = sK + STAGES * C::TILE;                    // [STAGES][TILE]
+  bf16* const sQ = sV + STAGES * C::TILE;                    // [ROWS][PITCH]
+  float* const sS = reinterpret_cast<float*>(sQ + ROWS * C::PITCH);  // [ROWS][SP]
+
+  // the merge may start its blocks now; it waits for this grid before reading
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int gr = lane / 4;  // fragment rows gr and gr + 8
+  const int tq = lane % 4;  // fragment column pair
+  const int sp = blockIdx.x;
+  const int b = blockIdx.y / a.kv;
+  const int kvh = blockIdx.y % a.kv;
+  const int g_count = a.h / a.kv;
+  const int qpos = a.q_off != nullptr ? a.q_off[b] : a.q_off0;
+  int lo = 0;
+  int hi = a.lk;  // the slot's live keys [lo, hi)
+  if (a.causal) hi = min(hi, qpos + 1);
+  if (a.window > 0) lo = max(lo, qpos - a.window + 1);
+  const int k_begin = max(lo, sp * span);
+  const int k_end = min(hi, sp * span + span);
+  const size_t np = static_cast<size_t>(a.b) * a.h * spans;
+  const size_t row0 = (static_cast<size_t>(b) * a.h + static_cast<size_t>(kvh) * g_count) *
+                      spans + sp;  // partial of the group's first head
+  if (k_begin >= k_end) {
+    if (tid < g_count) part[np + row0 + static_cast<size_t>(tid) * spans] = 0.f;
+    return;
+  }
+
+  const bf16* q = static_cast<const bf16*>(a.q) + (static_cast<size_t>(b) * a.h +
+                                                  static_cast<size_t>(kvh) * g_count) * D;
+  for (int i = tid; i < ROWS * C::CPR; i += THREADS) {
+    const int r = i / C::CPR;
+    const int c = (i % C::CPR) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r < g_count) val = *reinterpret_cast<const uint4*>(q + static_cast<size_t>(r) * D + c);
+    *reinterpret_cast<uint4*>(sQ + r * C::PITCH + c) = val;
+  }
+  const size_t k_stride = static_cast<size_t>(a.kv) * D;
+  const bf16* const k_head = static_cast<const bf16*>(a.k) +
+                             static_cast<size_t>(b) * a.lk * k_stride +
+                             static_cast<size_t>(kvh) * D;
+  const bf16* const v_head = static_cast<const bf16*>(a.v) +
+                             static_cast<size_t>(b) * a.lk * k_stride +
+                             static_cast<size_t>(kvh) * D;
+  const int tiles = (k_end - k_begin + BK - 1) / BK;
+  // tile t into its stage (a commit group even past the last tile, so that
+  // the wait below always counts STAGES - 2 groups in flight)
+  auto load = [&](int t) {
+    if (t < tiles) {
+      const int st = t % STAGES;
+      const int k0 = k_begin + t * BK;
+      const int n = min(BK, k_end - k0);
+      for (int idx = tid; idx < BK * C::CPR; idx += THREADS) {
+        const int r = idx / C::CPR;
+        const int c = (idx % C::CPR) * 8;
+        const bool live = r < n;
+        const size_t src = static_cast<size_t>(live ? k0 + r : k0) * k_stride + c;
+        cp_async16_zfill(sK + st * C::TILE + r * C::PITCH + c, k_head + src, live);
+        cp_async16_zfill(sV + st * C::TILE + r * C::PITCH + c, v_head + src, live);
+      }
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+
+  float o[C::NTW][4];
+#pragma unroll
+  for (int j = 0; j < C::NTW; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF;  // rows gr, gr + 8
+  float l0 = 0.f, l1 = 0.f;
+  const int nt0 = warp * C::NTW;  // the warp's first column tile
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) load(t);
+
+  for (int t = 0; t < tiles; ++t) {
+    asm volatile("cp.async.wait_group %0;" ::"n"(STAGES - 2) : "memory");
+    __syncthreads();  // tile t landed for every thread; tile t - 1's stage is free
+    load(t + STAGES - 1);
+    const int st = t % STAGES;
+    const int n = min(BK, k_end - (k_begin + t * BK));
+    const bf16* const kt = sK + st * C::TILE;
+    const bf16* const vt = sV + st * C::TILE;
+
+    // scores of the warp's keys: S = Q·Kᵀ over the k16 steps, even and odd
+    // steps in two accumulators (two independent chains of mma.sync), then
+    // added
+    float s[2][C::KW / 8][4];
+#pragma unroll
+    for (int j = 0; j < C::KW / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[0][j][e] = s[1][j][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < C::KS; ++kk) {
+      uint32_t af[4];
+      ldsm_x4(sQ + (lane % 16) * C::PITCH + kk * 16 + (lane / 16) * 8, af);
+#pragma unroll
+      for (int j = 0; j < C::KW / 8; ++j) {
+        uint32_t bfr[2];
+        ldsm_x2(kt + (warp * C::KW + j * 8 + lane % 8) * C::PITCH + kk * 16 +
+                    ((lane / 8) % 2) * 8,
+                bfr);
+        mma16816(s[kk % 2][j], af, bfr);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < C::KW / 8; ++j) {
+      const int key = warp * C::KW + j * 8 + 2 * tq;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = (s[0][j][e] + s[1][j][e]) * a.scale;
+        if (a.softcap > 0.f) x = tanhf(x / a.softcap) * a.softcap;
+        s[0][j][e] = key + (e % 2) < n ? x : NEG_INF;
+      }
+      *reinterpret_cast<float2*>(sS + gr * C::SP + key) = make_float2(s[0][j][0], s[0][j][1]);
+      *reinterpret_cast<float2*>(sS + (gr + 8) * C::SP + key) =
+          make_float2(s[0][j][2], s[0][j][3]);
+    }
+    __syncthreads();  // the tile's scores are written
+
+    // the online softmax of rows gr and gr + 8 over the whole tile, in the
+    // A-fragment order: chunk c holds keys 16c + 2tq (+1) and 16c + 8 + 2tq (+1)
+    float2 sv[BK / 16][4];
+    float x0 = NEG_INF, x1 = NEG_INF;
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c) {
+      const int key = 16 * c + 2 * tq;
+      sv[c][0] = *reinterpret_cast<const float2*>(sS + gr * C::SP + key);
+      sv[c][1] = *reinterpret_cast<const float2*>(sS + (gr + 8) * C::SP + key);
+      sv[c][2] = *reinterpret_cast<const float2*>(sS + gr * C::SP + key + 8);
+      sv[c][3] = *reinterpret_cast<const float2*>(sS + (gr + 8) * C::SP + key + 8);
+      x0 = fmaxf(x0, fmaxf(fmaxf(sv[c][0].x, sv[c][0].y), fmaxf(sv[c][2].x, sv[c][2].y)));
+      x1 = fmaxf(x1, fmaxf(fmaxf(sv[c][1].x, sv[c][1].y), fmaxf(sv[c][3].x, sv[c][3].y)));
+    }
+#pragma unroll
+    for (int w = 1; w < 4; w <<= 1) {
+      x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, w));
+      x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, w));
+    }
+    const float mn0 = fmaxf(m0, x0);
+    const float mn1 = fmaxf(m1, x1);
+    const float c0 = expf(m0 - mn0);
+    const float c1 = expf(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    uint32_t pa[BK / 16][4];
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float mn = e % 2 ? mn1 : mn0;
+        const float px = expf(sv[c][e].x - mn);
+        const float py = expf(sv[c][e].y - mn);
+        if (e % 2) {
+          sum1 += px + py;
+        } else {
+          sum0 += px + py;
+        }
+        pa[c][e] = pack_bf16(px, py);
+      }
+    }
+#pragma unroll
+    for (int w = 1; w < 4; w <<= 1) {
+      sum0 += __shfl_xor_sync(0xffffffffu, sum0, w);
+      sum1 += __shfl_xor_sync(0xffffffffu, sum1, w);
+    }
+    l0 = l0 * c0 + sum0;
+    l1 = l1 * c1 + sum1;
+
+    // O = O·corr + P·V on the warp's column tiles
+#pragma unroll
+    for (int j = 0; j < C::NTW; ++j) {
+      o[j][0] *= c0;
+      o[j][1] *= c0;
+      o[j][2] *= c1;
+      o[j][3] *= c1;
+    }
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c) {
+#pragma unroll
+      for (int j = 0; j < C::NTW; ++j) {
+        if (nt0 + j < C::NT) {  // D 112's last warp holds 2 of its 4
+          uint32_t bfr[2];
+          ldsm_x2_trans(vt + (16 * c + lane % 16) * C::PITCH + (nt0 + j) * 8, bfr);
+          mma16816(o[j], pa[c], bfr);
+        }
+      }
+    }
+  }
+
+  // the G rows' partials; rows past G are never stored
+#pragma unroll
+  for (int j = 0; j < C::NTW; ++j) {
+    if (nt0 + j >= C::NT) continue;
+    const int col = (nt0 + j) * 8 + 2 * tq;
+    if (gr < g_count) {
+      *reinterpret_cast<float2*>(part + 2 * np + (row0 + static_cast<size_t>(gr) * spans) * D +
+                                 col) = make_float2(o[j][0], o[j][1]);
+    }
+    if (gr + 8 < g_count) {
+      *reinterpret_cast<float2*>(part + 2 * np +
+                                 (row0 + static_cast<size_t>(gr + 8) * spans) * D + col) =
+          make_float2(o[j][2], o[j][3]);
+    }
+  }
+  if (warp == 0 && tq == 0) {
+    if (gr < g_count) {
+      part[row0 + static_cast<size_t>(gr) * spans] = m0;
+      part[np + row0 + static_cast<size_t>(gr) * spans] = l0;
+    }
+    if (gr + 8 < g_count) {
+      part[row0 + static_cast<size_t>(gr + 8) * spans] = m1;
+      part[np + row0 + static_cast<size_t>(gr + 8) * spans] = l1;
+    }
+  }
+}
+
+}  // namespace fm
+
+// ---------------------------------------------------------------------------
 // host side
 
-enum Body { FMA32 = 0, WMMA = 1, WGMMA = 2, SPLIT = 3 };
+enum Body { FMA32 = 0, WMMA = 1, WGMMA = 2, SPLIT = 3, SPLIT_MMA = 4 };
 
 template <typename T, int D>
 int launch_tile(const Args& a, cudaStream_t s) {
@@ -1046,10 +1404,26 @@ int launch_split(const Args& a, int span, int spans, float* part, cudaStream_t s
   const dim3 grid(spans, a.b * a.kv);
   fs::flash_split<T, D, GM><<<grid, fs::THREADS, C::smem(a.h / a.kv), s>>>(a, span, spans,
                                                                          part);
-  int rc = static_cast<int>(cudaGetLastError());
+  const int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  return launch(fs::flash_merge<T, D>, dim3(a.b * a.h), dim3(fs::THREADS), 0, s, true, a,
-                spans, static_cast<const float*>(part));
+  return fs::launch_merge<T, D>(a, spans, part, s);
+}
+
+template <int D>
+int launch_split_mma(const Args& a, int span, int spans, float* part, cudaStream_t s) {
+  using C = fm::Cfg<D>;
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fm::flash_split_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  const dim3 grid(spans, a.b * a.kv);
+  fm::flash_split_mma<D><<<grid, fm::THREADS, C::SMEM, s>>>(a, span, spans, part);
+  const int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  return fs::launch_merge<bf16, D>(a, spans, part, s);
 }
 
 template <typename T, int D>
@@ -1059,6 +1433,7 @@ int launch_body(const Args& a, int body, int span, int spans, float* part, cudaS
                        : launch_split<T, D, fs::GMAX>(a, span, spans, part, s);
   }
   if constexpr (std::is_same<T, bf16>::value && D >= 64) {
+    if (body == SPLIT_MMA) return launch_split_mma<D>(a, span, spans, part, s);
     return launch_wgmma<D>(a, s);
   } else {
     return launch_tile<T, D>(a, s);
@@ -1092,11 +1467,12 @@ int split_keys(int d) {
 // fp32, 1 = bf16 (q, k, v and o share it).  body: 0 = fma32 (fp32; bq 64, bkey
 // 64, 32 at d 256), 1 = wmma (bf16 at d 16 / 32; bq 64, bkey 64), 2 = wgmma
 // (bf16 at d 64 / 96 / 112 / 128 / 192 / 256; bq 128, bkey 128 at d <= 128
-// else 64), 3 =
-// split (lq 1, at most 16 query heads a KV head; bq 1, bkey the split tile (64
-// keys when a row is at most 256 bytes, else 32), span a multiple of bkey,
-// spans = ⌈lk / span⌉, scratch b·h·spans·(d + 2) floats).  span, spans and scratch are 0 / null for
-// the other bodies.
+// else 64), 3 = split (lq 1, at most 16 query heads a KV head; bq 1, bkey the
+// split tile (64 keys when a row is at most 256 bytes, else 32), span a
+// multiple of bkey, spans = ⌈lk / span⌉, scratch b·h·spans·(d + 2) floats), 4 =
+// split_mma (as split, bf16 at d 64 / 96 / 112 / 128 / 192 / 256 with 2 to 16
+// query heads a KV head; bkey 64 at d <= 128, else 32).  span, spans and
+// scratch are 0 / null for the other bodies.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       const void* q_off, int q_off0, int b, int lq, int lk,
                                       int h, int kv, int d, int causal, int window,
@@ -1122,11 +1498,15 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
            span == 0 && spans == 0 && scratch == nullptr &&
            (lq + fw::BQ - 1) / fw::BQ * heads <= 0x7fffffffll;
       break;
-    case SPLIT: {
-      const int bk = dtype == 0 ? split_keys<float>(d) : split_keys<bf16>(d);
+    case SPLIT:
+    case SPLIT_MMA: {
+      const int bk = body == SPLIT_MMA ? (d <= 128 ? 64 : 32)
+                     : dtype == 0      ? split_keys<float>(d)
+                                       : split_keys<bf16>(d);
       ok = lq == 1 && h / kv <= fs::GMAX && bq == 1 && bkey == bk && span > 0 &&
            span % bk == 0 && spans == (lk + span - 1) / span && scratch != nullptr &&
            static_cast<long long>(b) * kv <= 65535 && heads <= 0x7fffffffll;
+      if (body == SPLIT_MMA) ok = ok && dtype == 1 && d >= 64 && h / kv >= 2;
       break;
     }
     default:

@@ -11,7 +11,7 @@ by max(l, 1e-20).
 
 Bound on the card: max(4·B·H·Σ live keys·D flops / peak, (q + k + v + o)
 bytes / bandwidth) — operations for prefill, bytes for one-token decode.
-``plan`` picks one of four bodies and everything it needs:
+``plan`` picks one of five bodies and everything it needs:
 
 * ``wgmma`` (bf16 at D 64 / 96 / 112 / 128 / 192 / 256): one block a
   (batch·head, 128 query rows), issued longest first; a TMA ring of K and V
@@ -19,12 +19,21 @@ bytes / bandwidth) — operations for prefill, bytes for one-token decode.
   tiles are 128 wide at D <= 128, 64 at D 192 and 256.  D 96 and 112 are
   read at their true width (4D tensor maps whose second 64-column box is
   zero-filled past D) and run the D-128 layout.
-* ``split`` (Lq 1 outside ``ops.batch_invariant``, every dtype and D, at most
-  ``SPLIT_MAX_GROUP`` query heads a KV head): one block a (slot, KV head,
-  key span) over the span's live keys on the FMA units, each writing an fp32
-  partial (m, l, acc); a merge launch adds a row's partials in span order.
+* ``split`` (Lq 1 outside ``ops.batch_invariant``, at most
+  ``SPLIT_MAX_GROUP`` query heads a KV head, where ``split_mma`` does not
+  take the call: fp32, D 16 / 32, one query head a KV head): one block a
+  (slot, KV head, key span) over the span's live keys on the FMA units, each
+  writing an fp32 partial (m, l, acc); a merge launch adds a row's partials
+  in span order, in blocks of 64 columns, each span's weight computed once.
   The span length is picked from (B·KV, Lk) so about ``SPLIT_BLOCKS``
   blocks fill the card.
+* ``split_mma`` (the same calls in bf16 at D 64 / 96 / 112 / 128 / 192 /
+  256 with 2 to ``SPLIT_MAX_GROUP`` query heads a KV head): ``split``'s
+  blocks and partials, the group's heads zero-padded to 16 rows on the
+  tensor cores (mma.sync m16n8k16 for S and for P·V), K and V through a
+  3-stage ring of ``mma_keys(D)``-key tiles.  Its spans hold at least
+  ``MMA_MIN_TILES`` tiles, and the (slot, KV head, span) blocks aim at one
+  wave of resident blocks (``mma_wave``, from the block's shared memory).
 * ``fma32`` (fp32) and ``wmma`` (bf16 at D 16 / 32): the first version, one
   block a (batch·head, 64 query rows), 64-key tiles (32 at D 256, so that
   the fp32 tiles fit shared memory).
@@ -53,7 +62,9 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-BODIES = ("fma32", "wmma", "wgmma", "split")   # index = the launcher's body code
+# index = the launcher's body code
+BODIES = ("fma32", "wmma", "wgmma", "split", "split_mma")
+SPLIT_BODIES = ("split", "split_mma")   # Lq 1: span partials, then a merge
 SMS = 132                                      # H100 SXM streaming multiprocessors
 NEG_INF = -1e30
 
@@ -72,12 +83,38 @@ TILE_BQ = 64
 SPLIT_MAX_GROUP = 16
 SPLIT_BLOCKS = 8 * SMS
 MAX_GRID_Y = 65535
+# split_mma: its head dims, the stages of its K / V ring, the tiles a span
+# holds at least (so the ring overlaps loads with math), and the shared
+# memory a streaming multiprocessor holds (1 KB of it reserved a block)
+MMA_DIMS = (64, 96, 112, 128, 192, 256)
+MMA_STAGES = 3
+MMA_MIN_TILES = 4
+SM_SHARED = 233472
 
 
 def tile_bkey(d: int) -> int:
     """Keys a tile of the fma32 / wmma bodies: 64, and 32 at D 256, whose
     fp32 tiles would need 272 KB of shared memory at 64."""
     return 32 if d == 256 else 64
+
+
+def mma_keys(d: int) -> int:
+    """Keys a tile of the split_mma body: 64 at D <= 128, else 32."""
+    return 64 if d <= 128 else 32
+
+
+def mma_smem(d: int) -> int:
+    """Shared bytes of a split_mma block (``fm::Cfg<D>::SMEM``): the K and
+    V rings and Q's 16 rows in bf16 at a pitch of D + 8, and the tile's
+    fp32 scores at a pitch of ``mma_keys(d)`` + 4."""
+    bk, pitch = mma_keys(d), d + 8
+    return 2 * (2 * MMA_STAGES * bk * pitch + 16 * pitch) + 4 * 16 * (bk + 4)
+
+
+def mma_wave(d: int) -> int:
+    """The split_mma blocks the card holds at once (shared memory bounds
+    them: 3 a streaming multiprocessor at D 64, 2 at the others)."""
+    return SMS * (SM_SHARED // (mma_smem(d) + 1024))
 
 
 def split_keys(dtype: torch.dtype, d: int) -> int:
@@ -123,27 +160,27 @@ class Plan:
     @property
     def grid(self) -> int:
         """Blocks of the (first) launch."""
-        if self.body == "split":
+        if self.body in SPLIT_BODIES:
             return self.spans * self.b * self.kv
         return self.q_blocks * self.b * self.h
 
     @property
     def scratch_floats(self) -> int:
-        """The split body's partials: m and l a (slot, head, span), then
+        """The split bodies' partials: m and l a (slot, head, span), then
         acc (D floats each)."""
-        if self.body != "split":
+        if self.body not in SPLIT_BODIES:
             return 0
         return self.b * self.h * self.spans * (self.d + 2)
 
     def tile_at(self, w: int) -> Tuple[int, int, int]:
         """Block ``w`` of the launch order as the kernel maps it: (slot,
         head, first query row) for the tile bodies, (slot, KV head, span)
-        for ``split``.  wgmma: heads innermost, the last query block first;
-        fma32 / wmma: grid (query blocks, B·H), query blocks innermost;
-        split: grid (spans, B·KV), spans innermost."""
+        for the split bodies.  wgmma: heads innermost, the last query block
+        first; fma32 / wmma: grid (query blocks, B·H), query blocks
+        innermost; split / split_mma: grid (spans, B·KV), spans innermost."""
         if not 0 <= w < self.grid:
             raise IndexError(f"block {w} past the {self.grid} of the launch")
-        if self.body == "split":
+        if self.body in SPLIT_BODIES:
             bkv, sp = divmod(w, self.spans)
             return bkv // self.kv, bkv % self.kv, sp
         if self.body == "wgmma":
@@ -182,7 +219,8 @@ class Plan:
     def blocks(self) -> List[Tuple[int, int, int, int, int]]:
         """Every block in launch order with its key range: (slot, head,
         first row, first tile, end tile) for the tile bodies, (slot, KV
-        head, span, first key, end key) for ``split``.  Needs ``offsets``."""
+        head, span, first key, end key) for the split bodies.  Needs
+        ``offsets``."""
         if self.offsets is None:
             raise ValueError("flash_attention: the block list needs the "
                              "slots' offsets on the host")
@@ -190,7 +228,7 @@ class Plan:
         for w in range(self.grid):
             bi, hd, x = self.tile_at(w)
             off = self.offsets[bi]
-            rng = (self.span_keys(x, off) if self.body == "split"
+            rng = (self.span_keys(x, off) if self.body in SPLIT_BODIES
                    else self.key_tiles(x, off))
             out.append((bi, hd, x) + rng)
         return out
@@ -224,14 +262,21 @@ def _plan(b, lq, lk, h, kv, d, dtype, causal, window, offsets, invariant):
                 causal=bool(causal), window=int(window),
                 invariant=bool(invariant), offsets=offsets, span=0, spans=0)
     if lq == 1 and not invariant and h // kv <= SPLIT_MAX_GROUP:
-        bk = split_keys(dtype, d)
-        want = -(-SPLIT_BLOCKS // (b * kv))
-        span = -(-(-(-lk // want)) // bk) * bk
         if b * kv > MAX_GRID_Y:
             raise ValueError(f"flash_attention: B·KV {b * kv} exceeds the "
                              "split body's grid")
+        if dtype == torch.bfloat16 and d in MMA_DIMS and h // kv >= 2:
+            bk = mma_keys(d)
+            want = -(-mma_wave(d) // (b * kv))
+            span = max(MMA_MIN_TILES * bk, -(-(-(-lk // want)) // bk) * bk)
+            body = "split_mma"
+        else:
+            bk = split_keys(dtype, d)
+            want = -(-SPLIT_BLOCKS // (b * kv))
+            span = -(-(-(-lk // want)) // bk) * bk
+            body = "split"
         return Plan(**{**base, "span": span, "spans": -(-lk // span)},
-                    body="split", bq=1, bkey=bk)
+                    body=body, bq=1, bkey=bk)
     if dtype == torch.bfloat16 and d >= 64:
         return Plan(**base, body="wgmma", bq=WG_BQ, bkey=WG_BKEY[d])
     if b * h > MAX_GRID_Y:
@@ -322,12 +367,12 @@ def emulate(p: Plan, q, k, v, *, scale: float, softcap: float = 0.0):
     """Plan ``p``'s work block by block: q (B, Lq, H, d), k / v (B, Lk, KV,
     d) as the kernel sees them (padded head dim); returns (B, Lq, H, d) in
     q's dtype.  Tile bodies: each block's rows against its key tiles in
-    order, keys past Lk zero.  split: each span's partial over its live
-    keys in tiles of ``bkey`` from the span's first live key, then the
-    partials merged in span order, empty ones skipped.  Needs
-    ``p.offsets``."""
+    order, keys past Lk zero.  split / split_mma: each span's partial over
+    its live keys in tiles of ``bkey`` from the span's first live key, then
+    the partials merged in span order, empty ones skipped, each span's
+    weight computed once.  Needs ``p.offsets``."""
     out = torch.zeros((p.b, p.lq, p.h, p.d), dtype=torch.float32)
-    if p.body == "split":
+    if p.body in SPLIT_BODIES:
         parts = {}
         for bi, kvh, sp, k_begin, k_end in p.blocks():
             if k_begin >= k_end:
@@ -382,7 +427,8 @@ def launch(p: Plan, q, k, v, o, q_off, q_off0: int, *, scale: float,
            softcap: float, scratch=None) -> None:
     """Run plan ``p``: q, o (B, Lq, H, d); k, v (B, Lk, KV, d), checked
     and padded; ``q_off`` a (B,) int32 tensor or None (every slot at
-    ``q_off0``); ``scratch`` ``p.scratch_floats`` fp32 for ``split``."""
+    ``q_off0``); ``scratch`` ``p.scratch_floats`` fp32 for the split
+    bodies."""
     lib = build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.flash_attention_launch(

@@ -2,8 +2,9 @@
 (``repro_torch/kernels/flash_attention.py``): which body a call takes, the
 blocks of the tile bodies and the key tiles each walks, the split body's key
 spans, the launcher's refusals, and a plain-PyTorch emulation of the
-kernel's work block by block, held to the port's plain version and to the
-JAX package's kernel in Pallas interpret mode.
+kernel's work block by block, held to the port's plain version, to the JAX
+package's kernel in Pallas interpret mode and to its model path's
+``flash_attention`` (the kernel's oracle).
 
 The CUDA bodies run only on the card; ``chip_smoke.py`` holds each against
 the plain version there at the main paths' shapes.
@@ -60,7 +61,23 @@ CASES = [
      False),
     ("d112_decode_f32", 3, 1, 300, 8, 2, 112, F32, True, 64, [10, 150, 299],
      False),
+    # the tensor-core GQA decode (split_mma): groups of 2, 4, 8 and 16
+    # query heads at each of its head dims, per-slot offsets (one slot's
+    # first span holds no live key under the window), a window, Lk not a
+    # multiple of the tile, a soft cap on the names in SOFTCAP
+    ("mma_g2_d128", 3, 1, 300, 4, 2, 128, BF16, True, 0, [0, 150, 299],
+     False),
+    ("mma_g4_d256_window", 3, 1, 333, 4, 1, 256, BF16, True, 100,
+     [5, 200, 332], False),
+    ("mma_g8_d112", 2, 1, 300, 16, 2, 112, BF16, True, 0, [77, 299], False),
+    ("mma_g16_d64", 2, 1, 290, 16, 1, 64, BF16, True, 0, [0, 289], False),
+    ("mma_g4_d96", 2, 1, 300, 8, 2, 96, BF16, False, 0, [0, 0], False),
+    ("mma_g2_d192", 2, 1, 150, 4, 2, 192, BF16, True, 40, [149, 60], False),
+    ("mma_g8_d256", 1, 1, 200, 8, 1, 256, BF16, True, 0, [199], False),
 ]
+# cases the emulation runs with a soft cap of 30
+SOFTCAP = ("wmma", "decode_window", "mma_g2_d128", "mma_g8_d112",
+           "mma_g16_d64")
 TILE_CASES = [c for c in CASES if not (c[2] == 1 and not c[11])]
 SPLIT_CASES = [c for c in CASES if c[2] == 1 and not c[11]]
 
@@ -196,7 +213,7 @@ def test_tile_at_is_the_launch_order(case):
 @pytest.mark.parametrize("case", SPLIT_CASES, ids=[c[0] for c in SPLIT_CASES])
 def test_spans_cover_live_keys_once_in_order(case):
     p = _plan(case)
-    assert p.body == "split" and p.grid == p.spans * p.b * p.kv
+    assert p.body in fa.SPLIT_BODIES and p.grid == p.spans * p.b * p.kv
     got = {}
     for bi, kvh, sp, k0, k1 in p.blocks():
         assert 0 <= sp < p.spans
@@ -231,11 +248,19 @@ def _launcher_accepts(p: fa.Plan) -> bool:
                 and p.bkey == (128 if d <= 128 else 64) and p.span == 0
                 and p.spans == 0 and not scratch
                 and -(-p.lq // 128) * heads <= 2**31 - 1)
-    bk = 64 if d * (2 if p.dtype == BF16 else 4) <= 256 else 32
-    return (p.lq == 1 and h // kv <= 16 and p.bq == 1 and p.bkey == bk
-            and p.span > 0 and p.span % bk == 0
-            and p.spans == -(-p.lk // p.span) and scratch
-            and p.b * kv <= 65535 and heads <= 2**31 - 1)
+    if body not in (3, 4):
+        return False
+    if body == 4:
+        bk = 64 if d <= 128 else 32
+    else:
+        bk = 64 if d * (2 if p.dtype == BF16 else 4) <= 256 else 32
+    ok = (p.lq == 1 and h // kv <= 16 and p.bq == 1 and p.bkey == bk
+          and p.span > 0 and p.span % bk == 0
+          and p.spans == -(-p.lk // p.span) and scratch
+          and p.b * kv <= 65535 and heads <= 2**31 - 1)
+    if body == 4:
+        ok = ok and p.dtype == BF16 and d >= 64 and h // kv >= 2
+    return ok
 
 
 PLANS = [_plan(c) for c in CASES] + [
@@ -276,7 +301,10 @@ def test_launcher_accepts_every_plan(i):
 
 _WG = fa.plan(1, 300, 300, 4, 2, 128, BF16)
 _F32 = fa.plan(1, 300, 300, 4, 2, 128, F32)
-_SPLIT = fa.plan(2, 1, 300, 4, 2, 64, BF16)
+# one query head a KV head: the FMA split body (a GQA group takes split_mma)
+_SPLIT = fa.plan(2, 1, 300, 2, 2, 64, BF16)
+_MMA = fa.plan(2, 1, 300, 4, 2, 64, BF16)
+_MMA256 = fa.plan(2, 1, 300, 4, 1, 256, BF16)
 REFUSED = {
     "wgmma_fp32": dataclasses.replace(_WG, dtype=F32),
     "wgmma_narrow_tile": dataclasses.replace(_WG, bkey=64),
@@ -299,6 +327,18 @@ REFUSED = {
     # fp32 rows of 512 bytes: the split tile holds 32 keys
     "split_fp32_tile": dataclasses.replace(
         fa.plan(2, 1, 300, 4, 2, 128, F32), bkey=64),
+    # split_mma: its tile is 64 keys at D <= 128 and 32 above, bf16 alone,
+    # head dims from 64, groups of 2 to 16, one query row
+    "split_mma_tile": dataclasses.replace(_MMA, bkey=32),
+    "split_mma_d256_tile": dataclasses.replace(_MMA256, bkey=64),
+    "split_mma_span": dataclasses.replace(_MMA, span=_MMA.span + 1),
+    "split_mma_spans": dataclasses.replace(_MMA, spans=_MMA.spans + 1),
+    "split_mma_rows": dataclasses.replace(_MMA, lq=2),
+    "split_mma_group_1": dataclasses.replace(_MMA, h=2),
+    "split_mma_group_17": dataclasses.replace(_MMA, h=68, kv=4),
+    "split_mma_fp32": dataclasses.replace(_MMA, dtype=F32),
+    "split_mma_d32": dataclasses.replace(_MMA, d=32),
+    "split_mma_scratch": dataclasses.replace(_MMA, spans=0, span=0),
 }
 
 
@@ -315,7 +355,7 @@ def test_emulate_matches_plain(case):
     p = _plan(case)
     rng = np.random.default_rng(d + lq + lk)
     q, k, v = _inputs(rng, b, lq, lk, h, kv, d, dtype)
-    softcap = 30.0 if case[0] in ("wmma", "decode_window") else 0.0
+    softcap = 30.0 if case[0] in SOFTCAP else 0.0
     got = fa.emulate(p, q, k, v, scale=1.0 / math.sqrt(d), softcap=softcap)
     toff = torch.tensor(off) if isinstance(off, list) else off
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -439,3 +479,188 @@ def test_wrapper_launches_the_plan(monkeypatch):
     assert tuple(out.shape) == (8, 1, 32, 96)
     assert ops.LAUNCHES["flash_attention"] == 6
     assert dict(ops.FLASH_BODIES) == {"wgmma": 3, "split": 2, "fma32": 1}
+    # gemma3's (4 on 1, D 256) and kimi-k2's (64 on 8, D 112) decode: the
+    # tensor-core body with its scratch, counted apart from split
+    for h, kv, d in ((4, 1, 256), (64, 8, 112)):
+        out, qkv = call(8, 1, 2048, h, kv, d, BF16, q_offset=slots)
+        p = fa.plan(8, 1, 2048, h, kv, d, BF16)
+        assert seen[-1][0] == p and p.body == "split_mma"
+        assert all(a is b for a, b in zip(seen[-1][7], qkv))
+        assert seen[-1][6] == p.scratch_floats == 8 * h * p.spans * (d + 2)
+        assert tuple(out.shape) == (8, 1, h, d)
+    assert ops.LAUNCHES["flash_attention"] == 8
+    assert dict(ops.FLASH_BODIES) == {"wgmma": 3, "split": 2, "fma32": 1,
+                                      "split_mma": 2}
+
+
+# ---------------------------------------------------------------------------
+# split_mma: the tensor-core body of one-token GQA decode
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_split_mma_takes_bf16_groups_at_its_head_dims(d):
+    # Lq 1 outside batch_invariant, bf16, D 64-256, 2 <= H / KV <= 16;
+    # fp32, D 16 / 32 and g 1 keep the FMA split body; past 16 a tile body
+    for g in range(1, 18):
+        for dtype in (BF16, F32):
+            p = fa.plan(8, 1, 2048, 2 * g, 2, d, dtype)
+            if g > fa.SPLIT_MAX_GROUP:
+                assert p.body not in fa.SPLIT_BODIES
+            elif dtype == BF16 and d in fa.MMA_DIMS and g >= 2:
+                assert (p.body, p.bkey) == ("split_mma", fa.mma_keys(d))
+            else:
+                assert p.body == "split"
+            inv = fa.plan(8, 1, 2048, 2 * g, 2, d, dtype, invariant=True)
+            assert inv.body not in fa.SPLIT_BODIES
+    assert fa.plan(8, 2, 2048, 8, 2, d, BF16).body not in fa.SPLIT_BODIES
+
+
+@pytest.mark.parametrize("b,kv,lk", [(8, 1, 2048), (8, 8, 2048), (1, 1, 77),
+                                     (3, 2, 300), (64, 8, 4096),
+                                     (1, 1, 100000)])
+def test_split_mma_spans_aim_at_one_wave(b, kv, lk):
+    # spans are whole tiles, at least MMA_MIN_TILES of them, and the
+    # (slot, KV head, span) blocks reach about one wave of resident blocks
+    for d in fa.MMA_DIMS:
+        p = fa.plan(b, 1, lk, 4 * kv, kv, d, BF16)
+        bk = fa.mma_keys(d)
+        want = -(-fa.mma_wave(d) // (b * kv))
+        assert p.body == "split_mma" and p.bkey == bk
+        assert p.span == max(fa.MMA_MIN_TILES * bk,
+                             -(-(-(-lk // want)) // bk) * bk)
+        assert p.spans == -(-lk // p.span) <= max(want, 1)
+        assert p.grid == p.spans * b * kv
+        assert p.scratch_floats == b * 4 * kv * p.spans * (d + 2)
+        # the block's shared memory fits a block, and the wave counts the
+        # blocks a streaming multiprocessor holds by it
+        assert fa.mma_smem(d) <= 227 * 1024
+        assert fa.mma_wave(d) == fa.SMS * (fa.SM_SHARED
+                                           // (fa.mma_smem(d) + 1024))
+
+
+def test_split_mma_published_plans():
+    # gemma3's global layer (4 on 1, D 256): 16 spans of 4 32-key tiles,
+    # 128 blocks; kimi-k2 (64 on 8, D 112): 5 spans of 7 64-key tiles, 320
+    # blocks; qwen3 (16 on 8, D 128): the same spans as kimi
+    assert fa.mma_wave(256) == fa.mma_wave(112) == 2 * fa.SMS
+    assert fa.mma_wave(64) == 3 * fa.SMS
+    for args, want in (((8, 1, 2048, 4, 1, 256), (32, 128, 16, 128)),
+                       ((8, 1, 2048, 64, 8, 112), (64, 448, 5, 320)),
+                       ((8, 1, 2048, 16, 8, 128), (64, 448, 5, 320))):
+        p = fa.plan(*args, BF16)
+        assert p.body == "split_mma"
+        assert (p.bkey, p.span, p.spans, p.grid) == want
+        b, _, _, h, _, d = args
+        assert p.scratch_floats == b * h * p.spans * (d + 2)
+
+
+MMA_CASES = [c for c in CASES if c[0].startswith("mma_")]
+
+
+@pytest.mark.parametrize("case", MMA_CASES, ids=[c[0] for c in MMA_CASES])
+def test_split_mma_blocks_walk_each_live_key_once(case):
+    # the launch order is (spans, B·KV), spans innermost; each block's tiles
+    # of bkey keys from its first live key cover its span's live keys once
+    p = _plan(case)
+    assert p.body == "split_mma"
+    order = [p.tile_at(w) for w in range(p.grid)]
+    assert order == [(bi, kvh, sp) for bi in range(p.b)
+                     for kvh in range(p.kv) for sp in range(p.spans)]
+    for bi, kvh, sp, k0, k1 in p.blocks():
+        tiles = [(t, min(t + p.bkey, k1)) for t in range(k0, k1, p.bkey)]
+        keys = [key for t0, t1 in tiles for key in range(t0, t1)]
+        assert keys == [key for key in range(sp * p.span, (sp + 1) * p.span)
+                        if _live(p, p.offsets[bi], key)]
+    if case[0] == "mma_g4_d256_window":
+        # the slot at 332 sees keys 233..332 under the window of 100: its
+        # first span of 128 holds no live key (an empty partial, l = 0)
+        assert p.span == 128 and p.blocks()[2 * p.spans][3:] == (233, 128)
+
+
+def _np_inputs(seed, b, lk, h, kv, d):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s, dtype=np.float32)
+            for s in ((b, 1, h, d), (b, lk, kv, d), (b, lk, kv, d))]
+
+
+@pytest.mark.parametrize("case", MMA_CASES, ids=[c[0] for c in MMA_CASES])
+def test_split_mma_emulation_matches_the_model_path(case):
+    # the JAX package's model-path flash_attention (the kernel's oracle) on
+    # the same numpy inputs, per-slot q_offset and a soft cap of 30: fp32
+    # through split_mma's spans and tiles (its plan in fp32) at rtol 1e-5,
+    # and bf16 within 1e-2 relative Frobenius
+    from repro.models import attention as jattn
+
+    name, b, _, lk, h, kv, d, _, causal, window, off, _ = case
+    qn, kn, vn = _np_inputs(d + lk + h, b, lk, h, kv, d)
+    p = _plan(case)
+    kw = dict(causal=causal, window=window, softcap=30.0)
+    joff = jnp.asarray(np.asarray(off, dtype=np.int32))
+    want = jattn.flash_attention(jnp.asarray(qn), jnp.asarray(kn),
+                                 jnp.asarray(vn), q_offset=joff, **kw)
+    got = fa.emulate(dataclasses.replace(p, dtype=F32),
+                     *(torch.from_numpy(x) for x in (qn, kn, vn)),
+                     scale=1.0 / math.sqrt(d), softcap=30.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+    want16 = jattn.flash_attention(
+        *(jnp.asarray(x).astype(jnp.bfloat16) for x in (qn, kn, vn)),
+        q_offset=joff, **kw)
+    got16 = fa.emulate(p, *(torch.from_numpy(x).to(BF16)
+                            for x in (qn, kn, vn)),
+                       scale=1.0 / math.sqrt(d), softcap=30.0)
+    assert got16.dtype == BF16
+    want16 = torch.from_numpy(np.array(want16.astype(jnp.float32)))
+    assert _rel(got16, want16) <= 1e-2
+
+
+@pytest.mark.parametrize("d,h,kv", [(64, 4, 2), (112, 16, 2), (256, 4, 1),
+                                    (96, 32, 2)])
+def test_split_mma_emulation_matches_pallas(d, h, kv):
+    # the JAX kernel in interpret mode at Lq 1, non-causal, GQA (fp32 in
+    # its (B, H, L, D) layout) against split_mma's spans and tiles in fp32:
+    # rtol 1e-5, atol 1e-6
+    b, lk = 2, 150
+    qn, kn, vn = _np_inputs(d + h, b, lk, h, kv, d)
+    tr = (0, 2, 1, 3)
+    want = jops.flash_attention(
+        *(jnp.asarray(x.transpose(tr)) for x in (qn, kn, vn)), causal=False,
+        force_pallas=True, interpret=True)
+    p = fa.plan(b, 1, lk, h, kv, d, BF16, causal=False, q_offset=0)
+    assert p.body == "split_mma"
+    got = fa.emulate(dataclasses.replace(p, dtype=F32),
+                     *(torch.from_numpy(x) for x in (qn, kn, vn)),
+                     scale=1.0 / math.sqrt(d))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want).transpose(tr),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_chip_smoke_gqa_decodes_take_split_mma():
+    # chip_smoke.py holds each flash_attention case to the plan the wrapper
+    # launched; by the plan, its bf16 GQA decodes (gemma3's, kimi-k2's and
+    # the ragged ones) are split_mma's, at g 2 to 16 and D 64 to 256
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_sizes", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    groups, dims = set(), set()
+    for case in (cs.SIZES["flash_attention"]
+                 + cs.SIZES["flash_attention_ragged"]):
+        name, b, h, kv, lq, lk, d = case[:7]
+        if lq != 1:
+            continue
+        dp = ops._padded_head_dim(d)
+        p = fa.plan(b, 1, lk, h, kv, dp, BF16, causal=case[7],
+                    window=case[8])
+        if h > kv and dp >= 64:
+            assert p.body == "split_mma", name
+            groups.add(h // kv)
+            dims.add(dp)
+        else:
+            assert p.body == "split", name
+    assert {"gemma_decode", "kimi_decode"} <= set(
+        cs.SIZES["flash_attention_profiled"])
+    assert {2, 4, 8, 16} <= groups and set(fa.MMA_DIMS) <= dims

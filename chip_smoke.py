@@ -20,7 +20,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
              prints nvcc's version, each kernel's registers and spills
              (``-Xptxas -v``; the wgmma bodies of flash_attention and
              flash_decode and flash_attention's split_mma body must not
-             spill) and whether every wgmma body's
+             spill, and ptxas must not serialize flash_attention's wgmma
+             body) and whether every wgmma body's
              SASS holds HGMMA
              (``cuobjdump``, where the toolkit has it).
 3. kernels — every kernel against its plain PyTorch version on the card, at
@@ -45,20 +46,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
              beside ``ms`` and, where the mask is plain causal at offset 0,
              ``scaled_dot_product_attention(is_causal=True)`` as a second
              yardstick (``library_causal_ms``); the prefill case's rows
-             (and gemma3's windowed D-256 rows, kimi-k2's D-112 and
-             phi-3-vision's D-96 rows) bit for bit the same when
+             (and gemma3's windowed and global D-256 rows, kimi-k2's
+             D-112, phi-3-vision's D-96 and whisper's non-causal D-64
+             encoder rows) bit for bit the same when
              computed again inside chunks of 256, 8 and 1 rows under
              ``batch_invariant``, two calls of every one-row case bit for
              bit equal, and three split decodes profiled: D-112 zamba2's
              (``flash_split`` and ``flash_merge`` its only device work:
              head dims 96 and 112 are read in place, never padded), and
              gemma3's and kimi-k2's GQA decodes (``flash_split_mma`` and
-             ``flash_merge`` alone); ``split_mma``, the tensor-core GQA
+             ``flash_merge`` alone), and two prefills: whisper's encoder
+             and gemma3's global layer (``flash_wgmma`` alone); whisper's
+             decoder self-attention (causal, D 64) timed beside
+             ``is_causal`` SDPA; ragged D-64 and D-256 cases through the
+             wgmma body; ``split_mma``, the tensor-core GQA
              decode (bf16, D 64-256, 2 to 16 query heads a KV head), at
              qwen3-0.6b's decode and ragged cases (g 2 to 16, a window, a
              soft cap, per-slot offsets, Lk 333, a span with no live key);
              each row hashes its output (``out_sha256``) and each timed
-             split row gives its launches' device times apart
+             row gives its launches' device times apart
              (``kernels_device_ms``).  ``lowrank_matmul`` at T 4096,
              256 and 8 for each llama shape, ragged T through every body,
              and T 1-64 with each bf16 body forced; beside its ``ms`` (one
@@ -113,7 +119,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
              contiguous call.
              ``--only lowrank`` / ``--only cov`` / ``--only grouped`` /
              ``--only attention`` / ``--only decode`` run phases 1-2 and
-             that kernel's rows alone.
+             that kernel's rows alone (``--only attention --cases a,b``:
+             those flash_attention cases alone).
 4. smoke   — the smoke compression recipe on the card (kernels) and on the
              CPU (plain versions) from the same params and tokens; then the
              compressed smoke model served on both (continuous batching over
@@ -426,6 +433,9 @@ SIZES = {
         ("whisper_encoder", 4, 8, 8, 1500, 1500, 64, False, 0, 0.0, 0),
         ("whisper_cross", 4, 8, 8, 448, 1500, 64, False, 0, 0.0, 0),
         ("whisper_cross_decode", 8, 8, 8, 1, 1500, 64, False, 0, 0.0, 0),
+        # the decoder's causal self-attention of a compression microbatch
+        # (4 x 448 tokens)
+        ("whisper_decoder", 4, 8, 8, 448, 448, 64, True, 0, 0.0, 0),
         # phi-3-vision-4.2b (phase 14): head dim 96, a compression
         # microbatch's prefill (256 patches + 768 tokens) and decode over
         # its dense cache of 8 slots (the split body)
@@ -469,7 +479,20 @@ SIZES = {
          (5, 332)),
         ("ragged_mma_g2_d192", 3, 4, 2, 1, 333, 192, True, 64, 30.0,
          (10, 332)),
-        ("ragged_mma_g8_d256", 2, 8, 1, 1, 333, 256, False, 0, 0.0, 0)),
+        ("ragged_mma_g8_d256", 2, 8, 1, 1, 333, 256, False, 0, 0.0, 0),
+        # the wgmma body at D 64 (its two warpgroups taking turns) and D
+        # 256: non-causal with a last query block of 62 rows (its second
+        # warpgroup holds none) and Lk 333 (no multiple of a tile); causal
+        # with per-slot offsets (whisper's decoder self-attention) and a
+        # last block whose second warpgroup holds 8 rows; at D 256 Lq under
+        # one warpgroup, and rows that end mid-warpgroup, with a window and
+        # a soft cap
+        ("ragged_d64_noncausal", 2, 4, 4, 190, 333, 64, False, 0, 0.0, 0),
+        ("ragged_d64_offsets", 3, 8, 8, 200, 333, 64, True, 0, 0.0,
+         (0, 133)),
+        ("ragged_d256_short", 2, 4, 1, 40, 77, 256, True, 0, 0.0, (0, 37)),
+        ("ragged_d256_mid", 2, 8, 2, 100, 333, 256, True, 64, 30.0,
+         (3, 233))),
     # the row-invariance check: the prefill case's rows (and gemma_local's,
     # head dim 256 with a window; kimi's, head dim 112 with GQA; vision's,
     # head dim 96) computed again in chunks of Lq rows starting at these
@@ -477,11 +500,14 @@ SIZES = {
     "flash_attention_rows": ((256, (0, 256, 512, 768)), (8, (0, 100, 1016)),
                              (1, (0, 77, 1023))),
     "flash_attention_rows_cases": ("prefill", "gemma_local", "kimi_prefill",
-                                   "vision_prefill"),
-    # the profiled split calls: D 112 over zamba2's dense cache (split),
-    # gemma3's and kimi-k2's GQA decodes (split_mma)
+                                   "vision_prefill", "whisper_encoder",
+                                   "gemma_global"),
+    # the profiled calls: D 112 over zamba2's dense cache (split), gemma3's
+    # and kimi-k2's GQA decodes (split_mma), whisper's encoder and gemma3's
+    # global prefill (wgmma)
     "flash_attention_profiled": ("zamba2_decode", "gemma_decode",
-                                 "kimi_decode"),
+                                 "kimi_decode", "whisper_encoder",
+                                 "gemma_global"),
     # grouped_matmul: (name, M, d, f, E) — phase 7's expert GEMMs, M = 4 x
     # 1024 tokens x top-6 routed rows over 64 experts: the dense bank's
     # gate/up and down, the factorized banks' x @ V and t @ U at rank 504;
@@ -1369,11 +1395,10 @@ def check_flash_attention(torch, np, ops, ref, case, dtype, timed, dev):
         row["ms"] = time_ms(lambda: ops.flash_attention(q, k, v, **kw))
         row["device_ms"] = device_ms(lambda: ops.flash_attention(q, k, v,
                                                                  **kw))
-        if p.spans:
-            # a split call's launches apart: the span body and the merge,
-            # each one's device time by torch.profiler
-            row["kernels_device_ms"] = kernel_ms(
-                lambda: ops.flash_attention(q, k, v, **kw))
+        # the call's launches apart (a split call's span body and merge),
+        # each one's device time by torch.profiler
+        row["kernels_device_ms"] = kernel_ms(
+            lambda: ops.flash_attention(q, k, v, **kw))
         row["plain_ms"] = time_ms(lambda: ref.flash_attention_ref(q, k, v,
                                                                   **kw))
         # yardstick: scaled_dot_product_attention on the same inputs in its
@@ -1463,12 +1488,12 @@ def check_flash_split_repeat(torch, np, ops, case, dtype, dev):
             "repeat_bitwise_equal": same}
 
 
-def check_flash_split_kernels(torch, np, ops, case, dev):
-    """The device work of a bf16 split call (5 profiled, each kernel's
-    device ms a call), by ``torch.profiler``: the launched body's span
-    kernel (``flash_split<`` for split, ``flash_split_mma<`` for
-    split_mma) and ``flash_merge`` alone, the cache read in place (no pad,
-    copy, slice or memset on the device)."""
+def check_flash_kernels(torch, np, ops, case, dev):
+    """The device work of a bf16 call (5 profiled, each kernel's device ms
+    a call), by ``torch.profiler``: a split call's span kernel
+    (``flash_split<`` for split, ``flash_split_mma<`` for split_mma) and
+    ``flash_merge`` alone, a wgmma call's ``flash_wgmma<`` alone; the
+    inputs read in place (no pad, copy, slice or memset on the device)."""
     from repro_torch.kernels import flash_attention as fa
     q, k, v, offs, kw = _flash_inputs(torch, np, case, torch.bfloat16, dev)
     row = {"case": case[0], "shape": list(case[1:7]), "dtype": "bfloat16"}
@@ -1478,10 +1503,14 @@ def check_flash_split_kernels(torch, np, ops, case, dev):
     _, plans = _launched_plans(fa, lambda: ops.flash_attention(q, k, v,
                                                                **kw))
     torch.cuda.synchronize()
-    require(len(plans) == 1 and plans[0].spans > 0,
+    require(len(plans) == 1 and plans[0].body in ("wgmma",) + fa.SPLIT_BODIES,
             f"flash_attention {case[0]}: launched "
-            f"{[p.body for p in plans]}, want one split call")
-    span_kernel = f"{plans[0].body.replace('split', 'flash_split')}<"
+            f"{[p.body for p in plans]}, want one split or wgmma call")
+    if plans[0].spans:
+        want = (f"{plans[0].body.replace('split', 'flash_split')}<",
+                "flash_merge<")
+    else:
+        want = ("flash_wgmma<",)
     from torch.profiler import ProfilerActivity, profile
     calls = 5
     with profile(activities=[ProfilerActivity.CPU,
@@ -1491,10 +1520,10 @@ def check_flash_split_kernels(torch, np, ops, case, dev):
         torch.cuda.synchronize()
     work = {n: ms / calls for n, ms in device_times(prof).items()}
     names = sorted(work)
-    require(any(span_kernel in n for n in names)
-            and all(span_kernel in n or "flash_merge<" in n for n in names),
+    require(any(want[0] in n for n in names)
+            and all(any(w in n for w in want) for n in names),
             f"flash_attention {case[0]}: device work {names}, want "
-            f"{span_kernel} and flash_merge< alone")
+            f"{' and '.join(want)} alone")
     return {**row, "body": plans[0].body,
             "device_work": {n[:80]: ms for n, ms in work.items()}}
 
@@ -1503,7 +1532,7 @@ def phase_flash_attention(torch, np, ops, ref, dev="cuda", sizes=SIZES):
     """flash_attention's rows (every case in fp32 and bf16, the main paths'
     timed in bf16; then ragged cases through the split and wgmma bodies),
     then its bitwise checks: rows invariant under chunking, and two split
-    calls equal; then one split call's device work, profiled."""
+    calls equal; then the profiled calls' device work."""
     rows, checks = [], []
     extra = sizes["flash_attention_ragged"]
     for case in sizes["flash_attention"] + extra:
@@ -1528,7 +1557,7 @@ def phase_flash_attention(torch, np, ops, ref, dev="cuda", sizes=SIZES):
     profiled = [c for c in sizes["flash_attention"]
                 if c[0] in sizes["flash_attention_profiled"]]
     for case in profiled:
-        checks.append(check_flash_split_kernels(torch, np, ops, case, dev))
+        checks.append(check_flash_kernels(torch, np, ops, case, dev))
         log("flash_attention device work", json.dumps(checks[-1]))
     return rows, checks
 
@@ -5405,6 +5434,9 @@ def main(argv=None) -> int:
                     "multimodal: phases 1-2, phase 3's whisper and "
                     "phi-3-vision rows, ROADMAP 3j's refine-off check, phase "
                     "4's whisper and phi-3-vision smoke runs and phase 14")
+    ap.add_argument("--cases", help="with --only attention: the "
+                    "flash_attention cases to run, comma-separated (their "
+                    "rows, chunk and profiled checks alone)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -5446,7 +5478,8 @@ def main(argv=None) -> int:
                           text=True, timeout=60).stdout.strip().splitlines()
     log("build: nvcc", nvcc[-1] if nvcc else "?")
     for line in build.build_log().splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if ("registers" in line or "spill" in line or "Compiling" in line
+                or "Performance Loss" in line):
             log("build:", line.strip())
     usage = ptxas_usage(build.build_log())
     for kernel, symbol in (("flash_attention", "flash_wgmma"),
@@ -5457,6 +5490,12 @@ def main(argv=None) -> int:
         require(wg_usage and not any(u[1] or u[2]
                                      for u in wg_usage.values()),
                 f"the {kernel} wgmma body spills: {wg_usage}")
+    # the wgmma body's D-64 schedule overlaps only while ptxas keeps its
+    # wgmma asynchronous: no serialization warning may name the body
+    serial = [line.strip() for line in build.build_log().splitlines()
+              if "Performance Loss" in line and "flash_wgmma" in line]
+    require(not serial, f"ptxas serializes flash_attention's wgmma body: "
+            f"{serial}")
     # flash_attention's tensor-core GQA decode keeps O in registers
     mma_usage = {fn: u for fn, u in usage.items() if "flash_split_mma" in fn}
     log("build: flash_attention split_mma body (registers, spill stores, "
@@ -5480,7 +5519,17 @@ def main(argv=None) -> int:
             rows = {"cov_accum": phase_cov(torch, ops, ref),
                     "cov_accum_banked": phase_cov_banked(torch, ops, ref)}
         elif args.only == "attention":
-            fa_rows, fa_checks = phase_flash_attention(torch, np, ops, ref)
+            sizes = dict(SIZES)
+            if args.cases:
+                names = set(args.cases.split(","))
+                for key in ("flash_attention", "flash_attention_ragged"):
+                    sizes[key] = tuple(c for c in SIZES[key]
+                                       if c[0] in names)
+                for key in ("flash_attention_rows_cases",
+                            "flash_attention_profiled"):
+                    sizes[key] = tuple(n for n in SIZES[key] if n in names)
+            fa_rows, fa_checks = phase_flash_attention(torch, np, ops, ref,
+                                                       sizes=sizes)
             rows = {"flash_attention": fa_rows,
                     "flash_attention_checks": fa_checks}
         elif args.only == "decode":
@@ -5834,6 +5883,7 @@ def main(argv=None) -> int:
                       ("whisper_encoder_noncausal", "whisper_encoder"),
                       ("whisper_cross_noncausal", "whisper_cross"),
                       ("whisper_cross_decode_split", "whisper_cross_decode"),
+                      ("whisper_decoder_causal", "whisper_decoder"),
                       ("vision_prefill_d96", "vision_prefill"),
                       ("vision_decode_split_d96", "vision_decode")):
         row = next(r for r in fa_rows if r["case"] == case and "ms" in r)

@@ -26,26 +26,35 @@
 //     latent and MLA prefill, and any Lq under ops.batch_invariant): one block
 //     a (batch·head, 128 query rows), issued longest first (the last query
 //     blocks carry the most causal key tiles).  A producer thread loads Q once
-//     and keeps a 2-stage ring of K and V tiles filled by TMA, all three read
-//     in place through 4D tensor maps on (B, L, heads, D) in 64-column boxes,
-//     whose zero fill ends each head at D and each batch's sequence (D 96 and
-//     112 run the D-128 layout at their true width: the second box of a row
-//     arrives zero-filled past D, Q·Kᵀ takes ⌈D/16⌉ k16 steps).  Two consumer
-//     warpgroups of 64 query rows each run
-//     S = Q·Kᵀ as wgmma with both operands K-major (128 keys a tile at D <=
-//     128, 64 at D 192 / 256 to fit the registers), the softmax in the accumulator
-//     registers (a row is held by 4 lanes, reduced with shuffles), then
-//     O += P·V as wgmma with P in registers (the S accumulator rounded to bf16
-//     in pairs is already wgmma's A fragment) and V read MN-major through the
-//     transpose bit; O stays in registers across the key loop and is rescaled
-//     there.  Register reallocation gives the consumers 232 registers a thread;
-//     at D 256, where O alone is 128 of them, the block is the two consumer
-//     warpgroups alone (255 registers a thread), and lane 0 of the first issues
-//     the loads.  Epilogue: o / max(l, 1e-20) in registers, staged
-//     in the warpgroup's own rows of the Q tile once its last Q·Kᵀ is done (in
-//     Q's 128-byte swizzle, so neither side conflicts on banks), stored with
-//     16-byte accesses, rows past Lq not stored.  Shared memory at D 256: Q 64
-//     KB and two stages of 64-key K + V tiles, 128 KB.
+//     and keeps a 2-stage ring of K and V tiles filled by TMA (at D 64 a K
+//     ring and a V ring), all three read in place through 4D tensor maps on
+//     (B, L, heads, D) in 64-column boxes, whose zero fill ends each head at
+//     D and each batch's sequence (D 96 and 112 run the D-128 layout at their
+//     true width: the second box of a row arrives zero-filled past D, Q·Kᵀ
+//     takes ⌈D/16⌉ k16 steps).  Two consumer warpgroups of 64 query rows
+//     each run S = Q·Kᵀ as wgmma with both operands K-major (128 keys a tile
+//     at D <= 128, 64 at D 192 / 256 to fit the registers), the softmax in
+//     the accumulator registers (a row is held by 4 lanes, reduced with
+//     shuffles), then O += P·V as wgmma with P in registers (the S
+//     accumulator rounded to bf16 in pairs is already wgmma's A fragment)
+//     and V read MN-major through the transpose bit; O stays in registers
+//     across the key loop and is rescaled there.  At D 64 a score's exponential costs as much as its 256
+//     tensor-core flops, and the tile-at-a-time order (Q·Kᵀ, wait, softmax,
+//     P·V, wait) leaves the tensor cores idle under every softmax: there a
+//     warpgroup issues S_t = Q·K_tᵀ together with O += P_{t-1}·V_{t-1} and
+//     runs the softmax of tile t under the latter, and the two warpgroups
+//     take turns to issue (FlashAttention-3's ping-pong, on two named
+//     barriers), so one's softmax runs beside the other's products.  Each
+//     element sees the same operations in the same order as one tile at a
+//     time: the bits do not change.  Register reallocation gives the
+//     consumers 232 registers a thread; at D 256, where O alone is 128 of
+//     them, the block is the two consumer warpgroups alone (255 registers a
+//     thread), and lane 0 of the first issues the loads.  Epilogue: o /
+//     max(l, 1e-20) in registers, staged in the warpgroup's own rows of the
+//     Q tile once its last Q·Kᵀ is done (in Q's 128-byte swizzle, so neither
+//     side conflicts on banks), stored with 16-byte accesses, rows past Lq
+//     not stored.  Shared memory at D 256: Q 64 KB and two stages of 64-key
+//     K + V tiles, 128 KB.
 //   split (Lq 1 outside batch_invariant where split_mma does not take it:
 //     fp32, D 16 / 32, one query head a KV head; dense-cache decode): one
 //     block a (slot, KV head, key span) takes the G = H / KV query heads of
@@ -424,7 +433,6 @@ __global__ void __launch_bounds__(THREADS) flash_tile(Args a) {
 namespace fw {
 
 constexpr int BQ = 128;  // query rows a block: two consumer warpgroups of 64
-constexpr int STAGES = 2;
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;  // 128·40 + 256·232 <= 65536
 
@@ -438,6 +446,13 @@ struct Cfg {
   static constexpr int DP = 64 * DC;                // columns of the boxes and of O
   static constexpr int KSTEPS = (D + 15) / 16;      // k16 steps of Q·Kᵀ
   static constexpr int BKEY = DP <= 128 ? 128 : 64;  // keys a tile
+  // D 64, where a score's exponential costs as much as its 256 tensor-core
+  // flops, overlaps each warpgroup's tensor-core work with its softmax and
+  // lets the two warpgroups take turns to issue.  A warpgroup then holds V
+  // of one tile and K of the next at once, so K and V have rings of their
+  // own: a K tile is free once its Q·Kᵀ is done, a V tile once its P·V is.
+  static constexpr bool OVERLAP = D == 64;
+  static constexpr int STAGES = 2;
   // two consumer warpgroups and a producer warpgroup whose registers go to
   // them (setmaxnreg).  At D 256 no producer warpgroup: ptxas gives each
   // thread of a 12-warp block at most 168 registers (3 warps share a
@@ -453,8 +468,10 @@ struct Cfg {
   static constexpr int KV_BYTES = DC * KV_BOX;      // K (or V) of one stage
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
   static constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE_BYTES;
+  // full and empty a stage (a K and a V stage with OVERLAP), then Q's
+  static constexpr int BARS = (OVERLAP ? 4 : 2) * STAGES + 1;
   // the 128-byte swizzle repeats every 1024 bytes: boxes start 1024-aligned
-  static constexpr int SMEM = 1024 + BAR_OFF + (2 * STAGES + 1) * 8;
+  static constexpr int SMEM = 1024 + BAR_OFF + BARS * 8;
 };
 
 template <int N>
@@ -466,6 +483,17 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 template <int Id>
 __device__ __forceinline__ void warpgroup_sync() {  // one consumer warpgroup
   asm volatile("bar.sync %0, 128;" ::"n"(Id) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {  // at most N groups still pending
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
 // 2^x on the special function unit (flushes subnormal results to 0)
@@ -500,23 +528,172 @@ __device__ __forceinline__ void qk(float (&s)[Cfg<D>::BKEY / 2], uint32_t sq, ui
   }
 }
 
-// O (64 x DP) += P (64 x 16, registers) V (16 x DP): V MN-major, its
+// O (64 x DP) += P (64 x BKEY, registers) V (BKEY x DP): V MN-major, its
 // 64-column chunks (one box each) KV_BOX bytes apart (LBO), 8-key groups 1024
-// (SBO)
+// (SBO), a k16 step 16 rows further; registers 4u..4u+3 of P hold keys
+// 16u..16u+15
 template <int D>
-__device__ __forceinline__ void pv(float (&o)[Cfg<D>::DP / 2], const uint32_t (&a)[4],
-                                   uint32_t sv) {
-  constexpr int DP = Cfg<D>::DP;
-  const uint64_t db = smem_desc(sv, Cfg<D>::KV_BOX, 1024);
-  if constexpr (DP == 64) {
-    wgmma_rs_m64n64k16<1>(o, a, db, 1);
-  } else if constexpr (DP == 128) {
-    wgmma_rs_m64n128k16<1>(o, a, db, 1);
-  } else if constexpr (DP == 192) {
-    wgmma_rs_m64n192k16<1>(o, a, db, 1);
-  } else {
-    wgmma_rs_m64n256k16<1>(o, a, db, 1);
+__device__ __forceinline__ void pv(float (&o)[Cfg<D>::DP / 2],
+                                   const uint32_t (&p)[Cfg<D>::BKEY / 4], uint32_t sv) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int u = 0; u < C::BKEY / 16; ++u) {
+    const uint32_t a[4] = {p[4 * u], p[4 * u + 1], p[4 * u + 2], p[4 * u + 3]};
+    const uint64_t db = smem_desc(sv + u * 16 * 128, C::KV_BOX, 1024);
+    if constexpr (C::DP == 64) {
+      wgmma_rs_m64n64k16<1>(o, a, db, 1);
+    } else if constexpr (C::DP == 128) {
+      wgmma_rs_m64n128k16<1>(o, a, db, 1);
+    } else if constexpr (C::DP == 192) {
+      wgmma_rs_m64n192k16<1>(o, a, db, 1);
+    } else {
+      wgmma_rs_m64n256k16<1>(o, a, db, 1);
+    }
   }
+}
+
+// A thread's rows: accumulator rows r_in and r_in + 8 at absolute positions
+// pos and pos + 8; q_first the block's first row (its last nominal row is
+// q_first + BQ - 1)
+struct Rows {
+  int pos;
+  int q_first;
+};
+
+// One key tile's online softmax in the accumulator registers: scale, cap,
+// mask (each a pass of its own under one uniform branch: a branch an element
+// costs more than the element; a tile live for every row of the block skips
+// the mask), the running max m, corr = 2^((m_old - m_new)·log2e), s replaced
+// by p = 2^((s - m_new)·log2e) in fp32 and l = l·corr + Σ p
+template <int D>
+__device__ __forceinline__ void softmax(float (&sc)[Cfg<D>::BKEY / 2], const Args a,
+                                        const Rows& rw, int k0, float (&m)[2],
+                                        float (&l)[2], float (&corr)[2]) {
+  using C = Cfg<D>;
+  const int cq = (threadIdx.x % 4) * 2;  // the thread's accumulator column pair
+#pragma unroll
+  for (int j = 0; j < C::BKEY / 2; ++j) sc[j] *= a.scale;
+  if (a.softcap > 0.f) {
+#pragma unroll
+    for (int j = 0; j < C::BKEY / 2; ++j) sc[j] = tanhf(sc[j] / a.softcap) * a.softcap;
+  }
+  if (!(k0 + C::BKEY <= a.lk && (!a.causal || k0 + C::BKEY - 1 <= rw.q_first) &&
+        (a.window <= 0 || k0 > rw.q_first + BQ - 1 - a.window))) {
+    const bool any_key = !a.causal;
+    const bool any_past = a.window <= 0;
+#pragma unroll
+    for (int j = 0; j < C::BKEY / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kp = k0 + 8 * j + cq + e;
+          const int pos = rw.pos + 8 * h;
+          const bool ok = (kp < a.lk) & (any_key | (kp <= pos)) &
+                          (any_past | (kp > pos - a.window));
+          sc[4 * j + 2 * h + e] = ok ? sc[4 * j + 2 * h + e] : NEG_INF;
+        }
+      }
+    }
+  }
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int j = 0; j < C::BKEY / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]));
+    }
+  }
+  float m_new[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    m_new[h] = fmaxf(m[h], mx[h]);
+    corr[h] = ex2((m[h] - m_new[h]) * LOG2E);
+    m[h] = m_new[h];
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < C::BKEY / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // s - m first: a masked score against a row max still at -1e30
+      // gives exactly 2^0 = 1, as the reference's exp(s - m)
+      const float e0 = ex2((sc[4 * j + 2 * h] - m_new[h]) * LOG2E);
+      const float e1 = ex2((sc[4 * j + 2 * h + 1] - m_new[h]) * LOG2E);
+      sum[h] += e0;
+      sum[h] += e1;
+      sc[4 * j + 2 * h] = e0;
+      sc[4 * j + 2 * h + 1] = e1;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    l[h] = l[h] * corr[h] + sum[h];
+  }
+}
+
+// O·corr by row, then p rounded to bf16 in pairs: the A fragment of P·V
+template <int D>
+__device__ __forceinline__ void rescale_pack(float (&o)[Cfg<D>::DP / 2],
+                                             uint32_t (&p)[Cfg<D>::BKEY / 4],
+                                             const float (&sc)[Cfg<D>::BKEY / 2],
+                                             const float (&corr)[2]) {
+#pragma unroll
+  for (int j = 0; j < Cfg<D>::DP / 8; ++j) {
+    o[4 * j] *= corr[0];
+    o[4 * j + 1] *= corr[0];
+    o[4 * j + 2] *= corr[1];
+    o[4 * j + 3] *= corr[1];
+  }
+#pragma unroll
+  for (int i = 0; i < Cfg<D>::BKEY / 4; ++i) p[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+}
+
+// The two consumer warpgroups' turns to issue: warpgroup g waits on named
+// barrier 3 + g (bar.sync, 256 threads), which the other warpgroup's
+// threads arrive at (bar.arrive) once their products are issued (off: the
+// warpgroup goes alone; barriers 1 and 2 are the epilogue's)
+struct Turns {
+  int group;
+  bool on;
+  __device__ __forceinline__ void take() {
+    if (on) asm volatile("bar.sync %0, 256;" ::"r"(3 + group) : "memory");
+  }
+  __device__ __forceinline__ void pass() {
+    if (on) asm volatile("bar.arrive %0, 256;" ::"r"(3 + (group ^ 1)) : "memory");
+  }
+};
+
+// Issue S = Q·Kᵀ of the tile at sk into s (its first k16 step overwrites s)
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[Cfg<D>::BKEY / 2], uint32_t sq_wg,
+                                         uint32_t sk, Turns& turns) {
+  turns.take();
+#pragma unroll
+  for (int j = 0; j < Cfg<D>::BKEY / 2; ++j) s[j] = 0.f;
+  fence_acc(s);
+  wgmma_fence();
+  qk<D>(s, sq_wg, sk);
+  wgmma_commit();
+  turns.pass();
+}
+
+// Issue O += P·V of the tile whose V is at sv (pass: hand the turn on)
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[Cfg<D>::DP / 2],
+                                         uint32_t (&p)[Cfg<D>::BKEY / 4], uint32_t sv,
+                                         Turns& turns, bool pass) {
+  turns.take();
+  fence_acc(o);
+  fence_regs(p);
+  wgmma_fence();
+  pv<D>(o, p, sv);
+  wgmma_commit();
+  if (pass) turns.pass();
 }
 
 // Block w of the launch order takes batch·head w % (B·H) and query block
@@ -527,6 +704,7 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
 flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
             const __grid_constant__ CUtensorMap tv, Args a) {
   using C = Cfg<D>;
+  constexpr int STAGES = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -534,9 +712,20 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
   const uint32_t sq = base;
   const uint32_t ring = base + C::Q_BYTES;
   const uint32_t bars = base + C::BAR_OFF;
-  auto full = [&](int s) { return bars + 8u * s; };
-  auto empty = [&](int s) { return bars + 8u * (STAGES + s); };
-  const uint32_t qbar = bars + 8u * (2 * STAGES);
+  // K (v = 0) or V (v = 1) of the warpgroup's i-th tile: its address, its
+  // barriers (full: landed; empty: released by both warpgroups) and their
+  // phase parity.  One ring of (K, V) stages, or with OVERLAP a K ring
+  // and a V ring, each with barriers of its own.
+  constexpr int RINGS = C::OVERLAP ? 2 : 1;
+  auto stage = [&](int v, int i) {
+    return ring + (C::OVERLAP ? v * STAGES + i % STAGES : 2 * (i % STAGES) + v) * C::KV_BYTES;
+  };
+  auto full = [&](int v, int i) { return bars + 8u * ((v % RINGS) * STAGES + i % STAGES); };
+  auto empty = [&](int v, int i) {
+    return bars + 8u * ((RINGS + v % RINGS) * STAGES + i % STAGES);
+  };
+  auto parity = [&](int i) { return static_cast<uint32_t>((i / STAGES) & 1); };
+  const uint32_t qbar = bars + 8u * (2 * RINGS * STAGES);
 
   const int heads = a.b * a.h;
   const int w = blockIdx.x;
@@ -549,36 +738,40 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
   const int off = a.q_off != nullptr ? a.q_off[b] : a.q_off0;
   const int2 kt = key_tiles(off + q0, off + q0 + rows - 1, a.lk, a.causal, a.window,
                             C::BKEY);
+  const int n = kt.y - kt.x;
 
   const int tid = threadIdx.x;
   const int group = tid / 128;
   if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full(s), 1);
-      mbar_init(empty(s), 2);
+    for (int v = 0; v < RINGS; ++v) {
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_init(full(v, s), 1);
+        mbar_init(empty(v, s), 2);
+      }
     }
     mbar_init(qbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  // Q (once), and key tile t into stage s: one thread issues each; a box
-  // is (column 64·c of a head, the head, the first row, the batch)
+  // Q (once), and the i-th tile's K and V (v = 0, 1; both with one ring, v
+  // = -1): one thread issues each; a box is (column 64·c of a head, the
+  // head, the first row, the batch)
   auto load_q = [&]() {
     mbar_expect_tx(qbar, C::Q_BYTES);
     for (int c = 0; c < C::DC; ++c) {
       tma_load_4d(sq + c * C::Q_BOX, &tq, qbar, 64 * c, head, q0, b);
     }
   };
-  auto load_kv = [&](int t, int s) {
-    const uint32_t sk = ring + s * C::STAGE_BYTES;
-    mbar_expect_tx(full(s), C::STAGE_BYTES);
-    for (int c = 0; c < C::DC; ++c) {
-      tma_load_4d(sk + c * C::KV_BOX, &tk, full(s), 64 * c, kvh, t * C::BKEY, b);
-    }
-    for (int c = 0; c < C::DC; ++c) {
-      tma_load_4d(sk + C::KV_BYTES + c * C::KV_BOX, &tv, full(s), 64 * c, kvh,
-                  t * C::BKEY, b);
+  auto load = [&](int v, int i) {
+    const int v0 = v < 0 ? 0 : v;
+    const int v1 = v < 0 ? 1 : v;
+    mbar_expect_tx(full(v0, i), (v1 - v0 + 1) * C::KV_BYTES);
+    for (int u = v0; u <= v1; ++u) {
+      for (int c = 0; c < C::DC; ++c) {
+        tma_load_4d(stage(u, i) + c * C::KV_BOX, u ? &tv : &tk, full(v0, i), 64 * c, kvh,
+                    (kt.x + i) * C::BKEY, b);
+      }
     }
   };
   if constexpr (C::PRODUCER_WARPGROUP) {
@@ -586,10 +779,11 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
       reg_dealloc<PRODUCER_REGS>();
       if (tid == 2 * 128) {
         load_q();
-        for (int t = kt.x, i = 0; t < kt.y; ++t, ++i) {
-          const int s = i % STAGES;
-          if (i >= STAGES) mbar_wait(empty(s), ((i / STAGES) - 1) & 1);
-          load_kv(t, s);
+        for (int i = 0; i < n; ++i) {
+          for (int v = 0; v < RINGS; ++v) {
+            if (i >= STAGES) mbar_wait(empty(v, i), parity(i) ^ 1);
+            load(RINGS == 2 ? v : -1, i);
+          }
         }
       }
       return;
@@ -597,148 +791,127 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
     reg_alloc<CONSUMER_REGS>();
   } else if (tid == 0) {  // the first stages; the rest as stages drain
     load_q();
-    for (int t = kt.x, i = 0; t < kt.y && i < STAGES; ++t, ++i) load_kv(t, i);
+    for (int i = 0; i < n && i < STAGES; ++i) load(-1, i);
   }
 
   const int lane = tid % 128;
   const int r_in = (lane / 32) * 16 + (lane % 32) / 4;  // accumulator row (h = 0); h = 1 at +8
-  const int cq = (lane % 4) * 2;                        // accumulator column pair
   const int row0 = q0 + group * 64;                     // this warpgroup's first query row
+  // the warpgroup is done with K or V of its i-th tile (with one ring, V
+  // releases the stage); without a producer warpgroup the first warp
+  // refills the stage with tile i + STAGES once both warpgroups have
+  // released it (the whole warp waits, so it stays converged for the next
+  // wgmma)
+  auto release = [&](int v, int i) {
+    if (lane == 0) mbar_arrive(empty(v, i));
+    if constexpr (!C::PRODUCER_WARPGROUP) {
+      if (tid < 32 && i + STAGES < n) {
+        if (tid == 0) {
+          mbar_wait(empty(v, i), parity(i));
+          load(-1, i + STAGES);
+        }
+        __syncwarp();
+      }
+    }
+  };
   if (row0 >= a.lq) {
-    // every row of this warpgroup lies past Lq: keep the ring's count only
-    for (int t = kt.x, i = 0; t < kt.y; ++t, ++i) {
-      mbar_wait(full(i % STAGES), (i / STAGES) & 1);
-      if (lane == 0) mbar_arrive(empty(i % STAGES));
+    // every row of this warpgroup lies past Lq: keep the rings' counts only
+    for (int i = 0; i < n; ++i) {
+      for (int v = 0; v < RINGS; ++v) {
+        mbar_wait(full(v, i), parity(i));
+        if (lane == 0) mbar_arrive(empty(v, i));
+      }
     }
     return;
   }
-  const int pos[2] = {off + row0 + r_in, off + row0 + r_in + 8};
-  const int q_first = off + q0;
-  const int q_last = off + q0 + BQ - 1;
+  const Rows rw{off + row0 + r_in, off + q0};
   const uint32_t sq_wg = sq + group * 64 * 128;  // this warpgroup's rows in each Q box
+  auto k0 = [&](int i) { return (kt.x + i) * C::BKEY; };
 
   float o[C::DP / 2];
 #pragma unroll
   for (int i = 0; i < C::DP / 2; ++i) o[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF};
   float l[2] = {0.f, 0.f};
+  float sc[C::BKEY / 2];
+  uint32_t p[C::BKEY / 4];
+  float corr[2];
   mbar_wait(qbar, 0);
 
-  for (int t = kt.x, i = 0; t < kt.y; ++t, ++i) {
-    const int s = i % STAGES;
-    mbar_wait(full(s), (i / STAGES) & 1);
-    const uint32_t sk = ring + s * C::STAGE_BYTES;
-    float sc[C::BKEY / 2];
+  if constexpr (C::OVERLAP) {
+    // S_i = Q·K_iᵀ is issued with O += P_{i-1}·V_{i-1}; the softmax of
+    // tile i runs under the latter, then O·corr_i and P_i.  Each element
+    // sees the same operations in the same order as one tile at a time.
+    // The first and last tiles are peeled, so no wgmma sits under a branch
+    // of its own (ptxas would serialize them).  The two warpgroups take
+    // turns to issue (warpgroup 1's first arrival opens warpgroup 0's first
+    // turn; its own last turn is nobody's), so that one's softmax runs
+    // beside the other's products; with one of them idle (rows <= 64) the
+    // other goes alone.
+    Turns turns{group, rows > 64};
+    if (n > 0) {
+      if (group == 1) turns.pass();
+      mbar_wait(full(0, 0), 0);
+      issue_qk<D>(sc, sq_wg, stage(0, 0), turns);
+      wgmma_wait<0>();
+      fence_acc(sc);
+      release(0, 0);
+      softmax<D>(sc, a, rw, k0(0), m, l, corr);
+      rescale_pack<D>(o, p, sc, corr);
+      for (int i = 1; i < n; ++i) {
+        mbar_wait(full(0, i), parity(i));
+        mbar_wait(full(1, i - 1), parity(i - 1));
+        turns.take();
 #pragma unroll
-    for (int j = 0; j < C::BKEY / 2; ++j) sc[j] = 0.f;
-    fence_acc(sc);
-    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-    qk<D>(sc, sq_wg, sk);
-    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-    fence_acc(sc);
-
-    // scale, cap, mask: each a pass of its own under one uniform branch (a
-    // branch an element costs more than the element); a tile live for every
-    // row of the block skips the mask
-    const int k0 = t * C::BKEY;
-#pragma unroll
-    for (int j = 0; j < C::BKEY / 2; ++j) sc[j] *= a.scale;
-    if (a.softcap > 0.f) {
-#pragma unroll
-      for (int j = 0; j < C::BKEY / 2; ++j) sc[j] = tanhf(sc[j] / a.softcap) * a.softcap;
-    }
-    if (!(k0 + C::BKEY <= a.lk && (!a.causal || k0 + C::BKEY - 1 <= q_first) &&
-          (a.window <= 0 || k0 > q_last - a.window))) {
-      const bool any_key = !a.causal;
-      const bool any_past = a.window <= 0;
-#pragma unroll
-      for (int j = 0; j < C::BKEY / 8; ++j) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int kp = k0 + 8 * j + cq + e;
-            const bool ok = (kp < a.lk) & (any_key | (kp <= pos[h])) &
-                            (any_past | (kp > pos[h] - a.window));
-            sc[4 * j + 2 * h + e] = ok ? sc[4 * j + 2 * h + e] : NEG_INF;
-          }
-        }
+        for (int j = 0; j < C::BKEY / 2; ++j) sc[j] = 0.f;
+        fence_acc(sc);
+        fence_acc(o);
+        fence_regs(p);
+        wgmma_fence();
+        qk<D>(sc, sq_wg, stage(0, i));
+        wgmma_commit();
+        pv<D>(o, p, stage(1, i - 1));
+        wgmma_commit();
+        turns.pass();
+        wgmma_wait<1>();
+        fence_acc(sc);
+        release(0, i);
+        softmax<D>(sc, a, rw, k0(i), m, l, corr);
+        wgmma_wait<0>();
+        fence_acc(o);
+        fence_regs(p);
+        release(1, i - 1);
+        rescale_pack<D>(o, p, sc, corr);
       }
+      mbar_wait(full(1, n - 1), parity(n - 1));
+      issue_pv<D>(o, p, stage(1, n - 1), turns, group == 0);
+      wgmma_wait<0>();
+      fence_acc(o);
+      fence_regs(p);
+      release(1, n - 1);
     }
-    float mx[2] = {NEG_INF, NEG_INF};
+  } else {
+    for (int i = 0; i < n; ++i) {
+      mbar_wait(full(0, i), parity(i));
 #pragma unroll
-    for (int j = 0; j < C::BKEY / 8; ++j) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mx[h] = fmaxf(mx[h], fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]));
-      }
-    }
-    float corr[2];
-    float m_new[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      m_new[h] = fmaxf(m[h], mx[h]);
-      corr[h] = ex2((m[h] - m_new[h]) * LOG2E);
-      m[h] = m_new[h];
-    }
-    // p = exp(s - m) summed in fp32; rounded to bf16 in pairs, it is the A
-    // fragment of P·V: registers 4t..4t+3 hold keys 16t..16t+15
-    uint32_t p[C::BKEY / 4];
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < C::BKEY / 8; ++j) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        // s - m first: a masked score against a row max still at -1e30
-        // gives exactly 2^0 = 1, as the reference's exp(s - m)
-        const float e0 = ex2((sc[4 * j + 2 * h] - m_new[h]) * LOG2E);
-        const float e1 = ex2((sc[4 * j + 2 * h + 1] - m_new[h]) * LOG2E);
-        sum[h] += e0;
-        sum[h] += e1;
-        p[2 * j + h] = pack_bf16(e0, e1);
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-      l[h] = l[h] * corr[h] + sum[h];
-    }
-#pragma unroll
-    for (int j = 0; j < C::DP / 8; ++j) {
-      o[4 * j] *= corr[0];
-      o[4 * j + 1] *= corr[0];
-      o[4 * j + 2] *= corr[1];
-      o[4 * j + 3] *= corr[1];
-    }
-
-    fence_acc(o);
-    fence_regs(p);
-    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-#pragma unroll
-    for (int u = 0; u < C::BKEY / 16; ++u) {
-      const uint32_t frag[4] = {p[4 * u], p[4 * u + 1], p[4 * u + 2], p[4 * u + 3]};
-      pv<D>(o, frag, sk + C::KV_BYTES + u * 16 * 128);
-    }
-    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-    fence_acc(o);
-    fence_regs(p);
-    if (lane == 0) mbar_arrive(empty(s));
-    if constexpr (!C::PRODUCER_WARPGROUP) {
-      // the first warp refills stage s with tile t + STAGES once both
-      // warpgroups have released it (the whole warp waits, so it stays
-      // converged for the next wgmma)
-      if (tid < 32 && t + STAGES < kt.y) {
-        if (tid == 0) {
-          mbar_wait(empty(s), (i / STAGES) & 1);
-          load_kv(t + STAGES, s);
-        }
-        __syncwarp();
-      }
+      for (int j = 0; j < C::BKEY / 2; ++j) sc[j] = 0.f;
+      fence_acc(sc);
+      wgmma_fence();
+      qk<D>(sc, sq_wg, stage(0, i));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+      softmax<D>(sc, a, rw, k0(i), m, l, corr);
+      rescale_pack<D>(o, p, sc, corr);
+      fence_acc(o);
+      fence_regs(p);
+      wgmma_fence();
+      pv<D>(o, p, stage(1, i));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(o);
+      fence_regs(p);
+      release(1, i);
     }
   }
 
@@ -755,7 +928,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
     for (int h = 0; h < 2; ++h) {
       const int r = r_in + 8 * h;
       *reinterpret_cast<__nv_bfloat162*>(
-          mine + (j / 8) * C::Q_BOX + r * 128 + (((j % 8) ^ (r % 8)) * 16) + cq * 2) =
+          mine + (j / 8) * C::Q_BOX + r * 128 + (((j % 8) ^ (r % 8)) * 16) + (lane % 4) * 4) =
           __floats2bfloat162_rn(o[4 * j + 2 * h] / lm[h], o[4 * j + 2 * h + 1] / lm[h]);
     }
   }

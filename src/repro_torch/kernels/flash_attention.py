@@ -14,11 +14,14 @@ bytes / bandwidth) — operations for prefill, bytes for one-token decode.
 ``plan`` picks one of five bodies and everything it needs:
 
 * ``wgmma`` (bf16 at D 64 / 96 / 112 / 128 / 192 / 256): one block a
-  (batch·head, 128 query rows), issued longest first; a TMA ring of K and V
-  tiles feeds wgmma for S = Q·Kᵀ and for O += P·V with P in registers.  Key
-  tiles are 128 wide at D <= 128, 64 at D 192 and 256.  D 96 and 112 are
-  read at their true width (4D tensor maps whose second 64-column box is
-  zero-filled past D) and run the D-128 layout.
+  (batch·head, 128 query rows: two warpgroups of 64), issued longest first;
+  a TMA ring of K and V tiles feeds wgmma for S = Q·Kᵀ and for O += P·V
+  with P in registers.  Key tiles are 128 wide at D <= 128, 64 at D 192
+  and 256.  At D 64 a warpgroup's softmax runs under its own last P·V and
+  the other warpgroup's products (the two take turns to issue); the
+  arithmetic of each element is unchanged.  D 96 and 112 are read at their
+  true width (4D tensor maps whose second 64-column box is zero-filled
+  past D) and run the D-128 layout.
 * ``split`` (Lq 1 outside ``ops.batch_invariant``, at most
   ``SPLIT_MAX_GROUP`` query heads a KV head, where ``split_mma`` does not
   take the call: fp32, D 16 / 32, one query head a KV head): one block a

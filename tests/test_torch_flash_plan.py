@@ -74,10 +74,25 @@ CASES = [
     ("mma_g4_d96", 2, 1, 300, 8, 2, 96, BF16, False, 0, [0, 0], False),
     ("mma_g2_d192", 2, 1, 150, 4, 2, 192, BF16, True, 40, [149, 60], False),
     ("mma_g8_d256", 1, 1, 200, 8, 1, 256, BF16, True, 0, [199], False),
+    # the wgmma body at D 64 (its two warpgroups taking turns) and D 256:
+    # whisper's non-causal calls with Lq over one block and Lk 333 (no
+    # multiple of a tile), its decoder's causal self-attention with
+    # per-slot offsets (the last block's second warpgroup holds 8 rows);
+    # gemma3's causal and windowed prefill with Lq under one warpgroup, and
+    # rows that end mid-warpgroup
+    ("d64_noncausal", 1, 300, 333, 2, 2, 64, BF16, False, 0, 0, False),
+    ("d64_causal_offsets", 3, 200, 333, 2, 2, 64, BF16, True, 0,
+     [0, 66, 133], False),
+    ("d256_short", 2, 40, 77, 4, 1, 256, BF16, True, 0, [0, 37], False),
+    ("d256_window_mid", 2, 100, 333, 4, 1, 256, BF16, True, 64, [3, 233],
+     False),
 ]
 # cases the emulation runs with a soft cap of 30
 SOFTCAP = ("wmma", "decode_window", "mma_g2_d128", "mma_g8_d112",
-           "mma_g16_d64")
+           "mma_g16_d64", "d256_window_mid")
+# the wgmma body's D-64 and D-256 cases
+WG_CASES = [c for c in CASES if c[0].startswith(("d64_", "d256_short",
+                                                  "d256_window"))]
 TILE_CASES = [c for c in CASES if not (c[2] == 1 and not c[11])]
 SPLIT_CASES = [c for c in CASES if c[2] == 1 and not c[11]]
 
@@ -305,12 +320,20 @@ _F32 = fa.plan(1, 300, 300, 4, 2, 128, F32)
 _SPLIT = fa.plan(2, 1, 300, 2, 2, 64, BF16)
 _MMA = fa.plan(2, 1, 300, 4, 2, 64, BF16)
 _MMA256 = fa.plan(2, 1, 300, 4, 1, 256, BF16)
+_WG64 = fa.plan(4, 1500, 1500, 8, 8, 64, BF16, causal=False)
+_WG256 = fa.plan(4, 1024, 1024, 4, 1, 256, BF16)
 REFUSED = {
     "wgmma_fp32": dataclasses.replace(_WG, dtype=F32),
     "wgmma_narrow_tile": dataclasses.replace(_WG, bkey=64),
     "wgmma_rows": dataclasses.replace(_WG, bq=64),
     "wgmma_d32": dataclasses.replace(_WG, d=32),
     "wgmma_split_fields": dataclasses.replace(_WG, span=448, spans=1),
+    # blocks of two warpgroups, 128-key tiles at D 64 and 64-key at D 256
+    "wgmma_d64_rows": dataclasses.replace(_WG64, bq=64),
+    "wgmma_d64_tile": dataclasses.replace(_WG64, bkey=64),
+    "wgmma_d256_rows": dataclasses.replace(_WG256, bq=64),
+    "wgmma_d256_tile": dataclasses.replace(_WG256, bkey=32),
+    "wgmma_d256_fp32": dataclasses.replace(_WG256, dtype=F32),
     "fma32_bf16": dataclasses.replace(_F32, dtype=BF16),
     "fma32_tile": dataclasses.replace(_F32, bkey=128),
     # D 256's fp32 tiles are 32 keys wide: 64 would overflow shared memory
@@ -367,10 +390,14 @@ def test_emulate_matches_plain(case):
 @pytest.mark.parametrize("lq,lk,causal,window,d", [
     (64, 64, True, 0, 16), (64, 64, True, 24, 32), (50, 77, False, 0, 16),
     (77, 77, True, 0, 64), (1, 77, True, 0, 16), (64, 64, True, 16, 96),
-    (50, 77, False, 0, 112), (1, 77, True, 0, 112)])
+    (50, 77, False, 0, 112), (1, 77, True, 0, 112),
+    (150, 333, False, 0, 64), (140, 140, True, 0, 64),
+    (40, 77, True, 0, 256), (100, 150, True, 64, 256)])
 def test_emulate_matches_pallas(lq, lk, causal, window, d):
     # the JAX kernel in interpret mode in its (B, H, L, D) layout, fp32, at
-    # q_offset 0 and no soft cap (which it lacks): rtol 1e-5, atol 1e-6
+    # q_offset 0 and no soft cap (which it lacks): rtol 1e-5, atol 1e-6;
+    # from head dim 64 also the bf16 plan's blocks and tiles (the wgmma
+    # body's) emulated in fp32
     rng = np.random.default_rng(lq + lk + d)
     b, h, kv = 2, 4, 2
     q, k, v = _inputs(rng, b, lq, lk, h, kv, d, F32)
@@ -380,25 +407,37 @@ def test_emulate_matches_pallas(lq, lk, causal, window, d):
         jnp.asarray(k.numpy().transpose(tr)),
         jnp.asarray(v.numpy().transpose(tr)), causal=causal, window=window,
         force_pallas=True, interpret=True)
+    want = np.asarray(want).transpose(tr)
     p = fa.plan(b, lq, lk, h, kv, d, F32, causal=causal, window=window,
                 q_offset=0)
     got = fa.emulate(p, q, k, v, scale=1.0 / math.sqrt(d))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want).transpose(tr),
-                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    if d >= 64 and lq > 1:
+        pw = fa.plan(b, lq, lk, h, kv, d, BF16, causal=causal,
+                     window=window, q_offset=0)
+        assert pw.body == "wgmma"
+        got = fa.emulate(dataclasses.replace(pw, dtype=F32), q, k, v,
+                         scale=1.0 / math.sqrt(d))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("d", [64, 112, 192, 256])
-def test_invariant_rows_do_not_depend_on_the_chunk(d):
+@pytest.mark.parametrize("d,causal,window", [
+    (64, True, 0), (112, True, 0), (192, True, 0), (256, True, 0),
+    (64, False, 0), (256, True, 100)],
+    ids=["64", "112", "192", "256", "64-noncausal", "256-window100"])
+def test_invariant_rows_do_not_depend_on_the_chunk(d, causal, window):
     # under batch_invariant a row's emulated bits are the same whether it
     # is computed inside Lq 1, 8, 256 or the whole prompt, at any block
-    # start (bf16, the wgmma body; its key tiles start at absolute key 0)
+    # start (bf16, the wgmma body; its key tiles start at absolute key 0):
+    # causal, whisper's non-causal D 64 and gemma3's windowed D 256
     rng = np.random.default_rng(d)
     b, h, kv, l = 1, 1, 1, 1024 if d == 64 else 300 if d == 192 else 192
     q, k, v = _inputs(rng, b, l, l, h, kv, d, BF16)
     scale = 1.0 / math.sqrt(d)
 
     def run(q0, n):
-        p = fa.plan(b, n, l, h, kv, d, BF16, q_offset=q0, invariant=True)
+        p = fa.plan(b, n, l, h, kv, d, BF16, causal=causal, window=window,
+                    q_offset=q0, invariant=True)
         assert p.body == "wgmma"
         return fa.emulate(p, q[:, q0:q0 + n].contiguous(), k, v, scale=scale)
 
@@ -664,3 +703,102 @@ def test_chip_smoke_gqa_decodes_take_split_mma():
     assert {"gemma_decode", "kimi_decode"} <= set(
         cs.SIZES["flash_attention_profiled"])
     assert {2, 4, 8, 16} <= groups and set(fa.MMA_DIMS) <= dims
+
+
+# ---------------------------------------------------------------------------
+# wgmma at D 64 and D 256
+
+
+def test_wgmma_tiles_by_head_dim():
+    # query rows a block and keys a tile by head dim: two warpgroups of 64
+    # rows; 128-key tiles to D 128, 64-key tiles at D 192 and 256; the
+    # choice follows dtype and D alone (Lq, masks and batch_invariant never
+    # change it)
+    want = {64: 128, 96: 128, 112: 128, 128: 128, 192: 64, 256: 64}
+    assert {d: fa.WG_BKEY[d] for d in fa.MMA_DIMS} == want
+    for d, bkey in want.items():
+        for lq, causal, window, inv in ((1024, True, 0, False),
+                                        (77, False, 0, False),
+                                        (300, True, 100, False),
+                                        (1, True, 0, True)):
+            p = fa.plan(2, lq, 1024, 4, 1, d, BF16, causal=causal,
+                        window=window, invariant=inv)
+            assert (p.body, p.bq, p.bkey) == ("wgmma", fa.WG_BQ, bkey)
+            assert p.grid == -(-lq // 128) * 2 * 4
+            assert _launcher_accepts(p)
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_sizes", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def test_chip_smoke_wgmma_published_plans():
+    # chip_smoke.py's whisper-base rows (D 64) and gemma3-1b prefill rows
+    # (D 256, 4 query heads on 1) at their published widths: the blocks
+    # they launch, one wave of the card's 132 multiprocessors or more
+    cs = _chip_smoke()
+    cases = {c[0]: c for c in cs.SIZES["flash_attention"]}
+    want = {"whisper_encoder": (128, 128, 12 * 32),
+            "whisper_cross": (128, 128, 4 * 32),
+            "whisper_decoder": (128, 128, 4 * 32),
+            "gemma_global": (128, 64, 8 * 16),
+            "gemma_local": (128, 64, 8 * 16),
+            "gemma_server": (128, 64, 4 * 32)}
+    for name, (bq, bkey, grid) in want.items():
+        _, b, h, kv, lq, lk, d, causal, window, _, _ = cases[name]
+        p = fa.plan(b, lq, lk, h, kv, d, BF16, causal=causal, window=window)
+        assert (p.body, p.bq, p.bkey, p.grid) == ("wgmma", bq, bkey, grid)
+        assert _launcher_accepts(p)
+    assert not cases["whisper_encoder"][7] and cases["whisper_decoder"][7]
+    # the chunk-row check and the profiled calls take one row of each
+    rows_cases = cs.SIZES["flash_attention_rows_cases"]
+    assert {"whisper_encoder", "gemma_global"} <= set(rows_cases)
+    assert {"whisper_encoder", "gemma_global"} <= set(
+        cs.SIZES["flash_attention_profiled"])
+    ragged = {c[0] for c in cs.SIZES["flash_attention_ragged"]}
+    assert {"ragged_d64_noncausal", "ragged_d64_offsets", "ragged_d256_short",
+            "ragged_d256_mid"} <= ragged
+
+
+@pytest.mark.parametrize("case", WG_CASES, ids=[c[0] for c in WG_CASES])
+def test_wgmma_emulation_matches_the_model_path(case):
+    # the JAX package's model-path flash_attention (the kernel's oracle) on
+    # the same numpy inputs with the case's per-slot offsets and masks:
+    # fp32 through the wgmma plan's blocks and tiles at rtol 1e-5 (atol
+    # 1e-6; 5e-6 under a soft cap, whose tanh differs in the last bit
+    # between jnp.tanh and the emulation's polynomial, which moves outputs
+    # near 0 by about 1.5e-6), and bf16 within 1e-2 relative Frobenius
+    from repro.models import attention as jattn
+
+    name, b, lq, lk, h, kv, d, _, causal, window, off, _ = case
+    p = _plan(case)
+    assert p.body == "wgmma"
+    softcap = 30.0 if name in SOFTCAP else 0.0
+    rng = np.random.default_rng(d + lq + lk)
+    qn, kn, vn = (rng.standard_normal(s, dtype=np.float32)
+                  for s in ((b, lq, h, d), (b, lk, kv, d), (b, lk, kv, d)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    joff = jnp.asarray(np.broadcast_to(np.asarray(off, dtype=np.int32), (b,)))
+    want = jattn.flash_attention(jnp.asarray(qn), jnp.asarray(kn),
+                                 jnp.asarray(vn), q_offset=joff, **kw)
+    got = fa.emulate(dataclasses.replace(p, dtype=F32),
+                     *(torch.from_numpy(x) for x in (qn, kn, vn)),
+                     scale=1.0 / math.sqrt(d), softcap=softcap)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=5e-6 if softcap else 1e-6)
+    want16 = jattn.flash_attention(
+        *(jnp.asarray(x).astype(jnp.bfloat16) for x in (qn, kn, vn)),
+        q_offset=joff, **kw)
+    got16 = fa.emulate(p, *(torch.from_numpy(x).to(BF16)
+                            for x in (qn, kn, vn)),
+                       scale=1.0 / math.sqrt(d), softcap=softcap)
+    assert got16.dtype == BF16
+    want16 = torch.from_numpy(np.array(want16.astype(jnp.float32)))
+    assert _rel(got16, want16) <= 1e-2

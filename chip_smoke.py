@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only ssm       # phases 1-2, phase 4's
                                            # falcon-mamba and zamba2 smoke
                                            # runs and phase 13
+    python3 chip_smoke.py --only train     # phases 1-2 and phase 15
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -282,6 +283,35 @@ Phases, each fatal on failure (non-zero exit, no result line):
              the same recipe, then ``Server`` (no attention kernel may
              launch), its state bytes (524,288 + 49,152 a layer a slot)
              and a profiled ``generate``.
+14. multimodal — whisper-base at full depth and phi-3-vision-4.2b at
+             depth 2: phase 5's recipe, then served (``Server``, the engine
+             over the latent and the dense cache).
+15. train  — the trainer (``launch/train.py``, ``launch/steps.py``,
+             ``data/``).  (e) ``flash_attention`` at qwen3-0.6b's training
+             shape (B 8, 16 query heads on 8, L 512, D 128, causal, bf16)
+             timed beside its plain version, the plain backward and
+             ``is_causal`` SDPA (``enable_gqa``) forward and forward +
+             backward.  (a) Every registered arch's smoke config (the MoE
+             archs under both dispatches): three fp32 train steps on the
+             card and on the CPU from the same params and numpy batches,
+             losses rel 1e-5 and every param leaf rel 1e-4 after step 3.
+             (b) qwen3-0.6b at its published widths and 28 layers through
+             ``train()``: B 8 x L 512, 100 steps, lr 3e-4, a checkpoint
+             every 50; the loss at the first and last log (it must fall by
+             0.5 nats), the median step, tokens/s, the model-flops share of
+             989 TFLOP/s, peak memory, the launches of one step by body, its
+             host syncs, a profiled step's busy share and its time split
+             (forward, ``flash_wgmma``, the plain attention backward, the
+             rest of the backward, AdamW).  (d) The trained model
+             compressed by AA-SVD (ratio 0.8, fused, one refine epoch) and
+             by naive SVD (agnostic, no refinement) on 256 x 512 tokens of
+             the port's calibration set; held-out ppl of base, AA-SVD and
+             naive (printed, not gated), each wall by stage; then
+             ``Server``: 8 prompts of 128 tokens, 32 steps, tokens in vocab.
+             (c) The restart: 20 steps with a checkpoint at 10 against the
+             run stopped there and resumed: the restored state and every
+             batch bit for bit, the resumed params' largest gap, and a
+             determinism probe of the backward.
 
 It prints a ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Long output goes to
@@ -647,6 +677,22 @@ SIZES = {
                       "serve_check": (512, 16, 1024)},
     "vision_layers": 2,
     "smoke_calib_ssm": (32, 32),
+    # phase 15, the trainer: (b) qwen3-0.6b at its published widths and
+    # depth, B 8 x L 512, 100 steps, a checkpoint every 50; (c) the
+    # restart: 20 steps, a checkpoint at 10, depth cut 28 -> 2 (at 28 it
+    # took 55.7 s, three saves of 7.2 GB, and was bit for bit); (d)
+    # the trained model calibrated on 256 x 512 tokens (128 per d_model) in
+    # microbatches of 8 (4096 tokens, as phase 5's 4 x 1024), eval 4 x 8 x
+    # 512, served by Server: 8 prompts of 128 tokens, 32 steps
+    "train_shape": (8, 512),
+    "train_steps": 100,
+    "train_ckpt_every": 50,
+    "train_restart": (20, 10),
+    "train_restart_layers": 2,
+    "train_calib": (256, 512),
+    "train_microbatch": 8,
+    "train_evals": (4, 8, 512),
+    "train_serve": (8, 128, 32),
 }
 
 
@@ -5420,12 +5466,699 @@ def phase_multimodal(torch, np, ops, dev="cuda", sizes=SIZES,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the trainer
+
+
+def _np_batch(np, cfg, rng, b, seq):
+    """A numpy LM batch of ``b`` x ``seq`` uniform tokens with the stub
+    frontends' inputs as the JAX package's data shapes them (0.02·N(0, 1)
+    patches with labels zero under them, or frames)."""
+    t = rng.integers(0, cfg.vocab_size, (b, seq + 1), dtype=np.int32)
+    out = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    if cfg.frontend == "vision":
+        out["patches"] = (0.02 * rng.standard_normal(
+            (b, cfg.num_patches, cfg.d_model))).astype(np.float32)
+        out["labels"] = np.concatenate(
+            [np.zeros((b, cfg.num_patches), np.int32), out["labels"]], 1)
+    if cfg.frontend == "audio":
+        out["frames"] = (0.02 * rng.standard_normal(
+            (b, cfg.encoder_seq_len, cfg.d_model))).astype(np.float32)
+    return out
+
+
+def _leaf_gap(torch, a, b):
+    """Relative Frobenius gap of ``a`` to ``b`` (absolute where b is 0)."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+
+def _named_leaves(tree):
+    from repro_torch.checkpoint.manager import _flatten_with_paths
+    return _flatten_with_paths(tree)
+
+
+def phase_train_smoke(torch, np, ops, dev="cuda", arch="llama-7b",
+                      dispatch=None):
+    """(a) Three train steps of a smoke config (fp32) on the card and on
+    the CPU from the same params and numpy batches, under the trainer's
+    schedule for 3 steps (step 1 moves only the moments): the losses and
+    every param leaf after step 3, gated by the caller."""
+    from repro_torch import configs
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_map
+
+    cfg = configs.get_smoke_config(arch).replace(dtype="float32")
+    if dispatch == "dropfree":
+        cfg = _dropfree(cfg)
+    params = M.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(0)
+    batches = [_np_batch(np, cfg, rng, 2, 32) for _ in range(3)]
+    step = S.make_train_step(cfg, lr_schedule=adamw.cosine_schedule(
+        1.0, 3, warmup_steps=1))
+    runs = {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        state = S.train_state_for(tree_map(lambda t: t.to(d), params))
+        ops.reset_launches()
+        losses = []
+        for b in batches:
+            state, m = step(state, {k: torch.from_numpy(v).to(d)
+                                    for k, v in b.items()})
+            losses.append(float(m["loss"]))
+        runs[name] = (losses, state, dict(ops.LAUNCHES))
+    (lc, sc, launches), (lp, sp, _) = runs["card"], runs["cpu"]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+    gaps = {n: _leaf_gap(torch, a, b) for (n, a), (_, b) in zip(
+        _named_leaves(sc.params), _named_leaves(sp.params))}
+    worst = max(gaps, key=gaps.get)
+    tag = arch + ("" if dispatch is None else f" ({dispatch})")
+    log(f"train (a) {tag}: losses card {lc} cpu {lp}, rel gap "
+        f"{loss_gap:.3e}; params after step 3: worst rel gap "
+        f"{gaps[worst]:.3e} ({worst}); card launches", json.dumps(
+            {k: v for k, v in launches.items() if v}))
+    return {"arch": arch, "dispatch": dispatch, "losses_card": lc,
+            "losses_cpu": lp, "loss_rel_gap": loss_gap,
+            "param_worst": [worst, gaps[worst]], "launches": launches,
+            "finite": all(math.isfinite(v) for v in lc + lp)}
+
+
+def _model_flops(cfg, b, l):
+    """Model flops of one train step without remat: 3x the forward's
+    (every linear, the tied head, causal attention's two products over the
+    causal triangle)."""
+    d, hd = cfg.d_model, cfg.num_heads * cfg.head_dim
+    kvd = cfg.num_kv_heads * cfg.head_dim
+    lin = d * hd + 2 * d * kvd + hd * d + 3 * d * cfg.d_ff
+    fwd = 2 * b * l * (cfg.num_layers * lin + d * cfg.vocab_size)
+    fwd += cfg.num_layers * 4 * b * hd * l * (l + 1) // 2
+    return 3 * fwd
+
+
+class _StepClock:
+    """Each train step's end on the device timeline (CUDA events recorded
+    after the step's launches: no sync), or on the host clock on the CPU;
+    ``ms()`` gives each step's time from the previous step's end."""
+
+    def __init__(self, torch, dev):
+        self.torch, self.cuda = torch, torch.device(dev).type == "cuda"
+        self.marks = [self._mark()]
+        self.host = []                  # each tick's host clock
+
+    def _mark(self):
+        if not self.cuda:
+            return time.perf_counter()
+        ev = self.torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def tick(self):
+        self.marks.append(self._mark())
+        self.host.append(time.perf_counter())
+
+    def ms(self):
+        if self.cuda:
+            self.torch.cuda.synchronize()
+            return [a.elapsed_time(b) for a, b in zip(self.marks,
+                                                      self.marks[1:])]
+        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
+
+
+def _capture_train(fn):
+    """Run ``fn()`` with the trainer's prints captured: (result, lines)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue().splitlines()
+
+
+def train_step_split(torch, step, state, batch):
+    """One train step's device time under ``torch.profiler``: the forward
+    (the ``train_step/forward`` range, ``M.loss_fn`` alone), the plain
+    attention backward (``_FlashAttentionBackward`` with its recompute),
+    the rest of the step's kernels (the backward, remat's recomputed
+    forwards included), AdamW and ``flash_wgmma`` (every launch: forward
+    and recompute)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+
+    def dev_ms(evt):
+        return getattr(evt, "device_time_total",
+                       getattr(evt, "cuda_time_total", 0.0)) / 1e3
+
+    # one pass over the events (each pass takes seconds at ~10k launches)
+    avgs = prof.key_averages()
+    by_key = {e.key: dev_ms(e) for e in avgs
+              if e.device_type != DeviceType.CUDA}
+    # the device side of each record_function range shows as an event of
+    # its own name: kernels only
+    kernels = {}
+    for e in avgs:
+        if e.device_type == DeviceType.CUDA and e.key not in by_key:
+            kernels[e.key] = (kernels.get(e.key, 0.0)
+                              + e.self_device_time_total / 1e3)
+    total = sum(kernels.values())
+    fwd = by_key.get("train_step/forward", 0.0)
+    adam = by_key.get("train_step/adamw", 0.0)
+    attn_bwd = by_key.get(
+        "autograd::engine::evaluate_function: _FlashAttentionBackward", 0.0)
+    return {
+        "device_total_ms": total, "forward_ms": fwd,
+        "flash_wgmma_ms": sum(v for k, v in kernels.items()
+                              if "flash_wgmma" in k),
+        "attention_backward_ms": attn_bwd,
+        "other_backward_ms": total - fwd - adam - attn_bwd,
+        "adamw_ms": adam, "top_kernels_ms": top_kernels(kernels, 12)}
+
+
+def phase_train_run(torch, np, ops, dev="cuda", sizes=SIZES, cfg=None):
+    """(b) qwen3-0.6b at its published widths and depth through
+    ``launch.train.train``; returns (record, cfg, trained params)."""
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as T
+
+    cfg = cfg or configs.get_config("qwen3-0.6b")
+    b, l = sizes["train_shape"]
+    steps, every = sizes["train_steps"], sizes["train_ckpt_every"]
+    on_card = torch.device(dev).type == "cuda"
+    log(f"train (b): {cfg.name} {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied "
+        f"{cfg.tie_embeddings}, dtype {cfg.dtype} params {cfg.param_dtype}, "
+        f"remat {cfg.remat}; B {b} x L {l}, {steps} steps, lr 3e-4, "
+        f"checkpoint every {every}")
+    clock, first = _StepClock(torch, dev), []
+    make, saves = S.make_train_step, {"save_s": [], "wait_s": 0.0}
+
+    class Timed(CheckpointManager):
+        # host seconds in the trainer's save calls (the copy to the host)
+        # and waits (the writes of the thread, fsync included)
+        def save(self, *a, **kw):
+            t = time.perf_counter()
+            super().save(*a, **kw)
+            saves["save_s"].append(time.perf_counter() - t)
+
+        def wait(self):
+            t = time.perf_counter()
+            super().wait()
+            saves["wait_s"] += time.perf_counter() - t
+
+    def timed(*args, **kw):
+        fn = make(*args, **kw)
+
+        def step(state, batch):
+            out = fn(state, batch)
+            clock.tick()
+            if not first:
+                first.append(out[1]["loss"])
+            return out
+
+        return step
+
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    saved_cls, S.make_train_step, T.CheckpointManager = (
+        T.CheckpointManager, timed, Timed)
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            clock.marks = [clock._mark()]
+            (state, info), lines = _capture_train(lambda: T.train(
+                cfg, steps=steps, batch=b, seq_len=l, ckpt_dir=d,
+                ckpt_every=every, lr=3e-4, log_every=10, device=dev))
+            wall = time.perf_counter() - t0
+            saved = CheckpointManager(d, async_save=False).all_steps()
+            ckpt_bytes = _dir_bytes(d)
+    finally:
+        S.make_train_step, T.CheckpointManager = make, saved_cls
+    step_ms = clock.ms()
+    launches, bodies = dict(ops.LAUNCHES), dict(ops.FLASH_BODIES)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    for line in lines:
+        log("train (b):", line)
+    losses = info["losses"]
+    median = statistics.median(step_ms[1:])
+    flops = _model_flops(cfg, b, l)
+    rec = {"steps": steps, "shape": [b, l], "wall_s": wall,
+           "loss_step1": float(first[0]), "loss_first_log": losses[0],
+           "loss_last_log": losses[-1], "losses_logged": losses,
+           "loss_fall": losses[0] - losses[-1], "step_ms": step_ms,
+           "median_step_ms": median, "tokens_per_s": b * l / median * 1e3,
+           "model_flops": flops,
+           "model_flops_bound_ms": flops / PEAK_FLOPS["bfloat16"] * 1e3,
+           "model_flops_share": flops / PEAK_FLOPS["bfloat16"]
+           / (median / 1e3),
+           "peak_bytes": peak, "checkpoints": saved,
+           "checkpoint_bytes": ckpt_bytes, "launches": launches,
+           "flash_bodies": bodies,
+           # host seconds of train(): to the end of step 1's launches (init
+           # included), steps 2..N, after the last step (the final save and
+           # its wait); the save calls and the waits among them
+           "times_s": {"to_step_1": clock.host[0] - t0,
+                       "steps_2_to_n": clock.host[-1] - clock.host[0],
+                       "after_last_step": t0 + wall - clock.host[-1],
+                       "save_calls": saves["save_s"],
+                       "waits": saves["wait_s"]}}
+    log(f"train (b): loss step 1 {rec['loss_step1']:.4f}, first log "
+        f"{losses[0]:.4f}, last log {losses[-1]:.4f} (fall "
+        f"{rec['loss_fall']:.4f}); median step {median:.3f} ms (first "
+        f"{step_ms[0]:.1f} ms), {rec['tokens_per_s']:.0f} tokens/s; model "
+        f"flops {flops:.4e} a step, bound {rec['model_flops_bound_ms']:.3f} "
+        f"ms, share {rec['model_flops_share']:.4f}; peak "
+        f"{peak / 2**30:.3f} GiB; wall {wall:.3f} s; checkpoints {saved} "
+        f"({ckpt_bytes / 2**30:.3f} GiB on disk)")
+    log("train (b): launches", json.dumps(launches), "flash_attention by "
+        "body", json.dumps(bodies), "host seconds", json.dumps(rec["times_s"]))
+    require(all(math.isfinite(v) for v in losses + [rec["loss_step1"]]),
+            f"non-finite training loss: {losses}")
+    require(rec["loss_fall"] >= 0.5, f"the loss fell {rec['loss_fall']:.4f} "
+            "nats from the first log to the last, under 0.5")
+    require(saved and saved[-1] == steps, f"checkpoints {saved}")
+    require(launches["flash_attention"] > 0,
+            "flash_attention never launched on the training path")
+
+    # one more step on the trained state: its launches and host syncs,
+    # then one profiled
+    batch = next(make_batch_iterator(cfg, b, l, seed=1, device=dev))
+    step = S.make_train_step(cfg)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+    ops.reset_launches()
+    t = time.perf_counter()
+    try:
+        step(state, batch)
+        rec["step_host_syncs"] = "none"
+    except RuntimeError as e:
+        rec["step_host_syncs"] = str(e)[:300]
+    finally:
+        if on_card:
+            torch.cuda.set_sync_debug_mode("default")
+    _sync(torch, dev)
+    require(rec["step_host_syncs"] == "none", "the train step synchronized "
+            f"the host: {rec['step_host_syncs']}")
+    rec["times_s"]["sync_check_step"] = time.perf_counter() - t
+    rec["launches_per_step"] = dict(ops.LAUNCHES)
+    rec["flash_bodies_per_step"] = dict(ops.FLASH_BODIES)
+    if on_card:
+        t = time.perf_counter()
+        rec["split"] = train_step_split(torch, step, state, batch)
+        rec["times_s"]["profiled_step"] = time.perf_counter() - t
+        # the device's busy share: a profiled step's device time over the
+        # training run's median step (one unprofiled step's wall varied
+        # 480-686 ms between runs); the model-flops share of that time
+        dev_ms = rec["split"]["device_total_ms"]
+        rec["busy_share"] = dev_ms / median
+        rec["model_flops_share_of_device_ms"] = (
+            rec["model_flops_bound_ms"] / dev_ms)
+        log("train (b): one step's launches", json.dumps(
+            rec["launches_per_step"]), "flash_attention by body",
+            json.dumps(rec["flash_bodies_per_step"]), "host syncs:",
+            rec["step_host_syncs"], f"busy share {rec['busy_share']:.4f}, "
+            "model-flops share of the device time "
+            f"{rec['model_flops_share_of_device_ms']:.4f}; the sync-check "
+            f"step {rec['times_s']['sync_check_step']:.3f} s, the profiled "
+            f"step {rec['times_s']['profiled_step']:.3f} s")
+        log("train (b): step split (ms)", json.dumps(rec["split"]))
+    return rec, cfg, state.params
+
+
+def phase_train_restart(torch, np, ops, dev="cuda", sizes=SIZES, cfg=None):
+    """(c) 20 steps with a checkpoint at 10 against the same run stopped
+    there and resumed: the restored state bit for bit the saved one, every
+    batch the uninterrupted run's, the resumed params' largest gap; a
+    determinism probe (one state's grads twice) names the leaves whose
+    backward is not bitwise."""
+    import hashlib as hl
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as T
+    from repro_torch.tree import tree_map
+
+    cfg = (cfg or configs.get_config("qwen3-0.6b")).replace(
+        num_layers=sizes["train_restart_layers"])
+    b, l = sizes["train_shape"]
+    steps, every = sizes["train_restart"]
+    snaps, restored, seen = {}, {}, {"a": [], "b": []}
+    run = ["a"]
+
+    def clone(t):
+        return t.detach().clone() if torch.is_tensor(t) else t
+
+    class Recording(CheckpointManager):
+        def save(self, step, state, **kw):
+            if run[0] == "a" and step == every:
+                snaps[step] = tree_map(clone, state)
+            super().save(step, state, **kw)
+
+        def restore(self, step, like, **kw):
+            s, tree = super().restore(step, like, **kw)
+            restored[s] = tree
+            return s, tree
+
+    def recording_batches(*args, **kw):
+        for i, bt in enumerate(make_batch_iterator(*args, **kw)):
+            h = hl.sha256()
+            for k in sorted(bt):
+                h.update(bt[k].cpu().numpy().tobytes())
+            seen[run[0]].append((kw.get("start_step", 0) + i,
+                                 h.hexdigest()[:16]))
+            yield bt
+
+    saved_cls, saved_iter = T.CheckpointManager, T.make_batch_iterator
+    T.CheckpointManager, T.make_batch_iterator = Recording, recording_batches
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            (state_a, info_a), lines_a = _capture_train(lambda: T.train(
+                cfg, steps=steps, batch=b, seq_len=l, ckpt_dir=d,
+                ckpt_every=every, log_every=1, device=dev))
+            t_a = time.perf_counter() - t0
+            shutil.rmtree(pathlib.Path(d) / f"step_{steps:09d}")
+            run[0] = "b"
+            (state_b, info_b), lines_b = _capture_train(lambda: T.train(
+                cfg, steps=steps, batch=b, seq_len=l, ckpt_dir=d,
+                ckpt_every=every, log_every=1, device=dev))
+    finally:
+        T.CheckpointManager, T.make_batch_iterator = saved_cls, saved_iter
+    wall = time.perf_counter() - t0
+    for line in lines_b[:1]:
+        log("train (c):", line)
+    pairs = list(zip(_named_leaves(restored[every]),
+                     _named_leaves(snaps[every])))
+    restore_bitwise = all(
+        (torch.equal(x, y.to(x.device)) if torch.is_tensor(y)
+         else int(x) == int(y)) for (_, x), (_, y) in pairs)
+    batches_equal = seen["b"] == seen["a"][every:]
+    gaps = {}
+    for part in ("params", "m", "v"):
+        ta = state_a.params if part == "params" else getattr(state_a.opt,
+                                                               part)
+        tb = state_b.params if part == "params" else getattr(state_b.opt,
+                                                               part)
+        for (n, x), (_, y) in zip(_named_leaves(tb), _named_leaves(ta)):
+            gaps[f"{part}/{n}"] = float((x.float() - y.float()).abs().max())
+    worst = max(gaps, key=gaps.get)
+    bitwise = all(v == 0.0 for v in gaps.values())
+    loss_gap = max(abs(x - y) for x, y in zip(info_b["losses"],
+                                              info_a["losses"][every:]))
+    # determinism probe: the same state's loss and grads twice
+    batch = next(make_batch_iterator(cfg, b, l, seed=5, device=dev))
+    g1 = S.loss_and_grads(cfg, state_b.params, batch)
+    g2 = S.loss_and_grads(cfg, state_b.params, batch)
+    unequal = [n for (n, x), (_, y) in zip(_named_leaves(g1[2]),
+                                           _named_leaves(g2[2]))
+               if not torch.equal(x, y)]
+    rec = {"layers": cfg.num_layers, "steps": steps, "ckpt_every": every,
+           "wall_s": wall, "run_a_s": t_a, "restore_bitwise": restore_bitwise,
+           "batches_equal": batches_equal, "batches_checked": len(seen["b"]),
+           "resumed_bitwise": bitwise, "largest_gap": [worst, gaps[worst]],
+           "loss_gap_steps_11_20": loss_gap,
+           "probe_loss_equal": bool(torch.equal(g1[0], g2[0])),
+           "probe_unequal_grads": unequal}
+    log(f"train (c): {cfg.num_layers} layers, {steps} steps, checkpoint at "
+        f"{every}: restored state bit for bit the saved one "
+        f"{restore_bitwise}; the resumed run's {len(seen['b'])} batches "
+        f"equal {batches_equal}; resumed state bit for bit {bitwise}, "
+        f"largest gap {gaps[worst]:.3e} ({worst}), losses' largest gap "
+        f"{loss_gap:.3e}; probe: loss equal {rec['probe_loss_equal']}, "
+        f"grads unequal at {unequal}; wall {wall:.3f} s (run a "
+        f"{t_a:.3f} s)")
+    require(restore_bitwise, "the restored train state differs from the "
+            "saved one")
+    require(batches_equal, f"resumed batches differ: {seen}")
+    require(info_b["step"] == steps and len(info_b["losses"]) == steps
+            - every, f"resumed run: {info_b}")
+    return rec
+
+
+def phase_train_compress(torch, np, ops, dev="cuda", sizes=SIZES, cfg=None,
+                         params=None):
+    """(d) The trained model compressed by AA-SVD (ratio 0.8, fused
+    calibration, one refine epoch) and by naive SVD (agnostic objective,
+    no refinement) on the port's calibration set, held-out ppl of base,
+    AA-SVD and naive, then the AA-SVD model served by ``Server``."""
+    import itertools
+
+    import repro_torch
+    from repro_torch.data import calibration_set, make_batch_iterator
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import model as M
+
+    n_cal, l_cal = sizes["train_calib"]
+    mb = sizes["train_microbatch"]
+    n_ev, b_ev, l_ev = sizes["train_evals"]
+    on_card = torch.device(dev).type == "cuda"
+    calib = calibration_set(cfg, n_cal, l_cal, device=dev)
+    evals = list(itertools.islice(
+        make_batch_iterator(cfg, b_ev, l_ev, seed=99, device=dev), n_ev))
+
+    eval_s = []
+
+    def ppl(p):
+        t = time.perf_counter()
+        with torch.no_grad():
+            losses = [float(M.loss_fn(p, cfg, bt)[0]) for bt in evals]
+        eval_s.append(time.perf_counter() - t)
+        return math.exp(sum(losses) / len(losses))
+
+    rec = {"calib": [n_cal, l_cal],
+           "tokens_per_d_model": n_cal * l_cal / cfg.d_model,
+           "microbatch": mb, "ppl_base": ppl(params)}
+    recipes = {
+        "aa_svd": repro_torch.CompressConfig(
+            ratio=0.8, calib_mode="fused", refine_epochs=1, microbatch=mb),
+        "naive": repro_torch.CompressConfig(
+            ratio=0.8, objective="agnostic", refine=False,
+            calib_mode="fused", microbatch=mb)}
+    comp = None
+    for name, ccfg in recipes.items():
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        stages = {}
+        t0 = time.perf_counter()
+        out, report = repro_torch.compress_model(params, cfg, calib, ccfg,
+                                                 device=dev,
+                                                 stage_times=stages)
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        mse = [(u["pre_refine_mse"], u.get("post_refine_mse",
+                                            u["pre_refine_mse"]))
+               for u in report["units"]]
+        rec[name] = {"wall_s": wall, "stages": stages, "launches": launches,
+                     "flash_bodies": dict(ops.FLASH_BODIES),
+                     "lowrank_rows": lowrank_rows(ops),
+                     "peak_bytes": (torch.cuda.max_memory_allocated()
+                                    if on_card else 0),
+                     "ppl": ppl(out),
+                     "ranks": [lin["rank"] for lin in
+                               report["units"][0]["linears"]],
+                     "unit_mse_pre_post": mse,
+                     "units_refine_raised": sum(b > a for a, b in mse)}
+        log(f"train (d) {name}: wall {wall:.3f} s, stages",
+            json.dumps(stages), "launches", json.dumps(launches),
+            f"ppl {rec[name]['ppl']:.4f}, unit 0 ranks {rec[name]['ranks']};"
+            f" refinement raised the unit MSE in "
+            f"{rec[name]['units_refine_raised']} of {len(mse)} units; units"
+            f" 0, 1, last (pre, post): {mse[0]}, {mse[1]}, {mse[-1]}")
+        require(launches["cov_accum"] > 0 or name == "naive",
+                f"cov_accum never launched compressing ({name})")
+        if name == "aa_svd":
+            comp = out
+            require(launches["lowrank_matmul"] > 0,
+                    "lowrank_matmul never launched compressing")
+        del out
+    rec["ordering_aa_lt_naive"] = rec["aa_svd"]["ppl"] < rec["naive"]["ppl"]
+    rec["aa_within_1_6_base"] = rec["aa_svd"]["ppl"] < 1.6 * rec["ppl_base"]
+    log(f"train (d): held-out ppl base {rec['ppl_base']:.4f}, AA-SVD "
+        f"{rec['aa_svd']['ppl']:.4f}, naive {rec['naive']['ppl']:.4f}; "
+        f"AA-SVD < naive {rec['ordering_aa_lt_naive']}, AA-SVD < 1.6 x base "
+        f"{rec['aa_within_1_6_base']} (printed, not gated)")
+    require(all(math.isfinite(v) for v in (
+        rec["ppl_base"], rec["aa_svd"]["ppl"], rec["naive"]["ppl"])),
+        "non-finite ppl")
+
+    t_serve = time.perf_counter()
+    n_req, plen, n_steps = sizes["train_serve"]
+    prompts = next(make_batch_iterator(cfg, n_req, plen, seed=7,
+                                       device=dev))["tokens"]
+    srv = Server(cfg, comp, max_len=plen + n_steps, batch=n_req, device=dev)
+    with torch.inference_mode():
+        srv.generate(prompts, steps=2)     # warm-up
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        srv.generate(prompts, steps=1)
+        _sync(torch, dev)
+        t_prefill = time.perf_counter() - t0
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        toks = srv.generate(prompts, steps=n_steps)
+        _sync(torch, dev)
+        t_all = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    in_vocab = bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+    rec["serve"] = {"batch": n_req, "prompt": plen, "steps": n_steps,
+                    "prefill_s": t_prefill, "generate_s": t_all,
+                    "decode_ms": (t_all - t_prefill) / (n_steps - 1) * 1e3,
+                    "launches": launches,
+                    "flash_bodies": dict(ops.FLASH_BODIES),
+                    "lowrank_rows": lowrank_rows(ops),
+                    "tokens_in_vocab": in_vocab,
+                    "shape": list(toks.shape)}
+    log(f"train (d) serve: Server {n_req} x {plen} prompts, {n_steps} steps:"
+        f" prefill {t_prefill * 1e3:.3f} ms, decode "
+        f"{rec['serve']['decode_ms']:.3f} ms a step, tokens in vocab "
+        f"{in_vocab}; launches", json.dumps(launches), "flash_attention by "
+        "body", json.dumps(rec["serve"]["flash_bodies"]))
+    rec["times_s"] = {"evals": eval_s, "compress": [
+        rec[k]["wall_s"] for k in recipes],
+        "serve": time.perf_counter() - t_serve}
+    log("train (d): host seconds (held-out evals base, AA-SVD, naive; "
+        "compress AA-SVD, naive; serve)", json.dumps(rec["times_s"]))
+    require(in_vocab and tuple(toks.shape) == (n_req, n_steps),
+            f"served tokens {tuple(toks.shape)} in vocab {in_vocab}")
+    require(launches["lowrank_matmul"] > 0 and
+            launches["flash_attention"] > 0,
+            f"serving the trained model launched {launches}")
+    return rec
+
+
+def phase_train_attention(torch, np, ops, ref, dev="cuda"):
+    """(e) ``flash_attention`` at qwen3-0.6b's training shape (B 8, 16
+    query heads on 8, L 512, D 128, causal) through the case table's row
+    (bf16 timed; fp32 checked), beside the plain backward's time (the
+    port's: its recompute in fp32 einsums differentiated) and SDPA's
+    ``is_causal`` with ``enable_gqa``, forward and forward + backward."""
+    case = ("qwen3_train", 8, 16, 8, 512, 512, 128, True, 0, 0.0, 0)
+    row32 = check_flash_attention(torch, np, ops, ref, case, torch.float32,
+                                  False, dev)
+    row = check_flash_attention(torch, np, ops, ref, case, torch.bfloat16,
+                                True, dev)
+    q, k, v, _, kw = _flash_inputs(torch, np, case, torch.bfloat16, dev)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = ops.flash_attention(qg, kg, vg, **kw)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    dout = torch.randn(out.shape, generator=gen, device=dev).to(out.dtype)
+    grads = torch.autograd.grad(out, (qg, kg, vg), dout, retain_graph=True)
+    row["plain_backward_ms"] = time_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), dout, retain_graph=True), warmup=1, reps=5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v))
+    dt = dout.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        o = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        return torch.autograd.grad(o, (qt, kt, vt), dt)
+
+    lib = sdpa_fwd_bwd()
+    row["library_causal_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd, warmup=1,
+                                               reps=5)
+    # the plain backward's grads beside SDPA's (bf16 both)
+    row["backward_rel_err_vs_sdpa"] = [
+        rel_fro(g, s.transpose(1, 2)) for g, s in zip(grads, lib)]
+    b, h, kv, lq, lk, d = 8, 16, 8, 512, 512, 128
+    fwd_flops = 4 * b * h * d * lq * (lq + 1) // 2
+    eb = 2
+    # backward: S and P recomputed, dV, dP, dQ, dK (2.5x the forward's
+    # products); reads q, k, v, o, dO, writes dq, dk, dv
+    bwd_bytes = (3 * b * lq * h * d + 2 * 2 * b * lk * kv * d) * eb
+    fwd_bytes = (2 * b * lq * h * d + 2 * b * lk * kv * d) * eb
+    row["bound_fwd_bwd_ms"], row["bound_fwd_bwd_by"] = bound(
+        3.5 * fwd_flops, fwd_bytes + bwd_bytes, "bfloat16")
+    row["fp32_rel_fro_err"] = row32["rel_fro_err"]
+    log("train (e): flash_attention at the training shape", json.dumps(
+        {k: row[k] for k in ("body", "ms", "device_ms", "plain_ms",
+                             "plain_backward_ms", "library_ms",
+                             "library_causal_ms", "library_causal_device_ms",
+                             "library_causal_fwd_bwd_ms", "bound_ms",
+                             "bound_by", "bound_fwd_bwd_ms",
+                             "backward_rel_err_vs_sdpa", "rel_fro_err",
+                             "fp32_rel_fro_err", "kernels_device_ms")}))
+    require(max(row["backward_rel_err_vs_sdpa"]) < 2e-2,
+            f"plain backward vs SDPA: {row['backward_rel_err_vs_sdpa']}")
+    return row
+
+
+def phase_trainer(torch, np, ops, ref, dev="cuda", sizes=SIZES, cfg=None):
+    """Phase 15: (e), (a), (b), (d), (c) in that order (memory: the
+    trained params feed (d)); ``cfg`` defaults to qwen3-0.6b's."""
+    from repro_torch import configs
+    out, t = {}, time.perf_counter()
+    out["attention"] = phase_train_attention(torch, np, ops, ref, dev=dev)
+    log(f"train (e): {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    smoke = []
+    for arch in configs.ALL_ARCHS:
+        moe = configs.get_smoke_config(arch).moe is not None
+        dispatches = (None, "dropfree") if moe else (None,)
+        for dispatch in dispatches:
+            smoke.append(phase_train_smoke(torch, np, ops, dev=dev,
+                                           arch=arch, dispatch=dispatch))
+    out["smoke"] = smoke
+    log(f"train (a): {time.perf_counter() - t:.3f} s")
+    # card against CPU in fp32: losses rel 1e-5; params after step 3 rel
+    # 1e-4 a leaf (an entry whose gradient sits at rounding level can flip
+    # the sign of its normalized Adam update, ±lr)
+    for r in smoke:
+        tag = f"{r['arch']} {r['dispatch']}"
+        require(r["finite"], f"train (a) {tag}: non-finite loss")
+        require(r["loss_rel_gap"] <= 1e-5, f"train (a) {tag}: loss gap "
+                f"{r['loss_rel_gap']:.3e}")
+        require(r["param_worst"][1] <= 1e-4, f"train (a) {tag}: params "
+                f"{r['param_worst']}")
+    for r in smoke:
+        if r["dispatch"] == "dropfree":
+            require(r["launches"]["grouped_matmul"] > 0, f"train (a) "
+                    f"{r['arch']} drop-free: grouped_matmul never launched")
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["run"], cfg, params = phase_train_run(torch, np, ops, dev=dev,
+                                              sizes=sizes, cfg=cfg)
+    log(f"train (b): {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    out["compress"] = phase_train_compress(torch, np, ops, dev=dev,
+                                           sizes=sizes, cfg=cfg,
+                                           params=params)
+    del params
+    log(f"train (d): {time.perf_counter() - t:.3f} s")
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["restart"] = phase_train_restart(torch, np, ops, dev=dev,
+                                         sizes=sizes, cfg=cfg)
+    log(f"train (c): {time.perf_counter() - t:.3f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("lowrank", "cov", "grouped",
                                        "attention", "decode", "kimi", "ssm",
-                                       "multimodal"),
+                                       "multimodal", "train"),
                     help="phases 1-2 and lowrank_matmul's (cov_accum's, "
                     "grouped_matmul's, flash_attention's, flash_decode's) "
                     "rows of phase 3; kimi: phases 1-2, phase 4's kimi-k2 "
@@ -5433,7 +6166,8 @@ def main(argv=None) -> int:
                     "falcon-mamba and zamba2 smoke runs and phase 13; "
                     "multimodal: phases 1-2, phase 3's whisper and "
                     "phi-3-vision rows, ROADMAP 3j's refine-off check, phase "
-                    "4's whisper and phi-3-vision smoke runs and phase 14")
+                    "4's whisper and phi-3-vision smoke runs and phase 14; "
+                    "train: phases 1-2 and phase 15")
     ap.add_argument("--cases", help="with --only attention: the "
                     "flash_attention cases to run, comma-separated (their "
                     "rows, chunk and profiled checks alone)")
@@ -5587,6 +6321,10 @@ def main(argv=None) -> int:
                 t0 = time.perf_counter()
                 rows[key] = phase_multimodal(torch, np, ops, arch=arch)
                 log(f"phase 14 ({key}): {time.perf_counter() - t0:.3f} s")
+        elif args.only == "train":
+            t0 = time.perf_counter()
+            rows = {"train": phase_trainer(torch, np, ops, ref)}
+            log(f"phase 15: {time.perf_counter() - t0:.3f} s")
         elif args.only == "ssm":
             t0 = time.perf_counter()
             rows = {"smoke_ssm": {arch: phase_smoke(
@@ -5735,6 +6473,16 @@ def main(argv=None) -> int:
         mm_paths[f"compress_{tag}"] = run["compress"]
         for key in ("server", "engine", "engine_dense"):
             mm_paths[f"serve_{tag}_{key}"] = run[key]
+    torch.cuda.empty_cache()
+    # 15. the trainer: qwen3-0.6b trained at full width, restarted, then
+    # compressed and served; every arch's smoke train step card vs CPU
+    t0 = time.perf_counter()
+    trainer = phase_trainer(torch, np, ops, ref)
+    log(f"phase 15: {time.perf_counter() - t0:.3f} s")
+    train_paths = {"train": trainer["run"],
+                   "compress_trained": trainer["compress"]["aa_svd"],
+                   "compress_trained_naive": trainer["compress"]["naive"],
+                   "serve_trained_server": trainer["compress"]["serve"]}
 
     def timing(row):
         return {"max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -5766,7 +6514,9 @@ def main(argv=None) -> int:
                    **{path: run["launches"][name]
                       for path, run in ssm_paths.items()},
                    **{path: run["launches"][name]
-                      for path, run in mm_paths.items()}}
+                      for path, run in mm_paths.items()},
+                   **{path: run["launches"][name]
+                      for path, run in train_paths.items()}}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": by_path[path],
                 "launches_by_path": by_path, **timing(head)}
@@ -5837,7 +6587,9 @@ def main(argv=None) -> int:
            if "lowrank_rows" in run},
         **{path: run["lowrank_rows"] for path, run in kimi_paths.items()},
         **{path: run["lowrank_rows"] for path, run in ssm_paths.items()},
-        **{path: run["lowrank_rows"] for path, run in mm_paths.items()}}
+        **{path: run["lowrank_rows"] for path, run in mm_paths.items()},
+        **{path: run["lowrank_rows"] for path, run in train_paths.items()
+           if "lowrank_rows" in run}}
     # kimi-k2's eight factorized shapes at each T (phase 12)
     kimi_shapes = [list(s) for s in SIZES["lowrank_nkm_kimi"]]
     low["kimi"] = [{**timing(r), "body": r.get("body")} for r in low_rows
@@ -5941,7 +6693,18 @@ def main(argv=None) -> int:
         **{path: run["flash_bodies"] for path, run in gemma_paths.items()},
         **{path: run["flash_bodies"] for path, run in kimi_paths.items()},
         **{path: run["flash_bodies"] for path, run in ssm_paths.items()},
-        **{path: run["flash_bodies"] for path, run in mm_paths.items()}}
+        **{path: run["flash_bodies"] for path, run in mm_paths.items()},
+        **{path: run["flash_bodies"] for path, run in train_paths.items()}}
+    # flash_attention at qwen3-0.6b's training shape (phase 15 (e)): the
+    # forward kernel beside the plain backward and SDPA's forward and
+    # forward + backward, with its launches in one train step by body
+    ta = trainer["attention"]
+    fa["qwen3_train"] = {
+        **timing(ta), "kernel_d": ta["kernel_d"],
+        **{key: ta[key] for key in ("plain_backward_ms",
+                                    "library_causal_fwd_bwd_ms",
+                                    "bound_fwd_bwd_ms", "bound_fwd_bwd_by")},
+        "launches_per_step": trainer["run"]["flash_bodies_per_step"]}
     with open(OUT / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "cov_accum": cov_rows,
                    "cov_accum_banked": banked_rows,
@@ -5955,7 +6718,7 @@ def main(argv=None) -> int:
                    "gemma": gemma, "policies": policies,
                    "policies_moe": policies_moe, "kimi": kimi,
                    "zamba2": zamba2, "falcon": falcon, "whisper": whisper,
-                   "vision": vision},
+                   "vision": vision, "train": trainer, "kernels": kernels},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     # the card's line again, inside the tail a caller may keep of the output

@@ -15,7 +15,9 @@ other saved, bit for bit.
 * **Names** — a leaf is named by its path as the JAX package names it:
   dict keys as they are, ``[i]`` for a list or tuple index, joined by
   ``/``, leaves listed in the order ``jax.tree_util`` flattens (dict keys
-  sorted).  Restore reads entries by name, never by position.
+  sorted); a NamedTuple's entries by field name (a ``TrainState``'s
+  ``params/...``, ``opt/m/...``, ``opt/step``, ``step``).  Restore reads
+  entries by name, never by position.
 * **Structure** — the manifest's ``structure`` descriptor keeps the
   containers that hold no leaf (``None`` slots, ``{}``, tuples), so
   ``restore_tree`` rebuilds the tree from the manifest alone.
@@ -66,10 +68,19 @@ def _flatten_with_paths(tree, prefix: Tuple[str, ...] = ()
         return out
     if isinstance(tree, (list, tuple)):
         out = []
-        for i, v in enumerate(tree):
-            out += _flatten_with_paths(v, prefix + (f"[{i}]",))
+        for key, v in zip(_seq_keys(tree), tree):
+            out += _flatten_with_paths(v, prefix + (key,))
         return out
     return [("/".join(prefix), tree)]
+
+
+def _seq_keys(seq) -> List[str]:
+    """Path segments of a sequence's entries: a NamedTuple's field names
+    (a train state's ``params`` / ``opt`` / ``step``, as the JAX package
+    names them), else ``[i]``."""
+    if hasattr(seq, "_fields"):
+        return list(seq._fields)
+    return [f"[{i}]" for i in range(len(seq))]
 
 
 def _structure_desc(tree) -> Any:
@@ -333,8 +344,10 @@ class CheckpointManager:
                 return {k: fill(v, prefix + (str(k),))
                         for k, v in node.items()}
             if isinstance(node, (list, tuple)):
-                return type(node)(fill(v, prefix + (f"[{i}]",))
-                                  for i, v in enumerate(node))
+                items = [fill(v, prefix + (key,))
+                         for key, v in zip(_seq_keys(node), node)]
+                return (type(node)(*items) if hasattr(node, "_fields")
+                        else type(node)(items))
             return self._load_entry(d, by_name["/".join(prefix)], dev)
 
         tree = fill(like, ())

@@ -17,7 +17,7 @@ the tokens).  Every arch of the JAX package is ported.
 from __future__ import annotations
 
 import importlib
-from typing import Dict
+from typing import Dict, List
 
 from repro_torch.configs.base import (  # noqa: F401  (re-exported)
     MLAConfig,
@@ -39,6 +39,7 @@ _REGISTRY: Dict[str, str] = {
     "whisper-base": "whisper_base",
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",
 }
+ALL_ARCHS: List[str] = list(_REGISTRY)
 
 
 def _module(arch: str):

@@ -1,0 +1,8 @@
+"""The port's synthetic data pipeline (``repro_torch.data.synthetic``)."""
+
+from repro_torch.data import synthetic  # noqa: F401
+from repro_torch.data.synthetic import (  # noqa: F401
+    calibration_set,
+    make_batch_iterator,
+    synthetic_tokens,
+)

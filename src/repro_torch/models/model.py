@@ -2,7 +2,8 @@
 
 Counterpart of ``src/repro/models/model.py`` (``init_params`` :35,
 ``_rope_dim`` :94, ``make_ctx`` :100, ``sinusoid_positions`` :110,
-``_embed_inputs`` :150, ``_run_encoder`` :158, ``forward_hidden`` :169,
+``_run_stage_forward`` :121 (remat :141), ``_embed_inputs`` :150,
+``_run_encoder`` :158, ``forward_hidden`` :169,
 ``loss_fn`` :192, ``logits_from_hidden`` :200, ``init_cache`` :209,
 ``cache_slot_take`` :236, ``cache_slot_put`` :252, ``_run_stage_cached``
 :269, ``prefill`` :323, ``decode_step`` :358).  Batches are dicts:
@@ -29,12 +30,13 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
-from repro_torch.tree import tree_map
+from repro_torch.tree import flatten, tree_map, unflatten
 
 PyTree = Any
 
@@ -137,23 +139,60 @@ def sinusoid_positions(positions, d: int):
 # forward
 
 
-def _site_params(kind: str, p, shared, it: Optional[int]):
-    """A sub-block's params at one site: the shared slot for a
-    weight-shared kind, else its own (iteration ``it`` of a stacked
-    stage)."""
-    if kind in B.SHARED_KINDS:
-        return shared[kind]
-    return p if it is None else tree_map(lambda a: a[it], p)
+def _unstack(p, n: int):
+    """A stacked sub-block's params as ``n`` per-layer trees of views (one
+    ``unbind`` a leaf); ``None`` (a shared kind's slot) stays ``None``."""
+    if p is None:
+        return [None] * n
+    leaves, treedef = flatten(p)
+    cols = [t.unbind(0) for t in leaves]
+    return [unflatten(treedef, [c[i] for c in cols]) for i in range(n)]
 
 
-def _run_stage_forward(stage: B.Stage, stage_params, shared, x, cfg, ctx):
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    iters = stage.n if (stage.scan and stage.n > 1) else 1
-    for it in range(iters):
-        for kind, p in zip(stage.kinds, stage_params):
-            p = _site_params(kind, p, shared, it if iters > 1 else None)
-            x, a = B.apply_sub_block(kind, p, x, cfg, ctx)
+def _stage_layers(stage: B.Stage, stage_params):
+    """Each sub-block's params as a list over the stage's iterations: a
+    stacked stage's unbound once a leaf (its backward stacks the layers'
+    grads once, where indexing ``a[it]`` would scatter each into a
+    zero-filled copy of the whole stack, once a layer), else ``[p]``."""
+    if stage.scan and stage.n > 1:
+        return [_unstack(p, stage.n) for p in stage_params]
+    return [[p] for p in stage_params]
+
+
+def _site_params(kind: str, layers, shared, it: int):
+    """A sub-block's params at iteration ``it`` of its stage: the shared
+    slot for a weight-shared kind, else its own layer's (``layers`` from
+    :func:`_stage_layers`)."""
+    return shared[kind] if kind in B.SHARED_KINDS else layers[it]
+
+
+def _run_stage_forward(stage: B.Stage, stage_params, shared, x, cfg, ctx,
+                       train: bool = False):
+    """One stage's sub-blocks over ``x``: (x, aux summed over iterations).
+    With ``train`` and ``cfg.remat``, each iteration of a stacked stage is
+    checkpointed (its activations recomputed in the backward), where the
+    JAX package wraps its scan body in ``jax.checkpoint``; nothing changes
+    while autograd is off."""
+    layers = _stage_layers(stage, stage_params)
+
+    def iteration(x, it):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for kind, lay in zip(stage.kinds, layers):
+            x, a = B.apply_sub_block(kind, _site_params(kind, lay, shared,
+                                                         it), x, cfg, ctx)
             aux = aux + a
+        return x, aux
+
+    if not (stage.scan and stage.n > 1):
+        return iteration(x, 0)
+    remat = train and cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for it in range(stage.n):
+        if remat:
+            x, a = checkpoint(iteration, x, it, use_reentrant=False)
+        else:
+            x, a = iteration(x, it)
+        aux = aux + a
     return x, aux
 
 
@@ -175,7 +214,7 @@ def _with_positions(cfg, x, positions):
     return x + (se[:, None] if positions.dim() == 2 else se[None])
 
 
-def _run_encoder(params, cfg, frames):
+def _run_encoder(params, cfg, frames, train: bool = False):
     """The encoder over ``frames`` (B, Le, d) with sinusoid positions:
     non-causal self-attention without RoPE, then its final norm."""
     frames = torch.as_tensor(frames).to(params["embed"]["table"].device)
@@ -184,22 +223,23 @@ def _run_encoder(params, cfg, frames):
     x = _with_positions(cfg, frames.to(torch_dtype(cfg.dtype)), positions)
     ctx = make_ctx(cfg, positions)
     for st, sp in zip(B.encoder_stages(cfg), params["encoder"]["stages"]):
-        x, _ = _run_stage_forward(st, sp, {}, x, cfg, ctx)
+        x, _ = _run_stage_forward(st, sp, {}, x, cfg, ctx, train)
     return L.apply_norm(params["encoder"]["final_norm"], x, eps=cfg.norm_eps)
 
 
-def forward_hidden(params, cfg, batch):
-    """Returns (hidden (B, L, d), aux_loss)."""
+def forward_hidden(params, cfg, batch, *, train: bool = False):
+    """Returns (hidden (B, L, d), aux_loss).  ``train`` turns on remat
+    (``cfg.remat``) under autograd."""
     x = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     ctx = make_ctx(cfg, positions)
     if cfg.family == "encdec":
-        ctx["enc_out"] = _run_encoder(params, cfg, batch["frames"])
+        ctx["enc_out"] = _run_encoder(params, cfg, batch["frames"], train)
         x = _with_positions(cfg, x, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for st, sp in zip(B.stage_program(cfg), params["stages"]):
         x, a = _run_stage_forward(st, sp, params.get("shared", {}), x, cfg,
-                                  ctx)
+                                  ctx, train)
         aux = aux + a
     return L.apply_norm(params["final_norm"], x, eps=cfg.norm_eps), aux
 
@@ -216,8 +256,9 @@ def logits_from_hidden(params, cfg, hidden):
 
 
 def loss_fn(params, cfg, batch):
-    """(mean CE + aux, {"ce", "aux"}) of next-token prediction."""
-    hidden, aux = forward_hidden(params, cfg, batch)
+    """(mean CE + aux, {"ce", "aux"}) of next-token prediction; the
+    forward runs with ``train=True``, as the JAX package's does."""
+    hidden, aux = forward_hidden(params, cfg, batch, train=True)
     ce = L.chunked_cross_entropy(hidden, _head_params(params, cfg),
                                  batch["labels"], chunk=cfg.logits_chunk)
     return ce + aux, {"ce": ce, "aux": aux}
@@ -300,9 +341,10 @@ def _run_stage_cached(stage: B.Stage, stage_params, shared, x, stage_cache,
     layer's slice of the stacked cache (where the JAX package carries the
     stacked cache through a ``fori_loop``)."""
     stacked = stage.scan and stage.n > 1
+    layers = _stage_layers(stage, stage_params)
     for it in range(stage.n if stacked else 1):
-        for kind, p, c in zip(stage.kinds, stage_params, stage_cache):
-            p = _site_params(kind, p, shared, it if stacked else None)
+        for kind, lay, c in zip(stage.kinds, layers, stage_cache):
+            p = _site_params(kind, lay, shared, it)
             if stacked:
                 c = tree_map(lambda a: a[it], c)
             x = fn(kind, p, x, c, cfg, ctx)[0]

@@ -1,1 +1,2 @@
-"""Optimizers of the port (AdamW for block refinement)."""
+"""Optimizers of the port: AdamW (block refinement and the trainer) and
+int8 gradient compression with error feedback."""

@@ -2,7 +2,8 @@
 
 The port keeps the JAX package's parameter layout — nested dicts and lists
 of tensors, with ``None`` for empty slots — so these few functions stand in
-for ``jax.tree.map`` / ``jax.tree.leaves``.
+for ``jax.tree.map`` / ``jax.tree.leaves``.  A NamedTuple (a train state)
+is rebuilt field by field.
 """
 
 from __future__ import annotations
@@ -12,6 +13,12 @@ from typing import Any, Callable, List, Tuple
 import torch
 
 
+def _rebuild(seq, items):
+    """A list / tuple / NamedTuple like ``seq`` holding ``items``."""
+    items = list(items)
+    return type(seq)(*items) if hasattr(seq, "_fields") else type(seq)(items)
+
+
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """Apply ``fn`` to every tensor leaf (and its counterparts in ``rest``),
     rebuilding fresh containers; ``None`` stays ``None``."""
@@ -19,8 +26,8 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
+        return _rebuild(tree, (tree_map(fn, v, *(r[i] for r in rest))
+                               for i, v in enumerate(tree)))
     if tree is None:
         return None
     return fn(tree, *rest)
@@ -47,7 +54,7 @@ def unflatten(treedef: Any, leaves: List[torch.Tensor]) -> Any:
     if isinstance(treedef, dict):
         return {k: unflatten(v, leaves) for k, v in treedef.items()}
     if isinstance(treedef, (list, tuple)):
-        return type(treedef)(unflatten(v, leaves) for v in treedef)
+        return _rebuild(treedef, (unflatten(v, leaves) for v in treedef))
     if treedef is None:
         return None
     return leaves[treedef]

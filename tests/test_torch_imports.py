@@ -31,6 +31,21 @@ def _port_files():
     return [f for f in files if f.exists()]
 
 
+# the training path's modules: each must be among the files checked above
+TRAINER_MODULES = ("repro_torch.data", "repro_torch.data.synthetic",
+                   "repro_torch.optim.compression", "repro_torch.launch.steps",
+                   "repro_torch.launch.train")
+
+
+@pytest.mark.parametrize("module", TRAINER_MODULES)
+def test_trainer_modules_are_checked(module):
+    rel = pathlib.Path(*module.split("."))
+    path = (ROOT / "src" / rel).with_suffix(".py")
+    if not path.exists():
+        path = ROOT / "src" / rel / "__init__.py"
+    assert path in _port_files()
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_imports(path):
@@ -127,3 +142,25 @@ def test_adaptive_compress_save_restore_leave_jax_unloaded(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["False", "False", "False"]
+
+
+def test_train_leaves_jax_unloaded(tmp_path):
+    # importing the trainer and training two steps on the CPU loads
+    # neither jax nor the JAX package
+    script = (
+        "import sys\n"
+        f"import {', '.join(TRAINER_MODULES)}\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.launch import train as T\n"
+        "cfg = configs.get_smoke_config('qwen3-0.6b').replace("
+        "dtype='float32')\n"
+        "state, info = T.train(cfg, steps=2, batch=2, seq_len=8, "
+        f"ckpt_dir={str(tmp_path)!r}, device='cpu')\n"
+        "assert info['step'] == 2\n"
+        "print('jax' in sys.modules, 'repro' in sys.modules)\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    out = subprocess.run([sys.executable, "-c", script], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-2:] == ["False", "False"]

@@ -13,6 +13,7 @@
                                            # falcon-mamba and zamba2 smoke
                                            # runs and phase 13
     python3 chip_smoke.py --only train     # phases 1-2 and phase 15
+    python3 chip_smoke.py --only zoo       # phases 1-2 and phase 16
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -312,6 +313,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
              run stopped there and resumed: the restored state and every
              batch bit for bit, the resumed params' largest gap, and a
              determinism probe of the backward.
+16. zoo    — the conformance harness (``repro_torch.core.zoo``).  (a)
+             ``zoo.roundtrip`` for every registered arch at the fp32 smoke
+             recipe: compress, ppl, checkpoints padded and re-sliced,
+             ``Server.from_checkpoint``, decode; bit parity of both
+             restores, token parity, the manifest's meta, bank metadata
+             exactly for the MoE family, tokens in vocab and the ppl ratio
+             inside the arch's envelope are required; each arch's compress
+             and total wall and ``tokens_per_s`` (beside the envelope's
+             CPU-runner floor, not gated) printed, launches counted (fp32
+             bodies; ``cov_accum_banked`` for the capacity MoEs alone;
+             ``grouped_matmul`` and ``flash_decode`` 0: the ``Server``'s
+             cache is dense).  (b) The same contract at published widths on
+             whisper-base at full depth (bf16 activations, fp32 params,
+             8 x 448 calibration, 1500 frames): both restores bit for bit,
+             the three servers' tokens equal; the ppl ratio printed.
 
 It prints a ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Long output goes to
@@ -6153,12 +6169,287 @@ def phase_trainer(torch, np, ops, ref, dev="cuda", sizes=SIZES, cfg=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the zoo conformance harness
+
+
+def _zoo_counts(ops):
+    return {"launches": dict(ops.LAUNCHES),
+            "flash_bodies": dict(ops.FLASH_BODIES),
+            "decode_bodies": dict(ops.DECODE_BODIES),
+            "lowrank_rows": lowrank_rows(ops)}
+
+
+def _sum_counts(parts):
+    """Launch counts summed over several runs (each zeroed before, read
+    after), by kernel, body and row count: nested dicts of counts, added
+    key by key."""
+    def add(total, part):
+        for key, n in part.items():
+            if isinstance(n, dict):
+                add(total.setdefault(key, {}), n)
+            else:
+                total[key] = total.get(key, 0) + n
+        return total
+    total = {}
+    for part in parts:
+        add(total, part)
+    return total
+
+
+def _zoo_tokens_ok(torch, outs, b, steps, vocab):
+    return all(tuple(o.shape) == (b, steps) and o.dtype == torch.int32
+               and bool(((o >= 0) & (o < vocab)).all()) for o in outs)
+
+
+def phase_zoo_matrix(torch, np, ops, dev="cuda", archs=None):
+    """Phase 16 (a).  ``repro_torch.core.zoo.roundtrip`` for every
+    registered arch on ``dev`` at the harness's fp32 smoke recipe: compress
+    (4 x 32 tokens of ``repro_torch.data``), ppl dense and compressed,
+    format-3 checkpoints padded (step 0) and re-sliced (step 1), three
+    ``Server``s (in memory, each checkpoint through
+    ``Server.from_checkpoint``) decoding 2 x 16 prompts for 12 steps, and a
+    second decode of the padded checkpoint's server timed between device
+    synchronizations.  Required: bit parity of both restores, token parity,
+    the manifest's meta, ``rank_per_expert`` entries exactly for the MoE
+    family, every decoded token in vocab, the ppl ratio within the arch's
+    envelope (``tests/conformance/envelopes.json``).  ``tokens_per_s`` is
+    printed beside the envelope's ``min_tokens_per_s``, a floor set for the
+    JAX package on a CPU runner, and not gated.  Counts are zeroed before
+    each arch and read after; their sum is (a)'s."""
+    import tempfile
+
+    from repro_torch.configs import ALL_ARCHS
+    from repro_torch.core import zoo
+    from repro_torch.launch import serve as TS
+
+    on_card = torch.device(dev).type == "cuda"
+    envelopes = zoo.load_envelopes(
+        str(ROOT / "tests" / "conformance" / "envelopes.json"))
+    b, steps = zoo.SMOKE_PROMPTS["batch"], zoo.SMOKE_DECODE_STEPS
+    outs = []
+    generate = TS.Server.generate
+
+    def recorded(self, *args, **kwargs):  # every decode the contract reads
+        out = generate(self, *args, **kwargs)
+        outs.append(out)
+        return out
+
+    records, parts = {}, []
+    TS.Server.generate = recorded
+    try:
+        for arch in archs or ALL_ARCHS:
+            cfg = zoo.smoke_cfg(arch)
+            outs.clear()
+            _sync(torch, dev)
+            ops.reset_launches()
+            with tempfile.TemporaryDirectory() as workdir:
+                rec, report = zoo.roundtrip(arch, workdir, device=dev)
+            counts = _zoo_counts(ops)
+            parts.append(counts)
+            env = envelopes[arch]
+            launches, bodies = counts["launches"], counts["flash_bodies"]
+            records[arch] = {**rec, "envelope": env, **counts}
+            log(f"zoo (a) {arch}: compress_wall_s {rec['compress_wall_s']:.3f}"
+                f" total_wall_s {rec['total_wall_s']:.3f} tokens_per_s "
+                f"{rec['tokens_per_s']:.1f} (envelope min_tokens_per_s "
+                f"{env['min_tokens_per_s']}, CPU-runner floor, not gated) "
+                f"ppl_ratio {rec['ppl_ratio']:.4f} (max "
+                f"{env['max_ppl_ratio']}) bank_leaves {rec['bank_leaves']} "
+                f"launches {json.dumps(launches)} flash bodies "
+                f"{json.dumps(bodies)}")
+            require(rec["bit_parity"] and rec["resliced_parity"],
+                    f"zoo {arch}: restores not bit for bit: "
+                    f"{rec['mismatches']}")
+            require(rec["token_match"], f"zoo {arch}: the restored servers' "
+                    "tokens differ from the in-memory server's")
+            require(rec["checkpoint_meta_ok"],
+                    f"zoo {arch}: the manifest's meta did not round-trip")
+            moe = cfg.family == "moe"
+            require((rec["family"] == "moe") == moe and
+                    ((rec["bank_leaves"] > 0) == moe),
+                    f"zoo {arch}: bank leaves {rec['bank_leaves']} for "
+                    f"family {rec['family']}")
+            require(len(outs) == 4 and _zoo_tokens_ok(
+                torch, outs, b, steps, cfg.vocab_size),
+                f"zoo {arch}: decoded tokens malformed or out of vocab")
+            require(math.isfinite(rec["ppl_ratio"])
+                    and rec["ppl_ratio"] <= env["max_ppl_ratio"],
+                    f"zoo {arch}: ppl_ratio {rec['ppl_ratio']} > envelope "
+                    f"{env['max_ppl_ratio']}")
+            capacity = moe and cfg.moe.dispatch == "capacity"
+            for name in ("cov_accum", "lowrank_matmul"):
+                require(launches[name] > 0,
+                        f"zoo {arch}: {name} never launched")
+            require((launches["flash_attention"] > 0)
+                    == (cfg.attention != "none"),
+                    f"zoo {arch}: flash_attention launched "
+                    f"{launches['flash_attention']} times")
+            require((launches["cov_accum_banked"] > 0) == capacity,
+                    f"zoo {arch}: cov_accum_banked launched "
+                    f"{launches['cov_accum_banked']} times")
+            # Server's cache is dense: the latent-cache decode never runs
+            for name in ("grouped_matmul", "flash_decode"):
+                require(launches[name] == 0,
+                        f"zoo {arch}: {name} launched {launches[name]} times")
+            # fp32 smoke: flash_attention's fp32 bodies alone
+            require(not on_card or set(bodies) <= {"fma32", "split"},
+                    f"zoo {arch}: flash_attention bodies {bodies}")
+    finally:
+        TS.Server.generate = generate
+    total = _sum_counts(parts)
+    log("zoo (a) launches over the 11 archs:", json.dumps(total))
+    return {"records": records, **total}
+
+
+def phase_zoo_whisper(torch, np, ops, dev="cuda", sizes=SIZES):
+    """Phase 16 (b).  The harness's contract at published widths on
+    whisper-base at full depth (6 encoder + 6 decoder layers, d_model 512,
+    1500 frames, bf16 activations, fp32 params), composed from
+    ``repro_torch.core.zoo``'s pieces: ``compress_model`` at
+    ``zoo.SMOKE_COMPRESS`` on ``calibration_set`` at phase 14 (a)'s 8 x 448
+    shape; ``CheckpointManager`` saves at step 0 (padded) and step 1
+    (``reslice_banks=True``); ``restore_tree`` and ``bit_mismatches`` on
+    both; three ``Server``s (in memory, padded, re-sliced) decoding 2 x 16
+    prompts with frames for 12 steps, plus a second padded ``generate``
+    timed between device synchronizations.  Required: both restores bit for
+    bit, all four decodes equal and in vocab.  The compressed / dense ppl is
+    printed, not enveloped (ROADMAP hazard 3k)."""
+    import tempfile
+
+    import repro_torch
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import zoo
+    from repro_torch.data import calibration_set
+    from repro_torch.launch import serve as TS
+    from repro_torch.models import model as M
+
+    on_card = torch.device(dev).type == "cuda"
+    cfg = configs.get_config("whisper-base")
+    require((cfg.d_model, cfg.num_encoder_layers, cfg.num_layers,
+             cfg.encoder_seq_len, cfg.dtype, cfg.param_dtype)
+            == (512, 6, 6, 1500, "bfloat16", "float32"),
+            f"zoo whisper: not the published widths: {cfg}")
+    params = M.init_params(cfg, 0, device=dev)
+    n_cal, l_cal = sizes["whisper_shapes"]["calib"]
+    calib = calibration_set(cfg, n_cal, l_cal, device=dev)
+    b, steps = zoo.SMOKE_PROMPTS["batch"], zoo.SMOKE_DECODE_STEPS
+    max_len = zoo.SMOKE_PROMPTS["prompt_len"] + steps + 8
+    prompts, extras = zoo.smoke_inputs(cfg, device=dev)
+    out = {"calib": [n_cal, l_cal], "recipe": dict(zoo.SMOKE_COMPRESS)}
+    _sync(torch, dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    comp, report = repro_torch.compress_model(
+        params, cfg, calib, repro_torch.CompressConfig(**zoo.SMOKE_COMPRESS),
+        device=dev)
+    _sync(torch, dev)
+    out["compress_wall_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    ppl_dense = zoo.smoke_ppl(params, cfg, device=dev)
+    ppl_comp = zoo.smoke_ppl(comp, cfg, device=dev)
+    out["ppl_s"] = time.perf_counter() - t1
+    del params
+    decodes = []
+    with tempfile.TemporaryDirectory() as workdir:
+        mgr = CheckpointManager(workdir, async_save=False)
+        meta = {"arch": "whisper-base", "compress": dict(zoo.SMOKE_COMPRESS)}
+        t1 = time.perf_counter()
+        mgr.save(0, comp, blocking=True, meta=meta)
+        mgr.save(1, comp, blocking=True, meta=meta, reslice_banks=True)
+        out["save_s"] = time.perf_counter() - t1
+        out["checkpoint_bytes"] = [_dir_bytes(pathlib.Path(workdir)
+                                              / f"step_{s:09d}")
+                                   for s in (0, 1)]
+        bank_leaves = sum("rank_per_expert" in e
+                          for e in mgr.manifest(0)["leaves"])
+        t1 = time.perf_counter()
+        _, padded, meta0 = mgr.restore_tree(0, device=dev)
+        _, resliced, _ = mgr.restore_tree(1, device=dev)
+        out["restore_s"] = time.perf_counter() - t1
+        pad_bad = zoo.bit_mismatches(comp, padded)
+        res_bad = zoo.bit_mismatches(comp, resliced)
+        del padded, resliced
+        t1 = time.perf_counter()
+        servers = [TS.Server(cfg, comp, max_len=max_len, batch=b, device=dev)]
+        servers += [TS.Server.from_checkpoint(cfg, workdir, step=s,
+                                              max_len=max_len, batch=b,
+                                              device=dev) for s in (0, 1)]
+        for srv in servers:
+            decodes.append(srv.generate(prompts, steps=steps,
+                                        extras=extras).cpu())
+        out["serve_s"] = time.perf_counter() - t1
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        decodes.append(servers[1].generate(prompts, steps=steps,
+                                           extras=extras).cpu())
+        _sync(torch, dev)
+        decode_wall = time.perf_counter() - t1
+    counts = _zoo_counts(ops)
+    launches, bodies = counts["launches"], counts["flash_bodies"]
+    ranks = sorted({lin["rank"] for u in report["units"]
+                    for lin in u.get("linears", [])})
+    out.update({
+        "bit_parity": not pad_bad, "resliced_parity": not res_bad,
+        "mismatches": (pad_bad + res_bad)[:8],
+        "token_match": all(torch.equal(decodes[0], d) for d in decodes[1:]),
+        "checkpoint_meta_ok": meta0.get("arch") == "whisper-base",
+        "bank_leaves": bank_leaves, "units": len(report["units"]),
+        "ranks": ranks, "ppl_dense": ppl_dense, "ppl_compressed": ppl_comp,
+        "ppl_ratio": ppl_comp / ppl_dense,
+        "tokens_per_s": b * steps / max(decode_wall, 1e-9),
+        "decode_s": decode_wall, "tokens_head": decodes[0][:, :6].tolist(),
+        **counts})
+    log("zoo (b) whisper-base at published widths:", json.dumps(out))
+    log(f"zoo (b) whisper-base: compress {out['compress_wall_s']:.3f} s, "
+        f"save {out['save_s']:.3f} s, restore {out['restore_s']:.3f} s, "
+        f"servers {out['serve_s']:.3f} s; ppl compressed / dense "
+        f"{ppl_comp:.2f} / {ppl_dense:.2f} = {out['ppl_ratio']:.4f} (not "
+        f"enveloped, hazard 3k); tokens_per_s {out['tokens_per_s']:.1f}")
+    require(out["bit_parity"] and out["resliced_parity"],
+            f"zoo whisper: restores not bit for bit: {out['mismatches']}")
+    require(out["token_match"] and _zoo_tokens_ok(
+        torch, decodes, b, steps, cfg.vocab_size),
+        f"zoo whisper: decodes differ or leave the vocab: {decodes}")
+    require(out["checkpoint_meta_ok"] and bank_leaves == 0,
+            f"zoo whisper: meta {meta0}, bank leaves {bank_leaves}")
+    require(all(math.isfinite(v) for v in (ppl_dense, ppl_comp)),
+            f"zoo whisper: ppl {ppl_dense} / {ppl_comp}")
+    for name in ("cov_accum", "lowrank_matmul", "flash_attention"):
+        require(launches[name] > 0, f"zoo whisper: {name} never launched")
+    for name in ("grouped_matmul", "cov_accum_banked", "flash_decode"):
+        require(launches[name] == 0,
+                f"zoo whisper: {name} launched {launches[name]} times")
+    # bf16: the encoder's and the prefills' wgmma body, decode's split body
+    require(not on_card or (bodies.get("wgmma", 0) > 0
+                            and bodies.get("split", 0) > 0),
+            f"zoo whisper: flash_attention bodies {bodies}")
+    return out
+
+
+def phase_zoo(torch, np, ops, dev="cuda", sizes=SIZES, archs=None):
+    """Phase 16: (a) the 11-arch matrix, (b) whisper-base at width."""
+    t0 = time.perf_counter()
+    matrix = phase_zoo_matrix(torch, np, ops, dev=dev, archs=archs)
+    t_a = time.perf_counter() - t0
+    log(f"phase 16 (a): {t_a:.3f} s")
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    whisper = phase_zoo_whisper(torch, np, ops, dev=dev, sizes=sizes)
+    t_b = time.perf_counter() - t1
+    log(f"phase 16 (b): {t_b:.3f} s")
+    return {"matrix": matrix, "whisper": whisper,
+            "seconds": {"a": t_a, "b": t_b}}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("lowrank", "cov", "grouped",
                                        "attention", "decode", "kimi", "ssm",
-                                       "multimodal", "train"),
+                                       "multimodal", "train", "zoo"),
                     help="phases 1-2 and lowrank_matmul's (cov_accum's, "
                     "grouped_matmul's, flash_attention's, flash_decode's) "
                     "rows of phase 3; kimi: phases 1-2, phase 4's kimi-k2 "
@@ -6167,11 +6458,13 @@ def main(argv=None) -> int:
                     "multimodal: phases 1-2, phase 3's whisper and "
                     "phi-3-vision rows, ROADMAP 3j's refine-off check, phase "
                     "4's whisper and phi-3-vision smoke runs and phase 14; "
-                    "train: phases 1-2 and phase 15")
+                    "train: phases 1-2 and phase 15; zoo: phases 1-2 "
+                    "and phase 16")
     ap.add_argument("--cases", help="with --only attention: the "
                     "flash_attention cases to run, comma-separated (their "
                     "rows, chunk and profiled checks alone)")
     args = ap.parse_args(argv)
+    t_run = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6189,7 +6482,7 @@ def main(argv=None) -> int:
     LOG.write_text("")
     import numpy as np
 
-    import repro_torch  # noqa: F401  (turns TF32 off)
+    import repro_torch._fp32  # noqa: F401  (turns TF32 off)
     from repro_torch.kernels import build, ops, ref
 
     # 1. device
@@ -6325,6 +6618,10 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             rows = {"train": phase_trainer(torch, np, ops, ref)}
             log(f"phase 15: {time.perf_counter() - t0:.3f} s")
+        elif args.only == "zoo":
+            t0 = time.perf_counter()
+            rows = {"zoo": phase_zoo(torch, np, ops)}
+            log(f"phase 16: {time.perf_counter() - t0:.3f} s")
         elif args.only == "ssm":
             t0 = time.perf_counter()
             rows = {"smoke_ssm": {arch: phase_smoke(
@@ -6343,6 +6640,7 @@ def main(argv=None) -> int:
                     "grouped_matmul_backward": gm_back}
         with open(OUT / f"chip_smoke{tag}.json", "w") as f:
             json.dump({"card": card, **rows}, f, indent=1)
+        log(f"whole run: {time.perf_counter() - t_run:.3f} s")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -6483,6 +6781,13 @@ def main(argv=None) -> int:
                    "compress_trained": trainer["compress"]["aa_svd"],
                    "compress_trained_naive": trainer["compress"]["naive"],
                    "serve_trained_server": trainer["compress"]["serve"]}
+    torch.cuda.empty_cache()
+    # 16. the zoo conformance harness: every arch's smoke round trip, then
+    # whisper-base's at published widths
+    t0 = time.perf_counter()
+    zoo = phase_zoo(torch, np, ops)
+    log(f"phase 16: {time.perf_counter() - t0:.3f} s")
+    zoo_paths = {"zoo_smoke": zoo["matrix"], "zoo_whisper": zoo["whisper"]}
 
     def timing(row):
         return {"max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -6516,7 +6821,9 @@ def main(argv=None) -> int:
                    **{path: run["launches"][name]
                       for path, run in mm_paths.items()},
                    **{path: run["launches"][name]
-                      for path, run in train_paths.items()}}
+                      for path, run in train_paths.items()},
+                   **{path: run["launches"][name]
+                      for path, run in zoo_paths.items()}}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": by_path[path],
                 "launches_by_path": by_path, **timing(head)}
@@ -6589,7 +6896,8 @@ def main(argv=None) -> int:
         **{path: run["lowrank_rows"] for path, run in ssm_paths.items()},
         **{path: run["lowrank_rows"] for path, run in mm_paths.items()},
         **{path: run["lowrank_rows"] for path, run in train_paths.items()
-           if "lowrank_rows" in run}}
+           if "lowrank_rows" in run},
+        **{path: run["lowrank_rows"] for path, run in zoo_paths.items()}}
     # kimi-k2's eight factorized shapes at each T (phase 12)
     kimi_shapes = [list(s) for s in SIZES["lowrank_nkm_kimi"]]
     low["kimi"] = [{**timing(r), "body": r.get("body")} for r in low_rows
@@ -6694,7 +7002,8 @@ def main(argv=None) -> int:
         **{path: run["flash_bodies"] for path, run in kimi_paths.items()},
         **{path: run["flash_bodies"] for path, run in ssm_paths.items()},
         **{path: run["flash_bodies"] for path, run in mm_paths.items()},
-        **{path: run["flash_bodies"] for path, run in train_paths.items()}}
+        **{path: run["flash_bodies"] for path, run in train_paths.items()},
+        **{path: run["flash_bodies"] for path, run in zoo_paths.items()}}
     # flash_attention at qwen3-0.6b's training shape (phase 15 (e)): the
     # forward kernel beside the plain backward and SDPA's forward and
     # forward + backward, with its launches in one train step by body
@@ -6718,8 +7027,9 @@ def main(argv=None) -> int:
                    "gemma": gemma, "policies": policies,
                    "policies_moe": policies_moe, "kimi": kimi,
                    "zamba2": zamba2, "falcon": falcon, "whisper": whisper,
-                   "vision": vision, "train": trainer, "kernels": kernels},
-                  f, indent=1)
+                   "vision": vision, "train": trainer, "zoo": zoo,
+                   "kernels": kernels}, f, indent=1)
+    log(f"whole run: {time.perf_counter() - t_run:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     # the card's line again, inside the tail a caller may keep of the output
     print(card, flush=True)

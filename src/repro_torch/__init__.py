@@ -4,16 +4,19 @@ Modules keep the JAX package's names (``configs``, ``models.layers``,
 ``core.pipeline``, ...) so each has an obvious counterpart.  The package
 imports torch and numpy only, never jax and nothing of ``repro``.
 
-Float32 parity with the JAX reference needs float32 products to run in full
-float32 on the card, so importing the package turns TF32 off for both
-matmuls and cuDNN convolutions (PyTorch's cuDNN default is TF32 on).
+Importing any module that computes turns TF32 off on the card
+(``repro_torch._fp32``: float32 parity with the JAX reference).  The root
+itself imports no torch — ``CompressConfig``, ``compress_model`` and
+``compress_ratio_report`` load ``core.pipeline`` on first use — so the
+static checker ``repro_torch.analysis`` runs without torch.
 """
 
-import torch
+_PIPELINE = ("CompressConfig", "compress_model", "compress_ratio_report")
+__all__ = list(_PIPELINE)
 
-# fp32 parity: no TF32 anywhere on the card
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
 
-from repro_torch.core.pipeline import (  # noqa: E402,F401
-    CompressConfig, compress_model, compress_ratio_report)
+def __getattr__(name):
+    if name in _PIPELINE:
+        from repro_torch.core import pipeline
+        return getattr(pipeline, name)
+    raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")

@@ -11,6 +11,7 @@ integer views.
 
 from __future__ import annotations
 
+import repro_torch._fp32  # noqa: F401  (TF32 off before any torch work)
 from typing import Any
 
 import numpy as np

@@ -6,4 +6,7 @@
 - ``ranks``       — ratio→rank math (verbatim copy of the JAX package's)
 - ``refine``      — block-level local refinement (AdamW, torch.autograd)
 - ``pipeline``    — Algorithm 2 end-to-end block-wise driver
+- ``zoo``         — conformance harness: compress → checkpoint → serve, per arch
 """
+
+import repro_torch._fp32  # noqa: F401  (TF32 off before any torch work)

@@ -921,6 +921,7 @@ def _compress_sweep(params, cfg, calib, ccfg: CompressConfig,
                 covs = covs_table[unit.name][tap]
             if ccfg.debug_covs and covs is not None:
                 unit_report.setdefault("covs", {})[tap] = {
+                    # repro-check: allow[host-sync-loop] — debug_covs (off by default) copies each tap's covariances into the report on request
                     k: (v.detach().cpu() if torch.is_tensor(v) else v)
                     for k, v in covs.items()}
             for spec in group:
@@ -1016,6 +1017,7 @@ def _compress_sweep(params, cfg, calib, ccfg: CompressConfig,
                                refine_dispatches=hist["dispatches"],
                                refine_wall=time.perf_counter() - t0)
         elif not estimate:  # the estimate sweep skips the MSE probe too
+            # repro-check: allow[host-sync-loop] — the report's pre_refine_mse with refinement off: one read a microbatch of a unit, summed on the host (a device sum would change its bits)
             mse = sum(float(torch.mean(torch.square(
                 fwd(cur_p, xp, ac(i)).float() - y.float())))
                 for i, (xp, y) in enumerate(zip(xps, y_anchor))) / len(xps)

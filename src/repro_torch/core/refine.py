@@ -75,6 +75,7 @@ def refine_unit(apply_fn: Callable, params, xp_batches: Sequence,
                     grads, state, [leaf.detach() for leaf in live], ocfg,
                     sched)
                 ep_loss = ep_loss + loss.detach()
+            # repro-check: allow[host-sync-loop] — one read an epoch, not a step: the epoch loss for the history and the target_mse stop
             history["losses"].append(float(ep_loss) / n_batches)
             history["steps"] += n_batches
             if target_mse > 0.0 and history["losses"][-1] <= target_mse:

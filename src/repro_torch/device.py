@@ -4,6 +4,7 @@ on quietly on the CPU."""
 
 from __future__ import annotations
 
+import repro_torch._fp32  # noqa: F401  (TF32 off before any torch work)
 import torch
 
 

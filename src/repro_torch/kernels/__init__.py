@@ -20,4 +20,5 @@ CPU), ``ref`` the plain versions, ``build`` the nvcc build and ctypes binding.
 Nothing is compiled or loaded at import.
 """
 
+import repro_torch._fp32  # noqa: F401  (TF32 off before any torch work)
 from repro_torch.kernels import ops, ref  # noqa: F401

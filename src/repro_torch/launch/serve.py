@@ -357,6 +357,7 @@ class ContinuousBatchingServer:
             tok_dev, cache = self._decode(self.params, cache,
                                           self._tokens(tokens_np),
                                           self._tokens(pos_np))
+            # repro-check: allow[host-sync-loop] — the engine schedules on the step's tokens (finish, admit): its one read a decode step
             tok_host = tok_dev.cpu().numpy()
             self.decode_step_times.append(time.monotonic() - t_step)
             for slot in range(self.slots):

@@ -117,6 +117,7 @@ def _train(cfg, steps, batch, seq_len, ckpt_dir, ckpt_every, lr,
         if (step + 1) % ckpt_every == 0 or step == steps - 1:
             save(step + 1)
         if (step + 1) % log_every == 0:
+            # repro-check: allow[host-sync-loop] — the logged loss, read every log_every steps only
             loss = float(metrics["loss"])
             losses.append(loss)
             print(f"[train] step {step + 1}/{steps} loss {loss:.4f} "

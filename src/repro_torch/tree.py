@@ -8,6 +8,7 @@ is rebuilt field by field.
 
 from __future__ import annotations
 
+import repro_torch._fp32  # noqa: F401  (TF32 off before any torch work)
 from typing import Any, Callable, List, Tuple
 
 import torch

@@ -164,3 +164,83 @@ def test_train_leaves_jax_unloaded(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split()[-2:] == ["False", "False"]
+
+
+# the zoo harness and the static checker: each among the files checked above
+ZOO_ANALYSIS_MODULES = ("repro_torch.core.zoo", "repro_torch.analysis",
+                        "repro_torch.analysis.dispatch",
+                        "repro_torch.analysis.findings",
+                        "repro_torch.analysis.__main__")
+
+
+@pytest.mark.parametrize("module", ZOO_ANALYSIS_MODULES)
+def test_zoo_and_analysis_modules_are_checked(module):
+    rel = pathlib.Path(*module.split("."))
+    path = (ROOT / "src" / rel).with_suffix(".py")
+    if not path.exists():
+        path = ROOT / "src" / rel / "__init__.py"
+    assert path in _port_files()
+
+
+def _run(script):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    out = subprocess.run([sys.executable, "-c", script], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    return out.stdout.split()
+
+
+def test_analysis_leaves_torch_unloaded():
+    # the checker needs the standard library alone: the package root
+    # imports no torch
+    got = _run(
+        "import sys\n"
+        "import repro_torch, repro_torch.analysis\n"
+        "from repro_torch.analysis import __main__, dispatch, findings\n"
+        "assert repro_torch.analysis.run() == []\n"
+        "print(*(m in sys.modules for m in ('torch', 'numpy', 'jax', "
+        "'repro')))\n")
+    assert got == ["False", "False", "False", "False"]
+
+
+def test_zoo_roundtrip_leaves_jax_unloaded(tmp_path):
+    got = _run(
+        "import sys\n"
+        "from repro_torch.core import zoo\n"
+        f"rec, _ = zoo.roundtrip('llama-7b', {str(tmp_path)!r}, "
+        "device='cpu')\n"
+        "assert rec['bit_parity'] and rec['token_match']\n"
+        "print('jax' in sys.modules, 'repro' in sys.modules)\n")
+    assert got[-2:] == ["False", "False"]
+
+
+def _fp32_covered(path: pathlib.Path) -> bool:
+    """Whether the module imports ``repro_torch._fp32`` itself or sits in a
+    subpackage whose ``__init__`` does."""
+    def imports_fp32(p):
+        return p.exists() and "repro_torch._fp32" in set(_imported_modules(p))
+    return imports_fp32(path) or (path.parent != PORT and imports_fp32(
+        path.parent / "__init__.py"))
+
+
+def _torch_modules():
+    return [p for p in sorted(PORT.rglob("*.py")) if p.name != "_fp32.py"
+            and "torch" in {m.split(".")[0] for m in _imported_modules(p)}]
+
+
+@pytest.mark.parametrize("path", _torch_modules(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_every_torch_module_turns_tf32_off_first(path):
+    assert _fp32_covered(path), path
+
+
+@pytest.mark.parametrize("module", ["repro_torch.tree",
+                                    "repro_torch.kernels.ref",
+                                    "repro_torch.models.layers"])
+def test_importing_a_module_that_computes_turns_tf32_off(module):
+    got = _run(
+        f"import {module}, torch\n"
+        "print(torch.backends.cuda.matmul.allow_tf32, "
+        "torch.backends.cudnn.allow_tf32)\n")
+    assert got == ["False", "False"]

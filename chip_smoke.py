@@ -336,9 +336,11 @@ It prints a ``{"kernels": [...]}`` line, then
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -709,6 +711,20 @@ SIZES = {
     "train_microbatch": 8,
     "train_evals": (4, 8, 512),
     "train_serve": (8, 128, 32),
+    # phase 17, the autotuner: every candidate of each lattice at llama-7b's
+    # main path at published widths ((n, k, m) at each T; the covariance at
+    # its d_model and d_ff taps and MLA's kv_lora tap; the prefill and the
+    # dense-cache decode of phase 3; the latent-cache decode; deepseek's
+    # expert GEMM at a microbatch's 24576 rows and decode's 48) and kimi-k2's
+    # capacity bank tap (E 32, C 1280, n 7168)
+    "autotune_lowrank": ((4096, 1232, 4096), (4096, 1792, 11008),
+                         (11008, 1792, 4096)),
+    "autotune_T": (4096, 256, 8),
+    "autotune_cov": ((4096, 4096), (4096, 11008), (4096, 512)),
+    "autotune_flash": ("prefill", "decode"),
+    "autotune_decode": ("llama",),
+    "autotune_grouped": ("gate_up", "decode"),
+    "autotune_bank": (32, 1280, 7168),
 }
 
 
@@ -935,7 +951,10 @@ def check_lowrank(torch, ops, ref, t_rows, n, k, m, dtype, epilogue, timed,
         err = mae
         require(mae <= lim, f"lowrank_matmul {t_rows}x{n}x{k}x{m} bf16 "
                 f"epilogue={epilogue}: max abs err {mae:.3e} > {lim:.3e}")
-    p = low.plan(t_rows, n, k, m, dtype, body=body)
+    # the plan the wrapper launched (the tuner's pick; plan() on the CPU)
+    from repro_torch.kernels import autotune
+    p = autotune.lowrank_plan(t_rows, n, k, m, dtype, body=body,
+                              device=dev).plan
     row = {"shape": [t_rows, n, k, m], "dtype": str(dtype)
            .replace("torch.", ""), "epilogue": epilogue, "err": err,
            "max_abs_err": mae, "body": p.body, "forced": body is not None,
@@ -1041,6 +1060,7 @@ def phase_cov(torch, ops, ref, dev="cuda", sizes=SIZES):
     """cov_accum at each (T, n) of ``cov`` (fp32 and bf16, written and
     added into acc=; timed in bf16 with acc= at the first ``cov_timed``),
     then the repeat check and the strided-tap check in both dtypes."""
+    from repro_torch.kernels import autotune
     from repro_torch.kernels import cov_accum as cov
     rows = []
     for i, (t_rows, n) in enumerate(sizes["cov"]):
@@ -1051,7 +1071,9 @@ def phase_cov(torch, ops, ref, dev="cuda", sizes=SIZES):
                 row = check_cov(torch, ops, ref, t_rows, n, dtype, with_acc,
                                 timed, dev)
                 p = cov.plan(t_rows, n, dtype)
-                row.update(tiles=p.tiles, splits=p.splits)
+                tuned = autotune.cov_plan(t_rows, n, dtype, device=dev).plan
+                row.update(tiles=p.tiles, splits=tuned.splits,
+                           heuristic_splits=p.splits)
                 rows.append(row)
                 log("cov_accum", json.dumps(row))
     for dtype in (torch.float32, torch.bfloat16):
@@ -1189,6 +1211,7 @@ def phase_cov_banked(torch, ops, ref, dev="cuda", sizes=SIZES):
     written and added into acc=; timed in bf16 with acc= at the first
     ``cov_banked_timed``), then the repeat and bank-independence checks in
     both dtypes."""
+    from repro_torch.kernels import autotune
     from repro_torch.kernels import cov_accum as cov
     rows = []
     for i, (e, c, n) in enumerate(sizes["cov_banked"]):
@@ -1199,7 +1222,10 @@ def phase_cov_banked(torch, ops, ref, dev="cuda", sizes=SIZES):
                 row = check_cov_banked(torch, ops, ref, e, c, n, dtype,
                                        with_acc, timed, dev)
                 p = cov.plan(c, n, dtype, banks=e)
-                row.update(tiles=p.tiles, items=p.items, splits=p.splits)
+                tuned = autotune.cov_plan(c, n, dtype, banks=e,
+                                          device=dev).plan
+                row.update(tiles=p.tiles, items=p.items, splits=tuned.splits,
+                           heuristic_splits=p.splits)
                 rows.append(row)
                 log("cov_accum_banked", json.dumps(row))
     for shape in sizes["cov_banked_repeat"]:
@@ -1401,11 +1427,14 @@ def _flash_inputs(torch, np, case, dtype, dev):
 
 
 def _launched_plans(fa, fn):
-    """(fn's result, the plans ``fa.launch`` received during it)."""
+    """(fn's result, the plans ``fa.launch`` received during it from the
+    wrapper: an autotuner measurement's launches are not the call's)."""
+    from repro_torch.kernels import autotune
     plans, launch = [], fa.launch
 
     def spy(p, *args, **kw):
-        plans.append(p)
+        if not autotune.measuring():
+            plans.append(p)
         return launch(p, *args, **kw)
 
     fa.launch = spy
@@ -6444,12 +6473,404 @@ def phase_zoo(torch, np, ops, dev="cuda", sizes=SIZES, archs=None):
             "seconds": {"a": t_a, "b": t_b}}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the autotuner
+
+
+TUNER_BY_PHASE = {}
+
+
+def tuner_mark():
+    """The autotuner's counters now (measurements, candidates, seconds)."""
+    from repro_torch.kernels import autotune
+    return dict(autotune.STATS)
+
+
+def tuner_log(phase, mark):
+    """Log and keep the tuner's work since ``mark`` under ``phase``."""
+    from repro_torch.kernels import autotune
+    d = {k: autotune.STATS[k] - mark[k] for k in autotune.STATS}
+    TUNER_BY_PHASE[phase] = d
+    log(f"phase {phase} tuner: {d['measurements']} measurements, "
+        f"{d['candidates']} candidates timed, {d['seconds']:.3f} s")
+
+
+def _knobs(kernel, p):
+    """The tuned fields of a plan, for the log."""
+    keys = {"cov_accum": ("splits", "rows_per_split"),
+            "lowrank_matmul": ("body", "splits_xv", "depth_xv", "splits_tu",
+                               "depth_tu"),
+            "flash_attention": ("body", "span", "spans"),
+            "flash_decode": ("body", "span"),
+            "grouped_matmul": ("body", "ctas")}[kernel]
+    return {k: getattr(p, k) for k in keys}
+
+
+def _candidate_rows(torch, kernel, cands, pick, heur, run, check, neutral,
+                    dev):
+    """Each candidate launched (``run(plan)`` -> outputs), held by
+    ``check(outputs)`` (its max abs error, fatal past today's limit), its
+    outputs bitwise equal to the heuristic's where the knob is ``neutral``,
+    and timed (device ms, L2 cold); returns the rows, the heuristic's
+    first."""
+    plans = [c.plan for c in cands]
+    require(heur in plans and pick in plans,
+            f"{kernel}: the pick or the heuristic is not a candidate")
+    plans.remove(heur)
+    plans.insert(0, heur)
+    base = run(heur)
+    rows = []
+    for p in plans:
+        out = run(p)
+        row = {"knobs": _knobs(kernel, p), "heuristic": p == heur,
+               "pick": p == pick, "max_abs_err": check(out)}
+        if neutral:
+            row["bitwise_heuristic"] = all(
+                torch.equal(a, b) for a, b in zip(out, base))
+            require(row["bitwise_heuristic"], f"{kernel} {row['knobs']}: "
+                    "a knob meant to keep the bits moved them")
+        del out
+        row["device_ms"] = device_ms(lambda: run(p))
+        rows.append(row)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _log_candidates(kernel, tag, rows, res):
+    heur = rows[0]["device_ms"]
+    pick = next(r for r in rows if r["pick"])
+    log(f"autotune {kernel} {tag}: {len(rows)} candidates, heuristic "
+        f"{heur:.4f} ms, pick {pick['knobs']} {pick['device_ms']:.4f} ms "
+        f"({res.source})")
+    for r in rows:
+        log(f"autotune {kernel} {tag}   {json.dumps(r)}")
+
+
+def phase_autotune(torch, np, ops, ref, dev="cuda", sizes=SIZES):
+    """Phase 17: (a) every candidate of each lattice at the main path's
+    shapes, launched and held against the plain version at today's limit
+    (and bitwise against the heuristic's where its knob keeps the bits),
+    timed beside the heuristic's, the pick named (the wrapper's own launch
+    bitwise the pick's); kimi-k2's bank tap with its 32 per-bank launches
+    timed; (b) a second call is an in-memory hit and a child process given
+    the same cache reads the same plans from it; (c) under
+    ``REPRO_AUTOTUNE=heuristic`` each shape gets its kernel's ``plan()``.
+    On the CPU (a rehearsal) ``run`` is the plan's emulation."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import cov_accum as cov
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import lowrank_matmul as low
+    on_card = torch.device(dev).type == "cuda"
+    bf16 = torch.bfloat16
+    out = {"lowrank_matmul": [], "cov_accum": [], "flash_attention": [],
+           "flash_decode": [], "grouped_matmul": []}
+    heuristic_args = []     # (entry point, args, kwargs, parent plan)
+
+    def scratch(p):
+        return torch.empty(max(p.scratch_floats, 1), dtype=torch.float32,
+                           device=dev)
+
+    # lowrank_matmul: each product's splits
+    for n, k, m in sizes["autotune_lowrank"]:
+        for t_rows in sizes["autotune_T"]:
+            gen = torch.Generator(device=dev).manual_seed(n + k + m + t_rows)
+            x = torch.randn(t_rows, n, generator=gen, device=dev).to(bf16)
+            v = (torch.randn(n, k, generator=gen, device=dev)
+                 / math.sqrt(n)).to(bf16)
+            u = (torch.randn(k, m, generator=gen, device=dev)
+                 / math.sqrt(k)).to(bf16)
+            want = ref.lowrank_matmul_ref(x, v, u)
+            lim = 2e-2 * float(want.float().abs().max())
+            y_wrapper = ops.lowrank_matmul(x, v, u)
+            res = autotune.lowrank_plan(t_rows, n, k, m, bf16, device=dev)
+            heur = low.plan(t_rows, n, k, m, bf16)
+            heuristic_args.append((autotune.lowrank_plan,
+                                   (t_rows, n, k, m, bf16), {}, heur))
+            cands = [c for prod in ("xv", "tu")
+                     for c in autotune.lowrank_candidates(
+                         t_rows, n, k, m, bf16, product=prod)]
+            cands = list({c.plan: c for c in cands}.values())
+            if res.plan not in [c.plan for c in cands]:
+                cands.append(autotune.Candidate(res.plan, 0, 0.0))
+
+            def run(p, x=x, v=v, u=u):
+                if not on_card:
+                    return low.emulate(p, x, v, u)[:1]
+                t = torch.empty((p.rows, p.k), dtype=bf16, device=dev)
+                y = torch.empty((p.rows, p.m), dtype=bf16, device=dev)
+                low.launch(p, x, v, u, t, y, None, None, scratch(p))
+                return (y,)
+
+            def check(o, want=want, lim=lim, tag=(n, k, m, t_rows)):
+                mae = float((o[0].float() - want.float()).abs().max())
+                require(mae <= lim, f"autotune lowrank_matmul {tag}: max abs "
+                        f"err {mae:.3e} > {lim:.3e}")
+                return mae
+
+            if on_card:
+                require(torch.equal(y_wrapper, run(res.plan)[0]),
+                        f"lowrank_matmul {(n, k, m, t_rows)}: the wrapper "
+                        "did not launch the pick")
+            rows = _candidate_rows(
+                torch, "lowrank_matmul", cands, res.plan, heur, run, check,
+                heur.body == "wgmma", dev)
+            _log_candidates("lowrank_matmul", f"({n}, {k}, {m}) T {t_rows}",
+                            rows, res)
+            out["lowrank_matmul"].append({
+                "shape": [t_rows, n, k, m], "body": heur.body,
+                "source": res.source, "candidates": rows})
+            del x, v, u, want, y_wrapper
+    # cov_accum: the token slices
+    for t_rows, n in sizes["autotune_cov"]:
+        gen = torch.Generator(device=dev).manual_seed(n + t_rows)
+        x = torch.randn(t_rows, n, generator=gen, device=dev).to(bf16)
+        xp = (x.float() + 0.1 * torch.randn(t_rows, n, generator=gen,
+                                            device=dev)).to(bf16)
+        want = ref.cov_accum_ref(x, xp)
+        ops.cov_accum(x, xp)
+        res = autotune.cov_plan(t_rows, n, bf16, device=dev)
+        heur = cov.plan(t_rows, n, bf16)
+        heuristic_args.append((autotune.cov_plan, (t_rows, n, bf16), {},
+                               heur))
+        cands = autotune.cov_candidates(t_rows, n, bf16)
+
+        def run(p, x=x, xp=xp):
+            if not on_card:
+                return cov.emulate(p, x, xp)
+            outs = tuple(torch.empty((1, p.n, p.n), dtype=torch.float32,
+                                     device=dev) for _ in range(3))
+            cov.launch(p, x[None], xp[None], *outs, scratch(p),
+                       accumulate=False)
+            return tuple(o[0] for o in outs)
+
+        def check(o, want=want, tag=(t_rows, n)):
+            err = max(rel_fro(g, w) for g, w in zip(o, want))
+            require(err <= 5e-5, f"autotune cov_accum {tag}: rel err "
+                    f"{err:.3e} > 5e-05")
+            require(torch.equal(o[0], o[0].T) and torch.equal(o[2], o[2].T),
+                    f"autotune cov_accum {tag}: xx / xpxp not symmetric")
+            return max(float((g - w).abs().max()) for g, w in zip(o, want))
+
+        rows = _candidate_rows(torch, "cov_accum", cands, res.plan, heur,
+                               run, check, False, dev)
+        _log_candidates("cov_accum", f"T {t_rows} n {n}", rows, res)
+        out["cov_accum"].append({"shape": [t_rows, n], "source": res.source,
+                                 "candidates": rows})
+        del x, xp, want
+    # flash_attention: the split bodies' spans (the tile bodies: one plan)
+    cases = {c[0]: c for c in sizes["flash_attention"]}
+    for name in sizes["autotune_flash"]:
+        case = cases[name]
+        _, b, h, kv, lq, lk, d, causal, window, softcap, _ = case
+        q, k, v, offs, kw = _flash_inputs(torch, np, case, bf16, dev)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        got = ops.flash_attention(q, k, v, **kw)
+        res = autotune.flash_plan(b, lq, lk, h, kv, d, bf16, causal=causal,
+                                  window=window, device=dev)
+        heur = fa.plan(b, lq, lk, h, kv, d, bf16, causal=causal,
+                       window=window)
+        heuristic_args.append((autotune.flash_plan,
+                               (b, lq, lk, h, kv, d, bf16),
+                               dict(causal=causal, window=window), heur))
+        cands = autotune.flash_candidates(b, lq, lk, h, kv, d, bf16,
+                                          causal=causal, window=window)
+        q_off = kw["q_offset"] if torch.is_tensor(kw["q_offset"]) else None
+
+        def run(p, q=q, k=k, v=v, q_off=q_off, offs=offs):
+            if not on_card:
+                return (fa.emulate(dataclasses.replace(p, offsets=tuple(
+                    offs)), q, k, v, scale=1.0 / math.sqrt(p.d)),)
+            o = torch.empty_like(q)
+            fa.launch(p, q, k, v, o, q_off, offs[0] if q_off is None else 0,
+                      scale=1.0 / math.sqrt(p.d), softcap=softcap,
+                      scratch=scratch(p) if p.scratch_floats else None)
+            return (o,)
+
+        def check(o, want=want, name=name):
+            err = rel_fro(o[0], want)
+            require(err <= 1e-2, f"autotune flash_attention {name}: rel err "
+                    f"{err:.3e} > 1e-02")
+            return float((o[0].float() - want.float()).abs().max())
+
+        if on_card:
+            require(torch.equal(got, run(res.plan)[0]), f"flash_attention "
+                    f"{name}: the wrapper did not launch the pick")
+        rows = _candidate_rows(torch, "flash_attention", cands, res.plan,
+                               heur, run, check, False, dev)
+        _log_candidates("flash_attention", name, rows, res)
+        out["flash_attention"].append({"case": name, "body": heur.body,
+                                       "source": res.source,
+                                       "candidates": rows})
+    # flash_decode: SPAN is compiled in, one plan
+    dcases = {c[0]: c for c in sizes["flash_decode"]}
+    for name in sizes["autotune_decode"]:
+        case = dcases[name]
+        args, lens = _decode_inputs(torch, np, case, bf16, dev)
+        want = ref.flash_decode_ref(*args)
+        ops.flash_decode(*args)
+        _, b, h, kv, d, rk, rv, l = case[:8]
+        res = autotune.flash_decode_plan(b, l, h, kv, d, rk, rv, bf16,
+                                         device=dev)
+        heur = fd.plan(b, l, h, kv, d, rk, rv, bf16)
+        heuristic_args.append((autotune.flash_decode_plan,
+                               (b, l, h, kv, d, rk, rv, bf16), {}, heur))
+        cands = autotune.flash_decode_candidates(b, l, h, kv, d, rk, rv, bf16)
+
+        def run(p, args=args):
+            if not on_card:
+                return (fd.emulate(p, *args),)
+            o = torch.empty_like(args[0])
+            fd.launch(p, *args, o, torch.empty(p.scratch_floats,
+                                               dtype=torch.float32,
+                                               device=dev), rope=True)
+            return (o,)
+
+        def check(o, want=want, name=name):
+            err = rel_fro(o[0], want)
+            require(err <= 5e-3, f"autotune flash_decode {name}: rel err "
+                    f"{err:.3e} > 5e-03")
+            return float((o[0].float() - want.float()).abs().max())
+
+        rows = _candidate_rows(torch, "flash_decode", cands, res.plan, heur,
+                               run, check, False, dev)
+        _log_candidates("flash_decode", name, rows, res)
+        out["flash_decode"].append({"case": name, "source": res.source,
+                                    "candidates": rows})
+    # grouped_matmul: the persistent blocks
+    gcases = {c[0]: c for c in sizes["grouped"]}
+    for name in sizes["autotune_grouped"]:
+        case = gcases[name]
+        _, m, d, f, e = case
+        sizes_np, gs, x, w, _ = _grouped_inputs(torch, np, case, bf16, dev)
+        want = ref.grouped_matmul_ref(x, w, gs).to(bf16)
+        got = ops.grouped_matmul(x, w, gs)
+        res = autotune.grouped_plan(m, d, f, e, bf16, device=dev)
+        heur = gm.plan(m, d, f, e, bf16)
+        heuristic_args.append((autotune.grouped_plan, (m, d, f, e, bf16), {},
+                               heur))
+        cands = autotune.grouped_candidates(m, d, f, e, bf16)
+
+        def run(p, x=x, w=w, gs=gs, sizes_np=sizes_np):
+            if not on_card:
+                return (gm.emulate(p, x, w, sizes_np.tolist()),)
+            y = torch.empty((p.rows, p.n), dtype=bf16, device=dev)
+            gm.launch(p, x, w, gs, y)
+            return (y,)
+
+        def check(o, want=want, name=name):
+            err = rel_fro(o[0], want)
+            require(err <= 1e-2, f"autotune grouped_matmul {name}: rel err "
+                    f"{err:.3e} > 1e-02")
+            return float((o[0].float() - want.float()).abs().max())
+
+        if on_card:
+            require(torch.equal(got, run(res.plan)[0]), f"grouped_matmul "
+                    f"{name}: the wrapper did not launch the pick")
+        rows = _candidate_rows(torch, "grouped_matmul", cands, res.plan,
+                               heur, run, check, True, dev)
+        _log_candidates("grouped_matmul", name, rows, res)
+        out["grouped_matmul"].append({"case": name, "source": res.source,
+                                      "candidates": rows})
+        del x, w, want, got
+    # kimi-k2's bank tap: one plan (its items fill the card without a
+    # split), timed beside the drop-free route's 32 per-bank launches
+    e, c, n = sizes["autotune_bank"]
+    _, x, xp = _banked_inputs(torch, e, c, n, bf16, dev, 7)
+    heur = cov.plan(c, n, bf16, banks=e)
+    cands = autotune.cov_candidates(c, n, bf16, banks=e)
+    heuristic_args.append((autotune.cov_plan, (c, n, bf16, e), {}, heur))
+    want = ref.cov_accum_banked_ref(x, xp)
+    got = ops.cov_accum_banked(x, xp)
+    res = autotune.cov_plan(c, n, bf16, banks=e, device=dev)
+    err = max(rel_fro(g, w) for g, w in zip(got, want))
+    require(err <= 5e-5, f"autotune cov_accum_banked {e}x{c}x{n}: rel err "
+            f"{err:.3e} > 5e-05")
+    del want
+    accs = tuple(torch.zeros_like(g) for g in got)
+    per_bank = [ops.cov_accum(x[i], xp[i], acc=tuple(a[i] for a in accs))
+                for i in range(e)]
+    same = all(torch.equal(g, a) for g, a in zip(got, accs))
+    del per_bank
+    # both added into accumulators (acc=), as calibration runs them
+    bank = {"shape": [e, c, n], "candidates": len(cands),
+            "knobs": _knobs("cov_accum", res.plan), "source": res.source,
+            "rel_fro_err": err, "per_bank_bitwise_equal": same,
+            "device_ms": device_ms(lambda: ops.cov_accum_banked(
+                x, xp, acc=got)),
+            "per_bank_device_ms": device_ms(lambda: [
+                ops.cov_accum(x[i], xp[i], acc=tuple(a[i] for a in accs))
+                for i in range(e)])}
+    log("autotune cov_accum_banked kimi bank tap", json.dumps(bank))
+    out["cov_accum_banked"] = bank
+    del x, xp, accs, got
+    if on_card:
+        torch.cuda.empty_cache()
+    # (b) the caches: in memory, then a child process on the cache file
+    mark = dict(autotune.STATS)
+    again = [fn(*a, device=dev, **kw) for fn, a, kw, _ in heuristic_args]
+    require(dict(autotune.STATS) == mark, "autotune: a second call measured")
+    # (entry point, args, kwargs, plan, whether its lattice was tuned)
+    measured = [(fn.__name__, a, kw, r.plan, r.source != "heuristic")
+                for (fn, a, kw, _), r in zip(heuristic_args, again)]
+    cache = {"in_memory_hits": len(again), "path": os.environ.get(
+        "REPRO_AUTOTUNE_CACHE")}
+    if on_card:
+        child = (
+            "import json, sys, torch\n"
+            f"sys.path.insert(0, {str(SRC)!r})\n"
+            "from repro_torch.kernels import autotune as A\n"
+            "bf16 = torch.bfloat16\n"
+            "out = []\n"
+            "for name, a, kw in json.loads(sys.argv[1]):\n"
+            "    a = [bf16 if x == 'bf16' else x for x in a]\n"
+            "    r = getattr(A, name)(*a, device='cuda', **kw)\n"
+            "    out.append([r.source, repr(r.plan)])\n"
+            "print(json.dumps(out))\n")
+        spec = [(name, ["bf16" if x is bf16 else x for x in a], kw)
+                for name, a, kw, _, _ in measured]
+        proc = subprocess.run([sys.executable, "-c", child, json.dumps(spec)],
+                              capture_output=True, text=True, timeout=300,
+                              env=dict(os.environ))
+        require(proc.returncode == 0, f"autotune child: {proc.stderr[-2000:]}")
+        got_child = json.loads(proc.stdout.splitlines()[-1])
+        tuned = [i for i, m in enumerate(measured) if m[4]]
+        require(tuned and all(got_child[i][0] == "cache" for i in tuned),
+                f"autotune child: sources {[g[0] for g in got_child]}")
+        require(all(got_child[i][1] == repr(measured[i][3])
+                    for i in range(len(measured))),
+                "autotune child: another plan than this process's")
+        cache.update(child_cache_hits=len(tuned), child_plans_equal=True)
+    log("autotune (b) caches", json.dumps(cache))
+    out["cache"] = cache
+    # (c) the heuristic, pinned from the environment: the parent's plan()
+    before = os.environ.get("REPRO_AUTOTUNE")
+    os.environ["REPRO_AUTOTUNE"] = "heuristic"
+    try:
+        diff = [(fn.__name__, a) for fn, a, kw, want in heuristic_args
+                if fn(*a, device=dev, **kw).plan != want]
+    finally:
+        if before is None:
+            os.environ.pop("REPRO_AUTOTUNE")
+        else:
+            os.environ["REPRO_AUTOTUNE"] = before
+    require(not diff, f"autotune: REPRO_AUTOTUNE=heuristic gave another "
+            f"plan than plan() at {diff}")
+    out["heuristic"] = {"shapes": len(heuristic_args), "equal": True}
+    log("autotune (c) heuristic: plan() field for field at",
+        len(heuristic_args), "shapes")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("lowrank", "cov", "grouped",
                                        "attention", "decode", "kimi", "ssm",
-                                       "multimodal", "train", "zoo"),
+                                       "multimodal", "train", "zoo",
+                                       "autotune"),
                     help="phases 1-2 and lowrank_matmul's (cov_accum's, "
                     "grouped_matmul's, flash_attention's, flash_decode's) "
                     "rows of phase 3; kimi: phases 1-2, phase 4's kimi-k2 "
@@ -6459,7 +6880,7 @@ def main(argv=None) -> int:
                     "phi-3-vision rows, ROADMAP 3j's refine-off check, phase "
                     "4's whisper and phi-3-vision smoke runs and phase 14; "
                     "train: phases 1-2 and phase 15; zoo: phases 1-2 "
-                    "and phase 16")
+                    "and phase 16; autotune: phases 1-2 and phase 17")
     ap.add_argument("--cases", help="with --only attention: the "
                     "flash_attention cases to run, comma-separated (their "
                     "rows, chunk and profiled checks alone)")
@@ -6483,7 +6904,16 @@ def main(argv=None) -> int:
     import numpy as np
 
     import repro_torch._fp32  # noqa: F401  (turns TF32 off)
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import autotune, build, ops, ref
+
+    # every run measures its own picks: a fresh cache file, removed at exit
+    import atexit
+    import shutil
+    import tempfile
+    tune_dir = tempfile.mkdtemp(prefix="autotune-")
+    atexit.register(shutil.rmtree, tune_dir, ignore_errors=True)
+    os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(tune_dir, "tune.json")
+    autotune.reset()
 
     # 1. device
     smi = subprocess.run(
@@ -6622,6 +7052,11 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             rows = {"zoo": phase_zoo(torch, np, ops)}
             log(f"phase 16: {time.perf_counter() - t0:.3f} s")
+        elif args.only == "autotune":
+            t0, tm = time.perf_counter(), tuner_mark()
+            rows = {"autotune": phase_autotune(torch, np, ops, ref)}
+            log(f"phase 17: {time.perf_counter() - t0:.3f} s")
+            tuner_log("17", tm)
         elif args.only == "ssm":
             t0 = time.perf_counter()
             rows = {"smoke_ssm": {arch: phase_smoke(
@@ -6638,8 +7073,12 @@ def main(argv=None) -> int:
             gm_rows, gm_back = phase_grouped_kernels(torch, np, ops, ref)
             rows = {"grouped_matmul": gm_rows,
                     "grouped_matmul_backward": gm_back}
+        log(f"tuner whole run: {autotune.STATS['measurements']} "
+            f"measurements, {autotune.STATS['candidates']} candidates "
+            f"timed, {autotune.STATS['seconds']:.3f} s")
         with open(OUT / f"chip_smoke{tag}.json", "w") as f:
-            json.dump({"card": card, **rows}, f, indent=1)
+            json.dump({"card": card, **rows, "tuner": dict(autotune.STATS)},
+                      f, indent=1)
         log(f"whole run: {time.perf_counter() - t_run:.3f} s")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6647,15 +7086,16 @@ def main(argv=None) -> int:
         return 0
 
     # 3. kernels
-    t0 = time.perf_counter()
+    t0, tm = time.perf_counter(), tuner_mark()
     cov_rows, low_rows = phase_kernels(torch, ops, ref)
     banked_rows = phase_cov_banked(torch, ops, ref)
     fa_rows, fd_rows, fa_checks, fd_checks = phase_attention_kernels(
         torch, np, ops, ref)
     gm_rows, gm_back = phase_grouped_kernels(torch, np, ops, ref)
     log(f"phase 3: {time.perf_counter() - t0:.3f} s")
+    tuner_log("3", tm)
     # 4. smoke parity
-    t0 = time.perf_counter()
+    t0, tm = time.perf_counter(), tuner_mark()
     smoke = phase_smoke(torch, np)
     smoke["moe"] = phase_smoke_moe(torch, np)
     smoke["moe_capacity"] = phase_smoke_moe_capacity(torch, np)
@@ -6674,49 +7114,56 @@ def main(argv=None) -> int:
                                      calib_shape=SIZES["smoke_calib"])
         for arch in SIZES["smoke_mm_archs"]}
     log(f"phase 4: {time.perf_counter() - t0:.3f} s")
+    tuner_log("4", tm)
     # 5. main path: compression
-    t0 = time.perf_counter()
+    t0, tm = time.perf_counter(), tuner_mark()
     main_run, cfg, params, comp = phase_main(torch, ops)
     log(f"phase 5: {time.perf_counter() - t0:.3f} s")
+    tuner_log("5", tm)
     # 6. main path: serving
-    t0 = time.perf_counter()
+    t0, tm = time.perf_counter(), tuner_mark()
     serve_run = phase_serve(torch, np, ops, cfg, params, comp)
     log(f"phase 6: {time.perf_counter() - t0:.3f} s")
+    tuner_log("6", tm)
     del params, comp
     torch.cuda.empty_cache()
     # 7. MoE path: drop-free compression of deepseek-v2-lite
-    t0 = time.perf_counter()
+    t0, tm = time.perf_counter(), tuner_mark()
     moe_run, moe_cfg, moe_comp = phase_moe(torch, ops)
     log(f"phase 7: {time.perf_counter() - t0:.3f} s")
+    tuner_log("7", tm)
     torch.cuda.empty_cache()
     # 8. MoE path: the config's own capacity dispatch
-    t0 = time.perf_counter()
+    t0, tm = time.perf_counter(), tuner_mark()
     moe_cap_run, cap_cfg, cap_comp = phase_moe(torch, ops,
                                                dispatch="capacity")
     log(f"phase 8: {time.perf_counter() - t0:.3f} s")
+    tuner_log("8", tm)
     torch.cuda.empty_cache()
     # 9. serving deepseek-v2-lite: phase 7's and phase 8's compressed models
-    t0 = time.perf_counter()
+    t0, tm = time.perf_counter(), tuner_mark()
     serve_moe = {}
     for c, p in ((moe_cfg, moe_comp), (cap_cfg, cap_comp)):
         serve_moe[c.moe.dispatch] = phase_serve_moe(torch, np, ops, c, p)
     del moe_comp, cap_comp
     log(f"phase 9: {time.perf_counter() - t0:.3f} s")
+    tuner_log("9", tm)
     moe_paths = {f"serve_moe_{run}_{d}": serve_moe[d][run]
                  for d in ("dropfree", "capacity")
                  for run in ("server", "engine")}
     torch.cuda.empty_cache()
     # 10. gemma3-1b at published widths: compression and serving
-    t0 = time.perf_counter()
+    t0, tm = time.perf_counter(), tuner_mark()
     gemma = phase_gemma(torch, np, ops)
     log(f"phase 10: {time.perf_counter() - t0:.3f} s")
+    tuner_log("10", tm)
     gemma_paths = {"compress_gemma": gemma["compress"],
                    "serve_gemma_server": gemma["server"],
                    "serve_gemma_engine": gemma["engine"]}
     torch.cuda.empty_cache()
     # 11. calibration policies: adaptive hybrid llama through a checkpoint,
     # then deepseek's capacity banks replayed by hybrid calibration
-    t0 = time.perf_counter()
+    t0, tm = time.perf_counter(), tuner_mark()
     policies = phase_policies(torch, np, ops, uniform=main_run["compressed"])
     log(f"phase 11 (a): {time.perf_counter() - t0:.3f} s")
     torch.cuda.empty_cache()
@@ -6725,15 +7172,17 @@ def main(argv=None) -> int:
                                       uniform=moe_cap_run["compressed"])
     log(f"phase 11 (b): {time.perf_counter() - t1:.3f} s")
     log(f"phase 11: {time.perf_counter() - t0:.3f} s")
+    tuner_log("11", tm)
     policy_paths = {"compress_adaptive": policies,
                     "serve_ckpt_server": policies["server"],
                     "serve_ckpt_engine": policies["engine"],
                     "compress_moe_hybrid": policies_moe}
     torch.cuda.empty_cache()
     # 12. kimi-k2 at published widths: compression and serving
-    t0 = time.perf_counter()
+    t0, tm = time.perf_counter(), tuner_mark()
     kimi = phase_kimi(torch, np, ops)
     log(f"phase 12: {time.perf_counter() - t0:.3f} s")
+    tuner_log("12", tm)
     kimi_paths = {"compress_kimi": kimi["compress"],
                   "serve_kimi_server": kimi["server"],
                   "serve_kimi_engine": kimi["engine"],
@@ -6741,7 +7190,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # 13. the SSM family at published widths: zamba2-7b (Mamba2 + the
     # weight-shared attention block), then falcon-mamba-7b (Mamba1)
-    t0 = time.perf_counter()
+    t0, tm = time.perf_counter(), tuner_mark()
     zamba2 = phase_ssm(torch, np, ops, arch="zamba2-7b")
     log(f"phase 13 (a): {time.perf_counter() - t0:.3f} s")
     torch.cuda.empty_cache()
@@ -6749,6 +7198,7 @@ def main(argv=None) -> int:
     falcon = phase_ssm(torch, np, ops, arch="falcon-mamba-7b")
     log(f"phase 13 (b): {time.perf_counter() - t1:.3f} s")
     log(f"phase 13: {time.perf_counter() - t0:.3f} s")
+    tuner_log("13", tm)
     ssm_paths = {"compress_zamba2": zamba2["compress"],
                  "serve_zamba2_server": zamba2["server"],
                  "serve_zamba2_engine": zamba2["engine"],
@@ -6758,7 +7208,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # 14. the multimodal archs at published widths: whisper-base at full
     # depth, then phi-3-vision-4.2b at a cut depth
-    t0 = time.perf_counter()
+    t0, tm = time.perf_counter(), tuner_mark()
     whisper = phase_multimodal(torch, np, ops, arch="whisper-base")
     log(f"phase 14 (a): {time.perf_counter() - t0:.3f} s")
     torch.cuda.empty_cache()
@@ -6766,6 +7216,7 @@ def main(argv=None) -> int:
     vision = phase_multimodal(torch, np, ops, arch="phi-3-vision-4.2b")
     log(f"phase 14 (b): {time.perf_counter() - t1:.3f} s")
     log(f"phase 14: {time.perf_counter() - t0:.3f} s")
+    tuner_log("14", tm)
     mm_paths = {}
     for tag, run in (("whisper", whisper), ("vision", vision)):
         mm_paths[f"compress_{tag}"] = run["compress"]
@@ -6774,9 +7225,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # 15. the trainer: qwen3-0.6b trained at full width, restarted, then
     # compressed and served; every arch's smoke train step card vs CPU
-    t0 = time.perf_counter()
+    t0, tm = time.perf_counter(), tuner_mark()
     trainer = phase_trainer(torch, np, ops, ref)
     log(f"phase 15: {time.perf_counter() - t0:.3f} s")
+    tuner_log("15", tm)
     train_paths = {"train": trainer["run"],
                    "compress_trained": trainer["compress"]["aa_svd"],
                    "compress_trained_naive": trainer["compress"]["naive"],
@@ -6784,10 +7236,21 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # 16. the zoo conformance harness: every arch's smoke round trip, then
     # whisper-base's at published widths
-    t0 = time.perf_counter()
+    t0, tm = time.perf_counter(), tuner_mark()
     zoo = phase_zoo(torch, np, ops)
     log(f"phase 16: {time.perf_counter() - t0:.3f} s")
+    tuner_log("16", tm)
     zoo_paths = {"zoo_smoke": zoo["matrix"], "zoo_whisper": zoo["whisper"]}
+    torch.cuda.empty_cache()
+    # 17. the autotuner: every candidate at the main path's shapes, the
+    # caches, the heuristic pinned from the environment
+    t0, tm = time.perf_counter(), tuner_mark()
+    tuned = phase_autotune(torch, np, ops, ref)
+    log(f"phase 17: {time.perf_counter() - t0:.3f} s")
+    tuner_log("17", tm)
+    log(f"tuner whole run: {autotune.STATS['measurements']} measurements, "
+        f"{autotune.STATS['candidates']} candidates timed, "
+        f"{autotune.STATS['seconds']:.3f} s")
 
     def timing(row):
         return {"max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -7028,6 +7491,7 @@ def main(argv=None) -> int:
                    "policies_moe": policies_moe, "kimi": kimi,
                    "zamba2": zamba2, "falcon": falcon, "whisper": whisper,
                    "vision": vision, "train": trainer, "zoo": zoo,
+                   "autotune": tuned, "tuner_by_phase": TUNER_BY_PHASE,
                    "kernels": kernels}, f, indent=1)
     log(f"whole run: {time.perf_counter() - t_run:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

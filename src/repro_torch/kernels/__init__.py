@@ -16,7 +16,9 @@
   ``src/repro/kernels/grouped_matmul.py``)
 
 ``ops`` holds the dispatch wrappers (kernel on CUDA, plain version on the
-CPU), ``ref`` the plain versions, ``build`` the nvcc build and ctypes binding.
+CPU), ``ref`` the plain versions, ``build`` the nvcc build and ctypes binding,
+``autotune`` the wrappers' launch plans (measured and cached on the card),
+``contracts`` what every candidate plan must satisfy, checked on the host.
 Nothing is compiled or loaded at import.
 """
 

@@ -221,8 +221,10 @@ def emulate(p: Plan, x, v, u, bias=None, residual=None):
     """Plan ``p``'s arithmetic in plain PyTorch on unpadded operands:
     x @ V as fp32 partial sums over the plan's slices of n, added in split
     order; t rounded once to u's dtype; t @ U the same way over k's slices;
-    bias and residual added in fp32; one rounding to x's dtype.  Returns
-    (y, t).  (Within a slice the order of the sum is torch's.)"""
+    bias and residual added in fp32; one rounding to x's dtype.  The wgmma
+    body sums every product in ``WG_SLICE``-row slices added in order,
+    split or not, so its splits give the same bits.  Returns (y, t).
+    (Within a slice the order of the sum is torch's.)"""
     def split_sum(a, b, ranges):
         out = None
         for d0, d1 in ranges:
@@ -230,9 +232,15 @@ def emulate(p: Plan, x, v, u, bias=None, residual=None):
             out = part if out is None else out + part
         return out
 
+    def ranges(product, depth):
+        if p.body == "wgmma":
+            return [(d0, min(depth, d0 + WG_SLICE))
+                    for d0 in range(0, depth, WG_SLICE)]
+        return p.depth_ranges(product, depth)
+
     t = split_sum(x.float(), v.float(),
-                  p.depth_ranges("xv", x.shape[1])).to(u.dtype)
-    y = split_sum(t.float(), u.float(), p.depth_ranges("tu", t.shape[1]))
+                  ranges("xv", x.shape[1])).to(u.dtype)
+    y = split_sum(t.float(), u.float(), ranges("tu", t.shape[1]))
     if bias is not None:
         y = y + bias.reshape(-1).float()
     if residual is not None:

@@ -10,18 +10,26 @@ Counterpart of ``src/repro/kernels/ops.py``.  Each wrapper:
   There is no fallback from a CUDA tensor to the plain version;
 * counts its launches in ``LAUNCHES`` (one per wrapper call that launched
   its kernel, nowhere else), so a run can show that its path went through
-  the kernels.
+  the kernels;
+* asks ``kernels.autotune`` for its launch plan, as the JAX wrappers ask
+  theirs for block shapes: the kernel module's ``plan()`` on the CPU and
+  under ``REPRO_AUTOTUNE=heuristic``, a measured and cached pick of its
+  lattice on the card.  A measurement launches the candidates on the
+  caller's inputs into outputs of its own (never into the caller's
+  tensors, ``acc=`` included) and is not counted in ``LAUNCHES``.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import math
 from typing import Dict, Optional, Sequence
 
 import torch
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels import cov_accum as _cov
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
@@ -42,6 +50,24 @@ DECODE_BODIES: Dict[str, int] = collections.Counter()
 GROUPED_ROWS: Dict[int, int] = collections.Counter()
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+# Static registry: public wrapper that launches a kernel -> its contract and
+# lattice (``kernels.contracts.CONTRACTS``, ``autotune._LATTICES``).  The
+# contract pass (``repro_torch.analysis.contracts``) checks that the four
+# agree, so a kernel cannot ship without a contract and a lattice.  The
+# banked and grouped covariances run cov_accum's kernel, lowrank_down /
+# lowrank_up one product of lowrank_matmul's.
+REGISTERED_KERNELS: Dict[str, str] = {
+    "lowrank_matmul": "lowrank_matmul",
+    "lowrank_down": "lowrank_matmul",
+    "lowrank_up": "lowrank_matmul",
+    "cov_accum": "cov_accum",
+    "cov_accum_banked": "cov_accum",
+    "cov_accum_grouped": "cov_accum",
+    "flash_attention": "flash_attention",
+    "flash_decode": "flash_decode",
+    "grouped_matmul": "grouped_matmul",
+}
 
 
 def reset_launches() -> None:
@@ -67,6 +93,21 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     """The kernels load 16 bytes at a time: a contiguous view that starts
     off a 16-byte boundary is copied to a fresh allocation."""
     return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+class _Scratch:
+    """A measurement's fp32 scratch: one buffer, grown to the largest
+    candidate's need (at least one float: the launchers take a null scratch
+    only for unsplit plans)."""
+
+    def __init__(self, device):
+        self.device, self.buf = device, None
+
+    def __call__(self, floats: int) -> torch.Tensor:
+        if self.buf is None or self.buf.numel() < floats:
+            self.buf = torch.empty(max(floats, 1), dtype=torch.float32,
+                                   device=self.device)
+        return self.buf
 
 
 def _check_cuda(name: str, tensors: Sequence[Optional[torch.Tensor]],
@@ -121,9 +162,12 @@ def _cov_kernel(name: str, x, xp, acc):
         return _add_into(acc, tuple(x.new_zeros((e, n, n),
                                                 dtype=torch.float32)
                                     for _ in range(3)))
-    p = _cov.plan(t, n, x.dtype, banks=e)
-    xk = _aligned(pad_dim(x, 2, p.align))
-    xpk = _aligned(pad_dim(xp, 2, p.align))
+    xk = _aligned(pad_dim(x, 2, _cov.ALIGN[x.dtype]))
+    xpk = _aligned(pad_dim(xp, 2, _cov.ALIGN[x.dtype]))
+    p = autotune.cov_plan(t, n, x.dtype, banks=e, device=x.device,
+                          invariant=_BATCH_INVARIANT,
+                          bench=lambda: _cov_bench(xk, xpk,
+                                                   acc is not None)).plan
     scratch = (torch.empty(p.scratch_floats, dtype=torch.float32,
                            device=x.device) if p.scratch_floats else None)
     if (acc is not None and p.n == n
@@ -138,6 +182,20 @@ def _cov_kernel(name: str, x, xp, acc):
     if p.n != n:
         outs = tuple(o[:, :n, :n].contiguous() for o in outs)
     return _add_into(acc, outs)
+
+
+def _cov_bench(x, xp, accumulate: bool):
+    """A measurement's launcher: plan ``p`` on the padded inputs into a
+    triple of its own (added into when the call adds into ``acc=``)."""
+    e, _, n = x.shape
+    outs = tuple(torch.empty((e, n, n), dtype=torch.float32, device=x.device)
+                 for _ in range(3))
+    scratch = _Scratch(x.device)
+
+    def run(p):
+        _cov.launch(p, x, xp, *outs, scratch(p.scratch_floats),
+                    accumulate=accumulate)
+    return run
 
 
 def cov_accum(x, xp, *, acc=None):
@@ -271,25 +329,49 @@ def _lowrank_kernel(x, v, u, bias, residual, body=None, t_in=None):
         return lead.new_zeros((0, m)), lead.new_zeros((0, k))
     if body is None and _BATCH_INVARIANT:
         body = _lowrank.LARGE_T_BODY[lead.dtype]
-    p = _lowrank.plan(t0, n, k, m, lead.dtype, body=body)
-    an, ak, am = p.align
+    an, ak, am = _lowrank.plan(t0, n, k, m, lead.dtype, body=body).align
     uk = _aligned(pad_dim(pad_dim(u, 0, ak), 1, am))
     bk = None if bias is None else _aligned(pad_dim(bias.reshape(-1), 0, am))
     rk = None if residual is None else _aligned(pad_dim(residual, 1, am))
-    y = torch.empty((t0, p.m), dtype=lead.dtype, device=lead.device)
     if t_in is None:
         xk = _aligned(pad_dim(x, 1, an))
         vk = _aligned(pad_dim(pad_dim(v, 0, an), 1, ak))
-        t = torch.empty((t0, p.k), dtype=x.dtype, device=x.device)
+        t = None
     else:
         xk = vk = None
         t = _aligned(pad_dim(t_in, 1, ak))
+    p = autotune.lowrank_plan(
+        t0, n, k, m, lead.dtype, body=body, invariant=_BATCH_INVARIANT,
+        device=lead.device,
+        bench=functools.partial(_lowrank_bench, xk, vk, uk, t, bk, rk)).plan
+    y = torch.empty((t0, p.m), dtype=lead.dtype, device=lead.device)
+    if t is None:
+        t = torch.empty((t0, p.k), dtype=x.dtype, device=x.device)
     scratch = (torch.empty(p.scratch_floats, dtype=torch.float32,
                            device=lead.device) if p.scratch_floats else None)
     _lowrank.launch(p, xk, vk, uk, t, y, bk, rk, scratch)
     LAUNCHES["lowrank_matmul"] += 1
     LOWRANK_ROWS[t0] += 1
     return (y if p.m == m else y[:, :m].contiguous()), t[:, :k]
+
+
+def _lowrank_bench(x, v, u, t_in, bias, residual, product: str):
+    """A measurement's launcher: the whole call under plan ``p`` (the
+    candidate differs from the anchor in ``product``'s split alone, so the
+    other product's time is common to all) on the padded operands, into
+    outputs of its own."""
+    lead = x if t_in is None else t_in
+    rows, dev = lead.shape[0], lead.device
+    k, m = u.shape
+    t = t_in if t_in is not None else torch.empty(
+        (rows, k), dtype=lead.dtype, device=dev)
+    y = torch.empty((rows, m), dtype=lead.dtype, device=dev)
+    scratch = _Scratch(dev)
+
+    def run(p):
+        _lowrank.launch(p, x, v, u, t, y, bias, residual,
+                        scratch(p.scratch_floats))
+    return run
 
 
 class _LowRankMatmul(torch.autograd.Function):
@@ -419,17 +501,34 @@ def _flash_attention_kernel(q, k, v, q_offset, causal, window, softcap):
         q_off = q_offset.to(torch.int32).contiguous()
     else:
         q_off0 = int(q_offset)
-    p = _fa.plan(b, lq, k.shape[1], h, k.shape[2], dp, q.dtype,
-                 causal=causal, window=window, invariant=_BATCH_INVARIANT)
     q, k, v = (_aligned(pad_dim(t, 3, dp)) for t in (q, k, v))
+    scale = 1.0 / math.sqrt(d)
+    p = autotune.flash_plan(
+        b, lq, k.shape[1], h, k.shape[2], dp, q.dtype, causal=causal,
+        window=window, invariant=_BATCH_INVARIANT, device=q.device,
+        bench=lambda: _flash_bench(q, k, v, q_off, q_off0, scale,
+                                   softcap)).plan
     out = torch.empty((b, lq, h, dp), dtype=q.dtype, device=q.device)
     scratch = (torch.empty(p.scratch_floats, dtype=torch.float32,
                            device=q.device) if p.scratch_floats else None)
-    _fa.launch(p, q, k, v, out, q_off, q_off0, scale=1.0 / math.sqrt(d),
+    _fa.launch(p, q, k, v, out, q_off, q_off0, scale=scale,
                softcap=softcap, scratch=scratch)
     LAUNCHES["flash_attention"] += 1
     FLASH_BODIES[p.body] += 1
     return out if dp == d else out[..., :d].contiguous()
+
+
+def _flash_bench(q, k, v, q_off, q_off0, scale, softcap):
+    """A measurement's launcher: plan ``p`` on the padded q, k, v and the
+    call's offsets, into an output of its own."""
+    out = torch.empty_like(q)
+    scratch = _Scratch(q.device)
+
+    def run(p):
+        _fa.launch(p, q, k, v, out, q_off, q_off0, scale=scale,
+                   softcap=softcap, scratch=scratch(p.scratch_floats)
+                   if p.scratch_floats else None)
+    return run
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -533,7 +632,9 @@ def _decode_plan(q, lk, lv, uk, uv, lengths, cos, sin, rope):
                          f"{tuple(lk.shape)}, lv {tuple(lv.shape)}, uk "
                          f"{tuple(uk.shape)}, uv {tuple(uv.shape)}, lengths "
                          f"{tuple(lengths.shape)} do not fit")
-    return _fd.plan(b, l, h, kv, d, lk.shape[2], lv.shape[2], q.dtype)
+    return autotune.flash_decode_plan(b, l, h, kv, d, lk.shape[2],
+                                      lv.shape[2], q.dtype,
+                                      device=q.device).plan
 
 
 def flash_decode(q, lk, lv, uk, uv, lengths, cos, sin, *, rope: bool = True):
@@ -606,13 +707,27 @@ def _grouped_kernel(x, w, group_sizes, trans=False):
     if m == 0:
         return x.new_zeros((0, n))
     e, d, f = w.shape
-    p = _gm.plan(m, d, f, e, x.dtype, trans)
     xk, wk = (_aligned(t) for t in grouped_operands(x, w))
+    gs = group_sizes.contiguous()
+    p = autotune.grouped_plan(m, d, f, e, x.dtype, trans, device=x.device,
+                              bench=lambda: _grouped_bench(xk, wk, gs,
+                                                           trans)).plan
     y = torch.empty((m, p.n), dtype=x.dtype, device=x.device)
-    _gm.launch(p, xk, wk, group_sizes.contiguous(), y)
+    _gm.launch(p, xk, wk, gs, y)
     LAUNCHES["grouped_matmul"] += 1
     GROUPED_ROWS[m] += 1
     return y if p.n == n else y[:, :n].contiguous()
+
+
+def _grouped_bench(x, w, group_sizes, trans):
+    """A measurement's launcher: plan ``p`` on the padded operands and the
+    call's group sizes, into an output of its own."""
+    y = torch.empty((x.shape[0], w.shape[1 if trans else 2]), dtype=x.dtype,
+                    device=x.device)
+
+    def run(p):
+        _gm.launch(p, x, w, group_sizes, y)
+    return run
 
 
 def _grouped_forward(x, w, group_sizes, trans=False):

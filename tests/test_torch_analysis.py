@@ -337,6 +337,6 @@ def test_cli_exits_0_on_the_port():
 
 
 def test_cli_exits_2_on_a_usage_error():
-    proc = _cli("--no-contracts")
+    proc = _cli("--no-such-pass")
     assert proc.returncode == 2
     assert "usage" in proc.stderr

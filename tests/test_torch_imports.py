@@ -166,11 +166,15 @@ def test_train_leaves_jax_unloaded(tmp_path):
     assert out.stdout.split()[-2:] == ["False", "False"]
 
 
-# the zoo harness and the static checker: each among the files checked above
+# the zoo harness, the static checker, the autotuner and its contracts: each
+# among the files checked above
 ZOO_ANALYSIS_MODULES = ("repro_torch.core.zoo", "repro_torch.analysis",
                         "repro_torch.analysis.dispatch",
                         "repro_torch.analysis.findings",
-                        "repro_torch.analysis.__main__")
+                        "repro_torch.analysis.__main__",
+                        "repro_torch.analysis.contracts",
+                        "repro_torch.kernels.autotune",
+                        "repro_torch.kernels.contracts")
 
 
 @pytest.mark.parametrize("module", ZOO_ANALYSIS_MODULES)
@@ -198,7 +202,7 @@ def test_analysis_leaves_torch_unloaded():
         "import sys\n"
         "import repro_torch, repro_torch.analysis\n"
         "from repro_torch.analysis import __main__, dispatch, findings\n"
-        "assert repro_torch.analysis.run() == []\n"
+        "assert repro_torch.analysis.run(kernel_contracts=False) == []\n"
         "print(*(m in sys.modules for m in ('torch', 'numpy', 'jax', "
         "'repro')))\n")
     assert got == ["False", "False", "False", "False"]
@@ -244,3 +248,34 @@ def test_importing_a_module_that_computes_turns_tf32_off(module):
         "print(torch.backends.cuda.matmul.allow_tf32, "
         "torch.backends.cudnn.allow_tf32)\n")
     assert got == ["False", "False"]
+
+
+@pytest.mark.parametrize("module", ["repro_torch.kernels.autotune",
+                                    "repro_torch.kernels.contracts",
+                                    "repro_torch.analysis.contracts"])
+def test_tuner_and_contracts_import_neither_jax_nor_repro(module):
+    got = _run(
+        "import sys\n"
+        f"import {module}\n"
+        "print(*(m in sys.modules for m in ('jax', 'repro')))\n")
+    assert got == ["False", "False"]
+
+
+def test_analysis_root_and_contract_module_stay_torch_free():
+    # importing the contract pass loads no torch: it imports it inside its
+    # own function, as the dispatch pass needs none
+    got = _run(
+        "import sys\n"
+        "import repro_torch.analysis, repro_torch.analysis.contracts\n"
+        "from repro_torch.analysis import __main__\n"
+        "print('torch' in sys.modules)\n")
+    assert got == ["False"]
+
+
+def test_contract_pass_loads_torch_but_not_jax():
+    got = _run(
+        "import sys\n"
+        "from repro_torch.analysis import run\n"
+        "assert run() == []\n"
+        "print(*(m in sys.modules for m in ('torch', 'jax', 'repro')))\n")
+    assert got == ["True", "False", "False"]

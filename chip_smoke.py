@@ -119,6 +119,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
              8192 and 14336, and a strided tap (the first 256 columns of a
              288-wide buffer, as Mamba1's dt_proj tap is) bit for bit the
              contiguous call.
+             ``flash_attention``'s backward (``csrc/flash_attention_bwd.cu``)
+             on every case above with Lq > 1 and the ragged ones, fp32 and
+             bf16: (dq, dk, dv) against the plain backward (the fp32 einsum
+             scan recomputed and differentiated, rel Frobenius 2e-5 fp32 /
+             2e-2 bf16), two launches bit for bit equal, the forward's output
+             bit for bit the same with and without the LSE it writes; the
+             main paths' bf16 cases timed (``device_ms`` with the L2 cold,
+             the plain backward, the backward's bound: 2.5x the forward's
+             products, q, k, v, o, dO read and dq, dk, dv written once).
              ``--only lowrank`` / ``--only cov`` / ``--only grouped`` /
              ``--only attention`` / ``--only decode`` run phases 1-2 and
              that kernel's rows alone (``--only attention --cases a,b``:
@@ -290,22 +299,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
 15. train  — the trainer (``launch/train.py``, ``launch/steps.py``,
              ``data/``).  (e) ``flash_attention`` at qwen3-0.6b's training
              shape (B 8, 16 query heads on 8, L 512, D 128, causal, bf16)
-             timed beside its plain version, the plain backward and
+             timed beside its plain version, and its backward kernel
+             (``device_ms``, at most 0.48 ms) beside the plain backward,
              ``is_causal`` SDPA (``enable_gqa``) forward and forward +
-             backward.  (a) Every registered arch's smoke config (the MoE
-             archs under both dispatches): three fp32 train steps on the
-             card and on the CPU from the same params and numpy batches,
-             losses rel 1e-5 and every param leaf rel 1e-4 after step 3.
-             (b) qwen3-0.6b at its published widths and 28 layers through
-             ``train()``: B 8 x L 512, 100 steps, lr 3e-4, a checkpoint
-             every 50; the loss at the first and last log (it must fall by
-             0.5 nats), the median step, tokens/s, the model-flops share of
-             989 TFLOP/s, peak memory, the launches of one step by body, its
-             host syncs, a profiled step's busy share and its time split
-             (forward, ``flash_wgmma``, the plain attention backward, the
-             rest of the backward, AdamW).  (d) The trained model
-             compressed by AA-SVD (ratio 0.8, fused, one refine epoch) and
-             by naive SVD (agnostic, no refinement) on 256 x 512 tokens of
+             backward, and the backward's bound.  (a) Every registered arch's
+             smoke config (the MoE archs under both dispatches): three fp32
+             train steps on the card and on the CPU from the same params and
+             numpy batches, losses rel 1e-5 and every param leaf rel 1e-4
+             after step 3.  (b) qwen3-0.6b at its published widths and 28
+             layers through ``train()``: B 8 x L 512, 100 steps, lr 3e-4, a
+             checkpoint every 50; the loss at the first and last log (it must
+             fall by 0.5 nats), the median step, tokens/s, the model-flops
+             share of 989 TFLOP/s, peak memory, the launches of one step by
+             body, its host syncs, a profiled step's busy share and its time
+             split (forward, ``flash_wgmma``, the attention backward, the rest
+             of the backward, AdamW, the backward kernel's own launches); one
+             backward kernel launch a layer in a step.  (d) The trained model
+             compressed by AA-SVD (ratio 0.8, fused, one refine epoch) and by
+             naive SVD (agnostic, no refinement) on 256 x 512 tokens of
              the port's calibration set; held-out ppl of base, AA-SVD and
              naive (printed, not gated), each wall by stage; then
              ``Server``: 8 prompts of 128 tokens, 32 steps, tokens in vocab.
@@ -328,6 +339,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
              whisper-base at full depth (bf16 activations, fp32 params,
              8 x 448 calibration, 1500 frames): both restores bit for bit,
              the three servers' tokens equal; the ppl ratio printed.
+
+From phase 4 on, every attention backward on the card must be the
+kernel: a counter in place of ``ref.flash_attention_bwd_ref`` counts its
+calls on CUDA tensors outside this script's own comparisons, and the run
+fails unless it reads 0.  Each compression path that refines attention
+must launch ``flash_attention_bwd``.
 
 It prints a ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Long output goes to
@@ -541,6 +558,14 @@ SIZES = {
         ("ragged_d256_short", 2, 4, 1, 40, 77, 256, True, 0, 0.0, (0, 37)),
         ("ragged_d256_mid", 2, 8, 2, 100, 333, 256, True, 64, 30.0,
          (3, 233))),
+    # the backward alone (the forward is not held to the plain version on
+    # them): slots with rows that see no key, which add dO/Lk to every
+    # key's dv — causal rows before key 0 (slot 0 at -30) and windowed rows
+    # past the last key's window (slot 1 at 150: rows 89-99), and a slot
+    # that is all such rows (at -70)
+    "flash_attention_bwd_dead": (
+        ("dead_d64", 2, 4, 2, 100, 200, 64, True, 40, 0.0, (-30, 150)),
+        ("dead_d128_slot", 2, 4, 4, 70, 90, 128, True, 0, 0.0, (-70, 5))),
     # the row-invariance check: the prefill case's rows (and gemma_local's,
     # head dim 256 with a window; kimi's, head dim 112 with GQA; vision's,
     # head dim 96) computed again in chunks of Lq rows starting at these
@@ -1619,11 +1644,166 @@ def check_flash_kernels(torch, np, ops, case, dev):
             "device_work": {n[:80]: ms for n, ms in work.items()}}
 
 
+def _bwd_bound(case, dtype_name):
+    """The least time any backward takes for a case: 2.5x the forward's
+    products (10·H·D flops a live (query, key) pair: S, dP, dV, dQ, dK;
+    not the recompute this design adds) and q, k, v, o, dO read once, dq,
+    dk, dv written once."""
+    import numpy as np
+    name, b, h, kv, lq, lk, d, causal, window, softcap, off = case
+    live = keys = 0
+    for o in _spread(np, off, b):
+        spans = [_live_keys(o + i, lk, causal, window) for i in range(lq)]
+        live += sum(sp[0] for sp in spans)
+        keys += max(sp[2] for sp in spans) - min(sp[1] for sp in spans) + 1
+    eb = 4 if dtype_name == "float32" else 2
+    flops = 10 * h * d * live
+    nbytes = (4 * b * lq * h * d + 4 * keys * kv * d) * eb
+    return bound(flops, nbytes, dtype_name)
+
+
+def check_flash_backward(torch, np, ops, ref, case, dtype, timed, dev):
+    """The backward kernel (``csrc/flash_attention_bwd.cu``) on a case:
+    (dq, dk, dv) against the plain backward (``ref.flash_attention_bwd_ref``,
+    the fp32 einsum scan recomputed and differentiated) — rel Frobenius 2e-5
+    in fp32 (the contracts' fp32 attention tolerance), 2e-2 in bf16 (every
+    operand and gradient is bf16; both round P, the plain also dP) —, two
+    launches bit for bit equal, and the forward's output bit for bit the
+    same with and without the LSE it writes for the backward.  Timed: the
+    kernel (``ms``, and ``device_ms`` with the L2 cold), the plain backward,
+    SDPA's backward alone (``_sdpa_backward``), the bound."""
+    name, b, h, kv, lq, lk, d, causal, window, softcap, off = case
+    q, k, v, offs, kw = _flash_inputs(torch, np, case, dtype, dev)
+    gen = torch.Generator(device=dev).manual_seed(lq + 2 * lk + d)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+    plain_bwd = PLAIN_BWD["fn"] or ref.flash_attention_bwd_ref
+    want = plain_bwd(q, k, v, dout, **kw)
+    plain_out = ops.flash_attention(q, k, v, **kw)
+    out, lse = ops.flash_attention_lse(q, k, v, **kw)
+    fwd_same = bool(torch.equal(out, plain_out))
+    first = ops.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    second = ops.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    repeat = all(torch.equal(x, y) for x, y in zip(first, second))
+    errs = [rel_fro(g, w) for g, w in zip(first, want)]
+    maes = [float((g.float() - w.float()).abs().max()) for g, w in
+            zip(first, want)]
+    tops = [float(w.float().abs().max()) for w in want]
+    finite = all(bool(torch.isfinite(g).all()) for g in first)
+    dname = str(dtype).replace("torch.", "")
+    p = None
+    if dev != "cpu":
+        from repro_torch.kernels import autotune
+        p = autotune.flash_bwd_plan(b, lq, lk, h, kv, ops._padded_head_dim(d),
+                                    dtype, causal=causal, window=window,
+                                    device=q.device).plan
+    row = {"case": name, "shape": [b, h, kv, lq, lk, d], "dtype": dname,
+           "causal": causal, "window": window, "softcap": softcap,
+           "q_offset": offs, "body": p.body if p else None,
+           "kernel_d": p.d if p else None,
+           "rel_fro_err": errs, "max_abs_err": max(maes),
+           "max_abs_over_max_ref": max(m / max(t, 1e-30)
+                                       for m, t in zip(maes, tops)),
+           "repeat_bitwise_equal": repeat, "forward_bitwise_with_lse":
+           fwd_same, "finite": finite,
+           "grads_sha256": hashlib.sha256(b"".join(
+               g.float().cpu().numpy().tobytes() for g in first)
+           ).hexdigest()[:16]}
+    lim = 2e-5 if dtype == torch.float32 else 2e-2
+    require(finite, f"flash_attention_bwd {name} {dname}: non-finite grads")
+    require(max(errs) <= lim, f"flash_attention_bwd {name} {dname}: rel "
+            f"err {errs} > {lim:.0e}")
+    require(repeat, f"flash_attention_bwd {name} {dname}: two launches "
+            "differ")
+    require(fwd_same, f"flash_attention {name} {dname}: the output with "
+            "the LSE written differs from the output without")
+    if timed:
+        def run():
+            return ops.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        row["ms"] = time_ms(run)
+        row["device_ms"] = device_ms(run)
+        row["kernels_device_ms"] = kernel_ms(run)
+        row["plain_ms"] = time_ms(lambda: plain_bwd(q, k, v, dout, **kw),
+                                  warmup=1, reps=3)
+        lib = _sdpa_backward(torch, q, k, v, dout, offs, case)
+        row["library_ms"] = None if lib is None else time_ms(lib)
+        # autograd's engine syncs with the forward's stream, which a CUDA
+        # graph's capture refuses, so SDPA's backward gets no device_ms:
+        # its launches' device time by torch.profiler instead (beside the
+        # kernel's kernels_device_ms; neither counts the gaps)
+        lib_k = None if lib is None else kernel_ms(lib)
+        row["library_kernels_device_ms"] = lib_k
+        row["library_device_ms"] = (None if lib_k is None
+                                    else sum(lib_k.values()))
+        row["bound_ms"], row["bound_by"] = _bwd_bound(case, dname)
+    return row
+
+
+def _sdpa_backward(torch, q, k, v, dout, offs, case):
+    """SDPA's backward alone on a case's inputs, or None where SDPA cannot
+    compute the function (a soft cap, or a row with no live key, which a
+    boolean mask turns to NaN): ``scaled_dot_product_attention`` run once
+    in its (B, H, L, D) layout with its graph kept, then a call that is
+    ``autograd.grad`` of that output — SDPA's own backward kernel.
+    ``is_causal`` where the mask is plain causal at offset 0 with Lq == Lk
+    (SDPA's flash backend), no mask where nothing is masked, else the
+    case's boolean mask.  Timed only, never called by the port."""
+    name, b, h, kv, lq, lk, d, causal, window, softcap, off = case
+    if softcap or any(_live_keys(o + i, lk, causal, window)[0] == 0
+                      for o in offs for i in range(lq)):
+        return None
+    dev = q.device
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dt = dout.transpose(1, 2).contiguous()
+    kw = {} if kv == h else {"enable_gqa": True}
+    if causal and (not window or window >= lk) and lq == lk and not any(offs):
+        kw["is_causal"] = True
+    elif causal or window:
+        qpos = (torch.tensor(offs, device=dev)[:, None, None, None]
+                + torch.arange(lq, device=dev)[:, None])
+        kpos = torch.arange(lk, device=dev)
+        mask = torch.ones_like(qpos + kpos, dtype=torch.bool)
+        if causal:
+            mask &= kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+        kw["attn_mask"] = mask
+    out = sdpa(qt, kt, vt, **kw)
+
+    def run():
+        return torch.autograd.grad(out, (qt, kt, vt), dt, retain_graph=True)
+    return run
+
+
+# The plain backward as chip_smoke.py calls it on purpose (phase 3's and 15
+# (e)'s comparisons); ``count_plain_backward`` puts a counter in its place
+# for every other caller: it must read 0 on CUDA tensors in phases 4-16
+PLAIN_BWD = {"fn": None, "cuda_calls": 0}
+
+
+def count_plain_backward(ref):
+    """From here on, count every call of ``ref.flash_attention_bwd_ref`` on
+    CUDA tensors that does not come from this script's own comparisons."""
+    if PLAIN_BWD["fn"] is not None:
+        return
+    plain = PLAIN_BWD["fn"] = ref.flash_attention_bwd_ref
+
+    def counted(q, *args, **kw):
+        if q.device.type == "cuda":
+            PLAIN_BWD["cuda_calls"] += 1
+        return plain(q, *args, **kw)
+
+    ref.flash_attention_bwd_ref = counted
+
+
 def phase_flash_attention(torch, np, ops, ref, dev="cuda", sizes=SIZES):
     """flash_attention's rows (every case in fp32 and bf16, the main paths'
     timed in bf16; then ragged cases through the split and wgmma bodies),
     then its bitwise checks: rows invariant under chunking, and two split
-    calls equal; then the profiled calls' device work."""
+    calls equal; then the profiled calls' device work; then the backward's
+    rows (every case with Lq > 1 and the rows-that-see-no-key cases in
+    fp32 and bf16, the main paths' timed in bf16)."""
     rows, checks = [], []
     extra = sizes["flash_attention_ragged"]
     for case in sizes["flash_attention"] + extra:
@@ -1650,6 +1830,19 @@ def phase_flash_attention(torch, np, ops, ref, dev="cuda", sizes=SIZES):
     for case in profiled:
         checks.append(check_flash_kernels(torch, np, ops, case, dev))
         log("flash_attention device work", json.dumps(checks[-1]))
+    for case in (sizes["flash_attention"] + extra
+                 + sizes["flash_attention_bwd_dead"]):
+        if case[4] == 1:
+            continue
+        for dtype in (torch.float32, torch.bfloat16):
+            timed = (case in sizes["flash_attention"] and case[0] != "ragged"
+                     and dtype == torch.bfloat16)
+            row = check_flash_backward(torch, np, ops, ref, case, dtype,
+                                       timed, dev)
+            checks.append({**row, "kernel": "flash_attention_bwd"})
+            log("flash_attention_bwd", json.dumps(row))
+        if dev != "cpu":
+            torch.cuda.empty_cache()
     return rows, checks
 
 
@@ -2523,7 +2716,8 @@ def phase_main(torch, ops, dev="cuda", sizes=SIZES, cfg=None):
                                  for v in (u["pre_refine_mse"],
                                            u["post_refine_mse"])]
     require(all(math.isfinite(v) for v in vals), f"non-finite: {vals}")
-    for name in ("cov_accum", "lowrank_matmul", "flash_attention"):
+    for name in ("cov_accum", "lowrank_matmul", "flash_attention",
+                 "flash_attention_bwd"):
         require(launches[name] > 0,
                 f"kernel {name} never launched on the compression path")
     if on_card:
@@ -2919,12 +3113,14 @@ def eval_busy_share(torch, M, cfg, params, batch):
 
 
 def phase_moe(torch, ops, dev="cuda", sizes=SIZES, cfg=None,
-              dispatch="dropfree"):
+              dispatch="dropfree", calib_seed=1, refine_epochs=1):
     """Phase 7 (``dispatch="dropfree"``, forced by the recipe) or phase 8
     (``"capacity"``: the config's own dispatch, ``moe_dispatch="inherit"``):
     deepseek-v2-lite at published widths compressed on the card, then the
     dense and compressed eval losses.  Returns (summary, cfg, compressed
-    params): phase 9 serves them."""
+    params): phase 9 serves them.  ``calib_seed`` seeds the calibration and
+    eval tokens, ``refine_epochs`` is the recipe's
+    (``tests/serve_check_sweep.py`` varies both)."""
     import repro_torch
     from repro_torch import configs
     from repro_torch.models import model as M
@@ -2949,7 +3145,7 @@ def phase_moe(torch, ops, dev="cuda", sizes=SIZES, cfg=None,
         f"factor {cfg.moe.capacity_factor}); num_layers cut 27 -> {layers} "
         "for the time limit")
     params = M.init_params(cfg, 0, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(1)
+    gen = torch.Generator(device=dev).manual_seed(calib_seed)
     calib = {"tokens": torch.randint(0, cfg.vocab_size, sizes["calib"],
                                      generator=gen, device=dev)}
     evals = []
@@ -2959,7 +3155,7 @@ def phase_moe(torch, ops, dev="cuda", sizes=SIZES, cfg=None,
                           generator=gen, device=dev)
         evals.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
     ccfg = repro_torch.CompressConfig(
-        ratio=0.6, calib_mode="fused", refine_epochs=1,
+        ratio=0.6, calib_mode="fused", refine_epochs=refine_epochs,
         microbatch=sizes["microbatch"],
         moe_dispatch="dropfree" if dispatch == "dropfree" else "inherit")
 
@@ -3015,7 +3211,8 @@ def phase_moe(torch, ops, dev="cuda", sizes=SIZES, cfg=None,
     # capacity the banked covariances, and no grouped_matmul at all
     need = (("grouped_matmul",) if dispatch == "dropfree"
             else ("cov_accum_banked",))
-    for name in need + ("cov_accum", "lowrank_matmul", "flash_attention"):
+    for name in need + ("cov_accum", "lowrank_matmul", "flash_attention",
+                        "flash_attention_bwd"):
         require(launches[name] > 0,
                 f"kernel {name} never launched on the MoE compression path")
     if dispatch == "capacity":
@@ -3496,7 +3693,8 @@ def phase_gemma(torch, np, ops, dev="cuda", sizes=SIZES, cfg=None):
                                  for v in (u["pre_refine_mse"],
                                            u["post_refine_mse"])]
     require(all(math.isfinite(v) for v in vals), f"{tag}: non-finite {vals}")
-    for name in ("cov_accum", "lowrank_matmul", "flash_attention"):
+    for name in ("cov_accum", "lowrank_matmul", "flash_attention",
+                 "flash_attention_bwd"):
         require(launches[name] > 0,
                 f"{tag}: kernel {name} never launched on compression")
     require(not on_card or bodies.get("wgmma", 0) > 0,
@@ -4013,7 +4211,8 @@ def phase_policies(torch, np, ops, dev="cuda", sizes=SIZES, cfg=None,
     require(solve_forwards == [0], f"{tag}: the solve sweep issued "
             f"{solve_forwards} tapped forwards")
     require(all(math.isfinite(v) for v in loss), f"{tag}: loss {loss}")
-    for name in ("cov_accum", "lowrank_matmul", "flash_attention"):
+    for name in ("cov_accum", "lowrank_matmul", "flash_attention",
+                 "flash_attention_bwd"):
         require(launches[name] > 0, f"{tag}: {name} never launched")
 
     out = {"stages": stages, "compress_wall_s": t_compress,
@@ -4304,7 +4503,7 @@ def phase_kimi(torch, np, ops, dev="cuda", sizes=SIZES, cfg=None):
     require(rates and all(0.0 <= r < 1.0 for r in rates.values()),
             f"{tag}: drop rates {rates} outside [0, 1)")
     for name in ("cov_accum", "cov_accum_banked", "lowrank_matmul",
-                 "flash_attention"):
+                 "flash_attention", "flash_attention_bwd"):
         require(launches[name] > 0,
                 f"{tag}: kernel {name} never launched on compression")
     require(launches["grouped_matmul"] == 0, f"{tag}: grouped_matmul "
@@ -4647,13 +4846,13 @@ def phase_ssm(torch, np, ops, dev="cuda", sizes=SIZES, arch="zamba2-7b",
                                  for v in (u.get("pre_refine_mse", 0.0),
                                            u.get("post_refine_mse", 0.0))]
     require(all(math.isfinite(v) for v in vals), f"{tag}: non-finite {vals}")
-    need = ("cov_accum", "lowrank_matmul") + (("flash_attention",)
-                                              if hybrid else ())
+    need = ("cov_accum", "lowrank_matmul") + (
+        ("flash_attention", "flash_attention_bwd") if hybrid else ())
     for name in need:
         require(launches[name] > 0,
                 f"{tag}: kernel {name} never launched on compression")
     for name in ("grouped_matmul", "cov_accum_banked", "flash_decode") + (
-            () if hybrid else ("flash_attention",)):
+            () if hybrid else ("flash_attention", "flash_attention_bwd")):
         require(launches[name] == 0, f"{tag}: {name} launched "
                 f"{launches[name]} times on compression")
     if hybrid:
@@ -5283,7 +5482,8 @@ def phase_multimodal(torch, np, ops, dev="cuda", sizes=SIZES,
                                  for v in (u.get("pre_refine_mse", 0.0),
                                            u.get("post_refine_mse", 0.0))]
     require(all(math.isfinite(v) for v in vals), f"{tag}: non-finite {vals}")
-    for name in ("cov_accum", "lowrank_matmul", "flash_attention"):
+    for name in ("cov_accum", "lowrank_matmul", "flash_attention",
+                 "flash_attention_bwd"):
         require(launches[name] > 0,
                 f"{tag}: kernel {name} never launched on compression")
     for name in ("grouped_matmul", "cov_accum_banked", "flash_decode"):
@@ -5642,11 +5842,12 @@ def _capture_train(fn):
 
 def train_step_split(torch, step, state, batch):
     """One train step's device time under ``torch.profiler``: the forward
-    (the ``train_step/forward`` range, ``M.loss_fn`` alone), the plain
-    attention backward (``_FlashAttentionBackward`` with its recompute),
+    (the ``train_step/forward`` range, ``M.loss_fn`` alone), the attention
+    backward (``_FlashAttentionBackward``: the backward kernel's launches),
     the rest of the step's kernels (the backward, remat's recomputed
-    forwards included), AdamW and ``flash_wgmma`` (every launch: forward
-    and recompute)."""
+    forwards included), AdamW, ``flash_wgmma`` (every launch: forward and
+    recompute) and the backward kernel's own launches (``fab_delta``,
+    ``bwd_kv_*``, ``bwd_q_*``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -5678,6 +5879,9 @@ def train_step_split(torch, step, state, batch):
         "device_total_ms": total, "forward_ms": fwd,
         "flash_wgmma_ms": sum(v for k, v in kernels.items()
                               if "flash_wgmma" in k),
+        "flash_attention_bwd_ms": sum(
+            v for k, v in kernels.items()
+            if any(n in k for n in ("fab_delta", "bwd_kv_", "bwd_q_"))),
         "attention_backward_ms": attn_bwd,
         "other_backward_ms": total - fwd - adam - attn_bwd,
         "adamw_ms": adam, "top_kernels_ms": top_kernels(kernels, 12)}
@@ -5816,6 +6020,12 @@ def phase_train_run(torch, np, ops, dev="cuda", sizes=SIZES, cfg=None):
     _sync(torch, dev)
     require(rec["step_host_syncs"] == "none", "the train step synchronized "
             f"the host: {rec['step_host_syncs']}")
+    # one backward kernel launch a layer (remat recomputes each layer's
+    # forward, with its LSE, inside the backward)
+    require(ops.LAUNCHES["flash_attention_bwd"] == cfg.num_layers,
+            "flash_attention_bwd launched "
+            f"{ops.LAUNCHES['flash_attention_bwd']} times in one train step, "
+            f"want {cfg.num_layers}")
     rec["times_s"]["sync_check_step"] = time.perf_counter() - t
     rec["launches_per_step"] = dict(ops.LAUNCHES)
     rec["flash_bodies_per_step"] = dict(ops.FLASH_BODIES)
@@ -6031,8 +6241,9 @@ def phase_train_compress(torch, np, ops, dev="cuda", sizes=SIZES, cfg=None,
                 f"cov_accum never launched compressing ({name})")
         if name == "aa_svd":
             comp = out
-            require(launches["lowrank_matmul"] > 0,
-                    "lowrank_matmul never launched compressing")
+            require(launches["lowrank_matmul"] > 0
+                    and launches["flash_attention_bwd"] > 0,
+                    f"compressing ({name}) launched {launches}")
         del out
     rec["ordering_aa_lt_naive"] = rec["aa_svd"]["ppl"] < rec["naive"]["ppl"]
     rec["aa_within_1_6_base"] = rec["aa_svd"]["ppl"] < 1.6 * rec["ppl_base"]
@@ -6092,22 +6303,43 @@ def phase_train_compress(torch, np, ops, dev="cuda", sizes=SIZES, cfg=None,
 def phase_train_attention(torch, np, ops, ref, dev="cuda"):
     """(e) ``flash_attention`` at qwen3-0.6b's training shape (B 8, 16
     query heads on 8, L 512, D 128, causal) through the case table's row
-    (bf16 timed; fp32 checked), beside the plain backward's time (the
-    port's: its recompute in fp32 einsums differentiated) and SDPA's
-    ``is_causal`` with ``enable_gqa``, forward and forward + backward."""
+    (bf16 timed; fp32 checked), then its backward: the kernel's row (both
+    dtypes, bf16 timed with the L2 cold), the backward through autograd
+    (the forward writing its LSE, then the kernel) against the plain
+    backward's time (the fp32 einsum scan recomputed and differentiated),
+    SDPA's ``is_causal`` with ``enable_gqa``, forward and forward +
+    backward, and a backward-only bound."""
     case = ("qwen3_train", 8, 16, 8, 512, 512, 128, True, 0, 0.0, 0)
     row32 = check_flash_attention(torch, np, ops, ref, case, torch.float32,
                                   False, dev)
     row = check_flash_attention(torch, np, ops, ref, case, torch.bfloat16,
                                 True, dev)
+    bwd32 = check_flash_backward(torch, np, ops, ref, case, torch.float32,
+                                 False, dev)
+    bwd = check_flash_backward(torch, np, ops, ref, case, torch.bfloat16,
+                               True, dev)
+    plain_bwd = PLAIN_BWD["fn"] or ref.flash_attention_bwd_ref
     q, k, v, _, kw = _flash_inputs(torch, np, case, torch.bfloat16, dev)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     out = ops.flash_attention(qg, kg, vg, **kw)
     gen = torch.Generator(device=dev).manual_seed(9)
     dout = torch.randn(out.shape, generator=gen, device=dev).to(out.dtype)
     grads = torch.autograd.grad(out, (qg, kg, vg), dout, retain_graph=True)
-    row["plain_backward_ms"] = time_ms(lambda: torch.autograd.grad(
+    row["backward_ms"] = time_ms(lambda: torch.autograd.grad(
         out, (qg, kg, vg), dout, retain_graph=True), warmup=1, reps=5)
+    row["plain_backward_ms"] = time_ms(lambda: plain_bwd(q, k, v, dout,
+                                                         **kw),
+                                       warmup=1, reps=5)
+    row["backward_kernel_ms"] = bwd["ms"]
+    row["backward_kernel_device_ms"] = bwd["device_ms"]
+    row["backward_kernels_device_ms"] = bwd["kernels_device_ms"]
+    row["backward_rel_fro_err"] = bwd["rel_fro_err"]
+    row["backward_fp32_rel_fro_err"] = bwd32["rel_fro_err"]
+    row["backward_bound_ms"], row["backward_bound_by"] = (
+        bwd["bound_ms"], bwd["bound_by"])
+    # SDPA's backward alone (is_causal, enable_gqa) on the same inputs
+    row["library_backward_ms"] = bwd["library_ms"]
+    row["library_backward_kernels_device_ms"] = bwd["library_device_ms"]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
                   for t in (q, k, v))
@@ -6120,9 +6352,10 @@ def phase_train_attention(torch, np, ops, ref, dev="cuda"):
     lib = sdpa_fwd_bwd()
     row["library_causal_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd, warmup=1,
                                                reps=5)
-    # the plain backward's grads beside SDPA's (bf16 both)
+    row["library_causal_fwd_bwd_device_ms"] = device_ms(sdpa_fwd_bwd)
+    # the kernel's grads (through autograd) beside SDPA's (bf16 both)
     row["backward_rel_err_vs_sdpa"] = [
-        rel_fro(g, s.transpose(1, 2)) for g, s in zip(grads, lib)]
+        rel_fro(g, s_.transpose(1, 2)) for g, s_ in zip(grads, lib)]
     b, h, kv, lq, lk, d = 8, 16, 8, 512, 512, 128
     fwd_flops = 4 * b * h * d * lq * (lq + 1) // 2
     eb = 2
@@ -6134,15 +6367,26 @@ def phase_train_attention(torch, np, ops, ref, dev="cuda"):
         3.5 * fwd_flops, fwd_bytes + bwd_bytes, "bfloat16")
     row["fp32_rel_fro_err"] = row32["rel_fro_err"]
     log("train (e): flash_attention at the training shape", json.dumps(
-        {k: row[k] for k in ("body", "ms", "device_ms", "plain_ms",
-                             "plain_backward_ms", "library_ms",
-                             "library_causal_ms", "library_causal_device_ms",
-                             "library_causal_fwd_bwd_ms", "bound_ms",
-                             "bound_by", "bound_fwd_bwd_ms",
-                             "backward_rel_err_vs_sdpa", "rel_fro_err",
-                             "fp32_rel_fro_err", "kernels_device_ms")}))
+        {k_: row[k_] for k_ in (
+            "body", "ms", "device_ms", "plain_ms", "backward_ms",
+            "backward_kernel_ms", "backward_kernel_device_ms",
+            "backward_kernels_device_ms", "backward_bound_ms",
+            "backward_bound_by", "plain_backward_ms",
+            "library_backward_ms", "library_backward_kernels_device_ms",
+            "library_ms",
+            "library_causal_ms", "library_causal_device_ms",
+            "library_causal_fwd_bwd_ms", "library_causal_fwd_bwd_device_ms",
+            "bound_ms", "bound_by", "bound_fwd_bwd_ms",
+            "backward_rel_err_vs_sdpa", "backward_rel_fro_err",
+            "backward_fp32_rel_fro_err", "rel_fro_err", "fp32_rel_fro_err",
+            "kernels_device_ms")}))
     require(max(row["backward_rel_err_vs_sdpa"]) < 2e-2,
-            f"plain backward vs SDPA: {row['backward_rel_err_vs_sdpa']}")
+            f"backward vs SDPA: {row['backward_rel_err_vs_sdpa']}")
+    # a tenth of the plain backward's best time on an H100 (4.785 ms)
+    require(dev == "cpu" or row["backward_kernel_device_ms"] <= 0.48,
+            "flash_attention_bwd at the training shape: "
+            f"{row['backward_kernel_device_ms']:.4f} device ms > 0.48")
+    row["backward_row"] = bwd
     return row
 
 
@@ -6310,10 +6554,10 @@ def phase_zoo_matrix(torch, np, ops, dev="cuda", archs=None):
             for name in ("cov_accum", "lowrank_matmul"):
                 require(launches[name] > 0,
                         f"zoo {arch}: {name} never launched")
-            require((launches["flash_attention"] > 0)
-                    == (cfg.attention != "none"),
-                    f"zoo {arch}: flash_attention launched "
-                    f"{launches['flash_attention']} times")
+            for name in ("flash_attention", "flash_attention_bwd"):
+                require((launches[name] > 0) == (cfg.attention != "none"),
+                        f"zoo {arch}: {name} launched {launches[name]} "
+                        "times")
             require((launches["cov_accum_banked"] > 0) == capacity,
                     f"zoo {arch}: cov_accum_banked launched "
                     f"{launches['cov_accum_banked']} times")
@@ -6445,7 +6689,8 @@ def phase_zoo_whisper(torch, np, ops, dev="cuda", sizes=SIZES):
             f"zoo whisper: meta {meta0}, bank leaves {bank_leaves}")
     require(all(math.isfinite(v) for v in (ppl_dense, ppl_comp)),
             f"zoo whisper: ppl {ppl_dense} / {ppl_comp}")
-    for name in ("cov_accum", "lowrank_matmul", "flash_attention"):
+    for name in ("cov_accum", "lowrank_matmul", "flash_attention",
+                 "flash_attention_bwd"):
         require(launches[name] > 0, f"zoo whisper: {name} never launched")
     for name in ("grouped_matmul", "cov_accum_banked", "flash_decode"):
         require(launches[name] == 0,
@@ -6953,6 +7198,18 @@ def main(argv=None) -> int:
               if "Performance Loss" in line and "flash_wgmma" in line]
     require(not serial, f"ptxas serializes flash_attention's wgmma body: "
             f"{serial}")
+    # flash_attention's backward: its wgmma bodies keep the dK / dV / dQ
+    # accumulators in registers, and ptxas keeps their wgmma asynchronous
+    bwd_usage = {fn: u for fn, u in usage.items()
+                 if "bwd_kv_wgmma" in fn or "bwd_q_wgmma" in fn}
+    log("build: flash_attention_bwd wgmma bodies (registers, spill stores, "
+        "spill loads):", json.dumps(bwd_usage))
+    require(bwd_usage and not any(u[1] or u[2] for u in bwd_usage.values()),
+            f"the flash_attention_bwd wgmma bodies spill: {bwd_usage}")
+    serial = [line.strip() for line in build.build_log().splitlines()
+              if "Performance Loss" in line and "flash_attention_bwd" in line]
+    require(not serial, f"ptxas serializes flash_attention_bwd's wgmma: "
+            f"{serial}")
     # flash_attention's tensor-core GQA decode keeps O in registers
     mma_usage = {fn: u for fn, u in usage.items() if "flash_split_mma" in fn}
     log("build: flash_attention split_mma body (registers, spill stores, "
@@ -6969,6 +7226,8 @@ def main(argv=None) -> int:
             {fn: c for fn, c in hgmma.items() if c} or "none"))
         require(wg and all(wg.values()),
                 f"the wgmma body's SASS holds no HGMMA: {wg}")
+    if args.only in ("kimi", "ssm", "multimodal", "train", "zoo"):
+        count_plain_backward(ref)
     if args.only is not None:
         if args.only == "lowrank":
             rows = {"lowrank_matmul": phase_lowrank(torch, ops, ref)}
@@ -6979,7 +7238,8 @@ def main(argv=None) -> int:
             sizes = dict(SIZES)
             if args.cases:
                 names = set(args.cases.split(","))
-                for key in ("flash_attention", "flash_attention_ragged"):
+                for key in ("flash_attention", "flash_attention_ragged",
+                            "flash_attention_bwd_dead"):
                     sizes[key] = tuple(c for c in SIZES[key]
                                        if c[0] in names)
                 for key in ("flash_attention_rows_cases",
@@ -7076,6 +7336,12 @@ def main(argv=None) -> int:
         log(f"tuner whole run: {autotune.STATS['measurements']} "
             f"measurements, {autotune.STATS['candidates']} candidates "
             f"timed, {autotune.STATS['seconds']:.3f} s")
+        if PLAIN_BWD["fn"] is not None:
+            rows["plain_backward_cuda_calls"] = PLAIN_BWD["cuda_calls"]
+            log("the plain attention backward on CUDA tensors outside this "
+                f"script's comparisons: {PLAIN_BWD['cuda_calls']} calls")
+            require(PLAIN_BWD["cuda_calls"] == 0, "the plain attention "
+                    "backward ran on the card")
         with open(OUT / f"chip_smoke{tag}.json", "w") as f:
             json.dump({"card": card, **rows, "tuner": dict(autotune.STATS)},
                       f, indent=1)
@@ -7094,7 +7360,9 @@ def main(argv=None) -> int:
     gm_rows, gm_back = phase_grouped_kernels(torch, np, ops, ref)
     log(f"phase 3: {time.perf_counter() - t0:.3f} s")
     tuner_log("3", tm)
-    # 4. smoke parity
+    # 4. smoke parity; from here on every attention backward on the card
+    # must be the kernel: the plain one is counted
+    count_plain_backward(ref)
     t0, tm = time.perf_counter(), tuner_mark()
     smoke = phase_smoke(torch, np)
     smoke["moe"] = phase_smoke_moe(torch, np)
@@ -7251,6 +7519,10 @@ def main(argv=None) -> int:
     log(f"tuner whole run: {autotune.STATS['measurements']} measurements, "
         f"{autotune.STATS['candidates']} candidates timed, "
         f"{autotune.STATS['seconds']:.3f} s")
+    log("the plain attention backward on CUDA tensors outside this script's "
+        f"comparisons, phases 4-17: {PLAIN_BWD['cuda_calls']} calls")
+    require(PLAIN_BWD["cuda_calls"] == 0, "the plain attention backward ran "
+            f"on the card {PLAIN_BWD['cuda_calls']} times")
 
     def timing(row):
         return {"max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -7261,6 +7533,9 @@ def main(argv=None) -> int:
                     "device_ms", "library_device_ms", "library_causal_ms",
                     "library_causal_device_ms", "body", "bound_tc_ms",
                     "bound_tc_by", "kernels_device_ms") if key in row}}
+
+    bwd_rows = [r for r in fa_checks
+                if r.get("kernel") == "flash_attention_bwd"]
 
     def entry(name, source, replaces, rows, path):
         # the timed bf16 row (flash_decode also times its fp32 row)
@@ -7289,7 +7564,8 @@ def main(argv=None) -> int:
                       for path, run in zoo_paths.items()}}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": by_path[path],
-                "launches_by_path": by_path, **timing(head)}
+                "launches_by_path": by_path, "case": head.get("case"),
+                **timing(head)}
 
     kernels = [
         entry("cov_accum", "src/repro_torch/csrc/cov_accum.cu",
@@ -7309,7 +7585,19 @@ def main(argv=None) -> int:
         entry("cov_accum_banked", "src/repro_torch/csrc/cov_accum.cu",
               "src/repro/kernels/ops.py:182", banked_rows,
               "compress_moe_capacity"),
+        # no TPU kernel: the Pallas flash_attention has no backward, and the
+        # JAX package's gradient is XLA's of its model-path scan
+        entry("flash_attention_bwd",
+              "src/repro_torch/csrc/flash_attention_bwd.cu",
+              "XLA differentiates src/repro/models/attention.py:31 (the "
+              "Pallas kernel src/repro/kernels/flash_attention.py has no "
+              "backward)", bwd_rows, "compress"),
     ]
+    fb = next(k for k in kernels if k["name"] == "flash_attention_bwd")
+    for row in bwd_rows:
+        if "ms" in row and row["case"] != fb["case"]:
+            fb[row["case"]] = {**timing(row), "kernel_d": row["kernel_d"]}
+    fb["plain_backward_cuda_calls"] = PLAIN_BWD["cuda_calls"]
     # cov_accum_banked's second tap (expert d_ff), with the library named
     # and the same triples by the drop-free route (a launch an expert)
     cb = next(k for k in kernels if k["name"] == "cov_accum_banked")
@@ -7476,7 +7764,20 @@ def main(argv=None) -> int:
         **{key: ta[key] for key in ("plain_backward_ms",
                                     "library_causal_fwd_bwd_ms",
                                     "bound_fwd_bwd_ms", "bound_fwd_bwd_by")},
+        "backward_kernel_device_ms": ta["backward_kernel_device_ms"],
         "launches_per_step": trainer["run"]["flash_bodies_per_step"]}
+    # the backward at the training shape: the kernel beside the plain
+    # backward, SDPA's forward + backward and the backward's bound, its
+    # launches in one train step and one step's device split
+    fb["qwen3_train"] = {
+        **timing(ta["backward_row"]), "kernel_d": ta["backward_row"]
+        ["kernel_d"], "library_causal_fwd_bwd_ms":
+        ta["library_causal_fwd_bwd_ms"], "library_causal_fwd_bwd_device_ms":
+        ta["library_causal_fwd_bwd_device_ms"],
+        "launches_per_step": trainer["run"]["launches_per_step"]
+        ["flash_attention_bwd"],
+        "train_step_split_ms": trainer["run"].get("split", {}).get(
+            "flash_attention_bwd_ms")}
     with open(OUT / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "cov_accum": cov_rows,
                    "cov_accum_banked": banked_rows,

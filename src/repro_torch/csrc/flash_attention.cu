@@ -128,6 +128,7 @@ struct Args {
   int b, lq, lk, h, kv;
   int causal, window;
   float scale, softcap;
+  float* lse;  // (B, H, Lq) fp32 or null: each row's m + log(l) (tile bodies)
 };
 
 // The key tiles [begin, end) of width `bkey` that the query rows at absolute
@@ -421,6 +422,11 @@ __global__ void __launch_bounds__(THREADS) flash_tile(Args a) {
     const int rr = idx / D;
     const int d = idx % D;
     o_base[rr * q_stride + d] = from_f<T>(sO[rr * Lay::LO + d] / fmaxf(sL[rr], 1e-20f));
+  }
+  if (a.lse != nullptr) {
+    for (int rr = tid; rr < rows; rr += THREADS) {
+      a.lse[(static_cast<size_t>(b) * a.h + head) * a.lq + q0 + rr] = sM[rr] + logf(sL[rr]);
+    }
   }
 }
 
@@ -920,6 +926,15 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
   // its own rows) in Q's layout: row r of box c at c·Q_BOX + r·128 bytes, its
   // 16-byte chunk k at chunk k ^ (r % 8); then stored row-masked, D columns a
   // row (the columns past D are never staged nor stored)
+  if (a.lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + r_in + 8 * h;
+      if (r < a.lq) {
+        a.lse[(static_cast<size_t>(b) * a.h + head) * a.lq + r] = m[h] + logf(l[h]);
+      }
+    }
+  }
   uint8_t* const mine = base_ptr + group * 64 * 128;
   const float lm[2] = {fmaxf(l[0], 1e-20f), fmaxf(l[1], 1e-20f)};
 #pragma unroll
@@ -1645,13 +1660,16 @@ int split_keys(int d) {
 // multiple of bkey, spans = ⌈lk / span⌉, scratch b·h·spans·(d + 2) floats), 4 =
 // split_mma (as split, bf16 at d 64 / 96 / 112 / 128 / 192 / 256 with 2 to 16
 // query heads a KV head; bkey 64 at d <= 128, else 32).  span, spans and
-// scratch are 0 / null for the other bodies.
+// scratch are 0 / null for the other bodies.  lse: null, or (b, h, lq) fp32
+// that a tile body (fma32, wmma, wgmma) fills with each row's m + log(l), the
+// softmax statistics the backward (flash_attention_bwd.cu) reads; the split
+// bodies refuse it.  The output is the same bits with or without it.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       const void* q_off, int q_off0, int b, int lq, int lk,
                                       int h, int kv, int d, int causal, int window,
                                       float scale, float softcap, int dtype, int body,
                                       int bq, int bkey, int span, int spans, void* scratch,
-                                      void* stream) {
+                                      void* lse, void* stream) {
   if (b <= 0 || lq <= 0 || lk <= 0 || kv <= 0 || h % kv != 0 || (dtype != 0 && dtype != 1) ||
       (d != 16 && d != 32 && d != 64 && d != 96 && d != 112 && d != 128 && d != 192 &&
        d != 256)) {
@@ -1685,9 +1703,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     default:
       break;
   }
+  // the split bodies (Lq 1) keep no row statistics: asked for them, refuse
+  if (lse != nullptr && (body == SPLIT || body == SPLIT_MMA)) ok = false;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   Args a{q, k, v, o, static_cast<const int*>(q_off), q_off0, b, lq, lk, h, kv,
-         causal, window, scale, softcap};
+         causal, window, scale, softcap, static_cast<float*>(lse)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(scratch);
   if (dtype == 0) return launch_dim<float>(a, d, body, span, spans, part, s);

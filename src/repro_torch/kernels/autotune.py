@@ -20,6 +20,8 @@ nothing new is compiled.
   ``bkey``; ``split_mma`` at least ``MMA_MIN_TILES`` tiles); changes the
   merge order.  The tile bodies' ``bq`` / ``bkey`` are compiled per head
   dim: a lattice of one.
+* ``flash_attention_bwd``: its tiles are compiled per (dtype, head dim): a
+  lattice of one.
 * ``flash_decode``: ``SPAN`` is compiled into ``csrc/flash_decode.cu`` (its
   launcher refuses any other span): a lattice of one.
 * ``grouped_matmul``: the wgmma body's persistent ``ctas``, the same bits
@@ -91,6 +93,7 @@ _ANCHORS: Dict[str, Callable] = {
     "cov_accum": _cov.plan,
     "lowrank_matmul": _low.plan,
     "flash_attention": _fa.plan,
+    "flash_attention_bwd": _fa.plan_backward,
     "flash_decode": _fd.plan,
     "grouped_matmul": _gm.plan,
 }
@@ -103,6 +106,7 @@ _LATTICES: Dict[str, Dict[str, Tuple]] = {
     "lowrank_matmul": {"small_t.splits": (1, 2, 4, 8, _low.SMALL_MAX_SPLITS),
                        "wgmma.splits": ("unsplit", "a slice a block")},
     "flash_attention": {"span": (0.25, 0.5, 1, 2, 4)},   # x the anchor's
+    "flash_attention_bwd": {},
     "flash_decode": {},
     "grouped_matmul": {"ctas": (_gm.SMS // 4, _gm.SMS // 2,
                                 3 * _gm.SMS // 4, _gm.SMS)},
@@ -323,6 +327,24 @@ def _flash_smem(p) -> int:
             + 4 * bq * (d + 4) + 2 * 4 * bq)
 
 
+def _flash_bwd_smem(p) -> int:
+    """The larger pass's block (``csrc/flash_attention_bwd.cu``)."""
+    if p.body == "wgmma":
+        # bw::Cfg<D>: dK/dV: K and V (64 keys), two stages of Q and dO
+        # (kv_rows each) with their LSE and Δ; dQ: Q and dO (128 rows), two
+        # stages of K and V (q_keys each); 1024 of alignment, barriers (the
+        # dK/dV block's rounded to 16 bytes, then its dead rows' D fp32 sums)
+        box = 128 * (-(-p.d // 64))
+        kvp = (2 * p.kv_keys * box + 2 * (2 * p.kv_rows * box
+                                          + 2 * 4 * p.kv_rows) + 48 + 4 * p.d)
+        qp = 2 * p.q_rows * box + 2 * 2 * p.q_keys * box + 8 * 5
+        return 1024 + max(kvp, qp)
+    # bt::Lay<D>: four fp32 tiles of 32 rows at a pitch of D + 1, two
+    # 32 x 33 score tiles, the LSE and Δ of 32 rows
+    t = _fa.BWD_TILE
+    return 4 * (4 * t * (p.d + 1) + 2 * t * (t + 1) + 2 * t)
+
+
 def smem_bytes(kernel: str, p) -> int:
     """Shared bytes of one block of plan ``p`` (the body's ``SMEM`` in
     ``csrc/<kernel>.cu``, or the plan module's own model)."""
@@ -341,6 +363,8 @@ def smem_bytes(kernel: str, p) -> int:
         return (16 * 68 + 16 * 64) * 4
     if kernel == "flash_attention":
         return _flash_smem(p)
+    if kernel == "flash_attention_bwd":
+        return _flash_bwd_smem(p)
     if kernel == "flash_decode":
         return p.smem
     if kernel == "grouped_matmul":
@@ -366,6 +390,10 @@ def grid(kernel: str, p) -> Tuple[int, int, int]:
         if p.body == "wgmma":
             return (p.grid, 1, 1)
         return (p.q_blocks, p.b * p.h, 1)
+    if kernel == "flash_attention_bwd":
+        # the larger of its two launches, each (tiles, B·heads)
+        return (max(p.kv_grid[0], p.q_grid[0]),
+                max(p.kv_grid[1], p.q_grid[1]), 1)
     if kernel == "flash_decode":
         return (p.grid, 1, 1)
     if kernel == "grouped_matmul":
@@ -532,6 +560,16 @@ def flash_candidates(b: int, lq: int, lk: int, h: int, kv: int, d: int,
              for p in plans]
     return _sorted(cands, anchor,
                    lambda p: _log_dist(p.span, anchor.span))
+
+
+def flash_bwd_candidates(b: int, lq: int, lk: int, h: int, kv: int, d: int,
+                         dtype, *, causal: bool = True,
+                         window: int = 0) -> List[Candidate]:
+    """``flash_attention_bwd``'s lattice: its anchor alone (its tiles are
+    compiled per dtype and head dim; no run-time knob)."""
+    p = _fa.plan_backward(b, lq, lk, h, kv, d, dtype, causal=causal,
+                          window=window)
+    return [Candidate(p, smem_bytes("flash_attention_bwd", p), 0.0)]
 
 
 def flash_decode_candidates(b: int, l: int, h: int, kv: int, d: int, rk: int,
@@ -768,6 +806,23 @@ def flash_plan(b: int, lq: int, lk: int, h: int, kv: int, d: int, dtype, *,
 
     return _fast(("flash", b, lq, lk, h, kv, d, dtype, bool(causal),
                   int(window), bool(invariant)), mode, device, make)
+
+
+def flash_bwd_plan(b: int, lq: int, lk: int, h: int, kv: int, d: int,
+                   dtype, *, causal: bool = True, window: int = 0,
+                   device=None, mode: str = "auto") -> TuneResult:
+    """The plan of one attention backward: a lattice of one, so never
+    measured."""
+    def make(resolved):
+        cands = flash_bwd_candidates(b, lq, lk, h, kv, d, dtype,
+                                     causal=causal, window=window)
+        sig = (f"b{b}-lq{lq}-lk{lk}-h{h}-kv{kv}-d{d}-{_dtype_name(dtype)}"
+               f"-c{int(causal)}w{window}")
+        return _tune("flash_attention_bwd", sig, cands, lambda p: {},
+                     None, resolved, device)
+
+    return _fast(("flash_bwd", b, lq, lk, h, kv, d, dtype, bool(causal),
+                  int(window)), mode, device, make)
 
 
 def flash_decode_plan(b: int, l: int, h: int, kv: int, d: int, rk: int,

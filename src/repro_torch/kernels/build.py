@@ -44,7 +44,10 @@ SIGNATURES = {
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _I,
-                               _P, _P],
+                               _P, _P, _P],
+    "flash_attention_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _F, _F, _I, _I, _I, _I, _I, _I, _I, _P],
     "flash_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I,
                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             _P],

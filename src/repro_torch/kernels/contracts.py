@@ -57,6 +57,7 @@ DTYPES = ("float32", "bfloat16")
 TOL = {"cov_accum": {"float32": 1e-5, "bfloat16": 1e-5},
        "lowrank_matmul": {"float32": 1e-5, "bfloat16": 2e-2},
        "flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
+       "flash_attention_bwd": {"float32": 2e-5, "bfloat16": 2e-2},
        "flash_decode": {"float32": 1e-4, "bfloat16": 2e-2},
        "grouped_matmul": {"float32": 1e-5, "bfloat16": 1e-2}}
 
@@ -284,6 +285,64 @@ _FLASH = KernelContract(
 
 
 # ---------------------------------------------------------------------------
+# flash_attention_bwd — dq, dk, dv from the forward's output and LSE (its
+# tiles compiled per dtype and head dim: a lattice of one)
+
+
+def _fab_eval(p, plan):
+    dt = _dtype(p)
+    q = _rand((p["b"], p["lq"], p["h"], p["d"]), 16, dt)
+    k = _rand((p["b"], p["lk"], p["kv"], p["d"]), 17, dt)
+    v = _rand((p["b"], p["lk"], p["kv"], p["d"]), 18, dt)
+    dout = _rand((p["b"], p["lq"], p["h"], p["d"]), 19, dt)
+    offs = tuple(p.get("offsets", (0,) * p["b"]))
+    kw = dict(causal=p.get("causal", True), window=p.get("window", 0),
+              softcap=p.get("softcap", 0.0))
+    scale = 1.0 / math.sqrt(p["d"])
+    fwd = _fa.plan(p["b"], p["lq"], p["lk"], p["h"], p["kv"], p["d"], dt,
+                   causal=kw["causal"], window=kw["window"], q_offset=offs,
+                   invariant=True)
+    out, lse = _fa.emulate(fwd, q, k, v, scale=scale,
+                           softcap=kw["softcap"], lse=True)
+    got = _fa.emulate_backward(dataclasses.replace(plan, offsets=offs), q,
+                               k, v, out, lse, dout, scale=scale,
+                               softcap=kw["softcap"])
+    want = ref.flash_attention_bwd_ref(q, k, v, dout,
+                                       q_offset=torch.tensor(offs), **kw)
+    return got, _ratio(got, want, "flash_attention_bwd", p)
+
+
+_FLASH_BWD = KernelContract(
+    name="flash_attention_bwd",
+    align=lambda plan: {},
+    probes=_both(
+        # GQA with per-slot offsets, a window and a soft cap, Lk ragged
+        {"b": 2, "h": 4, "kv": 2, "lq": 40, "lk": 70, "d": 64,
+         "window": 24, "softcap": 30.0, "offsets": (30, 5)},
+        # non-causal with Lq != Lk (cross-attention)
+        {"b": 1, "h": 2, "kv": 2, "lq": 20, "lk": 45, "d": 112,
+         "causal": False},
+        # D 16 (fma in both dtypes) and D 256 (the narrower steps)
+        {"b": 1, "h": 2, "kv": 1, "lq": 33, "lk": 33, "d": 16},
+        {"b": 1, "h": 2, "kv": 1, "lq": 35, "lk": 35, "d": 256},
+    ),
+    candidates=lambda p: autotune.flash_bwd_candidates(
+        p["b"], p["lq"], p["lk"], p["h"], p["kv"], p["d"], _dtype(p),
+        causal=p.get("causal", True), window=p.get("window", 0)),
+    evaluate=_fab_eval,
+    expected=lambda p, plan: ((p["b"], p["lq"], p["h"], p["d"]),
+                              (p["b"], p["lk"], p["kv"], p["d"]),
+                              (p["b"], p["lk"], p["kv"], p["d"])),
+    exact=lambda plan: (
+        {"kv_keys": _fa.BWD_WG_KEYS, "kv_rows": _fa.bwd_wg_rows(plan.d),
+         "q_rows": _fa.BWD_WG_QROWS, "q_keys": _fa.bwd_wg_keys(plan.d)}
+        if plan.body == "wgmma" else
+        {f: _fa.BWD_TILE for f in ("kv_keys", "kv_rows", "q_rows",
+                                   "q_keys")}),
+)
+
+
+# ---------------------------------------------------------------------------
 # flash_decode — one step over the latent cache (SPAN compiled: one plan)
 
 
@@ -383,5 +442,6 @@ _GROUPED = KernelContract(
 
 
 CONTRACTS: Dict[str, KernelContract] = {
-    c.name: c for c in (_COV, _LOWRANK, _FLASH, _DECODE, _GROUPED)
+    c.name: c for c in (_COV, _LOWRANK, _FLASH, _FLASH_BWD, _DECODE,
+                        _GROUPED)
 }

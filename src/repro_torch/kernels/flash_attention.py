@@ -366,15 +366,22 @@ def _step(p: Plan, qf, kf, vt, pos, k0, m, l, acc, *, scale, softcap):
     return m_new, l, acc
 
 
-def emulate(p: Plan, q, k, v, *, scale: float, softcap: float = 0.0):
+def emulate(p: Plan, q, k, v, *, scale: float, softcap: float = 0.0,
+            lse: bool = False):
     """Plan ``p``'s work block by block: q (B, Lq, H, d), k / v (B, Lk, KV,
     d) as the kernel sees them (padded head dim); returns (B, Lq, H, d) in
     q's dtype.  Tile bodies: each block's rows against its key tiles in
     order, keys past Lk zero.  split / split_mma: each span's partial over
     its live keys in tiles of ``bkey`` from the span's first live key, then
     the partials merged in span order, empty ones skipped, each span's
-    weight computed once.  Needs ``p.offsets``."""
+    weight computed once.  Needs ``p.offsets``.  With ``lse`` (tile bodies
+    only, as the kernel) it returns (out, lse): each row's m + log(l),
+    (B, H, Lq) fp32, what the backward reads."""
     out = torch.zeros((p.b, p.lq, p.h, p.d), dtype=torch.float32)
+    stats = torch.zeros((p.b, p.h, p.lq), dtype=torch.float32)
+    if lse and p.body in SPLIT_BODIES:
+        raise ValueError(f"flash_attention: the {p.body} body writes no "
+                         "LSE (a tile body's plan does: invariant=True)")
     if p.body in SPLIT_BODIES:
         parts = {}
         for bi, kvh, sp, k_begin, k_end in p.blocks():
@@ -423,15 +430,19 @@ def emulate(p: Plan, q, k, v, *, scale: float, softcap: float = 0.0):
             m, l, acc = _step(p, qf, kf, vt, pos, k0, m, l, acc,
                               scale=scale, softcap=softcap)
         out[bi, q0:q0 + rows, hd] = acc / torch.clamp(l, min=1e-20)[:, None]
+        stats[bi, hd, q0:q0 + rows] = m + torch.log(l)
+    if lse:
+        return out.to(q.dtype), stats
     return out.to(q.dtype)
 
 
 def launch(p: Plan, q, k, v, o, q_off, q_off0: int, *, scale: float,
-           softcap: float, scratch=None) -> None:
+           softcap: float, scratch=None, lse=None) -> None:
     """Run plan ``p``: q, o (B, Lq, H, d); k, v (B, Lk, KV, d), checked
     and padded; ``q_off`` a (B,) int32 tensor or None (every slot at
     ``q_off0``); ``scratch`` ``p.scratch_floats`` fp32 for the split
-    bodies."""
+    bodies; ``lse`` None, or (B, H, Lq) fp32 that a tile body fills with
+    each row's m + log(l) (the output's bits do not change)."""
     lib = build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.flash_attention_launch(
@@ -440,5 +451,301 @@ def launch(p: Plan, q, k, v, o, q_off, q_off0: int, *, scale: float,
         p.b, p.lq, p.lk, p.h, p.kv, p.d, int(p.causal), int(p.window),
         float(scale), float(softcap), DTYPES[p.dtype], BODIES.index(p.body),
         p.bq, p.bkey, p.span, p.spans,
-        None if scratch is None else scratch.data_ptr(), stream)
+        None if scratch is None else scratch.data_ptr(),
+        None if lse is None else lse.data_ptr(), stream)
     build.check(rc, "flash_attention")
+
+
+# ---------------------------------------------------------------------------
+# backward (``csrc/flash_attention_bwd.cu``): the gradient that XLA takes of
+# the JAX model path's scan (``src/repro/models/attention.py:31``; the TPU
+# kernel has no backward).  Two passes, no atomics: a pre-pass Δ =
+# rowsum(dO ∘ O) in fp32; a dK/dV pass, one block a (key tile, KV head,
+# slot) that walks the query heads of its group and, for each, the query
+# tiles that can see its keys (``BwdPlan.query_tiles``), recomputing P from
+# the forward's LSE; a dQ pass, one block a (query tile, head, slot) over
+# the forward's key tiles (``BwdPlan.key_tiles``).  Each gradient is
+# written once and every sum runs in a fixed order, so two calls give the
+# same bits and a slot's gradients do not depend on the others.
+
+BWD_BODIES = ("fma", "wgmma")   # index = the launcher's body code
+# wgmma (bf16 at D 64 / 96 / 112 / 128 / 192 / 256): the dK/dV block's 64
+# keys are shared by its two consumer warpgroups, one accumulating dK, the
+# other dV; its query rows a step (32 at D 256: the dK warpgroup's
+# registers); the dQ block's 128 query rows (64 a warpgroup) and its keys a
+# step (32 at D 256)
+BWD_WG_KEYS = 64
+BWD_WG_QROWS = 128
+
+
+def bwd_wg_rows(d: int) -> int:
+    """Query rows a step of the wgmma dK/dV pass."""
+    return 32 if d == 256 else 64
+
+
+def bwd_wg_keys(d: int) -> int:
+    """Keys a step of the wgmma dQ pass."""
+    return 32 if d == 256 else 64
+
+
+# fma (fp32 at every D, bf16 at D 16 / 32): 32 keys and 32 query rows a
+# tile in both passes
+BWD_TILE = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How one backward call runs.  ``kv_keys`` keys a dK/dV block and
+    ``kv_rows`` query rows a step of it; ``q_rows`` query rows a dQ block
+    and ``q_keys`` keys a step of it.  ``offsets``: the slots' query
+    offsets when the host knows them (``emulate_backward`` needs them)."""
+    b: int
+    lq: int
+    lk: int
+    h: int
+    kv: int
+    d: int
+    dtype: torch.dtype
+    causal: bool
+    window: int
+    body: str
+    kv_keys: int
+    kv_rows: int
+    q_rows: int
+    q_keys: int
+    offsets: Optional[Tuple[int, ...]]
+
+    @property
+    def group(self) -> int:
+        return self.h // self.kv
+
+    @property
+    def kv_grid(self) -> Tuple[int, int]:
+        """(key tiles, B·KV) of the dK/dV launch."""
+        return -(-self.lk // self.kv_keys), self.b * self.kv
+
+    @property
+    def q_grid(self) -> Tuple[int, int]:
+        """(query tiles, B·H) of the dQ launch."""
+        return -(-self.lq // self.q_rows), self.b * self.h
+
+    def query_tiles(self, k0: int, off: int) -> Tuple[int, int]:
+        """The query tiles [begin, end) of ``kv_rows`` rows whose rows (at
+        positions off + row) see a key of the tile at ``k0``: the
+        kernels' ``query_tiles``."""
+        k1 = min(k0 + self.kv_keys, self.lk)
+        lo = k0 - off if self.causal else 0
+        hi = k1 + self.window - 2 - off if self.window > 0 else self.lq - 1
+        lo, hi = max(lo, 0), min(hi, self.lq - 1)
+        if lo > hi:
+            return 0, 0
+        return lo // self.kv_rows, hi // self.kv_rows + 1
+
+    def dead_rows(self, off: int) -> Tuple[int, int]:
+        """(x, y): the rows [0, x) and [y, Lq) of a slot at offset ``off``
+        that see no key (causal rows before key 0, windowed rows past the
+        window of the last key); each adds dO/Lk to every key's dv, the
+        plain version's -1e30 semantics.  The kernels' ``dead_rows``."""
+        x = min(max(-off, 0), self.lq) if self.causal else 0
+        y = (min(max(self.lk + self.window - 1 - off, 0), self.lq)
+             if self.window > 0 else self.lq)
+        return x, y
+
+    def key_tiles(self, q0: int, off: int) -> Tuple[int, int]:
+        """The key tiles [begin, end) of ``q_keys`` keys the dQ block at
+        query row ``q0`` walks: the forward's ``key_tiles``."""
+        rows = min(self.q_rows, self.lq - q0)
+        first, last = off + q0, off + q0 + rows - 1
+        end = -(-self.lk // self.q_keys)
+        if self.causal:
+            end = min(end, last // self.q_keys + 1)
+        begin = 0
+        if self.window > 0 and first - self.window + 1 > 0:
+            begin = (first - self.window + 1) // self.q_keys
+        return begin, max(begin, end)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_backward(b, lq, lk, h, kv, d, dtype, causal, window, offsets):
+    if dtype not in DTYPES:
+        raise TypeError(f"flash_attention backward: no kernel for {dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention backward: head dim {d} not one "
+                         f"of {HEAD_DIMS} (pad it)")
+    if min(b, lq, lk, h, kv) < 1 or h % kv:
+        raise ValueError(f"flash_attention backward: no plan for B {b}, Lq "
+                         f"{lq}, Lk {lk}, H {h}, KV {kv}")
+    base = dict(b=b, lq=lq, lk=lk, h=h, kv=kv, d=d, dtype=dtype,
+                causal=bool(causal), window=int(window), offsets=offsets)
+    if dtype == torch.bfloat16 and d >= 64:
+        p = BwdPlan(**base, body="wgmma", kv_keys=BWD_WG_KEYS,
+                    kv_rows=bwd_wg_rows(d), q_rows=BWD_WG_QROWS,
+                    q_keys=bwd_wg_keys(d))
+    else:
+        p = BwdPlan(**base, body="fma", kv_keys=BWD_TILE, kv_rows=BWD_TILE,
+                    q_rows=BWD_TILE, q_keys=BWD_TILE)
+    if max(p.kv_grid[1], p.q_grid[1]) > MAX_GRID_Y:
+        raise ValueError(f"flash_attention backward: B·H {b * h} exceeds "
+                         "the grid")
+    return p
+
+
+def plan_backward(b: int, lq: int, lk: int, h: int, kv: int, d: int,
+                  dtype: torch.dtype, *, causal: bool = True, window: int = 0,
+                  q_offset: Offsets = None) -> BwdPlan:
+    """The backward's plan: one per (dtype, head dim, masking), nothing
+    that varies with B.  q (B, Lq, H, d) and k / v (B, Lk, KV, d) in
+    ``dtype``, d a compiled head dim (the wrapper pads the others).
+    ``q_offset``: the slots' offsets when the host knows them (for
+    ``emulate_backward`` only).  Raises ``ValueError`` for a head dim,
+    shape or grid no body takes (``TypeError`` for a dtype)."""
+    return _plan_backward(b, lq, lk, h, kv, d, dtype, bool(causal),
+                          int(window), _offsets(b, q_offset))
+
+
+def _dot_rows(a, b):
+    """(n, d) x (m, d) -> (n, m) fp32: each element's products summed over
+    d in order, so it depends on its own two rows alone."""
+    out = torch.zeros((a.shape[0], b.shape[0]), dtype=torch.float32)
+    for i in range(a.shape[1]):
+        out = out + a[:, i, None] * b[None, :, i]
+    return out
+
+
+def _scores(p: BwdPlan, qf, kf, qpos, kpos, lse, delta, dof, vf, *, scale,
+            softcap):
+    """One (query rows x keys) tile of the backward: P = exp(s - LSE) and
+    dS = P ∘ (dP - Δ) (times 1 - tanh² under a soft cap) in fp32, masked
+    entries 0.  Returns P rounded to the kernel's dtype (dV's operand, as
+    the forward rounds it) and dS as the products read it: the wgmma body's
+    bf16 (hi, lo) split, the fma body's fp32 (and None)."""
+    s = _dot_rows(qf, kf) * scale
+    t = None
+    if softcap:
+        t = _tanh(s / softcap)
+        s = t * softcap
+    ok = (kpos < p.lk)[None, :].expand(s.shape)
+    if p.causal:
+        ok = ok & (kpos[None, :] <= qpos[:, None])
+    if p.window > 0:
+        ok = ok & (kpos[None, :] > qpos[:, None] - p.window)
+    pr = torch.where(ok, _exp(s - lse[:, None]), torch.zeros(()))
+    dp = _dot_rows(dof, vf)
+    ds = pr * (dp - delta[:, None])
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    if p.body != "wgmma":
+        return pr.to(p.dtype).float(), ds, None
+    hi = ds.to(p.dtype).float()
+    return pr.to(p.dtype).float(), hi, (ds - hi).to(p.dtype).float()
+
+
+def emulate_backward(p: BwdPlan, q, k, v, out, lse, dout, *, scale: float,
+                     softcap: float = 0.0):
+    """Plan ``p``'s backward in plain PyTorch, block by block in the
+    kernel's order: q, out, dout (B, Lq, H, d), k / v (B, Lk, KV, d) as the
+    kernel sees them, ``lse`` (B, H, Lq) from the forward.  Returns (dq, dk,
+    dv) in q's dtype.  Needs ``p.offsets``."""
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    if p.offsets is None:
+        raise ValueError("flash_attention backward: emulation needs the "
+                         "slots' offsets on the host")
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, out, dout))
+    delta = torch.zeros((b, h, lq), dtype=torch.float32)
+    for i in range(d):
+        delta = delta + (dof[..., i] * of[..., i]).transpose(1, 2)
+    dq = torch.zeros((b, lq, h, d), dtype=torch.float32)
+    dk = torch.zeros((b, lk, p.kv, d), dtype=torch.float32)
+    dv = torch.zeros((b, lk, p.kv, d), dtype=torch.float32)
+    kw = dict(scale=scale, softcap=softcap)
+    # dK / dV: a block a (key tile, KV head, slot), the group's heads in
+    # order, each head's query tiles in order
+    for bi in range(b):
+        off = p.offsets[bi]
+        for kvh in range(p.kv):
+            for k0 in range(0, lk, p.kv_keys):
+                k1 = min(k0 + p.kv_keys, lk)
+                kpos = torch.arange(k0, k1)
+                acc_k = torch.zeros((k1 - k0, d))
+                acc_v = torch.zeros((k1 - k0, d))
+                t0, t1 = p.query_tiles(k0, off)
+                for g in range(p.group):
+                    hd = kvh * p.group + g
+                    for t in range(t0, t1):
+                        r0, r1 = t * p.kv_rows, min((t + 1) * p.kv_rows, lq)
+                        qpos = off + torch.arange(r0, r1)
+                        pr, ds, lo = _scores(
+                            p, qf[bi, r0:r1, hd], kf[bi, k0:k1, kvh], qpos,
+                            kpos, lse[bi, hd, r0:r1], delta[bi, hd, r0:r1],
+                            dof[bi, r0:r1, hd], vf[bi, k0:k1, kvh], **kw)
+                        for r in range(r1 - r0):
+                            acc_v = acc_v + pr[r, :, None] * dof[bi, r0 + r,
+                                                                 hd][None]
+                            acc_k = acc_k + ds[r, :, None] * qf[bi, r0 + r,
+                                                                hd][None]
+                        for r in range(r1 - r0 if lo is not None else 0):
+                            acc_k = acc_k + lo[r, :, None] * qf[bi, r0 + r,
+                                                                hd][None]
+                # the rows that see no key: P = 1/Lk on every key, dS = 0;
+                # their Σ dO/Lk (heads in order, then rows) added at the end
+                x, y = p.dead_rows(off)
+                dead = torch.zeros(d)
+                inv = torch.tensor(1.0 / lk, dtype=torch.float32)
+                for g in range(p.group):
+                    for r in list(range(x)) + list(range(y, lq)):
+                        dead = dead + dof[bi, r, kvh * p.group + g] * inv
+                acc_v = acc_v + dead[None]
+                dk[bi, k0:k1, kvh] = acc_k * scale
+                dv[bi, k0:k1, kvh] = acc_v
+    # dQ: a block a (query tile, head, slot) over its key tiles in order
+    for bi in range(b):
+        off = p.offsets[bi]
+        for hd in range(h):
+            kvh = hd // p.group
+            for q0 in range(0, lq, p.q_rows):
+                q1 = min(q0 + p.q_rows, lq)
+                qpos = off + torch.arange(q0, q1)
+                acc = torch.zeros((q1 - q0, d))
+                t0, t1 = p.key_tiles(q0, off)
+                for t in range(t0, t1):
+                    k0, k1 = t * p.q_keys, min((t + 1) * p.q_keys, lk)
+                    _, ds, lo = _scores(
+                        p, qf[bi, q0:q1, hd], kf[bi, k0:k1, kvh], qpos,
+                        torch.arange(k0, k1), lse[bi, hd, q0:q1],
+                        delta[bi, hd, q0:q1], dof[bi, q0:q1, hd],
+                        vf[bi, k0:k1, kvh], **kw)
+                    for j in range(k1 - k0):
+                        acc = acc + ds[:, j, None] * kf[bi, k0 + j, kvh][None]
+                    for j in range(k1 - k0 if lo is not None else 0):
+                        acc = acc + lo[:, j, None] * kf[bi, k0 + j, kvh][None]
+                dq[bi, q0:q1, hd] = acc * scale
+    dt = q.dtype
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def launch_backward(p: BwdPlan, q, k, v, o, lse, dout, dq, dk, dv, delta,
+                    q_off, q_off0: int, *, scale: float,
+                    softcap: float) -> None:
+    """Run the backward plan ``p``: q, o, dout, dq (B, Lq, H, d); k, v, dk,
+    dv (B, Lk, KV, d), all contiguous in ``p.dtype``; ``lse`` (B, H, Lq)
+    fp32 from the forward; ``delta`` (B, H, Lq) fp32 scratch.  ``dq`` None
+    skips the dQ pass, ``dk`` / ``dv`` None the dK/dV pass (both or
+    neither)."""
+    if (dk is None) != (dv is None):
+        raise ValueError("flash_attention backward: dk and dv come together")
+    passes = (1 if dq is not None else 0) | (2 if dk is not None else 0)
+    lib = build.library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    rc = lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), dout.data_ptr(), ptr(dq), ptr(dk), ptr(dv),
+        delta.data_ptr(), ptr(q_off), int(q_off0), p.b, p.lq, p.lk, p.h,
+        p.kv, p.d, int(p.causal), int(p.window), float(scale),
+        float(softcap), DTYPES[p.dtype], BWD_BODIES.index(p.body),
+        p.kv_keys, p.kv_rows, p.q_rows, p.q_keys, passes, stream)
+    build.check(rc, "flash_attention_bwd")

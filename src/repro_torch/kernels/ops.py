@@ -39,7 +39,8 @@ from repro_torch.kernels import ref
 
 LAUNCHES: Dict[str, int] = {"cov_accum": 0, "cov_accum_banked": 0,
                             "lowrank_matmul": 0, "flash_attention": 0,
-                            "flash_decode": 0, "grouped_matmul": 0}
+                            "flash_attention_bwd": 0, "flash_decode": 0,
+                            "grouped_matmul": 0}
 # lowrank_matmul's launches by row count T (its plan's body depends on T)
 LOWRANK_ROWS: Dict[int, int] = collections.Counter()
 # flash_attention's launches by its plan's body
@@ -65,6 +66,7 @@ REGISTERED_KERNELS: Dict[str, str] = {
     "cov_accum_banked": "cov_accum",
     "cov_accum_grouped": "cov_accum",
     "flash_attention": "flash_attention",
+    "flash_attention_bwd": "flash_attention_bwd",
     "flash_decode": "flash_decode",
     "grouped_matmul": "grouped_matmul",
 }
@@ -478,14 +480,27 @@ def _padded_head_dim(d: int) -> int:
                      "has no kernel")
 
 
-def _flash_attention_kernel(q, k, v, q_offset, causal, window, softcap):
+def _kernel_offset(q_offset, b, device):
+    """(per-slot int32 offsets on the device or None, the scalar offset)."""
+    if torch.is_tensor(q_offset) and q_offset.dim() == 1:
+        if q_offset.shape != (b,) or q_offset.device != device:
+            raise ValueError("flash_attention: per-slot q_offset must be a "
+                             f"({b},) tensor on {device}")
+        return q_offset.to(torch.int32).contiguous(), 0
+    return None, int(q_offset)
+
+
+def _flash_attention_kernel(q, k, v, q_offset, causal, window, softcap,
+                            lse=False):
     """Checked launch of the call's plan (``kernels.flash_attention.plan``;
     ``batch_invariant`` makes it choose by dtype and head dim alone).  A
     compiled head dim reaches the kernel as the caller's tensors, read in
     place; any other is zero-padded to the next compiled one (exact: zero
     dims add nothing to q·k or to the output columns kept) with the scale of
     the true one.  Per-slot offsets stay on the device: the kernel reads
-    them."""
+    them.  With ``lse`` it returns (out, lse): a tile body's plan (as under
+    ``batch_invariant``) that also writes each row's m + log(l), (B, H, Lq)
+    fp32, for the backward; the output's bits are those of that plan."""
     _check_cuda("flash_attention", [q, k, v], q.dtype)
     b, lq, h, d = q.shape
     if (k.dim() != 4 or k.shape != v.shape or k.shape[0] != b
@@ -493,29 +508,26 @@ def _flash_attention_kernel(q, k, v, q_offset, causal, window, softcap):
         raise ValueError(f"flash_attention: q {tuple(q.shape)} with k "
                          f"{tuple(k.shape)} / v {tuple(v.shape)}")
     dp = _padded_head_dim(d)
-    q_off, q_off0 = None, 0
-    if torch.is_tensor(q_offset) and q_offset.dim() == 1:
-        if q_offset.shape != (b,) or q_offset.device != q.device:
-            raise ValueError("flash_attention: per-slot q_offset must be a "
-                             f"({b},) tensor on {q.device}")
-        q_off = q_offset.to(torch.int32).contiguous()
-    else:
-        q_off0 = int(q_offset)
+    q_off, q_off0 = _kernel_offset(q_offset, b, q.device)
     q, k, v = (_aligned(pad_dim(t, 3, dp)) for t in (q, k, v))
     scale = 1.0 / math.sqrt(d)
     p = autotune.flash_plan(
         b, lq, k.shape[1], h, k.shape[2], dp, q.dtype, causal=causal,
-        window=window, invariant=_BATCH_INVARIANT, device=q.device,
+        window=window, invariant=_BATCH_INVARIANT or lse, device=q.device,
         bench=lambda: _flash_bench(q, k, v, q_off, q_off0, scale,
                                    softcap)).plan
     out = torch.empty((b, lq, h, dp), dtype=q.dtype, device=q.device)
     scratch = (torch.empty(p.scratch_floats, dtype=torch.float32,
                            device=q.device) if p.scratch_floats else None)
+    stats = (torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+             if lse else None)
     _fa.launch(p, q, k, v, out, q_off, q_off0, scale=scale,
-               softcap=softcap, scratch=scratch)
+               softcap=softcap, scratch=scratch,
+               **({} if stats is None else {"lse": stats}))
     LAUNCHES["flash_attention"] += 1
     FLASH_BODIES[p.body] += 1
-    return out if dp == d else out[..., :d].contiguous()
+    out = out if dp == d else out[..., :d].contiguous()
+    return (out, stats) if lse else out
 
 
 def _flash_bench(q, k, v, q_off, q_off0, scale, softcap):
@@ -531,37 +543,82 @@ def _flash_bench(q, k, v, q_off, q_off0, scale, softcap):
     return run
 
 
+def _flash_attention_bwd_kernel(q, k, v, out, lse, dout, q_offset, causal,
+                                window, softcap, needs):
+    """Checked launch of the backward's plan
+    (``kernels.flash_attention.plan_backward``): the same padding as the
+    forward (zero head dims add nothing to Δ, S or the gradients kept); the
+    dQ pass only when dq is wanted, the dK/dV pass only when dk or dv is.
+    Raises ``ValueError`` for a call it does not take, never computes the
+    plain version."""
+    name = "flash_attention_bwd"
+    if lse is None:
+        raise ValueError(f"{name}: no LSE from the forward (the CUDA "
+                         "forward writes it when q, k or v needs a gradient)")
+    dout = dout.to(q.dtype).contiguous()
+    _check_cuda(name, [q, k, v, out, dout], q.dtype)
+    b, lq, h, d = q.shape
+    lk, kv = k.shape[1], k.shape[2]
+    if (out.shape != q.shape or dout.shape != q.shape
+            or lse.shape != (b, h, lq) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"{name}: q {tuple(q.shape)}, out "
+                         f"{tuple(out.shape)}, dout {tuple(dout.shape)}, lse "
+                         f"{tuple(lse.shape)} {lse.dtype} do not fit")
+    dp = _padded_head_dim(d)
+    q_off, q_off0 = _kernel_offset(q_offset, b, q.device)
+    q, k, v, out, dout = (_aligned(pad_dim(t, 3, dp))
+                          for t in (q, k, v, out, dout))
+    p = autotune.flash_bwd_plan(b, lq, lk, h, kv, dp, q.dtype, causal=causal,
+                                window=window, device=q.device).plan
+    dq = torch.empty_like(q) if needs[0] else None
+    kv_pass = needs[1] or needs[2]
+    dk = torch.empty_like(k) if kv_pass else None
+    dv = torch.empty_like(v) if kv_pass else None
+    delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    _fa.launch_backward(p, q, k, v, out, lse, dout, dq, dk, dv, delta, q_off,
+                        q_off0, scale=1.0 / math.sqrt(d), softcap=softcap)
+    LAUNCHES[name] += 1
+    grads = (dq if needs[0] else None, dk if needs[1] else None,
+             dv if needs[2] else None)
+    return tuple(None if g is None else
+                 (g if dp == d else g[..., :d].contiguous()) for g in grads)
+
+
 class _FlashAttention(torch.autograd.Function):
     """Forward: the kernel (CUDA) or the plain version (CPU).  Backward:
-    recompute the plain version and differentiate it — the TPU kernel has
-    no backward, and the JAX package differentiates its model-path scan in
-    XLA."""
+    on CUDA the backward kernel (``csrc/flash_attention_bwd.cu``) from the
+    saved q, k, v, output and the forward's LSE; on the CPU the plain
+    version recomputed and differentiated (``ref.flash_attention_bwd_ref``)
+    — the TPU kernel has no backward, and the JAX package differentiates
+    its model-path scan in XLA."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_offset, causal, window, chunk, softcap):
+    def forward(ctx, q, k, v, q_offset, causal, window, chunk, softcap,
+                grad):
+        lse = None
         if _on_cpu(q, k, v):
             out = ref.flash_attention_ref(q, k, v, causal=causal,
                                           window=window, q_offset=q_offset,
                                           chunk=chunk, softcap=softcap)
+        elif grad:
+            out, lse = _flash_attention_kernel(q, k, v, q_offset, causal,
+                                               window, softcap, lse=True)
         else:
             out = _flash_attention_kernel(q, k, v, q_offset, causal, window,
                                           softcap)
-        ctx.save_for_backward(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.opts = dict(causal=causal, window=window, q_offset=q_offset,
                         chunk=chunk, softcap=softcap)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        leaves = [t.detach().requires_grad_(need) for t, need
-                  in zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
-        with torch.enable_grad():
-            out = ref.flash_attention_ref(*leaves, **ctx.opts)
-            wanted = [t for t in leaves if t.requires_grad]
-            grads = iter(torch.autograd.grad(out, wanted, dout))
-        dq, dk, dv = (next(grads) if t.requires_grad else None
-                      for t in leaves)
-        return dq, dk, dv, None, None, None, None, None
+        q, k, v, out, lse = ctx.saved_tensors
+        needs = tuple(ctx.needs_input_grad[:3])
+        grads = flash_attention_bwd(q, k, v, out, lse, dout, needs=needs,
+                                    **ctx.opts)
+        return (*grads, None, None, None, None, None, None)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -569,9 +626,44 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q (B, Lq, H, D); k/v (B, Lk, KV, D) -> (B, Lq, H, D) in q's dtype;
     differentiable.  ``q_offset``: the absolute position of q[:, 0], an int
     or a (B,) integer tensor (one per slot).  ``chunk`` is the key chunk of
-    the plain version; the kernel walks its plan's key tiles or spans."""
+    the plain version; the kernel walks its plan's key tiles or spans.
+    Where autograd will want a gradient of q, k or v, the CUDA forward
+    also writes the LSE its backward reads."""
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
     return _FlashAttention.apply(q, k, v, q_offset, causal, window, chunk,
-                                 softcap)
+                                 softcap, grad)
+
+
+def flash_attention_lse(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_offset=0, chunk: int = 512, softcap: float = 0.0):
+    """(out, lse) without autograd: ``flash_attention``'s output and each
+    row's m + log(l), (B, H, Lq) fp32, what ``flash_attention_bwd`` reads.
+    On the card a tile body's plan writes both; on the CPU the plain
+    version."""
+    if _on_cpu(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset, chunk=chunk,
+                                       softcap=softcap, with_lse=True)
+    return _flash_attention_kernel(q, k, v, q_offset, causal, window,
+                                   softcap, lse=True)
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        window: int = 0, q_offset=0, chunk: int = 512,
+                        softcap: float = 0.0, needs=(True, True, True)):
+    """(dq, dk, dv) of ``flash_attention(q, k, v, ...)`` against ``dout``,
+    None where ``needs`` says so.  ``out`` and ``lse`` are the forward's
+    (``flash_attention_lse``).  CUDA: the backward kernel, two passes with
+    no atomics (the same bits from run to run); the CPU: the plain version
+    recomputed and differentiated (``out`` and ``lse`` unused)."""
+    if _on_cpu(q, k, v):
+        return ref.flash_attention_bwd_ref(q, k, v, dout, needs=needs,
+                                           causal=causal, window=window,
+                                           q_offset=q_offset, chunk=chunk,
+                                           softcap=softcap)
+    return _flash_attention_bwd_kernel(q, k, v, out, lse, dout, q_offset,
+                                       causal, window, softcap, needs)
 
 
 # ---------------------------------------------------------------------------

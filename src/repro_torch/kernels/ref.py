@@ -80,7 +80,7 @@ NEG_INF = -1e30
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                         q_offset=0, chunk: int = 512, softcap: float = 0.0,
-                        scale=None):
+                        scale=None, with_lse: bool = False):
     """Online-softmax attention over key chunks — the JAX model path's
     ``models/attention.py:31`` (``flash_attention``), op for op.
 
@@ -91,7 +91,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     ``scale`` (default 1/√D), optionally soft-capped as tanh(s/c)·c; masked
     scores are -1e30; running (max, denominator, accumulator) are fp32 and
     the probabilities are cast to v's dtype before the PV product.  Returns
-    (B, Lq, H, D) in q's dtype."""
+    (B, Lq, H, D) in q's dtype; with ``with_lse`` also the softmax
+    statistics m + log(l) of every row, (B, H, Lq) fp32."""
     b, lq, h, d = q.shape
     lk, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -136,7 +137,28 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
         acc = acc * corr[..., None] + pv
         m = m_new
     out = acc / torch.clamp(l_sum, min=1e-20)[..., None]
-    return out.transpose(1, 2).to(q.dtype)
+    out = out.transpose(1, 2).to(q.dtype)
+    if with_lse:
+        return out, m + torch.log(l_sum)
+    return out
+
+
+def flash_attention_bwd_ref(q, k, v, dout, *, needs=(True, True, True),
+                            **opts):
+    """(dq, dk, dv) of ``flash_attention_ref(q, k, v, **opts)`` against
+    ``dout``: the plain version recomputed and differentiated by autograd
+    (the counterpart of XLA differentiating the JAX model path's scan,
+    ``src/repro/models/attention.py:31``).  ``needs`` says which of the
+    three are wanted; the others come back as None."""
+    leaves = [t.detach().requires_grad_(bool(need))
+              for t, need in zip((q, k, v), needs)]
+    wanted = [t for t in leaves if t.requires_grad]
+    if not wanted:
+        return None, None, None
+    with torch.enable_grad():
+        out = flash_attention_ref(*leaves, **opts)
+        grads = iter(torch.autograd.grad(out, wanted, dout))
+    return tuple(next(grads) if t.requires_grad else None for t in leaves)
 
 
 def flash_decode_ref(q, lk, lv, uk, uv, lengths, cos, sin, *,

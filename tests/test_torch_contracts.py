@@ -55,7 +55,8 @@ class TestRepoContractsHold:
             assert callable(getattr(ops, wrapper))
         assert {"lowrank_matmul", "lowrank_down", "lowrank_up", "cov_accum",
                 "cov_accum_banked", "cov_accum_grouped", "flash_attention",
-                "flash_decode", "grouped_matmul"} == set(ops.REGISTERED_KERNELS)
+                "flash_attention_bwd", "flash_decode",
+                "grouped_matmul"} == set(ops.REGISTERED_KERNELS)
 
     def test_every_contract_has_probes_in_both_dtypes_and_a_ragged_one(self):
         for name, contract in CONTRACTS.items():
@@ -190,6 +191,7 @@ class TestSeededViolations:
         fields = {"cov_accum": {"splits": 2, "rows_per_split": 100},
                   "lowrank_matmul": {"splits_xv": 2, "depth_xv": 100},
                   "flash_attention": {"span": 100, "spans": 3},
+                  "flash_attention_bwd": {"kv_rows": 48},
                   "flash_decode": {"span": 100},
                   "grouped_matmul": {"d": 81}}[kernel]
         if kernel == "lowrank_matmul" and p.n == 0:
